@@ -4,22 +4,44 @@
     python3 chip_smoke.py        # from the repository root, on one CUDA GPU
 
 Phases, each fatal on failure:
-  1. build the CUDA kernels of the main path from glnn_tpu_torch/csrc with
-     nvcc for sm_90a;
-  2. hold each kernel against its plain PyTorch version on the card, at the
-     main path's shapes (the synth-n169343-c40-f128-d7 graph, F = 128 and
-     256): exact tier rtol 1e-5 / atol 1e-4 (only the summation order
-     differs), int8 tier bit for bit (int32 sums are exact), and the
-     gradient through the autograd.Function against the plain version of
-     the backward at rtol 1e-5 / atol 1e-4;
-  3. drive the main path through the port's CLIs on cuda:0: a sampled-SAGE
-     teacher at the ogbn-arxiv recipe and split sizes (so an epoch has as
-     many batches as on ogbn-arxiv), then an MLP student distilled from
-     its out.npz; every kernel of the path must have launched, no plain
-     version may have run on a CUDA tensor, and out.npz must be finite
-     [169343, 40] log-probs;
-  4. time each kernel, its plain version and the library call
-     torch.sparse.mm with CUDA events, and compute its bound.
+  1. build the CUDA kernels of both paths from glnn_tpu_torch/csrc with
+     nvcc for sm_90a (one nvcc per source, started together) and log each
+     kernel's ptxas register and spill counts;
+  2. hold each kernel against its plain PyTorch version on the card, on the
+     synth-n169343-c40-f128-d7 graph at the paths' shapes:
+     - SpMM (F = 128 and 256): exact tier rtol 1e-5 / atol 1e-4 (only the
+       summation order differs), int8 tier bit for bit (int32 sums are
+       exact), and the gradient through the autograd.Function against the
+       plain version of the backward at rtol 1e-5 / atol 1e-4;
+     - GAT (H, D) = (8, 16) and (1, 40), with and without a dropout mask:
+       f32 outputs (out, denom, der, dattn_l) at rtol 1e-4 / atol
+       1e-4 x max|want| (summation order, and the forward's online softmax
+       rescaling its running sums), the segment max exactly, and the bf16
+       message within one bf16 ulp (rtol 2**-7, atol 1e-5 x max|want|: a
+       last-bit f32 difference can round either way). All are inside the
+       1e-2 x max bound that tests/test_pallas.py:489 puts on the Pallas
+       gradients;
+     - the GAT autograd layer at both shapes, keep mask on: one backward
+       (both kernels, the SpMM source reduce over t_indptr/t_edges,
+       der * attn_r, the dattn_r einsum) against the plain chain; feat
+       gradient at 1e-2 x max|want| (one bf16 ulp of a message element
+       moves its source's gradient), attn_l/attn_r gradients at rtol 1e-4
+       / atol 1e-4 x max|want| (f32 sums);
+  3. drive both paths through the port's CLIs on cuda:0 at the ogbn-arxiv
+     split sizes (so an epoch has as many batches as on ogbn-arxiv), with
+     the launch counts set to 0 just before each path and read just after:
+     - a sampled-SAGE teacher at the ogbn-arxiv recipe, then an MLP student
+       distilled from its out.npz; both SpMM kernels must have launched;
+     - a full-batch GAT teacher at the published GAT row (2 layers, hidden
+       128 = 8 heads x 16, dropout 0.6, attention dropout 0.3, weight decay
+       0.01), then an MLP student; gat_fwd must launch exactly
+       2 x (3 steps + 3 evals + 1 final eval) = 14 times, gat_bwd 2 x 3 = 6
+       times, and the SpMM source reduce at least 6 times;
+     no plain version may run on a CUDA tensor, and each out.npz must hold
+     finite [169343, 40] log-probs;
+  4. time each kernel and its plain version with CUDA events (and the
+     library call torch.sparse.mm for the SpMM; no single PyTorch call
+     computes fused GAT attention), and compute each kernel's bound.
 Prints the card's name and power limit and a `kernels` JSON line; the last
 line is {"ok": true, "device": {...}}. Exits non-zero, with no result
 line, when there is no CUDA device or the port is missing.
@@ -41,6 +63,7 @@ import numpy as np
 import torch
 
 DATASET = "synth-n169343-c40-f128-d7"
+N_NODES, N_CLASSES = 169343, 40
 TEACHER_EPOCHS = 3
 STUDENT_EPOCHS = 3
 # per-class train/val counts that give ogbn-arxiv's split sizes on the
@@ -48,11 +71,21 @@ STUDENT_EPOCHS = 3
 # 29,800 valid (29,799); the rest, 48,623, is test (48,603)
 LABELRATE_TRAIN, LABELRATE_VAL = 2273, 745
 WIDTHS = (128, 256, 256)     # F of the three SAGE layers' aggregations
+GAT_SHAPES = ((8, 16), (1, 40))   # (heads, per-head width) of the 2 layers
+ATTN_DROP = 0.3              # the GAT row's attention dropout
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3 peak rate
 FP32_OPS_PER_S = 67e12       # H100 SXM, outside the tensor cores
-REPLACES = ("glnn_tpu/ops/spmm_pallas.py:93 (_block_kernel) and "
-            "glnn_tpu/ops/spmm_pallas.py:59 (_kernel)")
-SOURCE = "glnn_tpu_torch/csrc/spmm_csr.cu"
+SOURCES = {"spmm_csr_bf16": "glnn_tpu_torch/csrc/spmm_csr.cu",
+           "spmm_csr_int8": "glnn_tpu_torch/csrc/spmm_csr.cu",
+           "gat_fwd": "glnn_tpu_torch/csrc/gat_csr.cu",
+           "gat_bwd": "glnn_tpu_torch/csrc/gat_csr.cu"}
+REPLACES = {
+    "spmm_csr_bf16": "glnn_tpu/ops/spmm_pallas.py:93 (_block_kernel) and "
+                     "glnn_tpu/ops/spmm_pallas.py:59 (_kernel)",
+    "gat_fwd": "glnn_tpu/ops/gat_pallas.py:158 (_gat_fwd_kernel)",
+    "gat_bwd": "glnn_tpu/ops/gat_pallas.py:187 (_gat_bwd_kernel)",
+}
+REPLACES["spmm_csr_int8"] = REPLACES["spmm_csr_bf16"]
 
 
 def log(msg: str) -> None:
@@ -73,18 +106,21 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def phase_build(spmm_cuda) -> None:
+def phase_build(cuda_build) -> None:
     t0 = time.perf_counter()
-    ptxas = spmm_cuda.build(force=True)
-    log(f"build: nvcc {' '.join(spmm_cuda.NVCC_FLAGS)} {SOURCE} "
-        f"in {time.perf_counter() - t0:.2f} s")
-    for line in ptxas.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    messages = cuda_build.build(force=True)
+    log(f"build: nvcc {' '.join(cuda_build.NVCC_FLAGS)}, one per source, "
+        f"{sorted(cuda_build.SOURCES.values())} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for name, text in sorted(messages.items()):
+        for line in text.splitlines():
+            if ("Compiling entry function" in line or "registers" in line
+                    or "spill" in line):
+                log(f"  ptxas {name}: {line.split(':', 1)[-1].strip()}")
 
 
 def phase_check(spmm_cuda, g) -> dict:
-    """Kernels vs plain versions on the card; returns max |error| per kernel."""
+    """SpMM kernels vs plain versions on the card; max |error| per kernel."""
     gen = torch.Generator(device=g.device).manual_seed(0)
     n = g.n_nodes
     errs = {name: 0.0 for name in spmm_cuda.KERNELS}
@@ -125,8 +161,103 @@ def phase_check(spmm_cuda, g) -> dict:
     return errs
 
 
+def gat_inputs(gat_cuda, g, h, d, drop, seed):
+    """The kernels' inputs at one layer's shape: prep of random features
+    and attention vectors, a keep mask when drop > 0, and a cotangent."""
+    gen = torch.Generator(device=g.device).manual_seed(seed)
+    n, dev = g.n_nodes, g.device
+    feat = torch.randn((n, h, d), generator=gen, device=dev)
+    al = 0.3 * torch.randn((h, d), generator=gen, device=dev)
+    ar = 0.3 * torch.randn((h, d), generator=gen, device=dev)
+    keep = (torch.rand((g.n_edges, h), generator=gen, device=dev) >= drop
+            if drop else None)
+    feat_b, el, er_b, al_b = gat_cuda.prep(feat, al, ar)
+    dout = torch.randn((n, h, d), generator=gen, device=dev)
+    args = (g.indptr, g.senders, feat_b, el, er_b, keep,
+            1.0 / (1.0 - drop), 0.2)
+    return args, dout, al_b
+
+
+def _held(name, got, want, rtol, scale) -> float:
+    want = want.float()
+    torch.testing.assert_close(
+        got.float(), want, rtol=rtol,
+        atol=scale * want.abs().max().item() + 1e-12, msg=name)
+    return (got.float() - want).abs().max().item()
+
+
+def phase_check_gat(gat_cuda, g) -> dict:
+    """GAT kernels vs plain versions on the card; max |error| per kernel."""
+    errs = {name: 0.0 for name in gat_cuda.KERNELS}
+    for h, d in GAT_SHAPES:
+        for drop in (0.0, ATTN_DROP):
+            args, dout, al_b = gat_inputs(gat_cuda, g, h, d, drop, h + d)
+            out, smax, denom = gat_cuda.gat_fwd(*args)
+            w_out, w_max, w_den = gat_cuda.plain_gat_fwd(*args)
+            got = gat_cuda.gat_bwd(*args, smax, denom, dout, al_b)
+            want = gat_cuda.plain_gat_bwd(*args, w_max, w_den, dout, al_b)
+            torch.cuda.synchronize()
+            if not torch.equal(smax, w_max):
+                raise AssertionError(f"gat_fwd segment max differs at "
+                                     f"(H, D) = ({h}, {d})")
+            e_fwd = {"out": _held("out", out, w_out, 1e-4, 1e-4),
+                     "denom": _held("denom", denom, w_den, 1e-4, 1e-4)}
+            e_bwd = {"der": _held("der", got[0], want[0], 1e-4, 1e-4),
+                     "msg": _held("msg", got[1], want[1], 2.0 ** -7, 1e-5),
+                     "dattn_l": _held("dattn_l", got[2], want[2], 1e-4, 1e-4)}
+            errs["gat_fwd"] = max(errs["gat_fwd"], *e_fwd.values())
+            errs["gat_bwd"] = max(errs["gat_bwd"], *e_bwd.values())
+            tag = f"(H, D) = ({h}, {d}), dropout {drop}"
+            log(f"check {tag}: gat_fwd vs plain max|err| " + ", ".join(
+                f"{k} {v:.3e}" for k, v in e_fwd.items()) + ", max exact")
+            log(f"check {tag}: gat_bwd vs plain max|err| " + ", ".join(
+                f"{k} {v:.3e}" for k, v in e_bwd.items()))
+            del out, got, want, w_out
+    return errs
+
+
+def phase_check_gat_layer(gat_cuda, g) -> None:
+    """One backward of the autograd layer (gat_fwd, gat_bwd, the SpMM source
+    reduce over t_indptr/t_edges, der * attn_r, the dattn_r einsum) at each
+    path shape, keep mask on, against the plain chain: plain_gat_fwd,
+    plain_gat_bwd, the message summed over senders with index_add_."""
+    n, dev = g.n_nodes, g.device
+    inv_keep = 1.0 / (1.0 - ATTN_DROP)
+    for h, d in GAT_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(100 + h * d)
+        feat = torch.randn((n, h, d), generator=gen, device=dev)
+        al = 0.3 * torch.randn((h, d), generator=gen, device=dev)
+        ar = 0.3 * torch.randn((h, d), generator=gen, device=dev)
+        keep = torch.rand((g.n_edges, h), generator=gen, device=dev) >= ATTN_DROP
+        dout = torch.randn((n, h, d), generator=gen, device=dev)
+        leaves = [t.clone().requires_grad_(True) for t in (feat, al, ar)]
+        gat_cuda.gat_attention(g, *leaves, 0.2, keep, inv_keep).backward(dout)
+
+        feat_b, el, er_b, al_b = gat_cuda.prep(feat, al, ar)
+        args = (g.indptr, g.senders, feat_b, el, er_b, keep, inv_keep, 0.2)
+        _, smax, denom = gat_cuda.plain_gat_fwd(*args)
+        der, msg, dal = gat_cuda.plain_gat_bwd(*args, smax, denom, dout, al_b)
+        dfeat = torch.zeros_like(feat).index_add_(0, g.senders, msg.float())
+        dfeat += der[:, :, None] * ar[None]
+        dar = torch.einsum("nh,nhd->hd", der, feat)
+        torch.cuda.synchronize()
+        # dfeat at 1e-2 x max (the bound of tests/test_pallas.py:489): a
+        # message element that the kernel and the plain version round to
+        # neighbouring bf16 values moves its source's gradient by one bf16
+        # ulp of that element; the f32 sums dattn_l and dattn_r at 1e-4
+        errs = {"dfeat": _held("dfeat", leaves[0].grad, dfeat, 1e-2, 1e-2),
+                "dattn_l": _held("dattn_l", leaves[1].grad, dal, 1e-4, 1e-4),
+                "dattn_r": _held("dattn_r", leaves[2].grad, dar, 1e-4, 1e-4)}
+        log(f"check (H, D) = ({h}, {d}), dropout {ATTN_DROP}: autograd layer "
+            f"gradients vs plain chain max|err| " + ", ".join(
+                f"{k} {v:.3e} (max|want| {w.abs().max().item():.3e})"
+                for (k, v), w in zip(errs.items(), (dfeat, dal, dar))))
+        del leaves, dfeat, msg, der
+
+
 def _config_yaml(path: str) -> None:
-    """synth: rows copied from the ogbn-arxiv SAGE and MLP rows."""
+    """synth: the ogbn-arxiv SAGE and MLP rows, and the published GAT row
+    (train.conf.yaml:85; ogbn-arxiv has no GAT row)."""
     import yaml
 
     src = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -134,37 +265,35 @@ def _config_yaml(path: str) -> None:
     with open(src) as f:
         table = yaml.safe_load(f)
     rows = {k: table["ogbn-arxiv"][k] for k in ("SAGE", "MLP")}
+    rows["GAT"] = table["synth"]["GAT"]
     with open(path, "w") as f:
         yaml.safe_dump({"defaults": table["defaults"], "synth": rows}, f)
-    log(f"main path config (ogbn-arxiv recipes): {rows}")
+    log(f"main path config: {rows}, defaults {table['defaults']}")
 
 
-def phase_main_path(spmm_cuda, workdir: str) -> dict:
+def drive_path(teacher: str, workdir: str, common: list, modules) -> dict:
+    """Teacher then MLP student through the CLIs, the counts of `modules`
+    set to 0 just before and read just after; checks the score line and
+    out.npz."""
     from glnn_tpu_torch.cli import train_student, train_teacher
 
-    cfg = os.path.join(workdir, "arxiv.conf.yaml")
-    _config_yaml(cfg)
-    common = ["--device", "0", "--dataset", DATASET, "--eval_interval", "1",
-              "--labelrate_train", str(LABELRATE_TRAIN),
-              "--labelrate_val", str(LABELRATE_VAL),
-              "--model_config_path", cfg, "--output_path",
-              os.path.join(workdir, "outputs")]
     student_out = io.StringIO()
-    spmm_cuda.reset_counts()
+    for module in modules:
+        module.reset_counts()
     t0 = time.perf_counter()
-    train_teacher.main(common + ["--teacher", "SAGE", "--max_epoch",
+    train_teacher.main(common + ["--teacher", teacher, "--max_epoch",
                                  str(TEACHER_EPOCHS)])
     t1 = time.perf_counter()
     with contextlib.redirect_stdout(student_out):
         train_student.main(
-            common + ["--teacher", "SAGE", "--student", "MLP", "--max_epoch",
+            common + ["--teacher", teacher, "--student", "MLP", "--max_epoch",
                       str(STUDENT_EPOCHS), "--out_t_path",
                       os.path.join(workdir, "outputs")])
     t2 = time.perf_counter()
-    counts = dict(spmm_cuda.counts)
-    log(f"main path: teacher {t1 - t0:.2f} s ({TEACHER_EPOCHS} epochs), "
+    counts = {k: v for module in modules for k, v in module.counts.items()}
+    log(f"{teacher} path: teacher {t1 - t0:.2f} s ({TEACHER_EPOCHS} epochs), "
         f"student {t2 - t1:.2f} s ({STUDENT_EPOCHS} epochs); counts {counts}")
-    for model in ("SAGE", "SAGE_MLP"):
+    for model in (teacher, f"{teacher}_MLP"):
         with open(os.path.join(workdir, "outputs", "transductive", DATASET,
                                model, "seed_0", "log")) as f:
             for line in f:
@@ -175,29 +304,70 @@ def phase_main_path(spmm_cuda, workdir: str) -> dict:
     print(score)
     if not score or not all(math.isfinite(float(s)) for s in score.split()):
         raise AssertionError(f"student printed no score line: {score!r}")
-    for name in spmm_cuda.KERNELS:
-        if counts[name] == 0:
-            raise AssertionError(f"{name} never launched on the main path")
     if counts["plain_on_cuda"]:
         raise AssertionError(f"{counts['plain_on_cuda']} plain-version calls "
-                             "on CUDA tensors on the main path")
-
+                             f"on CUDA tensors on the {teacher} path")
     out_file = os.path.join(workdir, "outputs", "transductive", DATASET,
-                            "SAGE", "seed_0", "out.npz")
+                            teacher, "seed_0", "out.npz")
     out = np.load(out_file)["arr_0"]
     lse = np.log(np.exp(out.astype(np.float64)).sum(axis=1))
-    if out.shape != (169343, 40) or not np.isfinite(out).all():
-        raise AssertionError(f"out.npz: shape {out.shape}, finite "
+    if out.shape != (N_NODES, N_CLASSES) or not np.isfinite(out).all():
+        raise AssertionError(f"{teacher} out.npz: shape {out.shape}, finite "
                              f"{np.isfinite(out).all()}")
     if np.abs(lse).max() > 1e-4:
-        raise AssertionError(f"out.npz rows are not log-probs: max "
+        raise AssertionError(f"{teacher} out.npz rows are not log-probs: max "
                              f"|logsumexp| {np.abs(lse).max()}")
-    log(f"out.npz: {out.shape} finite, max |logsumexp| {np.abs(lse).max():.2e}")
+    log(f"{teacher} out.npz: {out.shape} finite, max |logsumexp| "
+        f"{np.abs(lse).max():.2e}")
     return counts
 
 
-def phase_times(spmm_cuda, g, counts: dict, errs: dict) -> list:
-    """One all-node eval's three aggregations (F = 128, 256, 256) per
+def phase_main_path(cuda_build, spmm_cuda, gat_cuda, workdir: str) -> dict:
+    cfg = os.path.join(workdir, "arxiv.conf.yaml")
+    _config_yaml(cfg)
+    common = ["--device", "0", "--dataset", DATASET, "--eval_interval", "1",
+              "--labelrate_train", str(LABELRATE_TRAIN),
+              "--labelrate_val", str(LABELRATE_VAL),
+              "--model_config_path", cfg, "--output_path",
+              os.path.join(workdir, "outputs")]
+    modules = (cuda_build, spmm_cuda, gat_cuda)
+    sage = drive_path("SAGE", workdir, common, modules)
+    for name in spmm_cuda.KERNELS:
+        if sage[name] == 0:
+            raise AssertionError(f"{name} never launched on the SAGE path")
+    gat = drive_path("GAT", workdir, common, modules)
+    layers = len(GAT_SHAPES)
+    want = {"gat_fwd": layers * (2 * TEACHER_EPOCHS + 1),
+            "gat_bwd": layers * TEACHER_EPOCHS}
+    for name, n in want.items():
+        if gat[name] != n:
+            raise AssertionError(f"{name} launched {gat[name]} times on the "
+                                 f"GAT path, expected {n}")
+    if gat["spmm_csr_bf16"] < want["gat_bwd"]:
+        raise AssertionError(f"the GAT backward's source reduce launched "
+                             f"{gat['spmm_csr_bf16']} times, expected at "
+                             f"least {want['gat_bwd']}")
+    return {"SAGE": sage, "GAT": gat}
+
+
+def _row(name, ms, plain_ms, nbytes, ops, library_ms, launches, errs,
+         work, detail):
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_OPS_PER_S * 1e3
+    return {
+        "name": name, "route": "cuda", "source": SOURCES[name],
+        "replaces": REPLACES[name],
+        "launches": launches["SAGE"][name] + launches["GAT"][name],
+        "launches_by_path": {p: launches[p][name] for p in launches},
+        "max_abs_err": errs[name], "ms": ms, "kernel_ms": ms,
+        "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": library_ms, "work": work, **detail,
+    }
+
+
+def phase_times(spmm_cuda, g, launches: dict, errs: dict) -> list:
+    """One all-node eval's three aggregations (F = 128, 256, 256) per SpMM
     kernel: kernel, plain version, library call, bound."""
     gen = torch.Generator(device=g.device).manual_seed(1)
     n, e = g.n_nodes, g.n_edges
@@ -250,22 +420,14 @@ def phase_times(spmm_cuda, g, counts: dict, errs: dict) -> list:
     out = []
     for name in spmm_cuda.KERNELS:
         row = rows[name]
-        bytes_ms = row["bytes"] / HBM_BYTES_PER_S * 1e3
-        ops_ms = row["ops"] / FP32_OPS_PER_S * 1e3
-        out.append({
-            "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES, "launches": counts[name],
-            "max_abs_err": errs[name],
-            "ms": row["ms"], "kernel_ms": row["ms"], "plain_ms": row["plain_ms"],
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        out.append(_row(
+            name, row["ms"], row["plain_ms"], row["bytes"], row["ops"],
             # one PyTorch call for the exact tier's sum (f32 sums of the
             # bf16-rounded features); none computes the int8 tier's sum
-            "library_ms": row["library_ms"] if name == "spmm_csr_bf16" else None,
-            "work": "one all-node SAGE eval: F=128, 256, 256 over "
-                    f"N={n}, E={e}",
-            "per_width_ms": row["per_width"],
-        })
+            row["library_ms"] if name == "spmm_csr_bf16" else None,
+            launches, errs,
+            f"one all-node SAGE eval: F=128, 256, 256 over N={n}, E={e}",
+            {"per_width_ms": row["per_width"]}))
         # every gathered row counted once per in-edge, over the HBM rate:
         # no bound, since x is partly served from L2
         log(f"{name}: E x F x itemsize of gathered rows over "
@@ -274,29 +436,85 @@ def phase_times(spmm_cuda, g, counts: dict, errs: dict) -> list:
     return out
 
 
+def phase_times_gat(gat_cuda, g, launches: dict, errs: dict) -> list:
+    """One GAT training step's two layers, with the attention dropout mask,
+    per kernel: kernel, plain version, bound. Bytes count each input read
+    once and each output written once; operations count an exponential as
+    one (forward about 2D + 6 per edge and head, backward 9D + 18)."""
+    n, e = g.n_nodes, g.n_edges
+    idx_bytes = 4 * (e + n + 1)
+    rows = {name: dict(ms=0.0, plain_ms=0.0, bytes=0, ops=0, per_layer={})
+            for name in gat_cuda.KERNELS}
+    for h, d in GAT_SHAPES:
+        hd = h * d
+        args, dout, al_b = gat_inputs(gat_cuda, g, h, d, ATTN_DROP, 7)
+        _, smax, denom = gat_cuda.gat_fwd(*args)
+        # indices, bf16 features, f32 el, bf16 er, the uint8 keep mask
+        fwd_in = idx_bytes + n * hd * 2 + n * h * 4 + n * h * 2 + e * h
+        cases = {
+            "gat_fwd": (lambda: gat_cuda.gat_fwd(*args),
+                        lambda: gat_cuda.plain_gat_fwd(*args),
+                        fwd_in + n * hd * 4 + 2 * n * h * 4,
+                        e * h * (2 * d + 6)),
+            # plus max, denom, f32 dout and bf16 attn_l in; der, the bf16
+            # [E, H*D] message and dattn_l out
+            "gat_bwd": (lambda: gat_cuda.gat_bwd(*args, smax, denom, dout,
+                                                 al_b),
+                        lambda: gat_cuda.plain_gat_bwd(*args, smax, denom,
+                                                       dout, al_b),
+                        fwd_in + 2 * n * h * 4 + n * hd * 4 + hd * 2
+                        + n * h * 4 + e * hd * 2 + hd * 4,
+                        e * h * (9 * d + 18)),
+        }
+        for name, (kernel, plain, nbytes, ops) in cases.items():
+            k_ms, p_ms = time_ms(kernel), time_ms(plain, iters=5)
+            row = rows[name]
+            row["ms"] += k_ms
+            row["plain_ms"] += p_ms
+            row["bytes"] += nbytes
+            row["ops"] += ops
+            row["per_layer"][f"H={h},D={d}"] = dict(
+                ms=k_ms, plain_ms=p_ms,
+                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+            log(f"time (H, D) = ({h}, {d}) {name}: kernel {k_ms:.4f} ms, "
+                f"plain {p_ms:.4f} ms, bytes bound "
+                f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
+    return [_row(name, row["ms"], row["plain_ms"], row["bytes"], row["ops"],
+                 # no single PyTorch call computes fused GAT attention
+                 None, launches, errs,
+                 f"one GAT training step's two layers, (H, D) = (8, 16) and "
+                 f"(1, 40), attention dropout {ATTN_DROP}, over N={n}, E={e}",
+                 {"per_layer_ms": row["per_layer"]})
+            for name, row in rows.items()]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     from glnn_tpu_torch.graph.datasets import load_synth_data
-    from glnn_tpu_torch.ops import spmm_cuda
+    from glnn_tpu_torch.ops import cuda_build, gat_cuda, spmm_cuda
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
-    phase_build(spmm_cuda)
+    phase_build(cuda_build)
 
     host, *_ = load_synth_data(DATASET, 0, 20, 30)
     g = host.to_device(torch.device("cuda:0"))
     log(f"graph {DATASET}: N={g.n_nodes}, E={g.n_edges}")
     errs = phase_check(spmm_cuda, g)
+    errs.update(phase_check_gat(gat_cuda, g))
+    phase_check_gat_layer(gat_cuda, g)
+    torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as workdir:
-        counts = phase_main_path(spmm_cuda, workdir)
+        launches = phase_main_path(cuda_build, spmm_cuda, gat_cuda, workdir)
 
-    kernels = phase_times(spmm_cuda, g, counts, errs)
+    kernels = (phase_times(spmm_cuda, g, launches, errs)
+               + phase_times_gat(gat_cuda, g, launches, errs))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True,

@@ -89,8 +89,8 @@ def add_common_args(parser: argparse.ArgumentParser) -> None:
                         help="Unused (sampling runs on the device); kept for "
                              "flag compatibility")
     parser.add_argument("--sage_sampling", type=str, default="auto",
-                        help="SAGE trainer mode: auto|sampled (full: not "
-                             "ported yet)")
+                        help="SAGE trainer mode: auto|sampled|full "
+                             "(full-batch steps)")
 
     # optimization
     parser.add_argument("--learning_rate", type=float, default=0.01)
@@ -123,8 +123,6 @@ _UNPORTED = (
     ("feature_aug_k", lambda v: not v, "queue A item 9 (feature_prop)"),
     ("compute_min_cut", lambda v: not v, "queue A item 9 (min-cut loss)"),
     ("save_results", lambda v: not v, "queue A item 7 (checkpoints)"),
-    ("sage_sampling", lambda v: v != "full",
-     "queue A item 5 (full-batch SAGE step)"),
 )
 
 

@@ -3,7 +3,9 @@
 Counterpart of `glnn_tpu/graph/container.py`. Edges are sorted by
 destination (stable), so `indptr` is the CSC row pointer that the CUDA
 SpMM walks directly; the transposed, src-sorted CSR (`t_indptr`,
-`t_receivers`) carries the kernel's backward (dX = A^T dH). The TPU plans
+`t_receivers`) carries the kernel's backward (dX = A^T dH), and `t_edges`
+lets the same kernel reduce per-edge messages (kept in dst-sorted edge
+order) over sources, as the GAT backward does. The TPU plans
 (SpmmPlan, AttentionPlan) and the window table are TPU geometry and have no
 counterpart here.
 """
@@ -28,6 +30,8 @@ class Graph:
       out_degrees: float32[N]
       t_indptr:    int32[N+1] CSR row pointer over sources.
       t_receivers: int32[E]   destination per edge, src-sorted order.
+      t_edges:     int32[E]   for each src-sorted slot, that edge's position
+                              in the dst-sorted edge list.
       n_nodes, n_edges: ints.
     """
 
@@ -38,6 +42,7 @@ class Graph:
     out_degrees: torch.Tensor
     t_indptr: torch.Tensor
     t_receivers: torch.Tensor
+    t_edges: torch.Tensor
     n_nodes: int
     n_edges: int
 
@@ -90,6 +95,7 @@ def build_graph(src: np.ndarray, dst: np.ndarray, n_nodes: int) -> Graph:
             np.bincount(src, minlength=n_nodes).astype(np.float32)),
         t_indptr=i32(t_indptr),
         t_receivers=i32(dst_s[t_order]),
+        t_edges=i32(t_order),
         n_nodes=int(n_nodes),
         n_edges=n_edges,
     )

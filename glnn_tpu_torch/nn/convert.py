@@ -6,7 +6,7 @@ import numpy as np
 import torch
 
 from glnn_tpu_torch.nn.layers import BatchNorm1d
-from glnn_tpu_torch.nn.models import MLP
+from glnn_tpu_torch.nn.models import GAT, MLP
 
 
 @torch.no_grad()
@@ -14,7 +14,9 @@ def from_jax_variables(variables_np: dict, model) -> None:
     """Load a JAX `{"params", "batch_stats"}` tree of numpy arrays into the
     port's `Model` in place. A flax Dense kernel [in, out] becomes a
     Linear weight [out, in]; norm `scale`/`bias` become weight/bias, and
-    BatchNorm `mean`/`var` the running statistics."""
+    BatchNorm `mean`/`var` the running statistics. A GAT layer
+    (`convs_<i>`) carries a bias-free `Dense_0` kernel [in, H*D] and
+    `attn_l`/`attn_r` [H, D]."""
     params = variables_np["params"]
     stats = variables_np.get("batch_stats", {})
     m = model.module
@@ -26,6 +28,13 @@ def from_jax_variables(variables_np: dict, model) -> None:
                              f"{tuple(dst.shape)}")
         dst.copy_(src)
 
+    if isinstance(m, GAT):
+        for i, conv in enumerate(m.convs):
+            p = params[f"convs_{i}"]
+            put(conv.fc.weight, np.asarray(p["Dense_0"]["kernel"]).T)
+            put(conv.attn_l, p["attn_l"])
+            put(conv.attn_r, p["attn_r"])
+        return
     if isinstance(m, MLP):
         linears = [(m.layers[i], params[f"Dense_{i}"])
                    for i in range(len(m.layers))]

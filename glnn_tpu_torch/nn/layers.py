@@ -5,6 +5,9 @@
 * BatchNorm1d: torch.nn.BatchNorm1d semantics plus a row mask, which
   torch's module does not take (ghost rows of sampled frontiers must not
   enter the statistics).
+* GATConv: per head e_uv = leaky_relu_0.2(a_l.Wh_u + a_r.Wh_v), alpha the
+  softmax over v's in-edges, h'_v = sum alpha Wh_u; feat dropout on the
+  input, attention dropout on alpha; no bias, no residual.
 * LayerNorm1d: torch.nn.LayerNorm over the feature axis.
 * dropout: inverted dropout whose mask comes from an explicit generator.
 """
@@ -56,6 +59,36 @@ class SAGEConvGCN(nn.Module):
             deg = valid.sum(dim=1).to(x.dtype)
             h = (neigh + x[:n_out]) / (deg[:, None] + 1.0)
         return self.fc(h)
+
+
+class GATConv(nn.Module):
+    """One `ops.gat_attention` call between a bias-free Linear(in, H*D) and
+    the optional activation; `attn_l`/`attn_r` are [H, D]."""
+
+    def __init__(self, in_dim: int, out_dim: int, num_heads: int,
+                 feat_drop: float = 0.0, attn_drop: float = 0.0,
+                 negative_slope: float = 0.2, activation=None,
+                 gen: torch.Generator | None = None):
+        super().__init__()
+        self.num_heads, self.out_dim = num_heads, out_dim
+        self.feat_drop, self.attn_drop = feat_drop, attn_drop
+        self.negative_slope = negative_slope
+        self.activation = activation
+        self.fc = nn.Linear(in_dim, out_dim * num_heads, bias=False)
+        gi.xavier_normal_(self.fc.weight, math.sqrt(2.0), gen)
+        self.attn_l = nn.Parameter(torch.empty(num_heads, out_dim))
+        self.attn_r = nn.Parameter(torch.empty(num_heads, out_dim))
+        gi.attn_vector_normal_(self.attn_l, gen=gen)
+        gi.attn_vector_normal_(self.attn_r, gen=gen)
+
+    def forward(self, g: Graph, x: torch.Tensor,
+                gen: torch.Generator | None = None) -> torch.Tensor:
+        h = dropout(x, self.feat_drop, self.training, gen)
+        feat = self.fc(h).view(-1, self.num_heads, self.out_dim)
+        out = ops.gat_attention(
+            g, feat, self.attn_l, self.attn_r, slope=self.negative_slope,
+            drop_rate=self.attn_drop if self.training else 0.0, gen=gen)
+        return out if self.activation is None else self.activation(out)
 
 
 class BatchNorm1d(nn.Module):

@@ -1,11 +1,12 @@
-"""Model zoo of the port: MLP and SAGE, and the substring-dispatch wrapper
-(`glnn_tpu/nn/models.py`).
+"""Model zoo of the port: MLP, SAGE and GAT, and the substring-dispatch
+wrapper (`glnn_tpu/nn/models.py`).
 
 Contracts kept: every model returns `(h_list, h)` with the hidden states
-before the norm (the fitnet hook); hidden blocks run
-linear/conv -> append h -> norm -> relu -> dropout, and the last layer is
-bare; the wrapper dispatches on a SUBSTRING of model_name, MLP first, so
-"MLP3w4" and "GA1MLP" are MLPs.
+before the norm (the fitnet hook); MLP and SAGE hidden blocks run
+linear/conv -> append h -> norm -> relu -> dropout, GAT hidden blocks run
+conv (relu per head) -> concatenate heads -> append; the last layer is
+bare (GAT: mean over its heads); the wrapper dispatches on a SUBSTRING of
+model_name, MLP first, so "MLP3w4" and "GA1MLP" are MLPs.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import torch
 from torch import nn
 
 from glnn_tpu_torch.nn import initializers as gi
-from glnn_tpu_torch.nn.layers import SAGEConvGCN, dropout, make_norm
+from glnn_tpu_torch.nn.layers import GATConv, SAGEConvGCN, dropout, make_norm
 
 
 def _dims(num_layers, input_dim, hidden_dim, output_dim):
@@ -84,8 +85,37 @@ class SAGE(nn.Module):
         return h_list, h
 
 
-_NOT_PORTED = {"GCN": "queue A item 9", "APPNP": "queue A item 9",
-               "GAT": "queue A item 10"}
+class GAT(nn.Module):
+    """Heads [num_heads] * (num_layers - 1) + [1]; hidden_dim is divided by
+    num_heads (models.py:218-225); num_layers must exceed 1."""
+
+    def __init__(self, num_layers, input_dim, hidden_dim, output_dim,
+                 dropout_ratio, num_heads=8, attn_drop=0.3, gen=None):
+        super().__init__()
+        if num_layers < 2:
+            raise ValueError("GAT requires num_layers > 1")
+        per_head = hidden_dim // num_heads
+        kw = dict(feat_drop=dropout_ratio, attn_drop=attn_drop, gen=gen)
+        in_dims = [input_dim] + [per_head * num_heads] * (num_layers - 1)
+        self.convs = nn.ModuleList(
+            GATConv(in_dims[l], per_head, num_heads, activation=torch.relu,
+                    **kw) for l in range(num_layers - 1))
+        self.convs.append(GATConv(in_dims[-1], output_dim, 1, **kw))
+
+    def forward(self, g, x, gen=None):
+        h, h_list = x, []
+        last = len(self.convs) - 1
+        for l, conv in enumerate(self.convs):
+            h = conv(g, h, gen)                        # [N, H, D]
+            if l != last:
+                h = h.reshape(h.shape[0], -1)          # concatenate heads
+                h_list.append(h)
+            else:
+                h = h.mean(dim=1)                      # average heads
+        return h_list, h
+
+
+_NOT_PORTED = {"GCN": "queue A item 9", "APPNP": "queue A item 9"}
 
 
 class Model(nn.Module):
@@ -109,6 +139,11 @@ class Model(nn.Module):
             self.module = MLP(**kw)
         elif "SAGE" in name:
             self.module = SAGE(**kw)
+        elif "GAT" in name:
+            kw.pop("norm_type")
+            self.module = GAT(num_heads=conf.get("num_heads", 8),
+                              attn_drop=conf.get("attn_dropout_ratio", 0.3),
+                              **kw)
         else:
             for family, item in _NOT_PORTED.items():
                 if family in name:

@@ -3,9 +3,10 @@
 Tiers, by the names `set_backend` keeps for flag parity with the JAX CLI:
   "xla"         the plain f32 tier (ops/refops.py);
   "pallas"      the exact CUDA kernel tier: bf16 messages, f32 sums
-                (ops/spmm_cuda.py);
+                (ops/spmm_cuda.py), and the fused GAT attention kernels
+                (ops/gat_cuda.py);
   "pallas_int8" the int8 CUDA kernel tier: per-column int8 messages, exact
-                int32 sums, dequantised;
+                int32 sums, dequantised; attention stays on the bf16 kernels;
   "auto"        (default) a CPU tensor takes the plain f32 tier; a CUDA
                 tensor takes the int8 kernel inside `inference_mode()` with
                 eval-quant on, and the exact kernel otherwise. This is the
@@ -18,8 +19,8 @@ from __future__ import annotations
 
 import torch
 
+from glnn_tpu_torch.ops import cuda_build, gat_cuda, spmm_cuda
 from glnn_tpu_torch.ops import refops as _ref
-from glnn_tpu_torch.ops import spmm_cuda
 
 _BACKENDS = ("auto", "xla", "pallas", "pallas_int8")
 _BACKEND = "auto"
@@ -63,6 +64,11 @@ def _tier_selected(device: torch.device) -> bool:
     return device.type == "cuda"
 
 
+def _kernel_only(x: torch.Tensor) -> bool:
+    """A CUDA tensor under a kernel tier, where only a kernel may run."""
+    return x.is_cuda and _tier_selected(x.device)
+
+
 def eval_quant_active(device: torch.device) -> bool:
     """Does `inference_mode` change the tier for tensors on `device`? Only
     under the auto backend, with eval-quant on, where the kernel tier
@@ -83,7 +89,7 @@ def copy_u_sum(g, x: torch.Tensor) -> torch.Tensor:
         if _unweighted_tier() == "int8":
             return spmm_cuda.copy_u_sum_int8(g, x)
         return spmm_cuda.copy_u_sum(g, x)
-    spmm_cuda.note_plain(x)
+    cuda_build.note_plain(x)
     return _ref.copy_u_sum(g, x)
 
 
@@ -91,7 +97,60 @@ def copy_u_mean(g, x: torch.Tensor) -> torch.Tensor:
     return copy_u_sum(g, x) / g.in_degrees.clamp(min=1.0)[:, None]
 
 
+def u_add_v(g, a_u: torch.Tensor, a_v: torch.Tensor) -> torch.Tensor:
+    """Per-edge a_u[src] + a_v[dst]; plain torch on every tier, as in JAX."""
+    return _ref.u_add_v(g, a_u, a_v)
+
+
+def edge_softmax(g, scores: torch.Tensor) -> torch.Tensor:
+    if _kernel_only(scores):
+        raise NotImplementedError(
+            "the standalone edge_softmax kernel (gat_pallas.py:694/712) is not "
+            "ported to glnn_tpu_torch yet (ROADMAP queue B item 4); "
+            "gat_attention runs the fused kernels")
+    cuda_build.note_plain(scores)
+    return _ref.edge_softmax(g, scores)
+
+
+def u_mul_e_sum(g, x: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
+    if _kernel_only(x):
+        raise NotImplementedError(
+            "the weighted SpMM is not ported to glnn_tpu_torch yet (ROADMAP "
+            "queue B item 1, weighted)")
+    cuda_build.note_plain(x)
+    return _ref.u_mul_e_sum(g, x, e)
+
+
+def gat_attention(g, feat: torch.Tensor, attn_l: torch.Tensor,
+                  attn_r: torch.Tensor, *, slope: float = 0.2,
+                  drop_rate: float = 0.0,
+                  gen: torch.Generator | None = None) -> torch.Tensor:
+    """The whole GAT attention layer (scores -> leaky_relu -> edge_softmax
+    -> attention dropout -> weighted aggregate) as one op. feat [N, H, D]
+    (= Wh), attn_l / attn_r [H, D]; returns [N, H, D]. The dropout keep
+    mask [E, H] is drawn from `gen` in dst-sorted edge order. Under a kernel
+    tier this is the fused attention (bf16 features, f32 softmax and sums);
+    otherwise the f32 composition of the plain ops."""
+    keep = None
+    if drop_rate > 0.0:
+        keep = torch.rand((g.n_edges, feat.shape[1]), generator=gen,
+                          device=feat.device) >= drop_rate
+    if feat.dim() == 3 and _tier_selected(feat.device):
+        return gat_cuda.gat_attention(g, feat, attn_l, attn_r, slope, keep,
+                                      1.0 / (1.0 - drop_rate))
+    cuda_build.note_plain(feat)
+    el = (feat * attn_l[None]).sum(-1)                 # [N, H]
+    er = (feat * attn_r[None]).sum(-1)
+    e = _ref.u_add_v(g, el, er)                        # [E, H]
+    e = torch.where(e >= 0, e, slope * e)
+    alpha = _ref.edge_softmax(g, e)
+    if keep is not None:
+        alpha = alpha * keep.to(alpha.dtype) / (1.0 - drop_rate)
+    return _ref.u_mul_e_sum(g, feat, alpha)
+
+
 __all__ = [
-    "copy_u_sum", "copy_u_mean", "set_backend", "set_eval_quant",
-    "inference_mode", "eval_quant_active",
+    "copy_u_sum", "copy_u_mean", "u_add_v", "edge_softmax", "u_mul_e_sum",
+    "gat_attention", "set_backend", "set_eval_quant", "inference_mode",
+    "eval_quant_active",
 ]

@@ -17,3 +17,33 @@ def copy_u_sum(g: Graph, x: torch.Tensor) -> torch.Tensor:
 def copy_u_mean(g: Graph, x: torch.Tensor) -> torch.Tensor:
     """h_v = mean over in-neighbours (degree-0 rows -> 0)."""
     return copy_u_sum(g, x) / g.in_degrees.clamp(min=1.0)[:, None]
+
+
+def u_mul_e_sum(g: Graph, x: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
+    """h_v = sum_u e_uv * x_u; e is per edge, [E] or [E, H] (per-head
+    weights, broadcast over the features of x [N, H, D])."""
+    msgs = x.index_select(0, g.senders)
+    if e.dim() == msgs.dim() - 1:
+        e = e[..., None]
+    out = msgs.new_zeros((g.n_nodes,) + tuple(msgs.shape[1:]))
+    return out.index_add_(0, g.receivers, msgs * e)
+
+
+def u_add_v(g: Graph, a_u: torch.Tensor, a_v: torch.Tensor) -> torch.Tensor:
+    """Per-edge score a_u[src] + a_v[dst] (the GAT SDDMM)."""
+    return a_u.index_select(0, g.senders) + a_v.index_select(0, g.receivers)
+
+
+def edge_softmax(g: Graph, scores: torch.Tensor) -> torch.Tensor:
+    """Softmax over each destination's in-edge segment; scores [E] or
+    [E, H]. The per-dst max is subtracted (a constant per segment, so it
+    carries no gradient); nodes without in-edges are never gathered back."""
+    dst = g.receivers.long()
+    shape = (g.n_nodes,) + tuple(scores.shape[1:])
+    idx = dst.view((-1,) + (1,) * (scores.dim() - 1)).expand_as(scores)
+    with torch.no_grad():
+        seg_max = scores.new_zeros(shape).scatter_reduce_(
+            0, idx, scores, "amax", include_self=False)
+    expv = torch.exp(scores - seg_max.index_select(0, dst))
+    seg_sum = expv.new_zeros(shape).index_add_(0, dst, expv)
+    return expv / seg_sum.index_select(0, dst)

@@ -27,81 +27,33 @@ on the exact kernel (:421-425).
 Every reduction has a plain PyTorch version here (`plain_csr_sum_bf16`,
 `plain_csr_sum_int8`) with the same rounding and quantisation. A wrapper
 takes it only for a tensor on the CPU; for a CUDA tensor it launches the
-kernel or raises. `counts` records kernel launches per instantiation and
-plain-version calls on CUDA tensors.
+kernel or raises. `counts` records kernel launches per instantiation;
+plain-version calls on CUDA tensors go to `cuda_build.counts`.
 
 The kernel is built with nvcc for sm_90a into `build/glnn_tpu_torch/` at
-first use (`build()`) and loaded with ctypes.
+first use and loaded with ctypes (`ops/cuda_build.py`).
 """
 
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
-_SRC = Path(__file__).resolve().parents[1] / "csrc" / "spmm_csr.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "glnn_tpu_torch"
-_LIB_PATH = _BUILD_DIR / "libspmm.so"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+from glnn_tpu_torch.ops import cuda_build
+from glnn_tpu_torch.ops.cuda_build import note_plain, row_ids
 
 KERNELS = ("spmm_csr_bf16", "spmm_csr_int8")
-# kernel launches per instantiation, and calls of a plain version (this
-# module's, or the dispatcher's f32 tier) that were handed CUDA tensors
-counts = {name: 0 for name in KERNELS + ("plain_on_cuda",)}
+counts = {name: 0 for name in KERNELS}
 
-_lib = None
+_vp, _ci = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {"spmm_csr_bf16": [_vp, _vp, _vp, _vp, _ci, _ci, _vp],
+               "spmm_csr_int8": [_vp, _vp, _vp, _vp, _vp, _ci, _ci, _vp]}
 
 
 def reset_counts() -> None:
     for k in counts:
         counts[k] = 0
-
-
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"),
-                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                              "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
-                       "toolkit (set CUDA_HOME or put nvcc on PATH)")
-
-
-def build(force: bool = False) -> str:
-    """Compile `csrc/spmm_csr.cu` into `build/glnn_tpu_torch/libspmm.so`
-    unless an up-to-date library is there. Returns the compiler's
-    messages (ptxas register and spill counts); raises on failure."""
-    if (not force and _LIB_PATH.exists()
-            and _LIB_PATH.stat().st_mtime >= _SRC.stat().st_mtime):
-        return ""
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = _LIB_PATH.with_name(f"libspmm.{os.getpid()}.so")
-    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-                         capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {_SRC}:\n{res.stderr}")
-    os.replace(tmp, _LIB_PATH)
-    return res.stderr
-
-
-def _load():
-    global _lib
-    if _lib is None:
-        build()
-        lib = ctypes.CDLL(str(_LIB_PATH))
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.spmm_csr_bf16.argtypes = [vp, vp, vp, vp, ci, ci, vp]
-        lib.spmm_csr_int8.argtypes = [vp, vp, vp, vp, vp, ci, ci, vp]
-        lib.spmm_csr_bf16.restype = ci
-        lib.spmm_csr_int8.restype = ci
-        _lib = lib
-    return _lib
 
 
 def _check(indptr, indices, x, n_rows, dtype):
@@ -122,30 +74,14 @@ def _launch(name, indptr, indices, x, scale, n_rows):
     x = x.contiguous()
     out = torch.empty((n_rows, x.shape[1]), dtype=torch.float32,
                       device=x.device)
-    lib = _load()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        ptrs = [indptr.data_ptr(), indices.data_ptr(), x.data_ptr()]
-        if scale is not None:
-            ptrs.append(scale.data_ptr())
-        err = getattr(lib, name)(*ptrs, out.data_ptr(), n_rows, x.shape[1],
-                                 stream)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    lib = cuda_build.load("spmm", _SIGNATURES)
+    ptrs = [indptr.data_ptr(), indices.data_ptr(), x.data_ptr()]
+    if scale is not None:
+        ptrs.append(scale.data_ptr())
+    cuda_build.launch(name, getattr(lib, name), x.device, *ptrs,
+                      out.data_ptr(), n_rows, x.shape[1])
     counts[name] += 1
     return out
-
-
-def _rows(indptr, n_rows):
-    deg = (indptr[1:n_rows + 1] - indptr[:n_rows]).long()
-    return torch.repeat_interleave(
-        torch.arange(n_rows, device=indptr.device), deg)
-
-
-def note_plain(x):
-    """Count a plain-version call on a CUDA tensor."""
-    if x.is_cuda:
-        counts["plain_on_cuda"] += 1
 
 
 def plain_csr_sum_bf16(indptr, indices, xb, n_rows):
@@ -154,7 +90,7 @@ def plain_csr_sum_bf16(indptr, indices, xb, n_rows):
     msgs = xb.index_select(0, indices[: int(indptr[n_rows])]).float()
     out = torch.zeros((n_rows, xb.shape[1]), dtype=torch.float32,
                       device=xb.device)
-    return out.index_add_(0, _rows(indptr, n_rows), msgs)
+    return out.index_add_(0, row_ids(indptr, n_rows), msgs)
 
 
 def plain_csr_sum_int8(indptr, indices, q, scale, n_rows):
@@ -164,7 +100,7 @@ def plain_csr_sum_int8(indptr, indices, q, scale, n_rows):
     msgs = q.index_select(0, indices[: int(indptr[n_rows])]).int()
     acc = torch.zeros((n_rows, q.shape[1]), dtype=torch.int32,
                       device=q.device)
-    acc.index_add_(0, _rows(indptr, n_rows), msgs)
+    acc.index_add_(0, row_ids(indptr, n_rows), msgs)
     return acc.float() * scale[None, :]
 
 

@@ -1,6 +1,8 @@
 """Train/eval functions and the transductive runners
 (`glnn_tpu/train/engine.py`).
 
+* `make_gnn_train_step`: the full-batch GNN step (GAT, and SAGE with
+  --sage_sampling full): NLL on idx_train, Adam step.
 * `make_eval_fn`: all-node log-probs in eval mode. Intermediate evals are
   marked `ops.inference_mode()`, so on CUDA the auto backend takes the int8
   SpMM tier; `exact=True` (the final eval, whose log-probs become out.npz
@@ -14,8 +16,8 @@
   passes per epoch (hard labels scaled by lamb, then teacher log-probs
   scaled by 1 - lamb); Adam advances on the zero-scaled pass too.
 
-The full-batch GNN step, the inductive runners and the GCN/GAT/APPNP
-teachers are not ported yet (ROADMAP queue A items 5, 9, 10).
+The inductive runners and the GCN/APPNP teachers are not ported yet
+(ROADMAP queue A items 5, 9).
 """
 
 from __future__ import annotations
@@ -36,6 +38,23 @@ from glnn_tpu_torch.train.losses import (
 from glnn_tpu_torch.train.sage_sampled import make_sage_sampled_epoch_fn
 from glnn_tpu_torch.train.state import restore, snapshot
 from glnn_tpu_torch.utils.profiling import StepTimer
+
+
+def make_gnn_train_step(model, optimizer):
+    """step(g, feats, labels, idx_train, gen) -> loss (a device scalar):
+    a training-mode forward over the whole graph, NLL on idx_train, one
+    optimizer step."""
+
+    def step(g, feats, labels, idx_train, gen):
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        out = log_softmax(model(g, feats, gen)[1])
+        loss = nll_loss(out[idx_train], labels[idx_train])
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return step
 
 
 def make_eval_fn(model, exact: bool = False):
@@ -143,20 +162,25 @@ def _tensors(device, *arrays):
     return [torch.as_tensor(np.asarray(a), device=device) for a in arrays]
 
 
+def _use_sampled_sage(conf, model) -> bool:
+    """SAGE teachers train on fanout-sampled minibatches unless
+    conf["sage_sampling"] is "full"; every other GNN trains full-batch."""
+    return ("SAGE" in model.model_name and not model.is_mlp
+            and conf.get("sage_sampling", "auto") != "full")
+
+
 def run_transductive(conf, model, g, feats, labels, indices, optimizer,
                      logger, loss_and_score, device):
-    """Teacher training, transductive: a sampled-SAGE or MLP teacher on
-    `device`. Returns (out, score_val, score_test) with `out` the all-node
-    log-probs (numpy) from the best checkpoint."""
-    if conf.get("sage_sampling", "auto") == "full" and not model.is_mlp:
-        raise NotImplementedError(
-            "the full-batch SAGE step is not ported to glnn_tpu_torch yet "
-            "(ROADMAP queue A item 5)")
+    """Teacher training, transductive: an MLP, a sampled-SAGE or a
+    full-batch GNN (GAT, full SAGE) teacher on `device`. Returns
+    (out, score_val, score_test) with `out` the all-node log-probs (numpy)
+    from the best checkpoint."""
     feats, labels = _tensors(device, np.asarray(feats, np.float32), labels)
     idx_train, idx_val, idx_test = _tensors(device, *indices)
     gen = torch.Generator(device=device).manual_seed(int(conf["seed"]))
 
     is_mlp = model.is_mlp
+    sampled = _use_sampled_sage(conf, model)
     if is_mlp:
         epoch_fn = make_mlp_epoch_fn(model, optimizer, conf["batch_size"],
                                      "nll")
@@ -165,9 +189,14 @@ def run_transductive(conf, model, g, feats, labels, indices, optimizer,
         final_fn = eval_fn
         feats_train, labels_train = feats[idx_train], labels[idx_train]
     else:
-        epoch_fn = make_sage_sampled_epoch_fn(
-            model, optimizer, conf["batch_size"], _fanouts(conf))
+        if sampled:
+            epoch_fn = make_sage_sampled_epoch_fn(
+                model, optimizer, conf["batch_size"], _fanouts(conf))
+        else:
+            step_fn = make_gnn_train_step(model, optimizer)
         eval_fn = partial(make_eval_fn(model), g)
+        # the final log-probs become out.npz, the student's KL targets:
+        # always the exact tier
         final_fn = partial(make_eval_fn(model, exact=True), g)
 
     tracker = _BestTracker(model)
@@ -176,10 +205,13 @@ def run_transductive(conf, model, g, feats, labels, indices, optimizer,
         with timer:
             if is_mlp:
                 loss = epoch_fn(feats_train, labels_train, gen)
-            else:
+            elif sampled:
                 loss, overflow = epoch_fn(g, feats, labels, idx_train, gen)
                 if overflow:
                     logger.warning(f"Ep {epoch}: sampler frontier cap overflow")
+            else:
+                # sync before the timer reads, as the JAX runner does
+                loss = float(step_fn(g, feats, labels, idx_train, gen))
         _debug_guard(conf, loss, epoch, "teacher tran runner")
         if epoch % conf["eval_interval"] == 0:
             out = eval_fn(feats)

@@ -1,19 +1,24 @@
-"""The CUDA SpMM kernels against their plain versions, on the card.
+"""The CUDA kernels against their plain versions, on the card.
 
 Marked `cuda`; each test skips where no CUDA device is present. Run on a
 GPU machine with `python -m pytest --noconftest -m cuda
 tests/test_torch_cuda.py` (the suite's conftest imports JAX, which the port
-does not need). Tolerances: the exact kernel and its plain version differ
-only in summation order (rtol 1e-5, atol 1e-4); int8 sums are exact
-(bit-equal).
+does not need). Tolerances: the exact SpMM kernel and its plain version
+differ only in summation order (rtol 1e-5, atol 1e-4); int8 sums are exact
+(bit-equal). The GAT kernels differ from their plain versions in summation
+order and in the forward's online softmax, which rescales its running sums
+when the segment max rises: f32 outputs at rtol 1e-4 / atol 1e-4 x max;
+the bf16 message by at most one bf16 ulp (rtol 2**-7), since a last-bit
+f32 difference can round either way; the segment max is exact.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from glnn_tpu_torch import ops
 from glnn_tpu_torch.graph.container import build_graph
-from glnn_tpu_torch.ops import spmm_cuda
+from glnn_tpu_torch.ops import cuda_build, gat_cuda, spmm_cuda
 
 pytestmark = pytest.mark.cuda
 
@@ -63,10 +68,11 @@ def test_launch_counters_and_no_plain_calls(cuda):
     g = _graph(300, 2000, 4, cuda)
     x = torch.randn((g.n_nodes, 32), device=cuda)
     spmm_cuda.reset_counts()
+    cuda_build.reset_counts()
     spmm_cuda.copy_u_sum(g, x)
     spmm_cuda.copy_u_sum_int8(g, x)
-    assert spmm_cuda.counts == {"spmm_csr_bf16": 1, "spmm_csr_int8": 1,
-                                "plain_on_cuda": 0}
+    assert spmm_cuda.counts == {"spmm_csr_bf16": 1, "spmm_csr_int8": 1}
+    assert cuda_build.counts == {"plain_on_cuda": 0}
 
 
 def test_empty_graph_rows(cuda):
@@ -75,3 +81,85 @@ def test_empty_graph_rows(cuda):
     out = spmm_cuda.copy_u_sum(g, x)
     torch.cuda.synchronize()
     assert out.abs().max().item() == 0.0
+
+
+def _close(got, want, rtol=1e-4, scale=1e-4):
+    want = want.float()
+    torch.testing.assert_close(got.float(), want, rtol=rtol,
+                               atol=scale * want.abs().max().item() + 1e-12)
+
+
+def _gat_inputs(g, h, d, drop, seed):
+    gen = torch.Generator(device=g.device).manual_seed(seed)
+    feat = torch.randn((g.n_nodes, h, d), generator=gen, device=g.device)
+    al = 0.3 * torch.randn((h, d), generator=gen, device=g.device)
+    ar = 0.3 * torch.randn((h, d), generator=gen, device=g.device)
+    keep = (torch.rand((g.n_edges, h), generator=gen, device=g.device) >= drop
+            if drop else None)
+    return feat, al, ar, keep
+
+
+@pytest.mark.parametrize("drop", [0.0, 0.3])
+@pytest.mark.parametrize("h,d", [(8, 16), (1, 40), (2, 7), (3, 5)])
+def test_gat_kernels_match_plain(cuda, h, d, drop):
+    g = _graph(600, 7000, h * 10 + d, cuda, hub_free=25)
+    feat, al, ar, keep = _gat_inputs(g, h, d, drop, 1)
+    inv_keep = 1.0 / (1.0 - drop)
+    feat_b, el, er_b, al_b = gat_cuda.prep(feat, al, ar)
+    args = (g.indptr, g.senders, feat_b, el, er_b, keep, inv_keep, 0.2)
+    out, smax, denom = gat_cuda.gat_fwd(*args)
+    want = gat_cuda.plain_gat_fwd(*args)
+    torch.cuda.synchronize()
+    _close(out, want[0])
+    assert torch.equal(smax, want[1])
+    _close(denom, want[2], rtol=1e-5, scale=1e-6)
+    assert out[:25].abs().max().item() == 0.0       # zero in-degree rows
+
+    dout = torch.randn_like(feat)
+    got = gat_cuda.gat_bwd(*args, smax, denom, dout, al_b)
+    want = gat_cuda.plain_gat_bwd(*args, want[1], want[2], dout, al_b)
+    torch.cuda.synchronize()
+    _close(got[0], want[0])
+    _close(got[1], want[1], rtol=2.0 ** -7, scale=1e-5)
+    _close(got[2], want[2])
+    assert got[0][:25].abs().max().item() == 0.0
+
+
+def test_gat_layer_runs_the_kernels_and_no_plain_version(cuda):
+    """ops.gat_attention on CUDA tensors: one forward and one backward
+    kernel, the SpMM source reduce, no plain call; its gradient equals the
+    plain versions' chain."""
+    g = _graph(500, 6000, 11, cuda, hub_free=10)
+    feat, al, ar, keep = _gat_inputs(g, 4, 8, 0.0, 2)
+    leaves = [t.clone().requires_grad_(True) for t in (feat, al, ar)]
+    dout = torch.randn_like(feat)
+    spmm_cuda.reset_counts()
+    gat_cuda.reset_counts()
+    cuda_build.reset_counts()
+    out = ops.gat_attention(g, *leaves)
+    out.backward(dout)
+    assert gat_cuda.counts == {"gat_fwd": 1, "gat_bwd": 1}
+    assert spmm_cuda.counts == {"spmm_csr_bf16": 1, "spmm_csr_int8": 0}
+    assert cuda_build.counts == {"plain_on_cuda": 0}
+
+    feat_b, el, er_b, al_b = gat_cuda.prep(feat, al, ar)
+    args = (g.indptr, g.senders, feat_b, el, er_b, None, 1.0, 0.2)
+    want_out, smax, denom = gat_cuda.plain_gat_fwd(*args)
+    der, msg, dal = gat_cuda.plain_gat_bwd(*args, smax, denom, dout, al_b)
+    dfeat = torch.zeros_like(feat).index_add_(0, g.senders, msg.float())
+    dfeat += der[:, :, None] * ar[None]
+    _close(out, want_out)
+    # a message element that the two round to neighbouring bf16 values moves
+    # its source's gradient by one bf16 ulp of that element
+    _close(leaves[0].grad, dfeat, rtol=1e-2, scale=1e-2)
+    _close(leaves[1].grad, dal)
+    _close(leaves[2].grad, torch.einsum("nh,nhd->hd", der, feat))
+
+
+def test_unported_edge_ops_raise_on_cuda(cuda):
+    g = _graph(100, 500, 5, cuda)
+    with pytest.raises(NotImplementedError, match="queue B item 4"):
+        ops.edge_softmax(g, torch.zeros((g.n_edges, 2), device=cuda))
+    with pytest.raises(NotImplementedError, match="queue B item 1"):
+        ops.u_mul_e_sum(g, torch.zeros((100, 3), device=cuda),
+                        torch.zeros(g.n_edges, device=cuda))

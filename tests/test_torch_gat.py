@@ -1,0 +1,432 @@
+"""The port's GAT path against glnn_tpu: the plain edge ops against refops,
+the fused attention's plain versions against the interpret-mode Pallas
+kernels (gat_pallas.py) and the f32 oracle, the dispatcher, the GAT model,
+one full-batch step, and the CLIs.
+
+Tolerances are those of tests/test_pallas.py: the f32 edge ops at rtol 1e-5
+(:368), the edge_softmax gradient at 1e-4 (:421), the fused forward at rtol
+2e-2 / atol 1e-2 x max (:451; bf16 features), the fused gradients within
+1e-2 of max (:489)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from glnn_tpu import ops as jax_ops
+from glnn_tpu.graph.container import build_graph as jax_build_graph
+from glnn_tpu.nn.models import Model as JaxModel
+from glnn_tpu.ops import gat_pallas
+from glnn_tpu.ops import refops as jax_refops
+from glnn_tpu.train.engine import make_gnn_train_step as jax_gnn_step
+from glnn_tpu.train.state import create_train_state
+from glnn_tpu.train.state import make_adam as jax_make_adam
+from glnn_tpu_torch import ops
+from glnn_tpu_torch.graph.container import build_graph
+from glnn_tpu_torch.nn import Model, from_jax_variables
+from glnn_tpu_torch.ops import cuda_build, gat_cuda, refops
+from glnn_tpu_torch.train import make_adam, make_gnn_train_step
+
+N = 300
+
+
+def _graphs(n=N, e=2500, seed=4, hub_free=0, plans=False):
+    """The same dst-sorted graph in both packages; its first `hub_free`
+    nodes receive no edges."""
+    rs = np.random.RandomState(seed)
+    src, dst = rs.randint(0, n, e), rs.randint(hub_free, n, e)
+    gj = jax_build_graph(src, dst, n)
+    return build_graph(src, dst, n), gj.with_plans() if plans else gj
+
+
+def _att(n, h, d, seed):
+    rs = np.random.RandomState(seed)
+    return (rs.randn(n, h, d).astype(np.float32),
+            (rs.randn(h, d) * 0.3).astype(np.float32),
+            (rs.randn(h, d) * 0.3).astype(np.float32))
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.asarray(a)) for a in arrays]
+
+
+def _j(*arrays):
+    return [jnp.asarray(a) for a in arrays]
+
+
+@pytest.fixture(autouse=True)
+def _default_backends():
+    ops.set_backend("auto")
+    jax_ops.set_backend("auto")
+    yield
+    ops.set_backend("auto")
+    jax_ops.set_backend("auto")
+
+
+# ---- the f32 plain tier against glnn_tpu.ops.refops ----------------------
+
+@pytest.mark.parametrize("heads", [None, 3])
+def test_u_add_v_matches_refops(heads):
+    gt, gj = _graphs(hub_free=20)
+    rs = np.random.RandomState(1)
+    shape = (N,) if heads is None else (N, heads)
+    a, b = rs.randn(*shape).astype(np.float32), rs.randn(*shape).astype(
+        np.float32)
+    np.testing.assert_allclose(
+        refops.u_add_v(gt, *_t(a, b)).numpy(),
+        np.asarray(jax_refops.u_add_v(gj, *_j(a, b))), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(
+        ops.u_add_v(gt, *_t(a, b)).numpy(),
+        np.asarray(jax_refops.u_add_v(gj, *_j(a, b))), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("heads", [None, 4])
+def test_edge_softmax_and_grad_match_refops(heads):
+    """Nodes 0..19 have no in-edges: no NaN anywhere."""
+    gt, gj = _graphs(hub_free=20)
+    rs = np.random.RandomState(2)
+    shape = (gt.n_edges,) if heads is None else (gt.n_edges, heads)
+    s = (rs.randn(*shape) * 3).astype(np.float32)
+    w = rs.randn(*shape).astype(np.float32)
+    st = torch.from_numpy(s).requires_grad_(True)
+    got = refops.edge_softmax(gt, st)
+    (got * torch.from_numpy(w)).sum().backward()
+    want = jax_refops.edge_softmax(gj, jnp.asarray(s))
+    dwant = jax.grad(lambda z: (jax_refops.edge_softmax(gj, z)
+                                * jnp.asarray(w)).sum())(jnp.asarray(s))
+    assert torch.isfinite(got).all() and torch.isfinite(st.grad).all()
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(st.grad.numpy(), np.asarray(dwant), rtol=1e-4,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("shapes", [((N, 8), (None,)), ((N, 3, 5), (3,))])
+def test_u_mul_e_sum_matches_refops(shapes):
+    (xshape, eshape) = shapes
+    gt, gj = _graphs(hub_free=20)
+    rs = np.random.RandomState(3)
+    x = rs.randn(*xshape).astype(np.float32)
+    e = rs.randn(gt.n_edges, *[d for d in eshape if d]).astype(np.float32)
+    got = ops.u_mul_e_sum(gt, *_t(x, e)).numpy()
+    np.testing.assert_allclose(
+        got, np.asarray(jax_refops.u_mul_e_sum(gj, *_j(x, e))), rtol=1e-5,
+        atol=1e-5)
+    assert np.abs(got[:20]).max() == 0.0
+
+
+# ---- the kernels' plain versions against the Pallas kernels -------------
+
+def _ref_attention(g, feat, al, ar, mask_edge=None, slope=0.2):
+    el = jnp.sum(feat * al[None], -1)
+    er = jnp.sum(feat * ar[None], -1)
+    e = jax_refops.u_add_v(g, el, er)
+    e = jnp.where(e >= 0, e, slope * e)
+    alpha = jax_refops.edge_softmax(g, e)
+    if mask_edge is not None:
+        alpha = alpha * mask_edge
+    return jax_refops.u_mul_e_sum(g, feat, alpha)
+
+
+def _jax_keep(gj, rng, keep, heads):
+    """gat_pallas's interpret-mode dropout mask, carried from slot order to
+    edge order through plan.edge_slot (test_pallas.py:504-506)."""
+    plan = gj.smx
+    mask_slots = jax.random.bernoulli(rng, keep, (plan.slots, heads))
+    return np.array(jnp.take(mask_slots, plan.edge_slot, axis=0))
+
+
+@pytest.mark.parametrize("drop", [0.0, 0.5])
+def test_plain_forward_matches_pallas_and_oracle(drop):
+    gt, gj = _graphs(plans=True)
+    feat, al, ar = _att(N, 4, 16, 5)
+    rng = jax.random.PRNGKey(42)
+    keep = _jax_keep(gj, rng, 1.0 - drop, 4) if drop else None
+    got = gat_cuda.gat_attention(
+        gt, *_t(feat, al, ar), keep=None if keep is None else
+        torch.from_numpy(keep), inv_keep=1.0 / (1.0 - drop)).numpy()
+    want_pallas = np.asarray(gat_pallas.gat_attention(
+        gj, *_j(feat, al, ar), drop_rate=drop,
+        drop_rng=rng if drop else None))
+    mask_edge = None if keep is None else jnp.asarray(
+        keep.astype(np.float32) / (1.0 - drop))
+    want_ref = np.asarray(_ref_attention(gj, *_j(feat, al, ar), mask_edge))
+    for want in (want_pallas, want_ref):
+        np.testing.assert_allclose(got, want, rtol=2e-2,
+                                   atol=1e-2 * np.abs(want).max())
+
+
+def _ref_rounded(g, feat, al, ar, mask_edge=None, slope=0.2):
+    """The bf16-rounded oracle of test_pallas.py:469-477 (el and messages
+    see bf16 feat and attn_l), with er, computed in f32, rounded once to
+    bf16 as both kernels round it (gat_pallas.py:416-417): without that
+    rounding an edge near the leaky_relu kink can take the other branch."""
+    fr = feat.astype(jnp.bfloat16).astype(jnp.float32)
+    alr = al.astype(jnp.bfloat16).astype(jnp.float32)
+    el = jnp.sum(fr * alr[None], -1)
+    er = jnp.sum(feat * ar[None], -1).astype(jnp.bfloat16).astype(jnp.float32)
+    e = jax_refops.u_add_v(g, el, er)
+    e = jnp.where(e >= 0, e, slope * e)
+    alpha = jax_refops.edge_softmax(g, e)
+    if mask_edge is not None:
+        alpha = alpha * mask_edge
+    return jax_refops.u_mul_e_sum(g, fr, alpha)
+
+
+@pytest.mark.parametrize("drop", [0.0, 0.5])
+def test_plain_backward_matches_pallas_grads_and_oracle(drop):
+    gt, gj = _graphs(e=1800, seed=7, plans=True)
+    feat, al, ar = _att(N, 2, 8, 7)
+    rng = jax.random.PRNGKey(3)
+    keep = _jax_keep(gj, rng, 1.0 - drop, 2) if drop else None
+    mask_edge = None if keep is None else jnp.asarray(
+        keep.astype(np.float32) / (1.0 - drop))
+
+    def loss_jax(fn):
+        return lambda f, a, b: jnp.sum(jnp.sin(fn(f, a, b)))
+
+    pallas = loss_jax(lambda f, a, b: gat_pallas.gat_attention(
+        gj, f, a, b, drop_rate=drop, drop_rng=rng if drop else None))
+    oracle = loss_jax(lambda f, a, b: _ref_rounded(gj, f, a, b, mask_edge))
+    g_pallas = jax.grad(pallas, argnums=(0, 1, 2))(*_j(feat, al, ar))
+    g_oracle = jax.grad(oracle, argnums=(0, 1, 2))(*_j(feat, al, ar))
+
+    leaves = [t.requires_grad_(True) for t in _t(feat, al, ar)]
+    out = gat_cuda.gat_attention(
+        gt, *leaves, keep=None if keep is None else torch.from_numpy(keep),
+        inv_keep=1.0 / (1.0 - drop))
+    torch.sin(out).sum().backward()
+    for leaf, want_p, want_o in zip(leaves, g_pallas, g_oracle):
+        got = leaf.grad.numpy()
+        for want in (np.asarray(want_p), np.asarray(want_o)):
+            scale = np.abs(want).max() + 1e-6
+            assert np.abs(got - want).max() / scale < 1e-2
+
+
+def test_plain_versions_on_zero_in_degree_rows():
+    gt, _ = _graphs(hub_free=30)
+    feat, al, ar = _att(N, 3, 5, 8)
+    feat_b, el, er_b, al_b = gat_cuda.prep(*_t(feat, al, ar))
+    out, smax, denom = gat_cuda.gat_fwd(gt.indptr, gt.senders, feat_b, el,
+                                        er_b)
+    assert out[:30].abs().max() == 0 and denom[:30].abs().max() == 0
+    assert torch.isfinite(out).all() and (denom[30:] >= 1.0).all()
+    dout = torch.randn(N, 3, 5)
+    der, msg, dal = gat_cuda.gat_bwd(gt.indptr, gt.senders, feat_b, el, er_b,
+                                     None, 1.0, 0.2, smax, denom, dout, al_b)
+    assert der[:30].abs().max() == 0
+    assert msg.shape == (gt.n_edges, 3, 5) and msg.dtype == torch.bfloat16
+    assert all(torch.isfinite(t.float()).all() for t in (der, msg, dal))
+
+
+def test_backward_reduces_messages_over_sources():
+    """The autograd backward's source reduce (the SpMM over t_indptr /
+    t_edges) equals a scatter of the messages onto their sources."""
+    gt, _ = _graphs(e=900, seed=9)
+    feat, al, ar = _att(N, 2, 4, 9)
+    ft, alt, art = _t(feat, al, ar)
+    ft.requires_grad_(True)
+    dout = torch.randn(N, 2, 4)
+    gat_cuda.gat_attention(gt, ft, alt, art).backward(dout)
+    feat_b, el, er_b, al_b = gat_cuda.prep(ft.detach(), alt, art)
+    _, smax, denom = gat_cuda.plain_gat_fwd(gt.indptr, gt.senders, feat_b,
+                                            el, er_b)
+    der, msg, _ = gat_cuda.plain_gat_bwd(gt.indptr, gt.senders, feat_b, el,
+                                         er_b, None, 1.0, 0.2, smax, denom,
+                                         dout, al_b)
+    want = torch.zeros(N, 2, 4).index_add_(0, gt.senders, msg.float())
+    want += der[:, :, None] * art[None]
+    torch.testing.assert_close(ft.grad, want, rtol=1e-5, atol=1e-5)
+
+
+def test_wrappers_reject_bad_inputs():
+    gt, _ = _graphs(e=500)
+    feat, al, ar = _att(N, 2, 4, 1)
+    feat_b, el, er_b, _ = gat_cuda.prep(*_t(feat, al, ar))
+    with pytest.raises(TypeError):
+        gat_cuda.gat_fwd(gt.indptr, gt.senders, feat_b.float(), el, er_b)
+    with pytest.raises(TypeError):
+        gat_cuda.gat_fwd(gt.indptr.long(), gt.senders, feat_b, el, er_b)
+    with pytest.raises(TypeError):
+        gat_cuda.gat_fwd(gt.indptr, gt.senders, feat_b, el, er_b,
+                         keep=torch.ones(gt.n_edges, 3, dtype=torch.bool))
+    assert gat_cuda.supported_width(40) and gat_cuda.supported_width(127)
+    assert not gat_cuda.supported_width(129)
+
+
+# ---- the dispatcher -------------------------------------------------------
+
+def test_dispatcher_tiers_on_cpu():
+    """auto and xla: the f32 composition (equal to JAX's on the CPU);
+    pallas and pallas_int8: the fused plain versions. No kernel launches
+    and no plain call counts on the CPU."""
+    gt, gj = _graphs(plans=True)
+    feat, al, ar = _att(N, 4, 8, 11)
+    want = np.asarray(jax_ops.gat_attention(gj, *_j(feat, al, ar)))
+    cuda_build.reset_counts()
+    gat_cuda.reset_counts()
+    for backend in ("auto", "xla"):
+        ops.set_backend(backend)
+        with ops.inference_mode():
+            got = ops.gat_attention(gt, *_t(feat, al, ar)).numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    fused = gat_cuda.gat_attention(gt, *_t(feat, al, ar)).numpy()
+    for backend in ("pallas", "pallas_int8"):
+        ops.set_backend(backend)
+        with ops.inference_mode():
+            got = ops.gat_attention(gt, *_t(feat, al, ar)).numpy()
+        np.testing.assert_array_equal(got, fused)
+    assert gat_cuda.counts == {"gat_fwd": 0, "gat_bwd": 0}
+    assert cuda_build.counts == {"plain_on_cuda": 0}
+
+
+def test_dispatcher_dropout_draws_edge_mask_from_generator():
+    gt, _ = _graphs()
+    feat, al, ar = _t(*_att(N, 2, 4, 12))
+    outs = [ops.gat_attention(gt, feat, al, ar, drop_rate=0.5,
+                              gen=torch.Generator().manual_seed(s))
+            for s in (0, 0, 1)]
+    assert torch.equal(outs[0], outs[1]) and not torch.equal(outs[0], outs[2])
+    keep = torch.rand((gt.n_edges, 2),
+                      generator=torch.Generator().manual_seed(0)) >= 0.5
+    ops.set_backend("pallas")
+    fused = ops.gat_attention(gt, feat, al, ar, drop_rate=0.5,
+                              gen=torch.Generator().manual_seed(0))
+    torch.testing.assert_close(
+        fused, gat_cuda.gat_attention(gt, feat, al, ar, keep=keep,
+                                      inv_keep=2.0))
+    torch.testing.assert_close(fused, outs[0], rtol=2e-2,
+                               atol=1e-2 * outs[0].abs().max().item())
+
+
+def test_unported_edge_kernels_raise_under_kernel_tier(monkeypatch):
+    """On a CUDA tensor under a kernel tier, the standalone edge_softmax and
+    the weighted SpMM raise (read here by forcing the predicate)."""
+    gt, _ = _graphs(e=400)
+    monkeypatch.setattr(ops, "_kernel_only", lambda x: True)
+    with pytest.raises(NotImplementedError, match="queue B item 4"):
+        ops.edge_softmax(gt, torch.zeros(gt.n_edges, 2))
+    with pytest.raises(NotImplementedError, match="queue B item 1"):
+        ops.u_mul_e_sum(gt, torch.zeros(N, 3), torch.zeros(gt.n_edges))
+    monkeypatch.undo()
+    assert not ops._kernel_only(torch.zeros(1))
+
+
+# ---- the model and one full-batch step against glnn_tpu ------------------
+
+def _conf(dropout=0.0, attn=0.0):
+    return dict(model_name="GAT", num_layers=2, hidden_dim=16, feat_dim=12,
+                label_dim=5, dropout_ratio=dropout, num_heads=4,
+                attn_dropout_ratio=attn)
+
+
+def _gat_setup(conf):
+    gt, gj = _graphs(hub_free=10)
+    x = np.random.RandomState(0).randn(N, 12).astype(np.float32)
+    jm = JaxModel(conf)
+    v = jax.tree_util.tree_map(
+        np.asarray, jm.init(jax.random.PRNGKey(1), gj, jnp.asarray(x)))
+    tm = Model(conf)
+    from_jax_variables(v, tm)
+    return jm, v, gj, tm, gt, x
+
+
+def test_gat_eval_forward_matches_jax():
+    jm, v, gj, tm, gt, x = _gat_setup(_conf(0.6, 0.3))
+    want_list, want = jm.apply(v, gj, jnp.asarray(x), training=False)
+    tm.eval()
+    with torch.no_grad():
+        h_list, got = tm(gt, torch.from_numpy(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    assert len(h_list) == 1 and h_list[0].shape == (N, 16)
+    np.testing.assert_allclose(h_list[0].numpy(), np.asarray(want_list[0]),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_gat_init_and_dispatch():
+    gen = torch.Generator().manual_seed(0)
+    m = Model(dict(_conf(), feat_dim=300, hidden_dim=128, num_heads=8),
+              gen).module
+    assert [c.num_heads for c in m.convs] == [8, 1]
+    w = m.convs[0].fc.weight
+    assert w.shape == (128, 300) and m.convs[0].fc.bias is None
+    std = np.sqrt(2.0) * np.sqrt(2.0 / (300 + 128))
+    assert abs(w.std().item() - std) < 0.05 * std
+    assert abs(m.convs[0].attn_l.std().item() - np.sqrt(2.0 / 16)) < 0.2
+    again = Model(dict(_conf(), feat_dim=300, hidden_dim=128, num_heads=8),
+                  torch.Generator().manual_seed(0)).module
+    assert torch.equal(again.convs[1].attn_r, m.convs[1].attn_r)
+    with pytest.raises(ValueError, match="num_layers"):
+        Model(dict(_conf(), num_layers=1))
+
+
+def test_gnn_train_step_matches_jax():
+    """Both dropouts at 0: one full-batch NLL + Adam step gives the JAX
+    loss and updated parameters."""
+    conf = _conf()
+    jm, v, gj, tm, gt, x = _gat_setup(conf)
+    labels = np.random.RandomState(1).randint(0, 5, N)
+    idx_train = np.arange(0, N, 3)
+    opt = jax_make_adam(0.01, 0.01)
+    state, loss_j = jax_gnn_step(jm, opt)(
+        create_train_state(v, opt), gj, jnp.asarray(x), jnp.asarray(labels),
+        jnp.asarray(idx_train), jax.random.PRNGKey(0))
+    step = make_gnn_train_step(tm, make_adam(tm.parameters(), 0.01, 0.01))
+    loss_t = step(gt, *_t(x, labels, idx_train), None)
+    np.testing.assert_allclose(float(loss_t), float(loss_j), rtol=1e-5)
+    want = jax.tree_util.tree_map(np.asarray, state.params)
+    for i, conv in enumerate(tm.module.convs):
+        p = want[f"convs_{i}"]
+        for got, ref in ((conv.fc.weight.T, p["Dense_0"]["kernel"]),
+                         (conv.attn_l, p["attn_l"]),
+                         (conv.attn_r, p["attn_r"])):
+            np.testing.assert_allclose(got.detach().numpy(), ref, rtol=1e-5,
+                                       atol=1e-6)
+
+
+# ---- the CLIs -------------------------------------------------------------
+
+DATASET = "synth-n512-c5-f32-d8-noise3.0"
+
+
+def _args(*extra):
+    return ["--device", "-1", "--dataset", DATASET, "--max_epoch", "3",
+            "--patience", "10", *extra]
+
+
+def _check_out(path, rows=512, classes=5):
+    out = np.load(path)["arr_0"]
+    assert out.shape == (rows, classes) and np.isfinite(out).all()
+    np.testing.assert_allclose(np.exp(out).sum(1), 1.0, rtol=1e-4)
+
+
+def _out(root, model):
+    return (root / "outputs" / "transductive" / DATASET / model / "seed_0"
+            / "out.npz")
+
+
+@pytest.mark.parametrize("teacher_pkg,student_pkg",
+                         [("port", "port"), ("jax", "port"), ("port", "jax")])
+def test_gat_teacher_to_student(tmp_path, monkeypatch, teacher_pkg,
+                                student_pkg):
+    from glnn_tpu.cli import train_student as jax_student
+    from glnn_tpu.cli import train_teacher as jax_teacher
+    from glnn_tpu_torch.cli import train_student, train_teacher
+
+    monkeypatch.chdir(tmp_path)
+    teacher = train_teacher if teacher_pkg == "port" else jax_teacher
+    student = train_student if student_pkg == "port" else jax_student
+    teacher.main(_args("--teacher", "GAT"))
+    _check_out(_out(tmp_path, "GAT"))
+    student.main(_args("--teacher", "GAT", "--student", "MLP"))
+    _check_out(_out(tmp_path, "GAT_MLP"))
+
+
+def test_full_batch_sage_runs(tmp_path, monkeypatch):
+    from glnn_tpu_torch.cli import train_teacher
+
+    monkeypatch.chdir(tmp_path)
+    train_teacher.main(_args("--teacher", "SAGE", "--sage_sampling", "full"))
+    _check_out(_out(tmp_path, "SAGE"))

@@ -55,6 +55,26 @@ def test_transposed_csr_is_the_src_sorted_edge_set(tiny_graph):
     assert all(g.t_indptr.numpy()[1:] >= g.t_indptr.numpy()[:-1])
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+def test_t_edges_point_each_src_slot_at_its_dst_sorted_edge(seed):
+    """t_edges is a permutation of the dst-sorted edge ids; slot k of the
+    transposed CSR names an edge whose source owns the slot and whose
+    destination is t_receivers[k]; within a source the edges keep their
+    dst-sorted order (the stable sort)."""
+    rs = np.random.RandomState(seed)
+    n = 40
+    g = build_graph(rs.randint(0, n, 400), rs.randint(5, n, 400), n)
+    te, tp = g.t_edges.numpy(), g.t_indptr.numpy()
+    assert g.t_edges.dtype == torch.int32 and te.shape == (g.n_edges,)
+    np.testing.assert_array_equal(np.sort(te), np.arange(g.n_edges))
+    np.testing.assert_array_equal(g.receivers.numpy()[te],
+                                  g.t_receivers.numpy())
+    owner = np.repeat(np.arange(n), np.diff(tp))
+    np.testing.assert_array_equal(g.senders.numpy()[te], owner)
+    for u in range(n):
+        assert (np.diff(te[tp[u]:tp[u + 1]]) > 0).all()
+
+
 @pytest.mark.parametrize("src,dst", [([0, 3], [1, 2]), ([0, 1], [-1, 2])])
 def test_build_graph_rejects_out_of_range_endpoints(src, dst):
     with pytest.raises(ValueError, match="endpoints"):
@@ -66,7 +86,8 @@ def test_graph_to_keeps_fields():
     h = g.to("cpu")
     assert h.n_edges == 3 and h.device.type == "cpu"
     assert all(t.dtype == torch.int32 for t in
-               (h.senders, h.receivers, h.indptr, h.t_indptr, h.t_receivers))
+               (h.senders, h.receivers, h.indptr, h.t_indptr, h.t_receivers,
+                h.t_edges))
 
 
 @pytest.mark.parametrize("name", ["cora", "ogbn-arxiv", "penn94",

@@ -129,7 +129,8 @@ def test_init_distributions():
 def test_model_dispatch():
     assert Model(_conf("MLP3w4")).is_mlp
     assert not Model(_conf("SAGE")).is_mlp
-    for name in ("GCN", "GAT", "APPNP"):
+    assert type(Model(dict(_conf("GAT"), num_heads=4)).module).__name__ == "GAT"
+    for name in ("GCN", "APPNP"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Model(_conf(name))
     with pytest.raises(ValueError):
