@@ -120,8 +120,8 @@ _UNPORTED = (
      "queue A item 6 (window sampler)"),
     ("compute_dtype", lambda v: (v or "float32") in ("float32", "f32"),
      "queue A item 4 (bf16 compute)"),
-    ("feature_aug_k", lambda v: not v, "queue A item 9 (feature_prop)"),
-    ("compute_min_cut", lambda v: not v, "queue A item 9 (min-cut loss)"),
+    ("feature_aug_k", lambda v: not v, "queue A item 7 (feature_prop)"),
+    ("compute_min_cut", lambda v: not v, "queue A item 7 (min-cut loss)"),
     ("save_results", lambda v: not v, "queue A item 7 (checkpoints)"),
 )
 

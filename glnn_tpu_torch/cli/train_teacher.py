@@ -1,13 +1,13 @@
-"""Teacher CLI: train a SAGE, GAT or MLP teacher and dump its soft labels
-(`glnn_tpu/cli/train_teacher.py`).
+"""Teacher CLI: train a SAGE, GCN, GAT, APPNP or MLP teacher and dump its
+soft labels (`glnn_tpu/cli/train_teacher.py`).
 
     python -m glnn_tpu_torch.cli.train_teacher --teacher SAGE \
         --dataset synth-n512-c5-f32-d8-noise3.0 [--device -1]
-    python -m glnn_tpu_torch.cli.train_teacher --teacher GAT \
+    python -m glnn_tpu_torch.cli.train_teacher --teacher APPNP \
         --dataset synth-n512-c5-f32-d8-noise3.0 [--device -1]
 
 SAGE trains on fanout-sampled minibatches (full-batch with
---sage_sampling full); GAT trains full-batch.
+--sage_sampling full); GCN, GAT and APPNP train full-batch.
 
 Pipeline: seed -> output dir -> load data -> optional feature noise ->
 YAML config merge (YAML beats CLI) -> Model + Adam -> run_transductive ->
@@ -49,7 +49,7 @@ def get_args(argv=None):
     parser = argparse.ArgumentParser(description="GLNN teacher (PyTorch/CUDA)")
     add_common_args(parser)
     parser.add_argument("--teacher", type=str, default="SAGE",
-                        help="Teacher model: SAGE, GAT or MLP")
+                        help="Teacher model: SAGE, GCN, GAT, APPNP or MLP")
     return parser.parse_args(argv)
 
 

@@ -1,4 +1,5 @@
-// Fused GAT attention for Hopper (sm_90a), forward and backward, on the CSC.
+// GAT attention for Hopper (sm_90a) on the CSC: the fused attention forward
+// and backward, and the standalone segment softmax and its backward.
 //
 // Replaces glnn_tpu/ops/gat_pallas.py:_gat_fwd_kernel (:158) and
 // :_gat_bwd_kernel (:187). Those run in AttentionPlan slot space: per dst
@@ -55,6 +56,24 @@
 // card's rate. The backward's largest term is its [E, H*D] bf16 message write
 // (about 650 MB at E = 2.5M, H*D = 128). The design keeps loads wide (VEC)
 // and fetches 32 indices per warp at once, broadcast with __shfl_sync.
+//
+// The standalone segment softmax (edge_softmax_fwd, edge_softmax_bwd)
+// replaces :_smx_fwd_kernel (:694) and :_smx_bwd_kernel (:712), which run
+// the same one-hot slot-space reduction per dst block. Here scores are f32
+// [E, H] in dst-sorted edge order, so a dst row's scores are one contiguous
+// run of (end - start) * H floats. One warp owns a row; its lanes cover
+// (edge, head) pairs: G lanes per edge (G the smallest power of two >= H, at
+// most 32, more heads in further passes) and 32 / G edges per step, so the
+// warp reads the run with consecutive lanes on consecutive floats. The
+// forward keeps a running max and sum per lane (rescaled when the max
+// rises), merges the lanes of each head with __shfl_xor_sync, then writes
+// alpha = exp(s - max) / sum in a second pass: the segment's own max, not
+// the TPU kernel's block max (gat_pallas.py:700). The backward sums
+// t = sum_seg(alpha * dalpha) the same way and writes
+// ds = alpha * dalpha - alpha * t. A row without in-edges writes nothing.
+// Both are bound by bytes (each reads its [E, H] inputs once and writes
+// [E, H] once; a few flops per element): the reads and writes are
+// coalesced, which is all the design does about it.
 //
 // Interface: plain C, called through ctypes. Every entry point launches on
 // the given stream, never synchronises, allocates nothing, and returns
@@ -395,6 +414,88 @@ Geometry geometry(int d, uintptr_t align) {
 #define GAT_CASES(X) \
   X(1, 1) X(1, 2) X(1, 4) X(2, 1) X(2, 2) X(2, 4) X(4, 1) X(4, 2) X(4, 4) X(8, 1) X(8, 2) X(8, 4)
 
+// segment softmax: lanes per edge, G a power of two (see the note at the top)
+__global__ void __launch_bounds__(kWarps * 32)
+edge_softmax_fwd_kernel(const int32_t* __restrict__ indptr, const float* __restrict__ scores,
+                        float* __restrict__ alpha, int n_rows, int H, int G) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (row >= n_rows) return;  // the whole warp leaves together
+  const int start = indptr[row];
+  const int end = indptr[row + 1];
+  const int per = 32 / G;  // edges per step
+  const int slot = lane / G;
+
+  for (int h0 = 0; h0 < H; h0 += G) {
+    const int h = h0 + (lane & (G - 1));
+    const bool head_ok = h < H;
+    float m = -CUDART_INF_F;  // this lane's running max and sum
+    float den = 0.f;
+    if (head_ok) {
+      for (int e = start + slot; e < end; e += per) {
+        const float s = scores[static_cast<int64_t>(e) * H + h];
+        if (s > m) {
+          den *= expf(m - s);
+          m = s;
+        }
+        den += expf(s - m);
+      }
+    }
+    // merge the lanes of one head; a lane that saw no edge has (-inf, 0)
+    for (int off = 16; off >= G; off >>= 1) {
+      const float m_o = __shfl_xor_sync(kFull, m, off);
+      const float den_o = __shfl_xor_sync(kFull, den, off);
+      const float m_new = fmaxf(m, m_o);
+      den = (m == -CUDART_INF_F ? 0.f : den * expf(m - m_new)) +
+            (m_o == -CUDART_INF_F ? 0.f : den_o * expf(m_o - m_new));
+      m = m_new;
+    }
+    if (!head_ok) continue;
+    for (int e = start + slot; e < end; e += per) {
+      const int64_t i = static_cast<int64_t>(e) * H + h;
+      alpha[i] = expf(scores[i] - m) / den;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kWarps * 32)
+edge_softmax_bwd_kernel(const int32_t* __restrict__ indptr, const float* __restrict__ alpha,
+                        const float* __restrict__ dalpha, float* __restrict__ ds, int n_rows,
+                        int H, int G) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (row >= n_rows) return;  // the whole warp leaves together
+  const int start = indptr[row];
+  const int end = indptr[row + 1];
+  const int per = 32 / G;
+  const int slot = lane / G;
+
+  for (int h0 = 0; h0 < H; h0 += G) {
+    const int h = h0 + (lane & (G - 1));
+    const bool head_ok = h < H;
+    float t = 0.f;
+    if (head_ok) {
+      for (int e = start + slot; e < end; e += per) {
+        const int64_t i = static_cast<int64_t>(e) * H + h;
+        t += alpha[i] * dalpha[i];
+      }
+    }
+    for (int off = 16; off >= G; off >>= 1) t += __shfl_xor_sync(kFull, t, off);
+    if (!head_ok) continue;
+    for (int e = start + slot; e < end; e += per) {
+      const int64_t i = static_cast<int64_t>(e) * H + h;
+      const float a = alpha[i];
+      ds[i] = a * dalpha[i] - a * t;
+    }
+  }
+}
+
+int lanes_per_edge(int H) {
+  int g = 1;
+  while (g < H && g < 32) g *= 2;
+  return g;
+}
+
 }  // namespace
 
 extern "C" {
@@ -456,6 +557,29 @@ int gat_bwd(const void* indptr, const void* src_of, const void* feat, const void
       return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef BWD_CASE
+  return static_cast<int>(cudaGetLastError());
+}
+
+// scores f32 [E, H] in dst-sorted edge order; alpha f32 [E, H]
+int edge_softmax_fwd(const void* indptr, const void* scores, void* alpha, int n_rows, int H,
+                     void* stream) {
+  if (n_rows <= 0 || H <= 0) return static_cast<int>(cudaGetLastError());
+  const dim3 grid((n_rows + kWarps - 1) / kWarps), block(kWarps * 32);
+  edge_softmax_fwd_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(indptr), static_cast<const float*>(scores),
+      static_cast<float*>(alpha), n_rows, H, lanes_per_edge(H));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// alpha, dalpha, ds f32 [E, H] in dst-sorted edge order
+int edge_softmax_bwd(const void* indptr, const void* alpha, const void* dalpha, void* ds,
+                     int n_rows, int H, void* stream) {
+  if (n_rows <= 0 || H <= 0) return static_cast<int>(cudaGetLastError());
+  const dim3 grid((n_rows + kWarps - 1) / kWarps), block(kWarps * 32);
+  edge_softmax_bwd_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(indptr), static_cast<const float*>(alpha),
+      static_cast<const float*>(dalpha), static_cast<float*>(ds), n_rows, H,
+      lanes_per_edge(H));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -6,7 +6,7 @@ import numpy as np
 import torch
 
 from glnn_tpu_torch.nn.layers import BatchNorm1d
-from glnn_tpu_torch.nn.models import GAT, MLP
+from glnn_tpu_torch.nn.models import GAT, GCN, MLP
 
 
 @torch.no_grad()
@@ -16,7 +16,9 @@ def from_jax_variables(variables_np: dict, model) -> None:
     Linear weight [out, in]; norm `scale`/`bias` become weight/bias, and
     BatchNorm `mean`/`var` the running statistics. A GAT layer
     (`convs_<i>`) carries a bias-free `Dense_0` kernel [in, H*D] and
-    `attn_l`/`attn_r` [H, D]."""
+    `attn_l`/`attn_r` [H, D]. A GCN layer (`GraphConv_<i>`) carries its
+    kernel [in, out] as it is, and a bias; APPNP's tree is its MLP's
+    (`Dense_<i>` and the norms)."""
     params = variables_np["params"]
     stats = variables_np.get("batch_stats", {})
     m = model.module
@@ -35,15 +37,19 @@ def from_jax_variables(variables_np: dict, model) -> None:
             put(conv.attn_l, p["attn_l"])
             put(conv.attn_r, p["attn_r"])
         return
-    if isinstance(m, MLP):
-        linears = [(m.layers[i], params[f"Dense_{i}"])
-                   for i in range(len(m.layers))]
+    # (weight seen as [in, out], bias, the flax kernel/bias dict)
+    if isinstance(m, GCN):
+        layers = [(c.weight, c.bias, params[f"GraphConv_{i}"])
+                  for i, c in enumerate(m.convs)]
+    elif isinstance(m, MLP):
+        layers = [(lin.weight.T, lin.bias, params[f"Dense_{i}"])
+                  for i, lin in enumerate(m.layers)]
     else:
-        linears = [(m.convs[i].fc, params[f"SAGEConvGCN_{i}"]["Dense_0"])
-                   for i in range(len(m.convs))]
-    for lin, p in linears:
-        put(lin.weight, np.asarray(p["kernel"]).T)
-        put(lin.bias, p["bias"])
+        layers = [(c.fc.weight.T, c.fc.bias, params[f"SAGEConvGCN_{i}"]["Dense_0"])
+                  for i, c in enumerate(m.convs)]
+    for weight, bias, p in layers:
+        put(weight, p["kernel"])
+        put(bias, p["bias"])
     for i, norm in enumerate(m.norms or []):
         name = f"{'BatchNorm1d' if isinstance(norm, BatchNorm1d) else 'LayerNorm1d'}_{i}"
         put(norm.weight, params[name]["scale"])

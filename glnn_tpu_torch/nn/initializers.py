@@ -6,7 +6,9 @@ drawn from an explicit torch.Generator (None: torch's global one).
 * DGL SAGEConv: xavier_uniform(gain=sqrt(2)) weight, torch-default bias
   (glnn_tpu/nn/layers.py:87);
 * DGL GATConv: xavier_normal(gain=sqrt(2)) on fc, and on the attention
-  vectors with fan_in = fan_out = D (glnn_tpu/nn/initializers.py:47-70).
+  vectors with fan_in = fan_out = D (glnn_tpu/nn/initializers.py:47-70);
+* DGL GraphConv: xavier_uniform (gain 1) weight, zero bias
+  (glnn_tpu/nn/layers.py:100-101).
 """
 
 from __future__ import annotations
@@ -32,6 +34,14 @@ def xavier_linear_(layer: nn.Linear, gain: float,
     bound = 1.0 / math.sqrt(layer.in_features)
     nn.init.uniform_(layer.bias, -bound, bound, generator=gen)
     return layer
+
+
+@torch.no_grad()
+def xavier_zero_bias_(weight: torch.Tensor, bias: torch.Tensor,
+                      gen: torch.Generator | None = None) -> None:
+    """GraphConv: U(+-sqrt(6 / (fan_in + fan_out))) weight, zero bias."""
+    nn.init.xavier_uniform_(weight, generator=gen)
+    nn.init.zeros_(bias)
 
 
 @torch.no_grad()

@@ -5,9 +5,14 @@
 * BatchNorm1d: torch.nn.BatchNorm1d semantics plus a row mask, which
   torch's module does not take (ghost rows of sampled frontiers must not
   enter the statistics).
+* GraphConv: norm='both', D^-1/2 A D^-1/2 X W + b with degrees clamped
+  >= 1, optional activation; W is applied before the aggregation when
+  in_dim > out_dim, after it otherwise (the same math, fewer flops).
 * GATConv: per head e_uv = leaky_relu_0.2(a_l.Wh_u + a_r.Wh_v), alpha the
   softmax over v's in-edges, h'_v = sum alpha Wh_u; feat dropout on the
   input, attention dropout on alpha; no bias, no residual.
+* appnp_propagate: k hops of h <- (1 - alpha) D^-1/2 A_drop D^-1/2 h
+  + alpha h0, with per-edge dropout (zero, or 1 / (1 - p)) in training.
 * LayerNorm1d: torch.nn.LayerNorm over the feature axis.
 * dropout: inverted dropout whose mask comes from an explicit generator.
 """
@@ -59,6 +64,49 @@ class SAGEConvGCN(nn.Module):
             deg = valid.sum(dim=1).to(x.dtype)
             h = (neigh + x[:n_out]) / (deg[:, None] + 1.0)
         return self.fc(h)
+
+
+class GraphConv(nn.Module):
+    """`weight` is [in, out] as in DGL and the JAX kernel."""
+
+    def __init__(self, in_dim: int, out_dim: int, activation=None,
+                 gen: torch.Generator | None = None):
+        super().__init__()
+        self.activation = activation
+        self.weight = nn.Parameter(torch.empty(in_dim, out_dim))
+        self.bias = nn.Parameter(torch.empty(out_dim))
+        gi.xavier_zero_bias_(self.weight, self.bias, gen)
+
+    def forward(self, g: Graph, x: torch.Tensor) -> torch.Tensor:
+        if self.weight.shape[0] > self.weight.shape[1]:
+            h = ops.gcn_norm_both(g, x @ self.weight)
+        else:
+            h = ops.gcn_norm_both(g, x) @ self.weight
+        h = h + self.bias
+        return h if self.activation is None else self.activation(h)
+
+
+def appnp_propagate(g: Graph, h: torch.Tensor, k: int, alpha: float,
+                    edge_drop: float, training: bool = False,
+                    gen: torch.Generator | None = None,
+                    masks=None) -> torch.Tensor:
+    """APPNPConv(k, alpha, edge_drop) after the MLP head. In training each
+    hop keeps an edge with probability 1 - edge_drop: the [E] mask is
+    drawn from `gen` in dst-sorted edge order, or is masks[i] when given
+    (bool [E] per hop)."""
+    h0 = h
+    use_drop = training and edge_drop > 0.0
+    for i in range(k):
+        if use_drop:
+            keep = (masks[i] if masks is not None else
+                    torch.rand((g.n_edges,), generator=gen,
+                               device=h.device) >= edge_drop)
+            w = keep.to(h.dtype) / (1.0 - edge_drop)
+            prop = ops.gcn_norm_both(g, h, edge_weight=w)
+        else:
+            prop = ops.gcn_norm_both(g, h)
+        h = (1.0 - alpha) * prop + alpha * h0
+    return h
 
 
 class GATConv(nn.Module):

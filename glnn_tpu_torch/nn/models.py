@@ -1,12 +1,15 @@
-"""Model zoo of the port: MLP, SAGE and GAT, and the substring-dispatch
-wrapper (`glnn_tpu/nn/models.py`).
+"""Model zoo of the port: MLP, SAGE, GCN, GAT and APPNP, and the
+substring-dispatch wrapper (`glnn_tpu/nn/models.py`).
 
 Contracts kept: every model returns `(h_list, h)` with the hidden states
-before the norm (the fitnet hook); MLP and SAGE hidden blocks run
-linear/conv -> append h -> norm -> relu -> dropout, GAT hidden blocks run
+before the norm (the fitnet hook); MLP, SAGE and APPNP hidden blocks run
+linear/conv -> append h -> norm -> relu -> dropout, GCN hidden blocks run
+conv (relu fused) -> append h -> norm -> dropout, GAT hidden blocks run
 conv (relu per head) -> concatenate heads -> append; the last layer is
-bare (GAT: mean over its heads); the wrapper dispatches on a SUBSTRING of
-model_name, MLP first, so "MLP3w4" and "GA1MLP" are MLPs.
+bare (GAT: mean over its heads; a 1-layer GCN keeps its relu); APPNP runs
+its MLP, then k = 10 propagation hops with alpha 0.1 and edge drop 0.5;
+the wrapper dispatches on a SUBSTRING of model_name, MLP first, so
+"MLP3w4" and "GA1MLP" are MLPs.
 """
 
 from __future__ import annotations
@@ -15,7 +18,14 @@ import torch
 from torch import nn
 
 from glnn_tpu_torch.nn import initializers as gi
-from glnn_tpu_torch.nn.layers import GATConv, SAGEConvGCN, dropout, make_norm
+from glnn_tpu_torch.nn.layers import (
+    GATConv,
+    GraphConv,
+    SAGEConvGCN,
+    appnp_propagate,
+    dropout,
+    make_norm,
+)
 
 
 def _dims(num_layers, input_dim, hidden_dim, output_dim):
@@ -85,6 +95,52 @@ class SAGE(nn.Module):
         return h_list, h
 
 
+class GCN(nn.Module):
+    def __init__(self, num_layers, input_dim, hidden_dim, output_dim,
+                 dropout_ratio, norm_type="none", gen=None):
+        super().__init__()
+        self.dropout_ratio = dropout_ratio
+        dims = _dims(num_layers, input_dim, hidden_dim, output_dim)
+        # the single layer of a 1-layer GCN keeps its relu (reference
+        # quirk, glnn_tpu/nn/models.py:135-139)
+        self.convs = nn.ModuleList(
+            GraphConv(i, o, None if (l == num_layers - 1 and num_layers > 1)
+                      else torch.relu, gen)
+            for l, (i, o) in enumerate(dims))
+        self.norms = nn.ModuleList(
+            make_norm(norm_type, hidden_dim) for _ in range(num_layers - 1)
+        ) if norm_type != "none" else None
+
+    def forward(self, g, x, gen=None):
+        h, h_list = x, []
+        last = len(self.convs) - 1
+        for l, conv in enumerate(self.convs):
+            h = conv(g, h)
+            if l != last:
+                h_list.append(h)
+                if self.norms is not None:
+                    h = self.norms[l](h)
+                h = dropout(h, self.dropout_ratio, self.training, gen)
+        return h_list, h
+
+
+class APPNP(MLP):
+    """The MLP, then `appnp_propagate` over the graph; its edge-drop masks
+    come from the forward's generator."""
+
+    def __init__(self, num_layers, input_dim, hidden_dim, output_dim,
+                 dropout_ratio, norm_type="none", gen=None, edge_drop=0.5,
+                 alpha=0.1, k=10):
+        super().__init__(num_layers, input_dim, hidden_dim, output_dim,
+                         dropout_ratio, norm_type, gen)
+        self.edge_drop, self.alpha, self.k = edge_drop, alpha, k
+
+    def forward(self, g, x, gen=None):
+        h_list, h = super().forward(x, gen)
+        return h_list, appnp_propagate(g, h, self.k, self.alpha,
+                                       self.edge_drop, self.training, gen)
+
+
 class GAT(nn.Module):
     """Heads [num_heads] * (num_layers - 1) + [1]; hidden_dim is divided by
     num_heads (models.py:218-225); num_layers must exceed 1."""
@@ -115,9 +171,6 @@ class GAT(nn.Module):
         return h_list, h
 
 
-_NOT_PORTED = {"GCN": "queue A item 9", "APPNP": "queue A item 9"}
-
-
 class Model(nn.Module):
     """Substring-dispatch wrapper. `conf` needs model_name, num_layers,
     hidden_dim, feat_dim, label_dim and dropout_ratio; `gen` draws the
@@ -139,17 +192,16 @@ class Model(nn.Module):
             self.module = MLP(**kw)
         elif "SAGE" in name:
             self.module = SAGE(**kw)
+        elif "GCN" in name:
+            self.module = GCN(**kw)
         elif "GAT" in name:
             kw.pop("norm_type")
             self.module = GAT(num_heads=conf.get("num_heads", 8),
                               attn_drop=conf.get("attn_dropout_ratio", 0.3),
                               **kw)
+        elif "APPNP" in name:
+            self.module = APPNP(**kw)
         else:
-            for family, item in _NOT_PORTED.items():
-                if family in name:
-                    raise NotImplementedError(
-                        f"{family} is not ported to glnn_tpu_torch yet "
-                        f"(ROADMAP {item})")
             raise ValueError(f"Unknown model name: {name}")
         self.is_mlp = "MLP" in name
 

@@ -2,17 +2,20 @@
 
 Tiers, by the names `set_backend` keeps for flag parity with the JAX CLI:
   "xla"         the plain f32 tier (ops/refops.py);
-  "pallas"      the exact CUDA kernel tier: bf16 messages, f32 sums
-                (ops/spmm_cuda.py), and the fused GAT attention kernels
+  "pallas"      the exact CUDA kernel tier: bf16 messages, f32 sums, for
+                the unweighted and the weighted sums (ops/spmm_cuda.py),
+                and the GAT attention and segment softmax kernels
                 (ops/gat_cuda.py);
-  "pallas_int8" the int8 CUDA kernel tier: per-column int8 messages, exact
-                int32 sums, dequantised; attention stays on the bf16 kernels;
+  "pallas_int8" the int8 CUDA kernel tier for the unweighted sum:
+                per-column int8 messages, exact int32 sums, dequantised;
+                the weighted sum and attention stay on the bf16 kernels;
   "auto"        (default) a CPU tensor takes the plain f32 tier; a CUDA
                 tensor takes the int8 kernel inside `inference_mode()` with
                 eval-quant on, and the exact kernel otherwise. This is the
                 JAX rule with "on TPU" read as "the tensor is on CUDA".
 On a CPU tensor the kernel tiers run their plain versions; on a CUDA
-tensor they launch the kernel or raise.
+tensor they launch the kernel or raise, also for shapes outside a
+kernel's contract.
 """
 
 from __future__ import annotations
@@ -103,22 +106,35 @@ def u_add_v(g, a_u: torch.Tensor, a_v: torch.Tensor) -> torch.Tensor:
 
 
 def edge_softmax(g, scores: torch.Tensor) -> torch.Tensor:
+    """Softmax over each dst's in-edges of scores [E] or [E, H]."""
+    if scores.dim() in (1, 2) and _tier_selected(scores.device):
+        return gat_cuda.edge_softmax(g, scores)
     if _kernel_only(scores):
-        raise NotImplementedError(
-            "the standalone edge_softmax kernel (gat_pallas.py:694/712) is not "
-            "ported to glnn_tpu_torch yet (ROADMAP queue B item 4); "
-            "gat_attention runs the fused kernels")
+        raise ValueError(f"the edge_softmax kernel takes scores [E] or "
+                         f"[E, H], got {tuple(scores.shape)}")
     cuda_build.note_plain(scores)
     return _ref.edge_softmax(g, scores)
 
 
 def u_mul_e_sum(g, x: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
+    """h_v = sum_u e_uv x_u: x [N, F] with e [E], or x [N, H, D] with
+    per-head e [E, H]. The kernel tier rounds each message to bf16 under
+    both kernel backends, as JAX keeps the weighted sum on its bf16 tier."""
+    if ((x.dim() == 2 and e.dim() == 1) or (x.dim() == 3 and e.dim() == 2)) \
+            and _tier_selected(x.device):
+        return spmm_cuda.u_mul_e_sum(g, x, e)
     if _kernel_only(x):
-        raise NotImplementedError(
-            "the weighted SpMM is not ported to glnn_tpu_torch yet (ROADMAP "
-            "queue B item 1, weighted)")
+        raise ValueError(f"the weighted SpMM kernel takes x [N, F] with e "
+                         f"[E], or x [N, H, D] with e [E, H]; got "
+                         f"{tuple(x.shape)} and {tuple(e.shape)}")
     cuda_build.note_plain(x)
     return _ref.u_mul_e_sum(g, x, e)
+
+
+def gcn_norm_both(g, x: torch.Tensor, edge_weight=None) -> torch.Tensor:
+    """D^-1/2 A D^-1/2 x (degrees clamped >= 1) through the dispatched
+    copy_u_sum, or u_mul_e_sum with per-edge weights (APPNP's edge drop)."""
+    return _ref.gcn_norm_both(g, x, edge_weight, copy_u_sum, u_mul_e_sum)
 
 
 def gat_attention(g, feat: torch.Tensor, attn_l: torch.Tensor,
@@ -151,6 +167,6 @@ def gat_attention(g, feat: torch.Tensor, attn_l: torch.Tensor,
 
 __all__ = [
     "copy_u_sum", "copy_u_mean", "u_add_v", "edge_softmax", "u_mul_e_sum",
-    "gat_attention", "set_backend", "set_eval_quant", "inference_mode",
-    "eval_quant_active",
+    "gat_attention", "gcn_norm_both", "set_backend", "set_eval_quant",
+    "inference_mode", "eval_quant_active",
 ]

@@ -31,9 +31,19 @@ Dropout takes an explicit keep mask [E, H] (bool or uint8, dst-sorted edge
 order), as the JAX `"mask"` mode (gat_pallas.py:149-150); the mask is saved
 for the backward.
 
+The standalone segment softmax behind `ops.edge_softmax` replaces
+`gat_pallas.py:_smx_fwd_kernel` (:694) and `:_smx_bwd_kernel` (:712), with
+the contract of `gat_pallas.edge_softmax` (:786-806): f32 scores [E] or
+[E, H] in dst-sorted edge order in, alpha per dst segment out, in the same
+shape. `edge_softmax_fwd` subtracts the segment's own max (the TPU kernel
+subtracts its block's, :700); `edge_softmax_bwd` gives
+ds = alpha * dalpha - alpha * sum_seg(alpha * dalpha), all f32. Rows
+without in-edges own no score and write nothing.
+
 Each kernel has a plain PyTorch version here (`plain_gat_fwd`,
-`plain_gat_bwd`) with the same rounding: bf16 features, bf16 er, a bf16
-message. A wrapper takes it only for a tensor on the CPU; for a CUDA tensor
+`plain_gat_bwd`, `plain_edge_softmax_fwd`, `plain_edge_softmax_bwd`) with
+the same rounding: bf16 features, bf16 er, a bf16 message; the softmax in
+f32. A wrapper takes it only for a tensor on the CPU; for a CUDA tensor
 it launches the kernel or raises. `counts` records kernel launches; plain
 calls on CUDA tensors go to `cuda_build.counts`.
 """
@@ -47,7 +57,7 @@ import torch
 from glnn_tpu_torch.ops import cuda_build, spmm_cuda
 from glnn_tpu_torch.ops.cuda_build import note_plain, row_ids
 
-KERNELS = ("gat_fwd", "gat_bwd")
+KERNELS = ("gat_fwd", "gat_bwd", "edge_softmax_fwd", "edge_softmax_bwd")
 counts = {name: 0 for name in KERNELS}
 
 WARPS_PER_BLOCK = 8      # kWarps in gat_csr.cu
@@ -60,6 +70,8 @@ _vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "gat_fwd": [_vp] * 6 + [_cf, _cf] + [_vp] * 3 + [_ci] * 3 + [_vp],
     "gat_bwd": [_vp] * 6 + [_cf, _cf] + [_vp] * 7 + [_ci] * 4 + [_vp],
+    "edge_softmax_fwd": [_vp] * 3 + [_ci] * 2 + [_vp],
+    "edge_softmax_bwd": [_vp] * 4 + [_ci] * 2 + [_vp],
 }
 
 
@@ -280,3 +292,102 @@ def gat_attention(g, feat, attn_l, attn_r, slope: float = 0.2, keep=None,
     Returns [N, H, D] in feat's dtype."""
     return _GATAttention.apply(feat, attn_l, attn_r, g, keep, float(inv_keep),
                                float(slope))
+
+
+# ---- the standalone segment softmax ---------------------------------------
+
+def _check_edge_rows(indptr, n_rows, *edge_arrays):
+    for t in edge_arrays:
+        if t.dtype != torch.float32 or t.dim() != 2:
+            raise TypeError(f"expected f32 [E, H], got {t.dtype} "
+                            f"{tuple(t.shape)}")
+        if t.shape != edge_arrays[0].shape or t.device != indptr.device:
+            raise ValueError("the edge arrays must share one shape and lie "
+                             "on indptr's device")
+    if indptr.dtype != torch.int32 or not indptr.is_contiguous():
+        raise TypeError(f"indptr must be contiguous int32, got {indptr.dtype}")
+    if indptr.numel() < n_rows + 1:
+        raise ValueError(f"indptr has {indptr.numel()} entries for "
+                         f"{n_rows} rows")
+
+
+def plain_edge_softmax_fwd(indptr, scores, n_rows):
+    """Plain version of `edge_softmax_fwd`: exp(s - segment max) / segment
+    sum per dst row and head, f32 [E, H]."""
+    note_plain(scores)
+    h = scores.shape[1]
+    dst = row_ids(indptr, n_rows)
+    smax = scores.new_zeros((n_rows, h)).scatter_reduce_(
+        0, dst[:, None].expand(-1, h), scores, "amax", include_self=False)
+    ex = torch.exp(scores - smax.index_select(0, dst))
+    den = scores.new_zeros((n_rows, h)).index_add_(0, dst, ex)
+    return ex / den.index_select(0, dst)
+
+
+def plain_edge_softmax_bwd(indptr, alpha, dalpha, n_rows):
+    """Plain version of `edge_softmax_bwd`: alpha * dalpha - alpha *
+    sum_seg(alpha * dalpha), f32 [E, H]."""
+    note_plain(alpha)
+    dst = row_ids(indptr, n_rows)
+    ag = alpha * dalpha
+    t = alpha.new_zeros((n_rows, alpha.shape[1])).index_add_(0, dst, ag)
+    return ag - alpha * t.index_select(0, dst)
+
+
+def edge_softmax_fwd(indptr, scores, n_rows):
+    """Segment softmax over the CSC rows: scores f32 [E, H] (E =
+    indptr[n_rows], dst-sorted) -> alpha f32 [E, H]."""
+    _check_edge_rows(indptr, n_rows, scores)
+    if scores.is_cuda:
+        scores = scores.contiguous()
+        alpha = torch.empty_like(scores)
+        lib = cuda_build.load("gat", _SIGNATURES)
+        cuda_build.launch("edge_softmax_fwd", lib.edge_softmax_fwd,
+                          scores.device, indptr.data_ptr(), scores.data_ptr(),
+                          alpha.data_ptr(), n_rows, scores.shape[1])
+        counts["edge_softmax_fwd"] += 1
+        return alpha
+    return plain_edge_softmax_fwd(indptr, scores, n_rows)
+
+
+def edge_softmax_bwd(indptr, alpha, dalpha, n_rows):
+    """Its VJP: alpha and dalpha f32 [E, H] -> ds f32 [E, H]."""
+    _check_edge_rows(indptr, n_rows, alpha, dalpha)
+    if alpha.is_cuda:
+        alpha, dalpha = alpha.contiguous(), dalpha.contiguous()
+        ds = torch.empty_like(alpha)
+        lib = cuda_build.load("gat", _SIGNATURES)
+        cuda_build.launch("edge_softmax_bwd", lib.edge_softmax_bwd,
+                          alpha.device, indptr.data_ptr(), alpha.data_ptr(),
+                          dalpha.data_ptr(), ds.data_ptr(), n_rows,
+                          alpha.shape[1])
+        counts["edge_softmax_bwd"] += 1
+        return ds
+    return plain_edge_softmax_bwd(indptr, alpha, dalpha, n_rows)
+
+
+class _EdgeSoftmax(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, scores, g):
+        alpha = edge_softmax_fwd(g.indptr, scores, g.n_nodes)
+        ctx.save_for_backward(alpha)
+        ctx.g = g
+        return alpha
+
+    @staticmethod
+    def backward(ctx, dalpha):
+        (alpha,) = ctx.saved_tensors
+        return edge_softmax_bwd(ctx.g.indptr, alpha, dalpha.float(),
+                                ctx.g.n_nodes), None
+
+
+def edge_softmax(g, scores):
+    """Softmax of scores [E] or [E, H] (dst-sorted edge order) over each
+    dst's in-edges, in the same shape and dtype; the kernels run in f32."""
+    if scores.dim() not in (1, 2) or scores.shape[0] != g.n_edges:
+        raise ValueError(f"edge_softmax takes scores [{g.n_edges}] or "
+                         f"[{g.n_edges}, H], got {tuple(scores.shape)}")
+    s2 = scores[:, None] if scores.dim() == 1 else scores
+    alpha = _EdgeSoftmax.apply(s2.float(), g).to(scores.dtype)
+    return alpha[:, 0] if scores.dim() == 1 else alpha

@@ -29,6 +29,21 @@ def u_mul_e_sum(g: Graph, x: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
     return out.index_add_(0, g.receivers, msgs * e)
 
 
+def gcn_norm_both(g: Graph, x: torch.Tensor,
+                  edge_weight: torch.Tensor | None = None,
+                  sum_fn=copy_u_sum, wsum_fn=u_mul_e_sum) -> torch.Tensor:
+    """D^-1/2 A D^-1/2 x (GraphConv norm='both'): out-degree norm on the
+    source side, in-degree norm on the destination side, both clamped
+    >= 1; `edge_weight` [E] optionally scales the messages (APPNP's edge
+    drop). `sum_fn` / `wsum_fn` take the plain f32 sums' place (the
+    dispatcher passes its tiered ones)."""
+    src_norm = torch.rsqrt(g.out_degrees.clamp(min=1.0))
+    dst_norm = torch.rsqrt(g.in_degrees.clamp(min=1.0))
+    h = x * src_norm[:, None]
+    h = sum_fn(g, h) if edge_weight is None else wsum_fn(g, h, edge_weight)
+    return h * dst_norm[:, None]
+
+
 def u_add_v(g: Graph, a_u: torch.Tensor, a_v: torch.Tensor) -> torch.Tensor:
     """Per-edge score a_u[src] + a_v[dst] (the GAT SDDMM)."""
     return a_u.index_select(0, g.senders) + a_v.index_select(0, g.receivers)

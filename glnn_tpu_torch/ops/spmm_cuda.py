@@ -24,8 +24,20 @@ the transposed (src-sorted) CSR, as `_spmm_bwd` (:265-270) reuses the
 kernel on the transposed plan; the int8 tier's backward is straight-through
 on the exact kernel (:421-425).
 
+The weighted sum behind `u_mul_e_sum` (spmm_pallas.py:438, messages at
+:288-310) is a third instantiation, `spmm_csr_weighted`:
+H[v] = sum over in-edges e of bf16(x[src(e)] * w[e]) in f32, with one
+scalar per edge (x [N, F], w [E]) or one per edge and head (x [N, H, D],
+w [E, H]). The kernel multiplies f32 rows by the weight and rounds each
+product once to bf16, as JAX rounds the weighted message. Its backward
+(:329-353) is the same kernel over the transposed CSR, reading the weights
+through `t_edges`, for dX; and, only when the weights need a gradient, the
+SDDMM dW[e] = <x[src(e)], dH[dst(e)]> (per head: summed over D) in plain
+f32 torch, which JAX also leaves outside its kernel.
+
 Every reduction has a plain PyTorch version here (`plain_csr_sum_bf16`,
-`plain_csr_sum_int8`) with the same rounding and quantisation. A wrapper
+`plain_csr_sum_int8`, `plain_csr_wsum_bf16`) with the same rounding and
+quantisation. A wrapper
 takes it only for a tensor on the CPU; for a CUDA tensor it launches the
 kernel or raises. `counts` records kernel launches per instantiation;
 plain-version calls on CUDA tensors go to `cuda_build.counts`.
@@ -43,12 +55,13 @@ import torch
 from glnn_tpu_torch.ops import cuda_build
 from glnn_tpu_torch.ops.cuda_build import note_plain, row_ids
 
-KERNELS = ("spmm_csr_bf16", "spmm_csr_int8")
+KERNELS = ("spmm_csr_bf16", "spmm_csr_int8", "spmm_csr_weighted")
 counts = {name: 0 for name in KERNELS}
 
 _vp, _ci = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"spmm_csr_bf16": [_vp, _vp, _vp, _vp, _ci, _ci, _vp],
-               "spmm_csr_int8": [_vp, _vp, _vp, _vp, _vp, _ci, _ci, _vp]}
+               "spmm_csr_int8": [_vp, _vp, _vp, _vp, _vp, _ci, _ci, _vp],
+               "spmm_csr_weighted": [_vp] * 6 + [_ci] * 3 + [_vp]}
 
 
 def reset_counts() -> None:
@@ -124,6 +137,61 @@ def csr_sum_int8(indptr, indices, q, scale, n_rows):
     return plain_csr_sum_int8(indptr, indices, q, scale, n_rows)
 
 
+def _heads(x, w):
+    """Weights per edge of the weighted sum: 1 for w [E], H for w [E, H]."""
+    heads = 1 if w.dim() == 1 else w.shape[1]
+    if (w.dtype != torch.float32 or w.dim() not in (1, 2)
+            or x.shape[1] % max(heads, 1)):
+        raise TypeError(f"w must be f32 [E] or [E, H] with H dividing F = "
+                        f"{x.shape[1]}, got {w.dtype} {tuple(w.shape)}")
+    return heads
+
+
+def plain_csr_wsum_bf16(indptr, indices, widx, x, w, n_rows):
+    """Plain version of the weighted kernel: f32 sums of
+    bf16(x[indices[e]] * w[widx(e)]), the product formed in f32;
+    widx(e) = widx[e], or e where widx is None."""
+    note_plain(x)
+    n_e = int(indptr[n_rows])
+    heads = _heads(x, w)
+    eid = (torch.arange(n_e, device=x.device) if widx is None
+           else widx[:n_e].long())
+    wv = w.view(w.shape[0], heads).index_select(0, eid)     # [E, heads]
+    msgs = x.index_select(0, indices[:n_e]).view(n_e, heads, -1) * wv[..., None]
+    msgs = msgs.to(torch.bfloat16).float().view(n_e, x.shape[1])
+    out = torch.zeros((n_rows, x.shape[1]), dtype=torch.float32,
+                      device=x.device)
+    return out.index_add_(0, row_ids(indptr, n_rows), msgs)
+
+
+def csr_wsum_bf16(indptr, indices, widx, x, w, n_rows):
+    """out[v] = sum_{e in indptr[v]:indptr[v+1]} bf16(x[indices[e]] *
+    w[widx(e)]) in f32: x f32 [*, F], w f32 [E] or [E, H] (H dividing F;
+    column c takes head c / (F / H)), widx int32 or None (the slot itself)."""
+    _check(indptr, indices, x, n_rows, torch.float32)
+    heads = _heads(x, w)
+    if widx is not None and widx.dtype != torch.int32:
+        raise TypeError(f"widx must be int32, got {widx.dtype}")
+    for name, t in (("w", w), ("widx", widx)):
+        if t is not None and t.device != x.device:
+            raise ValueError(f"{name} must lie on {x.device}")
+    if widx is not None and not widx.is_contiguous():
+        raise ValueError("widx must be contiguous")
+    if x.is_cuda:
+        x, w = x.contiguous(), w.contiguous()
+        out = torch.empty((n_rows, x.shape[1]), dtype=torch.float32,
+                          device=x.device)
+        lib = cuda_build.load("spmm", _SIGNATURES)
+        cuda_build.launch(
+            "spmm_csr_weighted", lib.spmm_csr_weighted, x.device,
+            indptr.data_ptr(), indices.data_ptr(),
+            None if widx is None else widx.data_ptr(), x.data_ptr(),
+            w.data_ptr(), out.data_ptr(), n_rows, x.shape[1], heads)
+        counts["spmm_csr_weighted"] += 1
+        return out
+    return plain_csr_wsum_bf16(indptr, indices, widx, x, w, n_rows)
+
+
 def to_message(x: torch.Tensor) -> torch.Tensor:
     """The exact tier's message dtype: f32 is cast to bf16 once, before the
     gather; bf16 passes through."""
@@ -173,3 +241,48 @@ def copy_u_sum(g, x: torch.Tensor) -> torch.Tensor:
 def copy_u_sum_int8(g, x: torch.Tensor) -> torch.Tensor:
     """int8 tier: per-column int8 messages, exact int32 sums, dequantised."""
     return _CopyUSum.apply(x, g, "int8")
+
+
+class _UMulESum(torch.autograd.Function):
+    """H = A_w x with A the dst-sorted CSC; dX = A_w^T dH on the kernel,
+    dW = <x[src], dH[dst]> in plain f32 torch when asked for."""
+
+    @staticmethod
+    def forward(ctx, x, w, g):
+        ctx.g = g
+        ctx.save_for_backward(x, w)
+        out = csr_wsum_bf16(g.indptr, g.senders, None,
+                            x.reshape(x.shape[0], -1).float(), w.float(),
+                            g.n_nodes)
+        return out.view((g.n_nodes,) + tuple(x.shape[1:])).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dh):
+        x, w = ctx.saved_tensors
+        g = ctx.g
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = csr_wsum_bf16(g.t_indptr, g.t_receivers, g.t_edges,
+                               dh.reshape(g.n_nodes, -1).float(), w.float(),
+                               g.n_nodes)
+            dx = dx.view(x.shape).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            xs = x.float().index_select(0, g.senders)
+            ds = dh.float().index_select(0, g.receivers)
+            dw = (xs * ds).sum(-1).to(w.dtype)
+        return dx, dw, None
+
+
+def u_mul_e_sum(g, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Weighted sum H[v] = sum_e bf16(x[src(e)] w[e]) in f32, in x's dtype:
+    x [N, F] with w [E], or x [N, H, D] with w [E, H] (per-head weights);
+    differentiable in x and w. w follows the graph's dst-sorted edge
+    order."""
+    if not ((x.dim() == 2 and w.dim() == 1)
+            or (x.dim() == 3 and w.dim() == 2 and w.shape[1] == x.shape[1])):
+        raise ValueError(f"u_mul_e_sum takes x [N, F] with w [E], or x "
+                         f"[N, H, D] with w [E, H]; got {tuple(x.shape)} and "
+                         f"{tuple(w.shape)}")
+    if x.shape[0] != g.n_nodes or w.shape[0] != g.n_edges:
+        raise ValueError(f"x must have {g.n_nodes} rows and w {g.n_edges}")
+    return _UMulESum.apply(x, w, g)

@@ -1,8 +1,9 @@
 """Train/eval functions and the transductive runners
 (`glnn_tpu/train/engine.py`).
 
-* `make_gnn_train_step`: the full-batch GNN step (GAT, and SAGE with
-  --sage_sampling full): NLL on idx_train, Adam step.
+* `make_gnn_train_step`: the full-batch GNN step (GCN, GAT, APPNP, and SAGE
+  with --sage_sampling full): NLL on idx_train, Adam step; the runner's
+  generator draws every dropout mask, APPNP's per-hop edge drop included.
 * `make_eval_fn`: all-node log-probs in eval mode. Intermediate evals are
   marked `ops.inference_mode()`, so on CUDA the auto backend takes the int8
   SpMM tier; `exact=True` (the final eval, whose log-probs become out.npz
@@ -16,8 +17,7 @@
   passes per epoch (hard labels scaled by lamb, then teacher log-probs
   scaled by 1 - lamb); Adam advances on the zero-scaled pass too.
 
-The inductive runners and the GCN/APPNP teachers are not ported yet
-(ROADMAP queue A items 5, 9).
+The inductive runners are not ported yet (ROADMAP queue A item 5).
 """
 
 from __future__ import annotations
@@ -42,8 +42,8 @@ from glnn_tpu_torch.utils.profiling import StepTimer
 
 def make_gnn_train_step(model, optimizer):
     """step(g, feats, labels, idx_train, gen) -> loss (a device scalar):
-    a training-mode forward over the whole graph, NLL on idx_train, one
-    optimizer step."""
+    a training-mode forward over the whole graph with its dropout masks
+    drawn from `gen`, NLL on idx_train, one optimizer step."""
 
     def step(g, feats, labels, idx_train, gen):
         model.train()
@@ -172,7 +172,7 @@ def _use_sampled_sage(conf, model) -> bool:
 def run_transductive(conf, model, g, feats, labels, indices, optimizer,
                      logger, loss_and_score, device):
     """Teacher training, transductive: an MLP, a sampled-SAGE or a
-    full-batch GNN (GAT, full SAGE) teacher on `device`. Returns
+    full-batch GNN (GCN, GAT, APPNP, full SAGE) teacher on `device`. Returns
     (out, score_val, score_test) with `out` the all-node log-probs (numpy)
     from the best checkpoint."""
     feats, labels = _tensors(device, np.asarray(feats, np.float32), labels)

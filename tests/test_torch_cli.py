@@ -75,7 +75,7 @@ def test_port_teacher_drives_jax_student(workdir):
     ["--exp_setting", "ind"], ["--n_shards", "2"],
     ["--sampler_tier", "window"], ["--compute_dtype", "bfloat16"],
     ["--feature_aug_k", "2"], ["--compute_min_cut"], ["--save_results"],
-    ["--teacher", "GCN"]])
+    ["--dataset", "cora"]])
 def test_unported_flags_raise(workdir, flag):
     from glnn_tpu_torch.cli import train_teacher
 

@@ -9,7 +9,11 @@ differ only in summation order (rtol 1e-5, atol 1e-4); int8 sums are exact
 order and in the forward's online softmax, which rescales its running sums
 when the segment max rises: f32 outputs at rtol 1e-4 / atol 1e-4 x max;
 the bf16 message by at most one bf16 ulp (rtol 2**-7), since a last-bit
-f32 difference can round either way; the segment max is exact.
+f32 difference can round either way; the segment max is exact. The
+weighted SpMM rounds the same f32 products as its plain version and
+differs in summation order only (rtol 1e-5, atol 1e-4); the segment
+softmax differs in the order of its f32 sums (rtol 1e-5 forward, 1e-4 for
+the gradient, as tests/test_pallas.py:368,421).
 """
 
 import numpy as np
@@ -71,7 +75,9 @@ def test_launch_counters_and_no_plain_calls(cuda):
     cuda_build.reset_counts()
     spmm_cuda.copy_u_sum(g, x)
     spmm_cuda.copy_u_sum_int8(g, x)
-    assert spmm_cuda.counts == {"spmm_csr_bf16": 1, "spmm_csr_int8": 1}
+    spmm_cuda.u_mul_e_sum(g, x, torch.rand(g.n_edges, device=cuda))
+    assert spmm_cuda.counts == {"spmm_csr_bf16": 1, "spmm_csr_int8": 1,
+                                "spmm_csr_weighted": 1}
     assert cuda_build.counts == {"plain_on_cuda": 0}
 
 
@@ -138,8 +144,10 @@ def test_gat_layer_runs_the_kernels_and_no_plain_version(cuda):
     cuda_build.reset_counts()
     out = ops.gat_attention(g, *leaves)
     out.backward(dout)
-    assert gat_cuda.counts == {"gat_fwd": 1, "gat_bwd": 1}
-    assert spmm_cuda.counts == {"spmm_csr_bf16": 1, "spmm_csr_int8": 0}
+    assert gat_cuda.counts == {"gat_fwd": 1, "gat_bwd": 1,
+                               "edge_softmax_fwd": 0, "edge_softmax_bwd": 0}
+    assert spmm_cuda.counts == {"spmm_csr_bf16": 1, "spmm_csr_int8": 0,
+                                "spmm_csr_weighted": 0}
     assert cuda_build.counts == {"plain_on_cuda": 0}
 
     feat_b, el, er_b, al_b = gat_cuda.prep(feat, al, ar)
@@ -157,9 +165,90 @@ def test_gat_layer_runs_the_kernels_and_no_plain_version(cuda):
 
 
 def test_unported_edge_ops_raise_on_cuda(cuda):
+    """The edge ops launch their kernels on CUDA tensors in the shapes of
+    their contracts, and raise outside them: no plain call."""
     g = _graph(100, 500, 5, cuda)
-    with pytest.raises(NotImplementedError, match="queue B item 4"):
-        ops.edge_softmax(g, torch.zeros((g.n_edges, 2), device=cuda))
-    with pytest.raises(NotImplementedError, match="queue B item 1"):
+    spmm_cuda.reset_counts()
+    gat_cuda.reset_counts()
+    cuda_build.reset_counts()
+    ops.edge_softmax(g, torch.zeros((g.n_edges, 2), device=cuda))
+    ops.u_mul_e_sum(g, torch.zeros((100, 3), device=cuda),
+                    torch.zeros(g.n_edges, device=cuda))
+    ops.gcn_norm_both(g, torch.zeros((100, 3), device=cuda),
+                      torch.ones(g.n_edges, device=cuda))
+    assert gat_cuda.counts["edge_softmax_fwd"] == 1
+    assert spmm_cuda.counts["spmm_csr_weighted"] == 2
+    with pytest.raises(ValueError, match="edge_softmax kernel"):
+        ops.edge_softmax(g, torch.zeros((g.n_edges, 2, 2), device=cuda))
+    with pytest.raises(ValueError, match="weighted SpMM kernel"):
         ops.u_mul_e_sum(g, torch.zeros((100, 3), device=cuda),
-                        torch.zeros(g.n_edges, device=cuda))
+                        torch.zeros((g.n_edges, 3), device=cuda))
+    assert cuda_build.counts == {"plain_on_cuda": 0}
+
+
+@pytest.mark.parametrize("heads,d", [(None, 1), (None, 7), (None, 40),
+                                     (None, 64), (None, 100), (None, 128),
+                                     (8, 16), (1, 40), (3, 5), (2, 7)])
+def test_weighted_kernel_matches_plain(cuda, heads, d):
+    """Forward walk and transposed walk (weights read through t_edges), with
+    zero in-degree rows; odd and narrow widths."""
+    g = _graph(500, 6000, 7 * d + (heads or 0), cuda, hub_free=20)
+    h = heads or 1
+    x = torch.randn((g.n_nodes, h * d), device=cuda)
+    for w in (torch.rand((g.n_edges, h), device=cuda),
+              (torch.rand((g.n_edges, h), device=cuda) >= 0.5).float() * 2):
+        w = w[:, 0].contiguous() if heads is None else w
+        for args in ((g.indptr, g.senders, None),
+                     (g.t_indptr, g.t_receivers, g.t_edges)):
+            got = spmm_cuda.csr_wsum_bf16(*args, x, w, g.n_nodes)
+            want = spmm_cuda.plain_csr_wsum_bf16(*args, x, w, g.n_nodes)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+        got = spmm_cuda.csr_wsum_bf16(g.indptr, g.senders, None, x, w,
+                                      g.n_nodes)
+        assert got[:20].abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("heads", [None, 4])
+def test_weighted_gradient_matches_plain(cuda, heads):
+    g = _graph(400, 5000, 8, cuda)
+    shape = (g.n_nodes, 24) if heads is None else (g.n_nodes, heads, 6)
+    x = torch.randn(shape, device=cuda, requires_grad=True)
+    w = torch.rand((g.n_edges,) if heads is None else (g.n_edges, heads),
+                   device=cuda, requires_grad=True)
+    dh = torch.randn(shape, device=cuda)
+    spmm_cuda.reset_counts()
+    dx, dw = torch.autograd.grad(spmm_cuda.u_mul_e_sum(g, x, w), (x, w), dh)
+    assert spmm_cuda.counts["spmm_csr_weighted"] == 2
+    n = g.n_nodes
+    want_dx = spmm_cuda.plain_csr_wsum_bf16(
+        g.t_indptr, g.t_receivers, g.t_edges, dh.reshape(n, -1), w.detach(),
+        n).view(shape)
+    want_dw = (x.detach()[g.senders.long()] * dh[g.receivers.long()]).sum(-1)
+    torch.testing.assert_close(dx, want_dx, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(dw, want_dw, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("heads", [None, 1, 3, 8, 40])
+def test_edge_softmax_kernels_match_plain(cuda, heads):
+    """1-D scores, one head, heads that do not divide 32 and more heads
+    than lanes; zero in-degree rows own no score."""
+    g = _graph(600, 7000, 9 + (heads or 0), cuda, hub_free=25)
+    shape = (g.n_edges,) if heads is None else (g.n_edges, heads)
+    s = (3 * torch.randn(shape, device=cuda)).requires_grad_(True)
+    da = torch.randn(shape, device=cuda)
+    gat_cuda.reset_counts()
+    alpha = gat_cuda.edge_softmax(g, s)
+    (ds,) = torch.autograd.grad(alpha, s, da)
+    assert gat_cuda.counts["edge_softmax_fwd"] == 1
+    assert gat_cuda.counts["edge_softmax_bwd"] == 1
+    assert alpha.shape == shape
+    s2 = s.detach().reshape(g.n_edges, -1)
+    want = gat_cuda.plain_edge_softmax_fwd(g.indptr, s2, g.n_nodes)
+    want_ds = gat_cuda.plain_edge_softmax_bwd(
+        g.indptr, want, da.reshape(g.n_edges, -1), g.n_nodes)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(alpha.reshape(want.shape), want, rtol=1e-5,
+                               atol=1e-6)
+    torch.testing.assert_close(ds.reshape(want.shape), want_ds, rtol=1e-4,
+                               atol=1e-6)

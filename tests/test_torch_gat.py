@@ -25,7 +25,7 @@ from glnn_tpu.train.state import make_adam as jax_make_adam
 from glnn_tpu_torch import ops
 from glnn_tpu_torch.graph.container import build_graph
 from glnn_tpu_torch.nn import Model, from_jax_variables
-from glnn_tpu_torch.ops import cuda_build, gat_cuda, refops
+from glnn_tpu_torch.ops import cuda_build, gat_cuda, refops, spmm_cuda
 from glnn_tpu_torch.train import make_adam, make_gnn_train_step
 
 N = 300
@@ -100,6 +100,52 @@ def test_edge_softmax_and_grad_match_refops(heads):
                                rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(st.grad.numpy(), np.asarray(dwant), rtol=1e-4,
                                atol=1e-6)
+
+
+@pytest.mark.parametrize("heads", [None, 1, 4])
+def test_softmax_plain_matches_pallas(heads):
+    """The standalone softmax's autograd.Function on the CPU (the plain
+    versions of edge_softmax_fwd/_bwd) against gat_pallas.edge_softmax in
+    interpret mode on a planned graph: forward at 1e-5, gradient at 1e-4.
+    Nodes 0..19 have no in-edges."""
+    gt, gj = _graphs(hub_free=20, plans=True)
+    rs = np.random.RandomState(14)
+    shape = (gt.n_edges,) if heads is None else (gt.n_edges, heads)
+    s = (rs.randn(*shape) * 3).astype(np.float32)
+    w = rs.randn(*shape).astype(np.float32)
+    st = torch.from_numpy(s).requires_grad_(True)
+    got = gat_cuda.edge_softmax(gt, st)
+    (got * torch.from_numpy(w)).sum().backward()
+    want = gat_pallas.edge_softmax(gj, jnp.asarray(s))
+    dwant = jax.grad(lambda z: (gat_pallas.edge_softmax(gj, z)
+                                * jnp.asarray(w)).sum())(jnp.asarray(s))
+    assert got.shape == st.shape
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(st.grad.numpy(), np.asarray(dwant), rtol=1e-4,
+                               atol=1e-6)
+
+
+def test_softmax_plain_versions_direct():
+    """The plain versions' own contract: [E, H] f32 in and out, the segment
+    max subtracted (finite where the scores of one segment lie far below
+    another's), and the VJP ds = a da - a sum_seg(a da)."""
+    gt, _ = _graphs(e=900, hub_free=30)
+    s = torch.randn(gt.n_edges, 3, generator=torch.Generator().manual_seed(1))
+    s[gt.receivers == gt.receivers[0]] -= 200.0     # one segment far below
+    alpha = gat_cuda.edge_softmax_fwd(gt.indptr, s, N)
+    dst = gt.receivers.long()
+    seg = torch.zeros(N, 3).index_add_(0, dst, alpha)
+    torch.testing.assert_close(seg[30:][gt.in_degrees[30:] > 0],
+                               torch.ones_like(seg[30:][gt.in_degrees[30:] > 0]))
+    da = torch.randn_like(alpha)
+    ds = gat_cuda.edge_softmax_bwd(gt.indptr, alpha, da, N)
+    t = torch.zeros(N, 3).index_add_(0, dst, alpha * da)[dst]
+    torch.testing.assert_close(ds, alpha * da - alpha * t)
+    with pytest.raises(TypeError):
+        gat_cuda.edge_softmax_fwd(gt.indptr, s.double(), N)
+    with pytest.raises(ValueError):
+        gat_cuda.edge_softmax(gt, s[:-1])
 
 
 @pytest.mark.parametrize("shapes", [((N, 8), (None,)), ((N, 3, 5), (3,))])
@@ -277,7 +323,7 @@ def test_dispatcher_tiers_on_cpu():
         with ops.inference_mode():
             got = ops.gat_attention(gt, *_t(feat, al, ar)).numpy()
         np.testing.assert_array_equal(got, fused)
-    assert gat_cuda.counts == {"gat_fwd": 0, "gat_bwd": 0}
+    assert gat_cuda.counts == {k: 0 for k in gat_cuda.KERNELS}
     assert cuda_build.counts == {"plain_on_cuda": 0}
 
 
@@ -301,14 +347,31 @@ def test_dispatcher_dropout_draws_edge_mask_from_generator():
 
 
 def test_unported_edge_kernels_raise_under_kernel_tier(monkeypatch):
-    """On a CUDA tensor under a kernel tier, the standalone edge_softmax and
-    the weighted SpMM raise (read here by forcing the predicate)."""
+    """Under a kernel tier the standalone edge_softmax and the weighted SpMM
+    take their kernels (the plain versions on the CPU), in every shape of
+    their contracts; on a CUDA tensor a shape outside a contract raises
+    rather than falling back (read here by forcing the predicate)."""
     gt, _ = _graphs(e=400)
+    rs = np.random.RandomState(13)
+    s1, s2 = _t(rs.randn(gt.n_edges).astype(np.float32),
+                rs.randn(gt.n_edges, 2).astype(np.float32))
+    x2, w1 = _t(rs.randn(N, 3).astype(np.float32),
+                rs.rand(gt.n_edges).astype(np.float32))
+    x3 = torch.from_numpy(rs.randn(N, 2, 4).astype(np.float32))
+    ops.set_backend("pallas")
+    assert torch.equal(ops.edge_softmax(gt, s1), gat_cuda.edge_softmax(gt, s1))
+    assert torch.equal(ops.edge_softmax(gt, s2), gat_cuda.edge_softmax(gt, s2))
+    assert torch.equal(ops.u_mul_e_sum(gt, x2, w1),
+                       spmm_cuda.u_mul_e_sum(gt, x2, w1))
+    assert torch.equal(ops.u_mul_e_sum(gt, x3, s2.abs()),
+                       spmm_cuda.u_mul_e_sum(gt, x3, s2.abs()))
     monkeypatch.setattr(ops, "_kernel_only", lambda x: True)
-    with pytest.raises(NotImplementedError, match="queue B item 4"):
-        ops.edge_softmax(gt, torch.zeros(gt.n_edges, 2))
-    with pytest.raises(NotImplementedError, match="queue B item 1"):
-        ops.u_mul_e_sum(gt, torch.zeros(N, 3), torch.zeros(gt.n_edges))
+    with pytest.raises(ValueError, match="edge_softmax kernel"):
+        ops.edge_softmax(gt, torch.zeros(gt.n_edges, 2, 2))
+    with pytest.raises(ValueError, match="weighted SpMM kernel"):
+        ops.u_mul_e_sum(gt, x2, s2)
+    with pytest.raises(ValueError, match="weighted SpMM kernel"):
+        ops.u_mul_e_sum(gt, x3, w1)
     monkeypatch.undo()
     assert not ops._kernel_only(torch.zeros(1))
 

@@ -130,9 +130,12 @@ def test_model_dispatch():
     assert Model(_conf("MLP3w4")).is_mlp
     assert not Model(_conf("SAGE")).is_mlp
     assert type(Model(dict(_conf("GAT"), num_heads=4)).module).__name__ == "GAT"
-    for name in ("GCN", "APPNP"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Model(_conf(name))
+    for name in ("GCN", "GCN2", "APPNP"):
+        model = Model(_conf(name))
+        assert type(model.module).__name__ == name.rstrip("2")
+        assert not model.is_mlp
+    appnp = Model(_conf("APPNP")).module
+    assert (appnp.k, appnp.alpha, appnp.edge_drop) == (10, 0.1, 0.5)
     with pytest.raises(ValueError):
         Model(_conf("Transformer"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
