@@ -37,6 +37,10 @@ Phases, each fatal on failure:
      - the segment softmax on [E], [E, 8] and [E, 1] scores (randn x 3),
        forward at rtol 1e-5 and gradient at rtol 1e-4
        (tests/test_pallas.py:368,421), atol 1e-6 x max|want|;
+     all of it twice: on the synth graph, and on a hub graph of the same N
+     and E whose first rows have HUB_DEGREES in- and out-edges (0 to
+     20,000: every kernel walks a row in 32-edge chunks, and the synth
+     graph's largest in-degree is 29), at the same tolerances;
   3. the op-surface path: the per-op GAT layer at both GAT shapes with a
      keep mask, composed from the public ops on CUDA (u_add_v ->
      leaky_relu -> edge_softmax -> mask -> u_mul_e_sum), counts set to 0
@@ -74,7 +78,10 @@ Phases, each fatal on failure:
      for the SpMM sums, torch.bmm of a sparse [H, N, N] for the per-head
      weighted sum, torch.sparse.softmax and its backward for the softmax;
      no single PyTorch call computes fused GAT attention or the int8
-     tier's sum), and compute each kernel's bound.
+     tier's sum), and compute each kernel's bound; then time the SpMM
+     kernels at F = 40 and gat_bwd at both GAT shapes on the hub graph,
+     where one warp walks each hub row alone (in the rows' detail, outside
+     their sums).
 Prints the card's name and power limit and a `kernels` JSON line; the last
 line is {"ok": true, "device": {...}}. Exits non-zero, with no result
 line, when there is no CUDA device or the port is missing.
@@ -108,6 +115,9 @@ GAT_SHAPES = ((8, 16), (1, 40))   # (heads, per-head width) of the 2 layers
 ATTN_DROP = 0.3              # the GAT row's attention dropout
 GCN_WIDTHS = (64, 40)        # F of the two GCN layers' aggregations
 APPNP_F, APPNP_HOPS, EDGE_DROP = 40, 10, 0.5
+# in-degrees (and out-degrees) of the hub graph's first rows: empty, one
+# edge, either side of one and two 32-edge chunks, and two long rows
+HUB_DEGREES = (0, 1, 31, 32, 33, 64, 65, 1000, 20000)
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3 peak rate
 FP32_OPS_PER_S = 67e12       # H100 SXM, outside the tensor cores
 SOURCES = {"spmm_csr_bf16": "glnn_tpu_torch/csrc/spmm_csr.cu",
@@ -159,6 +169,26 @@ def phase_build(cuda_build) -> None:
             if ("Compiling entry function" in line or "registers" in line
                     or "spill" in line):
                 log(f"  ptxas {name}: {line.split(':', 1)[-1].strip()}")
+
+
+def hub_graph(n, e, seed):
+    """A graph of n nodes and e edges whose node i < len(HUB_DEGREES) has
+    exactly HUB_DEGREES[i] in-edges and as many out-edges, from and to
+    distinct other nodes, so that both the forward and the transposed walks
+    meet those rows; the other edges join the remaining nodes uniformly
+    (numpy, from `seed`)."""
+    from glnn_tpu_torch.graph.container import build_graph
+
+    rs = np.random.RandomState(seed)
+    k = len(HUB_DEGREES)
+    hubs = np.repeat(np.arange(k), HUB_DEGREES)
+    rest = e - 2 * hubs.size
+    # each hub's neighbours are distinct, as in a graph without multi-edges
+    ends = [np.concatenate([rs.choice(np.arange(k, n), d, replace=False)
+                            for d in HUB_DEGREES]) for _ in range(2)]
+    src = np.concatenate([ends[0], hubs, rs.randint(k, n, rest)])
+    dst = np.concatenate([hubs, ends[1], rs.randint(k, n, rest)])
+    return build_graph(src, dst, n)
 
 
 def phase_check(spmm_cuda, g) -> dict:
@@ -224,7 +254,8 @@ def _held(name, got, want, rtol, scale) -> float:
     want = want.float()
     torch.testing.assert_close(
         got.float(), want, rtol=rtol,
-        atol=scale * want.abs().max().item() + 1e-12, msg=name)
+        atol=scale * want.abs().max().item() + 1e-12,
+        msg=lambda detail: f"{name}: {detail}")
     return (got.float() - want).abs().max().item()
 
 
@@ -885,7 +916,8 @@ def phase_times_softmax(gat_cuda, g, launches: dict, errs: dict) -> list:
     kernel, plain version, bound; the forward also against
     torch.sparse.softmax over a COO [N, N] (x H) tensor, with the scores
     as values (hybrid for H = 8), and the backward against its VJP,
-    torch._sparse_softmax_backward_data, on the same COO layout. Bytes:
+    torch._sparse_softmax_backward_data, on the same COO layout and the
+    library's alpha. Bytes:
     the [E, H] inputs and output and indptr."""
     from glnn_tpu_torch.ops.cuda_build import row_ids
 
@@ -913,9 +945,13 @@ def phase_times_softmax(gat_cuda, g, launches: dict, errs: dict) -> list:
             lib.shape, check_invariants=True).coalesce()
         lib_bwd = lambda: torch._sparse_softmax_backward_data(  # noqa: E731
             dcoo, lib, 1, coo)
+        # both backwards from the library's alpha: ds = a (da - t) cancels,
+        # so a last-bit difference in alpha alone can move ds past 1e-6
+        lib_alpha = torch.empty_like(alpha)
+        lib_alpha[order] = lib.values().reshape(e, h)
         torch.testing.assert_close(
             lib_bwd().values().reshape(e, h),
-            gat_cuda.edge_softmax_bwd(g.indptr, alpha, da, n)[order],
+            gat_cuda.edge_softmax_bwd(g.indptr, lib_alpha, da, n)[order],
             rtol=1e-4, atol=1e-6)
         lib_bwd_ms = time_ms(lib_bwd)
         cases = {
@@ -951,6 +987,48 @@ def phase_times_softmax(gat_cuda, g, launches: dict, errs: dict) -> list:
             for name, row in rows.items()]
 
 
+def phase_times_hub(spmm_cuda, gat_cuda, hub, kernels: list) -> None:
+    """One timing of each SpMM entry point at F = 40 and of gat_bwd at both
+    GAT shapes (keep mask on) on the hub graph, where one warp walks each
+    hub row alone; added to the rows' detail as `hub_graph_ms`, outside
+    their sums."""
+    gen = torch.Generator(device=hub.device).manual_seed(10)
+    n, e = hub.n_nodes, hub.n_edges
+    f = APPNP_F
+    x = torch.randn((n, f), generator=gen, device=hub.device)
+    xb = spmm_cuda.to_message(x)
+    q, s = spmm_cuda.quantize_cols(x)
+    w = (torch.rand(e, generator=gen, device=hub.device)
+         >= EDGE_DROP).float() / (1.0 - EDGE_DROP)
+    idx_bytes = 4 * (e + n + 1)
+    cases = {
+        "spmm_csr_bf16": (lambda: spmm_cuda.csr_sum_bf16(
+            hub.indptr, hub.senders, xb, n), n * f * 6 + idx_bytes),
+        "spmm_csr_int8": (lambda: spmm_cuda.csr_sum_int8(
+            hub.indptr, hub.senders, q, s, n), n * f * 5 + 4 * f + idx_bytes),
+        "spmm_csr_weighted": (lambda: spmm_cuda.csr_wsum_bf16(
+            hub.indptr, hub.senders, None, x, w, n),
+            n * f * 8 + e * 4 + idx_bytes),
+    }
+    detail = {}
+    for name, (kernel, nbytes) in cases.items():
+        ms = time_ms(kernel)
+        detail[name] = {f"F={f}": dict(
+            ms=ms, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)}
+        log(f"time hub graph F={f} {name}: kernel {ms:.4f} ms, bytes bound "
+            f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
+    detail["gat_bwd"] = {}
+    for h, d in GAT_SHAPES:
+        args, dout, al_b = gat_inputs(gat_cuda, hub, h, d, ATTN_DROP, 11)
+        _, smax, denom = gat_cuda.gat_fwd(*args)
+        ms = time_ms(lambda: gat_cuda.gat_bwd(*args, smax, denom, dout, al_b))
+        detail["gat_bwd"][f"H={h},D={d}"] = dict(ms=ms)
+        log(f"time hub graph (H, D) = ({h}, {d}) gat_bwd: kernel {ms:.4f} ms")
+    for row in kernels:
+        if row["name"] in detail:
+            row["hub_graph_ms"] = detail[row["name"]]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -967,14 +1045,28 @@ def main() -> int:
     phase_build(cuda_build)
 
     host, *_ = load_synth_data(DATASET, 0, 20, 30)
-    g = host.to_device(torch.device("cuda:0"))
-    log(f"graph {DATASET}: N={g.n_nodes}, E={g.n_edges}")
-    errs = phase_check(spmm_cuda, g)
-    errs.update(phase_check_gat(gat_cuda, g))
-    phase_check_gat_layer(gat_cuda, g)
-    errs["spmm_csr_weighted"] = phase_check_weighted(spmm_cuda, g)
-    errs.update(phase_check_softmax(gat_cuda, g))
-    torch.cuda.empty_cache()
+    dev = torch.device("cuda:0")
+    g = host.to_device(dev)
+    hub = hub_graph(g.n_nodes, g.n_edges, 9).to(dev)
+    deg = torch.bincount(g.receivers.long(), minlength=g.n_nodes)
+    log(f"graph {DATASET}: N={g.n_nodes}, E={g.n_edges}, in-degree max "
+        f"{deg.max().item()}, mean {deg.float().mean().item():.2f}")
+    log(f"hub graph: N={hub.n_nodes}, E={hub.n_edges}, in-degrees of rows "
+        f"0-{len(HUB_DEGREES) - 1} "
+        f"{hub.in_degrees[:len(HUB_DEGREES)].int().tolist()}, out-degrees "
+        f"{hub.out_degrees[:len(HUB_DEGREES)].int().tolist()}")
+    errs, hub_errs = {}, {}
+    for tag, gr, into in (("smoke", g, errs), ("hub", hub, hub_errs)):
+        log(f"checks on the {tag} graph")
+        into.update(phase_check(spmm_cuda, gr))
+        into.update(phase_check_gat(gat_cuda, gr))
+        phase_check_gat_layer(gat_cuda, gr)
+        into["spmm_csr_weighted"] = phase_check_weighted(spmm_cuda, gr)
+        into.update(phase_check_softmax(gat_cuda, gr))
+        log(f"{tag} graph: max|err| per kernel {into}")
+        torch.cuda.empty_cache()
+    for name, err in hub_errs.items():
+        errs[name] = max(errs[name], err)
     op_surface = phase_op_surface(ops, cuda_build, spmm_cuda, gat_cuda, g)
     torch.cuda.empty_cache()
 
@@ -986,6 +1078,9 @@ def main() -> int:
                + phase_times_weighted(spmm_cuda, g, launches, errs)
                + phase_times_gat(gat_cuda, g, launches, errs)
                + phase_times_softmax(gat_cuda, g, launches, errs))
+    phase_times_hub(spmm_cuda, gat_cuda, hub, kernels)
+    for row in kernels:
+        row["hub_graph_max_abs_err"] = hub_errs[row["name"]]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True,

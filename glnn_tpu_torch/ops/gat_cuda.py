@@ -22,7 +22,12 @@ slot inside its body.
   denominator and runs the f32 softmax VJP: der [N, H] f32, the per-edge
   message msg[e,h,:] = alpha w dout[v,h,:] + ds_pre attn_l[h,:] in bf16
   (dst-sorted edge order, as gat_pallas.py:264 per slot), and per-warp
-  partials of dattn_l, summed here.
+  partials of dattn_l, summed here. Its lanes lie across (edge, head,
+  column group); its first pass keeps each edge's alpha, w, w g and
+  leaky_relu' factor in shared memory, from which the second forms the
+  VJP and the message; `bwd_geometry` works out that layout (see the
+  source's note) and the launch passes it, with a grid that fills every
+  SM once.
 * As `_fused_bwd` (:494-505): the message is reduced over sources by the
   CSR SpMM kernel over the transposed CSR (`t_indptr`, `t_edges`),
   dfeat_dst = der * attn_r, and dattn_r = einsum(der, feat) in plain torch.
@@ -51,6 +56,7 @@ calls on CUDA tensors go to `cuda_build.counts`.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -61,7 +67,7 @@ KERNELS = ("gat_fwd", "gat_bwd", "edge_softmax_fwd", "edge_softmax_bwd")
 counts = {name: 0 for name in KERNELS}
 
 WARPS_PER_BLOCK = 8      # kWarps in gat_csr.cu
-BWD_MAX_BLOCKS = 1056    # 8 blocks of 256 threads on each of 132 SMs
+BWD_CACHE_BYTES = 4096   # shared memory per warp for gat_bwd's per-edge terms
 # per-head widths the kernels take: D / VEC <= 128, VEC the largest power
 # of two <= 8 dividing D (gat_csr.cu `geometry`)
 _MAX_GROUPS = 128
@@ -69,15 +75,44 @@ _MAX_GROUPS = 128
 _vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "gat_fwd": [_vp] * 6 + [_cf, _cf] + [_vp] * 3 + [_ci] * 3 + [_vp],
-    "gat_bwd": [_vp] * 6 + [_cf, _cf] + [_vp] * 7 + [_ci] * 4 + [_vp],
+    "gat_bwd": [_vp] * 6 + [_cf, _cf] + [_vp] * 7 + [_ci] * 10 + [_vp],
+    "gat_bwd_blocks_per_sm": [_ci] * 4,
     "edge_softmax_fwd": [_vp] * 3 + [_ci] * 2 + [_vp],
     "edge_softmax_bwd": [_vp] * 4 + [_ci] * 2 + [_vp],
 }
+_blocks_per_sm: dict = {}
 
 
 def reset_counts() -> None:
     for k in counts:
         counts[k] = 0
+
+
+class BwdGeometry(NamedTuple):
+    vec: int     # bf16 features per load (a power of two <= 8 dividing D)
+    reps: int    # loads per lane and head, strided by lh * vec
+    lh: int      # lanes per head
+    hp: int      # heads per pass over a row's edges
+    slots: int   # edges walked at once
+    kcache: int  # edges per row whose terms stay in shared memory
+
+
+def bwd_geometry(h: int, d: int, align: int = 16) -> BwdGeometry:
+    """gat_bwd's lane layout for H = h heads of width D = d, given feature
+    and message base addresses aligned to `align` bytes: lanes across
+    (edge slot, head, column group), so that all heads share one pass when
+    H * lh <= 32, and 32 // (hp * lh) edges are walked at once."""
+    vec = 8
+    while vec > 1 and (d % vec or align % (2 * vec)):
+        vec //= 2
+    groups = d // vec
+    reps = 1
+    while reps * 32 < groups:
+        reps *= 2
+    lh = -(-groups // reps)
+    hp = min(h, 32 // lh)
+    return BwdGeometry(vec, reps, lh, hp, 32 // (hp * lh),
+                       BWD_CACHE_BYTES // (16 * hp))
 
 
 def supported_width(d: int) -> bool:
@@ -191,27 +226,44 @@ def _launch_fwd(indptr, senders, feat_b, el, er_b, keep, inv_keep, slope):
     return out, smax, denom
 
 
+def _bwd_blocks(lib, geo: BwdGeometry, device: torch.device) -> int:
+    """Blocks of gat_bwd that fill every SM of `device` once."""
+    key = (device, geo.vec, geo.reps, geo.kcache, geo.hp)
+    if key not in _blocks_per_sm:
+        with torch.cuda.device(device):
+            per_sm = lib.gat_bwd_blocks_per_sm(geo.vec, geo.reps, geo.kcache,
+                                               geo.hp)
+            props = torch.cuda.get_device_properties(device)
+        if per_sm <= 0:
+            raise RuntimeError(f"gat_bwd occupancy query failed: CUDA error "
+                               f"{-per_sm}")
+        _blocks_per_sm[key] = per_sm * props.multi_processor_count
+    return _blocks_per_sm[key]
+
+
 def _launch_bwd(indptr, senders, feat_b, el, er_b, keep, inv_keep, slope,
                 smax, denom, dout, al_b):
     n_rows, (_, h, d) = er_b.shape[0], feat_b.shape
     n_edges = senders.numel()
-    n_blocks = max(1, min(-(-n_rows // WARPS_PER_BLOCK), BWD_MAX_BLOCKS))
     dev = feat_b.device
     der = torch.empty((n_rows, h), dtype=torch.float32, device=dev)
     msg = torch.empty((n_edges, h, d), dtype=torch.bfloat16, device=dev)
+    geo = bwd_geometry(h, d, align=feat_b.data_ptr() | msg.data_ptr())
+    lib = cuda_build.load("gat", _SIGNATURES)
+    n_blocks = max(1, min(-(-n_rows // WARPS_PER_BLOCK),
+                          _bwd_blocks(lib, geo, dev)))
     part = torch.empty((n_blocks * WARPS_PER_BLOCK, h, d),
                        dtype=torch.float32, device=dev)
     keep = _keep_bytes(keep)
     dout = dout.float().contiguous()
     al_b = al_b.contiguous()
-    lib = cuda_build.load("gat", _SIGNATURES)
     cuda_build.launch(
         "gat_bwd", lib.gat_bwd, dev, indptr.data_ptr(), senders.data_ptr(),
         feat_b.data_ptr(), el.data_ptr(), er_b.data_ptr(),
         None if keep is None else keep.data_ptr(), inv_keep, slope,
         smax.data_ptr(), denom.data_ptr(), dout.data_ptr(), al_b.data_ptr(),
         der.data_ptr(), msg.data_ptr(), part.data_ptr(), n_rows, h, d,
-        n_blocks)
+        n_blocks, *geo)
     counts["gat_bwd"] += 1
     return der, msg, part.sum(0)
 
@@ -311,26 +363,35 @@ def _check_edge_rows(indptr, n_rows, *edge_arrays):
                          f"{n_rows} rows")
 
 
+def _segment_sum(values, dst, n_rows):
+    """Per-dst sums of f32 [E, H] values, accumulated in f64 and rounded
+    once to f32: a single f32 accumulator (index_add_) loses about 1e-5 of
+    a 20,000-edge segment's sum of exponentials, ten times the kernel's
+    error, so the plain version would not be a yardstick on hub rows."""
+    acc = values.new_zeros((n_rows, values.shape[1]), dtype=torch.float64)
+    return acc.index_add_(0, dst, values.double()).float()
+
+
 def plain_edge_softmax_fwd(indptr, scores, n_rows):
     """Plain version of `edge_softmax_fwd`: exp(s - segment max) / segment
-    sum per dst row and head, f32 [E, H]."""
+    sum per dst row and head, f32 [E, H] (the sums in f64)."""
     note_plain(scores)
     h = scores.shape[1]
     dst = row_ids(indptr, n_rows)
     smax = scores.new_zeros((n_rows, h)).scatter_reduce_(
         0, dst[:, None].expand(-1, h), scores, "amax", include_self=False)
     ex = torch.exp(scores - smax.index_select(0, dst))
-    den = scores.new_zeros((n_rows, h)).index_add_(0, dst, ex)
+    den = _segment_sum(ex, dst, n_rows)
     return ex / den.index_select(0, dst)
 
 
 def plain_edge_softmax_bwd(indptr, alpha, dalpha, n_rows):
     """Plain version of `edge_softmax_bwd`: alpha * dalpha - alpha *
-    sum_seg(alpha * dalpha), f32 [E, H]."""
+    sum_seg(alpha * dalpha), f32 [E, H] (the sums in f64)."""
     note_plain(alpha)
     dst = row_ids(indptr, n_rows)
     ag = alpha * dalpha
-    t = alpha.new_zeros((n_rows, alpha.shape[1])).index_add_(0, dst, ag)
+    t = _segment_sum(ag, dst, n_rows)
     return ag - alpha * t.index_select(0, dst)
 
 

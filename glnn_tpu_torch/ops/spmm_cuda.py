@@ -16,8 +16,10 @@ The kernel (`csrc/spmm_csr.cu`) walks the dst-sorted CSC directly: a warp
 owns a dst row and sums the gathered rows in registers, so there is no
 one-hot, no message tensor and no atomics. It is bound by bytes on an H100
 (the E * F * itemsize bytes of gathered rows, the indices, and the N * F * 4
-bytes of output); its design keeps each lane's loads 16 bytes wide where F
-allows and loads 32 indices per warp at once (see the source's note).
+bytes of output). Its lanes lie across (edge, column group) pairs, so that
+several row reads of up to 16 bytes per lane are in flight and a row takes
+one pass over its edges; `geometry` works out that layout (see the
+source's note) and every launch passes it to the kernel, which checks it.
 
 Gradients: both tiers are linear, so the backward is the exact kernel over
 the transposed (src-sorted) CSR, as `_spmm_bwd` (:265-270) reuses the
@@ -59,14 +61,34 @@ KERNELS = ("spmm_csr_bf16", "spmm_csr_int8", "spmm_csr_weighted")
 counts = {name: 0 for name in KERNELS}
 
 _vp, _ci = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"spmm_csr_bf16": [_vp, _vp, _vp, _vp, _ci, _ci, _vp],
-               "spmm_csr_int8": [_vp, _vp, _vp, _vp, _vp, _ci, _ci, _vp],
-               "spmm_csr_weighted": [_vp] * 6 + [_ci] * 3 + [_vp]}
+_SIGNATURES = {"spmm_csr_bf16": [_vp] * 4 + [_ci] * 5 + [_vp],
+               "spmm_csr_int8": [_vp] * 5 + [_ci] * 5 + [_vp],
+               "spmm_csr_weighted": [_vp] * 6 + [_ci] * 6 + [_vp]}
 
 
 def reset_counts() -> None:
     for k in counts:
         counts[k] = 0
+
+
+def geometry(f: int, itemsize: int, head_width: int | None = None,
+             align: int = 16) -> tuple[int, int, int]:
+    """(vec, lanes, groups): the kernel's lane layout for rows of f elements
+    of `itemsize` bytes. vec is the widest load of at most 16 bytes and 8
+    elements that divides f (and the weighted policy's head width) and
+    keeps every row aligned, given base addresses aligned to `align` bytes;
+    `lanes` = ceil(f / vec), at most 32, cover a row's columns, and groups
+    = 32 // lanes edge groups take every groups-th edge of the row, so a
+    row up to 32 * vec wide takes one pass over its edges. (16 int8
+    elements per lane measured slower on an H100 at every width: twice
+    the accumulators, and twice the shuffles where the groups' sums
+    merge; tools/sweep_cuda_kernels.py.)"""
+    vec = min(8, 16 // itemsize)
+    while vec > 1 and (f % vec or (head_width is not None and head_width % vec)
+                       or align % (vec * itemsize)):
+        vec //= 2
+    lanes = min(32, -(-f // vec))
+    return vec, lanes, 32 // lanes
 
 
 def _check(indptr, indices, x, n_rows, dtype):
@@ -92,7 +114,9 @@ def _launch(name, indptr, indices, x, scale, n_rows):
     if scale is not None:
         ptrs.append(scale.data_ptr())
     cuda_build.launch(name, getattr(lib, name), x.device, *ptrs,
-                      out.data_ptr(), n_rows, x.shape[1])
+                      out.data_ptr(), n_rows, x.shape[1],
+                      *geometry(x.shape[1], x.element_size(),
+                                align=x.data_ptr()))
     counts[name] += 1
     return out
 
@@ -182,11 +206,13 @@ def csr_wsum_bf16(indptr, indices, widx, x, w, n_rows):
         out = torch.empty((n_rows, x.shape[1]), dtype=torch.float32,
                           device=x.device)
         lib = cuda_build.load("spmm", _SIGNATURES)
+        f = x.shape[1]
         cuda_build.launch(
             "spmm_csr_weighted", lib.spmm_csr_weighted, x.device,
             indptr.data_ptr(), indices.data_ptr(),
             None if widx is None else widx.data_ptr(), x.data_ptr(),
-            w.data_ptr(), out.data_ptr(), n_rows, x.shape[1], heads)
+            w.data_ptr(), out.data_ptr(), n_rows, f, heads,
+            *geometry(f, 4, f // heads, align=x.data_ptr()))
         counts["spmm_csr_weighted"] += 1
         return out
     return plain_csr_wsum_bf16(indptr, indices, widx, x, w, n_rows)

@@ -14,6 +14,11 @@ weighted SpMM rounds the same f32 products as its plain version and
 differs in summation order only (rtol 1e-5, atol 1e-4); the segment
 softmax differs in the order of its f32 sums (rtol 1e-5 forward, 1e-4 for
 the gradient, as tests/test_pallas.py:368,421).
+
+Every kernel walks a dst row's edges in chunks of 32, so each kernel test
+also runs on a hub graph (`_hub_graph`) whose first rows have the in- and
+out-degrees HUB_DEGREES: empty, one edge, either side of one and of two
+chunks, and rows of about a thousand and twenty thousand edges.
 """
 
 import numpy as np
@@ -34,6 +39,15 @@ def cuda():
     return torch.device("cuda:0")
 
 
+HUB_DEGREES = (0, 1, 31, 32, 33, 64, 65, 1000, 20000)
+HUB_NODES = 25000
+SPMM_WIDTHS = [1, 7, 40, 64, 100, 128, 256, 300]
+GAT_SHAPES = [(8, 16), (1, 40), (2, 7), (3, 5)]
+WEIGHTED_SHAPES = [(None, 1), (None, 7), (None, 40), (None, 64), (None, 100),
+                   (None, 128), (8, 16), (1, 40), (3, 5), (2, 7)]
+SOFTMAX_HEADS = [None, 1, 3, 8, 40]
+
+
 def _graph(n, e, seed, device, hub_free=0):
     """Random graph whose first `hub_free` nodes receive no edges."""
     rs = np.random.RandomState(seed)
@@ -41,20 +55,51 @@ def _graph(n, e, seed, device, hub_free=0):
                        n).to(device)
 
 
-@pytest.mark.parametrize("f", [1, 7, 40, 64, 100, 128, 256, 300])
-def test_kernels_match_plain(cuda, f):
-    g = _graph(500, 6000, f, cuda, hub_free=20)
-    x = torch.randn((g.n_nodes, f), device=cuda)
+def _hub_graph(n, e, seed, device):
+    """Random graph whose node i < len(HUB_DEGREES) has exactly
+    HUB_DEGREES[i] in-edges and as many out-edges (so the transposed walk
+    meets the same rows), from and to distinct other nodes as in a graph
+    without multi-edges, so n must exceed max(HUB_DEGREES); the other e
+    edges join the remaining nodes uniformly. Node 0 is the zero-degree
+    row."""
+    rs = np.random.RandomState(seed)
+    k = len(HUB_DEGREES)
+    hubs = np.repeat(np.arange(k), HUB_DEGREES)
+    ends = [np.concatenate([rs.choice(np.arange(k, n), d, replace=False)
+                            for d in HUB_DEGREES]) for _ in range(2)]
+    src = np.concatenate([ends[0], hubs, rs.randint(k, n, e)])
+    dst = np.concatenate([hubs, ends[1], rs.randint(k, n, e)])
+    return build_graph(src, dst, n).to(device)
+
+
+def _spmm_matches_plain(g, f, zero_rows):
+    x = torch.randn((g.n_nodes, f), device=g.device)
     xb = spmm_cuda.to_message(x)
-    got = spmm_cuda.csr_sum_bf16(g.indptr, g.senders, xb, g.n_nodes)
-    want = spmm_cuda.plain_csr_sum_bf16(g.indptr, g.senders, xb, g.n_nodes)
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
-    assert got[:20].abs().max().item() == 0.0       # zero-degree rows
+    # the forward walk, then the transposed walk of the exact tier's backward
+    for indptr, cols in ((g.indptr, g.senders), (g.t_indptr, g.t_receivers)):
+        got = spmm_cuda.csr_sum_bf16(indptr, cols, xb, g.n_nodes)
+        want = spmm_cuda.plain_csr_sum_bf16(indptr, cols, xb, g.n_nodes)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+        if indptr is g.indptr:                            # zero in-degree rows
+            assert got[zero_rows].abs().max().item() == 0.0
 
     q, s = spmm_cuda.quantize_cols(x)
     got = spmm_cuda.csr_sum_int8(g.indptr, g.senders, q, s, g.n_nodes)
     want = spmm_cuda.plain_csr_sum_int8(g.indptr, g.senders, q, s, g.n_nodes)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("f", SPMM_WIDTHS)
+def test_kernels_match_plain(cuda, f):
+    _spmm_matches_plain(_graph(500, 6000, f, cuda, hub_free=20), f,
+                        slice(0, 20))
+
+
+@pytest.mark.parametrize("f", SPMM_WIDTHS)
+def test_kernels_match_plain_on_hub_rows(cuda, f):
+    g = _hub_graph(HUB_NODES, 6000, f, cuda)
+    assert g.in_degrees[:len(HUB_DEGREES)].tolist() == list(HUB_DEGREES)
+    _spmm_matches_plain(g, f, slice(0, 1))
 
 
 def test_gradient_matches_plain_backward(cuda):
@@ -105,10 +150,7 @@ def _gat_inputs(g, h, d, drop, seed):
     return feat, al, ar, keep
 
 
-@pytest.mark.parametrize("drop", [0.0, 0.3])
-@pytest.mark.parametrize("h,d", [(8, 16), (1, 40), (2, 7), (3, 5)])
-def test_gat_kernels_match_plain(cuda, h, d, drop):
-    g = _graph(600, 7000, h * 10 + d, cuda, hub_free=25)
+def _gat_matches_plain(g, h, d, drop, zero_rows):
     feat, al, ar, keep = _gat_inputs(g, h, d, drop, 1)
     inv_keep = 1.0 / (1.0 - drop)
     feat_b, el, er_b, al_b = gat_cuda.prep(feat, al, ar)
@@ -119,7 +161,7 @@ def test_gat_kernels_match_plain(cuda, h, d, drop):
     _close(out, want[0])
     assert torch.equal(smax, want[1])
     _close(denom, want[2], rtol=1e-5, scale=1e-6)
-    assert out[:25].abs().max().item() == 0.0       # zero in-degree rows
+    assert out[zero_rows].abs().max().item() == 0.0  # zero in-degree rows
 
     dout = torch.randn_like(feat)
     got = gat_cuda.gat_bwd(*args, smax, denom, dout, al_b)
@@ -128,7 +170,21 @@ def test_gat_kernels_match_plain(cuda, h, d, drop):
     _close(got[0], want[0])
     _close(got[1], want[1], rtol=2.0 ** -7, scale=1e-5)
     _close(got[2], want[2])
-    assert got[0][:25].abs().max().item() == 0.0
+    assert got[0][zero_rows].abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("drop", [0.0, 0.3])
+@pytest.mark.parametrize("h,d", GAT_SHAPES)
+def test_gat_kernels_match_plain(cuda, h, d, drop):
+    _gat_matches_plain(_graph(600, 7000, h * 10 + d, cuda, hub_free=25), h,
+                       d, drop, slice(0, 25))
+
+
+@pytest.mark.parametrize("drop", [0.0, 0.3])
+@pytest.mark.parametrize("h,d", GAT_SHAPES)
+def test_gat_kernels_match_plain_on_hub_rows(cuda, h, d, drop):
+    _gat_matches_plain(_hub_graph(HUB_NODES, 7000, h * 10 + d, cuda), h, d,
+                       drop, slice(0, 1))
 
 
 def test_gat_layer_runs_the_kernels_and_no_plain_version(cuda):
@@ -186,13 +242,8 @@ def test_unported_edge_ops_raise_on_cuda(cuda):
     assert cuda_build.counts == {"plain_on_cuda": 0}
 
 
-@pytest.mark.parametrize("heads,d", [(None, 1), (None, 7), (None, 40),
-                                     (None, 64), (None, 100), (None, 128),
-                                     (8, 16), (1, 40), (3, 5), (2, 7)])
-def test_weighted_kernel_matches_plain(cuda, heads, d):
-    """Forward walk and transposed walk (weights read through t_edges), with
-    zero in-degree rows; odd and narrow widths."""
-    g = _graph(500, 6000, 7 * d + (heads or 0), cuda, hub_free=20)
+def _weighted_matches_plain(g, heads, d, zero_rows):
+    cuda = g.device
     h = heads or 1
     x = torch.randn((g.n_nodes, h * d), device=cuda)
     for w in (torch.rand((g.n_edges, h), device=cuda),
@@ -206,7 +257,23 @@ def test_weighted_kernel_matches_plain(cuda, heads, d):
             torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
         got = spmm_cuda.csr_wsum_bf16(g.indptr, g.senders, None, x, w,
                                       g.n_nodes)
-        assert got[:20].abs().max().item() == 0.0
+        assert got[zero_rows].abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("heads,d", WEIGHTED_SHAPES)
+def test_weighted_kernel_matches_plain(cuda, heads, d):
+    """Forward walk and transposed walk (weights read through t_edges), with
+    zero in-degree rows; odd and narrow widths."""
+    _weighted_matches_plain(
+        _graph(500, 6000, 7 * d + (heads or 0), cuda, hub_free=20), heads, d,
+        slice(0, 20))
+
+
+@pytest.mark.parametrize("heads,d", WEIGHTED_SHAPES)
+def test_weighted_kernel_matches_plain_on_hub_rows(cuda, heads, d):
+    _weighted_matches_plain(
+        _hub_graph(HUB_NODES, 6000, 7 * d + (heads or 0), cuda), heads, d,
+        slice(0, 1))
 
 
 @pytest.mark.parametrize("heads", [None, 4])
@@ -229,11 +296,8 @@ def test_weighted_gradient_matches_plain(cuda, heads):
     torch.testing.assert_close(dw, want_dw, rtol=1e-5, atol=1e-4)
 
 
-@pytest.mark.parametrize("heads", [None, 1, 3, 8, 40])
-def test_edge_softmax_kernels_match_plain(cuda, heads):
-    """1-D scores, one head, heads that do not divide 32 and more heads
-    than lanes; zero in-degree rows own no score."""
-    g = _graph(600, 7000, 9 + (heads or 0), cuda, hub_free=25)
+def _softmax_matches_plain(g, heads):
+    cuda = g.device
     shape = (g.n_edges,) if heads is None else (g.n_edges, heads)
     s = (3 * torch.randn(shape, device=cuda)).requires_grad_(True)
     da = torch.randn(shape, device=cuda)
@@ -252,3 +316,17 @@ def test_edge_softmax_kernels_match_plain(cuda, heads):
                                atol=1e-6)
     torch.testing.assert_close(ds.reshape(want.shape), want_ds, rtol=1e-4,
                                atol=1e-6)
+
+
+@pytest.mark.parametrize("heads", SOFTMAX_HEADS)
+def test_edge_softmax_kernels_match_plain(cuda, heads):
+    """1-D scores, one head, heads that do not divide 32 and more heads
+    than lanes; zero in-degree rows own no score."""
+    _softmax_matches_plain(_graph(600, 7000, 9 + (heads or 0), cuda,
+                                  hub_free=25), heads)
+
+
+@pytest.mark.parametrize("heads", SOFTMAX_HEADS)
+def test_edge_softmax_kernels_match_plain_on_hub_rows(cuda, heads):
+    _softmax_matches_plain(
+        _hub_graph(HUB_NODES, 7000, 9 + (heads or 0), cuda), heads)
