@@ -15,15 +15,20 @@ Phases, each fatal on failure:
        gradient through the autograd.Function (the exact kernel's
        transposed walk) against the plain version of the backward at rtol
        1e-5 / atol 1e-4;
-     - GAT (H, D) = (8, 16) and (1, 40), with and without a dropout mask:
-       f32 outputs (out, denom, der, dattn_l) at rtol 1e-4 / atol
-       1e-4 x max|want| (summation order, and the forward's online softmax
-       rescaling its running sums), the segment max exactly, and the bf16
+     - GAT (H, D) = (8, 16) and (1, 40): gat_prep against its plain
+       version (the torch prep): bf16 features bit for bit, el at rtol
+       1e-6 / atol 1e-6 x max|want| (summation order), er within one bf16
+       ulp; then the same prep outputs into gat_fwd, gat_bwd and their
+       plain versions, without dropout, with a keep mask and with a
+       Philox seed (the plain versions apply philox_keep's mask): f32
+       outputs (out, denom, der, dattn_l) at rtol 1e-4 / atol 1e-4 x
+       max|want| (summation order), the segment max exactly, and the bf16
        message within one bf16 ulp (rtol 2**-7, atol 1e-5 x max|want|: a
-       last-bit f32 difference can round either way). All are inside the
+       last-bit f32 difference can round either way), all inside the
        1e-2 x max bound that tests/test_pallas.py:489 puts on the Pallas
-       gradients;
-     - the GAT autograd layer at both shapes, keep mask on: one backward
+       gradients; and the seed mode bit-equal to the mask mode fed
+       philox_keep's mask (every output of both kernels);
+     - the GAT autograd layer at both shapes, seed mode: one backward
        (both kernels, the SpMM source reduce over t_indptr/t_edges,
        der * attn_r, the dattn_r einsum) against the plain chain; feat
        gradient at 1e-2 x max|want| (one bf16 ulp of a message element
@@ -58,9 +63,10 @@ Phases, each fatal on failure:
        distilled from its out.npz; both SpMM kernels must have launched;
      - a full-batch GAT teacher at the published GAT row (2 layers, hidden
        128 = 8 heads x 16, dropout 0.6, attention dropout 0.3, weight decay
-       0.01), then an MLP student; gat_fwd must launch exactly
+       0.01), then an MLP student; gat_prep and gat_fwd must launch exactly
        2 x (3 steps + 3 evals + 1 final eval) = 14 times, gat_bwd 2 x 3 = 6
-       times, and the SpMM source reduce at least 6 times;
+       times, every training launch of both in seed mode (6 each, none
+       with a mask), and the SpMM source reduce at least 6 times;
      - a full-batch GCN teacher at the published synth row (2 layers,
        hidden 64, dropout 0.5, weight decay 0.001; both layers aggregate
        after W, at F = 64 and 40), then an MLP student: spmm_csr_bf16
@@ -73,13 +79,18 @@ Phases, each fatal on failure:
      every other kernel exactly 0 on the GCN and APPNP paths; no plain
      version may run on a CUDA tensor, and each out.npz must hold finite
      [169343, 40] log-probs;
-  5. time each kernel and its plain version with CUDA events, and the
-     library call where one computes the same function (torch.sparse.mm
+  5. time each kernel and its plain version with CUDA events (a kernel's
+     `ms` from 20 calls back to back, which holds the wrapper's Python and
+     launch overhead where that is the slower side; its device time from
+     replays of a CUDA graph of those calls beside it as `device_ms`), and
+     the library call where one computes the same function (torch.sparse.mm
      for the SpMM sums, torch.bmm of a sparse [H, N, N] for the per-head
      weighted sum, torch.sparse.softmax and its backward for the softmax;
      no single PyTorch call computes fused GAT attention or the int8
-     tier's sum), and compute each kernel's bound; then time the SpMM
-     kernels at F = 40 and gat_bwd at both GAT shapes on the hub graph,
+     tier's sum), and compute each kernel's bound: the GAT kernels in seed
+     mode, as the path runs them (no mask bytes), with the mask mode's
+     time and bound in the rows' detail; then time the SpMM kernels at
+     F = 40 and gat_fwd and gat_bwd at both GAT shapes on the hub graph,
      where one warp walks each hub row alone (in the rows' detail, outside
      their sums).
 Prints the card's name and power limit and a `kernels` JSON line; the last
@@ -123,6 +134,7 @@ FP32_OPS_PER_S = 67e12       # H100 SXM, outside the tensor cores
 SOURCES = {"spmm_csr_bf16": "glnn_tpu_torch/csrc/spmm_csr.cu",
            "spmm_csr_int8": "glnn_tpu_torch/csrc/spmm_csr.cu",
            "spmm_csr_weighted": "glnn_tpu_torch/csrc/spmm_csr.cu",
+           "gat_prep": "glnn_tpu_torch/csrc/gat_csr.cu",
            "gat_fwd": "glnn_tpu_torch/csrc/gat_csr.cu",
            "gat_bwd": "glnn_tpu_torch/csrc/gat_csr.cu",
            "edge_softmax_fwd": "glnn_tpu_torch/csrc/gat_csr.cu",
@@ -130,6 +142,8 @@ SOURCES = {"spmm_csr_bf16": "glnn_tpu_torch/csrc/spmm_csr.cu",
 REPLACES = {
     "spmm_csr_bf16": "glnn_tpu/ops/spmm_pallas.py:93 (_block_kernel) and "
                      "glnn_tpu/ops/spmm_pallas.py:59 (_kernel)",
+    "gat_prep": "glnn_tpu/ops/gat_pallas.py:118 (el in _scores_block, in "
+                "_gat_fwd_kernel :158) and :409 (_prep, er)",
     "gat_fwd": "glnn_tpu/ops/gat_pallas.py:158 (_gat_fwd_kernel)",
     "gat_bwd": "glnn_tpu/ops/gat_pallas.py:187 (_gat_bwd_kernel)",
     "edge_softmax_fwd": "glnn_tpu/ops/gat_pallas.py:694 (_smx_fwd_kernel)",
@@ -145,6 +159,9 @@ def log(msg: str) -> None:
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Milliseconds per call of `fn` called `iters` times in a row, from
+    CUDA events: the device time where the device is the slower side, the
+    host's (Python, launch) where the host is."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -156,6 +173,34 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def kernel_times(fn, iters: int = 20, replays: int = 5) -> tuple:
+    """(eager ms, device ms) per call of a kernel's wrapper `fn`: time_ms of
+    the calls made back to back, and the device time from CUDA events
+    around replays of a CUDA graph that holds `iters` calls, which leaves
+    the wrapper's Python and launch overhead out."""
+    eager = time_ms(fn, iters)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    stop.synchronize()
+    del graph
+    return eager, start.elapsed_time(stop) / (replays * iters)
 
 
 def phase_build(cuda_build) -> None:
@@ -233,16 +278,21 @@ def phase_check(spmm_cuda, g) -> dict:
     return errs
 
 
-def gat_inputs(gat_cuda, g, h, d, drop, seed):
+def gat_inputs(gat_cuda, g, h, d, drop, seed, mode="seed"):
     """The kernels' inputs at one layer's shape: prep of random features
-    and attention vectors, a keep mask when drop > 0, and a cotangent."""
+    and attention vectors, when drop > 0 a Philox seed (mode "seed", as
+    the path runs) or a keep mask (mode "mask"), and a cotangent."""
     gen = torch.Generator(device=g.device).manual_seed(seed)
     n, dev = g.n_nodes, g.device
     feat = torch.randn((n, h, d), generator=gen, device=dev)
     al = 0.3 * torch.randn((h, d), generator=gen, device=dev)
     ar = 0.3 * torch.randn((h, d), generator=gen, device=dev)
-    keep = (torch.rand((g.n_edges, h), generator=gen, device=dev) >= drop
-            if drop else None)
+    keep = None
+    if drop and mode == "seed":
+        keep = torch.randint(2 ** 63 - 1, (1,), dtype=torch.int64,
+                             generator=gen, device=dev)
+    elif drop:
+        keep = torch.rand((g.n_edges, h), generator=gen, device=dev) >= drop
     feat_b, el, er_b, al_b = gat_cuda.prep(feat, al, ar)
     dout = torch.randn((n, h, d), generator=gen, device=dev)
     args = (g.indptr, g.senders, feat_b, el, er_b, keep,
@@ -259,12 +309,35 @@ def _held(name, got, want, rtol, scale) -> float:
     return (got.float() - want).abs().max().item()
 
 
+def check_prep(gat_cuda, g, h, d) -> float:
+    """gat_prep against its plain version (the torch prep) on the card."""
+    gen = torch.Generator(device=g.device).manual_seed(h + d + 20)
+    feat = torch.randn((g.n_nodes, h, d), generator=gen, device=g.device)
+    al, ar = (0.3 * torch.randn((h, d), generator=gen, device=g.device)
+              for _ in range(2))
+    got = gat_cuda.prep(feat, al, ar)
+    want = gat_cuda.plain_prep(feat, al, ar)
+    torch.cuda.synchronize()
+    for name, i in (("feat_b", 0), ("al_b", 3)):
+        if not torch.equal(got[i], want[i]):
+            raise AssertionError(f"gat_prep {name} differs from the plain "
+                                 f"version at (H, D) = ({h}, {d})")
+    errs = {"el": _held("prep el", got[1], want[1], 1e-6, 1e-6),
+            "er": _held("prep er", got[2], want[2], 2.0 ** -7, 1e-6)}
+    log(f"check (H, D) = ({h}, {d}): gat_prep vs plain max|err| " + ", ".join(
+        f"{k} {v:.3e}" for k, v in errs.items()) + ", feat_b bit-equal")
+    return max(errs.values())
+
+
 def phase_check_gat(gat_cuda, g) -> dict:
     """GAT kernels vs plain versions on the card; max |error| per kernel."""
     errs = {name: 0.0 for name in gat_cuda.KERNELS}
     for h, d in GAT_SHAPES:
-        for drop in (0.0, ATTN_DROP):
-            args, dout, al_b = gat_inputs(gat_cuda, g, h, d, drop, h + d)
+        errs["gat_prep"] = max(errs["gat_prep"], check_prep(gat_cuda, g, h, d))
+        for drop, mode in ((0.0, None), (ATTN_DROP, "mask"),
+                           (ATTN_DROP, "seed")):
+            args, dout, al_b = gat_inputs(gat_cuda, g, h, d, drop, h + d,
+                                          mode)
             out, smax, denom = gat_cuda.gat_fwd(*args)
             w_out, w_max, w_den = gat_cuda.plain_gat_fwd(*args)
             got = gat_cuda.gat_bwd(*args, smax, denom, dout, al_b)
@@ -280,20 +353,46 @@ def phase_check_gat(gat_cuda, g) -> dict:
                      "dattn_l": _held("dattn_l", got[2], want[2], 1e-4, 1e-4)}
             errs["gat_fwd"] = max(errs["gat_fwd"], *e_fwd.values())
             errs["gat_bwd"] = max(errs["gat_bwd"], *e_bwd.values())
-            tag = f"(H, D) = ({h}, {d}), dropout {drop}"
+            tag = f"(H, D) = ({h}, {d}), dropout {drop}" + (
+                f" ({mode})" if mode else "")
             log(f"check {tag}: gat_fwd vs plain max|err| " + ", ".join(
                 f"{k} {v:.3e}" for k, v in e_fwd.items()) + ", max exact")
             log(f"check {tag}: gat_bwd vs plain max|err| " + ", ".join(
                 f"{k} {v:.3e}" for k, v in e_bwd.items()))
+            if mode == "seed":
+                check_seed_is_mask(gat_cuda, args, dout, al_b,
+                                   (out, smax, denom) + tuple(got), tag)
             del out, got, want, w_out
     return errs
 
 
+def check_seed_is_mask(gat_cuda, args, dout, al_b, seeded, tag) -> None:
+    """Seed mode bit-equal to mask mode fed philox_keep's mask: the same
+    arithmetic, so one differing keep bit would show."""
+    indptr, senders, feat_b, el, er_b, seed, inv_keep, slope = args
+    mask = gat_cuda.philox_keep(seed, senders.numel(), feat_b.shape[1],
+                                1.0 / inv_keep)
+    margs = (indptr, senders, feat_b, el, er_b, mask, inv_keep, slope)
+    out, smax, denom = gat_cuda.gat_fwd(*margs)
+    masked = (out, smax, denom) + tuple(
+        gat_cuda.gat_bwd(*margs, smax, denom, dout, al_b))
+    torch.cuda.synchronize()
+    names = ("out", "max", "denom", "der", "msg", "dattn_l")
+    for name, a, b in zip(names, seeded, masked):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{tag}: seed mode {name} differs from the "
+                                 f"mask mode fed philox_keep's mask")
+    log(f"check {tag}: seed mode bit-equal to mask mode with philox_keep's "
+        f"mask (kept share {mask.float().mean().item():.4f})")
+
+
 def phase_check_gat_layer(gat_cuda, g) -> None:
-    """One backward of the autograd layer (gat_fwd, gat_bwd, the SpMM source
-    reduce over t_indptr/t_edges, der * attn_r, the dattn_r einsum) at each
-    path shape, keep mask on, against the plain chain: plain_gat_fwd,
-    plain_gat_bwd, the message summed over senders with index_add_."""
+    """One backward of the autograd layer (gat_prep, gat_fwd, gat_bwd, the
+    SpMM source reduce over t_indptr/t_edges, der * attn_r, the dattn_r
+    einsum) at each path shape, dropout in seed mode as the path runs it,
+    against the plain chain: plain_prep, plain_gat_fwd and plain_gat_bwd
+    with philox_keep's mask, the message summed over senders with
+    index_add_."""
     n, dev = g.n_nodes, g.device
     inv_keep = 1.0 / (1.0 - ATTN_DROP)
     for h, d in GAT_SHAPES:
@@ -301,12 +400,14 @@ def phase_check_gat_layer(gat_cuda, g) -> None:
         feat = torch.randn((n, h, d), generator=gen, device=dev)
         al = 0.3 * torch.randn((h, d), generator=gen, device=dev)
         ar = 0.3 * torch.randn((h, d), generator=gen, device=dev)
-        keep = torch.rand((g.n_edges, h), generator=gen, device=dev) >= ATTN_DROP
+        seed = torch.randint(2 ** 63 - 1, (1,), dtype=torch.int64,
+                             generator=gen, device=dev)
         dout = torch.randn((n, h, d), generator=gen, device=dev)
         leaves = [t.clone().requires_grad_(True) for t in (feat, al, ar)]
-        gat_cuda.gat_attention(g, *leaves, 0.2, keep, inv_keep).backward(dout)
+        gat_cuda.gat_attention(g, *leaves, 0.2, seed, inv_keep).backward(dout)
 
-        feat_b, el, er_b, al_b = gat_cuda.prep(feat, al, ar)
+        feat_b, el, er_b, al_b = gat_cuda.plain_prep(feat, al, ar)
+        keep = gat_cuda.philox_keep(seed, g.n_edges, h, 1.0 - ATTN_DROP)
         args = (g.indptr, g.senders, feat_b, el, er_b, keep, inv_keep, 0.2)
         _, smax, denom = gat_cuda.plain_gat_fwd(*args)
         der, msg, dal = gat_cuda.plain_gat_bwd(*args, smax, denom, dout, al_b)
@@ -321,7 +422,8 @@ def phase_check_gat_layer(gat_cuda, g) -> None:
         errs = {"dfeat": _held("dfeat", leaves[0].grad, dfeat, 1e-2, 1e-2),
                 "dattn_l": _held("dattn_l", leaves[1].grad, dal, 1e-4, 1e-4),
                 "dattn_r": _held("dattn_r", leaves[2].grad, dar, 1e-4, 1e-4)}
-        log(f"check (H, D) = ({h}, {d}), dropout {ATTN_DROP}: autograd layer "
+        log(f"check (H, D) = ({h}, {d}), dropout {ATTN_DROP} (seed): autograd "
+            f"layer "
             f"gradients vs plain chain max|err| " + ", ".join(
                 f"{k} {v:.3e} (max|want| {w.abs().max().item():.3e})"
                 for (k, v), w in zip(errs.items(), (dfeat, dal, dar))))
@@ -617,8 +719,12 @@ def phase_main_path(cuda_build, spmm_cuda, gat_cuda, workdir: str) -> dict:
             raise AssertionError(f"{name} never launched on the SAGE path")
     gat = drive_path("GAT", workdir, common, modules)
     layers = len(GAT_SHAPES)
-    want = {"gat_fwd": layers * (2 * TEACHER_EPOCHS + 1),
-            "gat_bwd": layers * TEACHER_EPOCHS}
+    want = {"gat_prep": layers * (2 * TEACHER_EPOCHS + 1),
+            "gat_fwd": layers * (2 * TEACHER_EPOCHS + 1),
+            "gat_bwd": layers * TEACHER_EPOCHS,
+            # dropout only in training, and there always from a seed
+            "gat_fwd_seed": layers * TEACHER_EPOCHS, "gat_fwd_mask": 0,
+            "gat_bwd_seed": layers * TEACHER_EPOCHS, "gat_bwd_mask": 0}
     for name, n in want.items():
         if gat[name] != n:
             raise AssertionError(f"{name} launched {gat[name]} times on the "
@@ -678,8 +784,8 @@ def phase_times(spmm_cuda, g, launches: dict, errs: dict) -> list:
                                   torch.ones(e, device=g.device), (n, n),
                                   check_invariants=True)
     unweighted = ("spmm_csr_bf16", "spmm_csr_int8")
-    rows = {name: dict(ms=0.0, plain_ms=0.0, bytes=0, ops=0, gather_bytes=0,
-                       library_ms=0.0, per_width={})
+    rows = {name: dict(ms=0.0, device_ms=0.0, plain_ms=0.0, bytes=0, ops=0,
+                       gather_bytes=0, library_ms=0.0, per_width={})
             for name in unweighted}
     for i, f in enumerate(WIDTHS + GCN_WIDTHS):
         in_sum = i < len(WIDTHS)
@@ -706,17 +812,20 @@ def phase_times(spmm_cuda, g, launches: dict, errs: dict) -> list:
             rtol=1e-5, atol=1e-4)
         lib_ms = time_ms(lambda: torch.sparse.mm(adj, lib_in))
         for name, (kernel, plain, nbytes, gbytes) in cases.items():
-            k_ms, p_ms = time_ms(kernel), time_ms(plain)
+            (k_ms, k_dev), p_ms = kernel_times(kernel), time_ms(plain)
             row = rows[name]
             bound = nbytes / HBM_BYTES_PER_S * 1e3
-            row["per_width"][f] = dict(ms=k_ms, plain_ms=p_ms,
-                                       library_ms=lib_ms, bound_ms=bound)
-            log(f"time F={f} {name}: kernel {k_ms:.4f} ms, plain "
+            row["per_width"][f] = dict(ms=k_ms, device_ms=k_dev,
+                                       plain_ms=p_ms, library_ms=lib_ms,
+                                       bound_ms=bound)
+            log(f"time F={f} {name}: kernel {k_ms:.4f} ms (device "
+                f"{k_dev:.4f}), plain "
                 f"{p_ms:.4f} ms, torch.sparse.mm f32 {lib_ms:.4f} ms, bytes "
                 f"bound {bound:.4f} ms" + ("" if in_sum else " (GCN width)"))
             if not in_sum:
                 continue
             row["ms"] += k_ms
+            row["device_ms"] += k_dev
             row["plain_ms"] += p_ms
             row["bytes"] += nbytes
             row["gather_bytes"] += gbytes
@@ -734,13 +843,14 @@ def phase_times(spmm_cuda, g, launches: dict, errs: dict) -> list:
         lib_in = dh.float()
         torch.testing.assert_close(torch.sparse.mm(t_adj, lib_in), kernel(),
                                    rtol=1e-5, atol=1e-4)
-        k_ms = time_ms(kernel)
+        k_ms, k_dev = kernel_times(kernel)
         p_ms = time_ms(lambda: spmm_cuda.plain_csr_sum_bf16(
             g.t_indptr, g.t_receivers, dh, n))
         lib_ms = time_ms(lambda: torch.sparse.mm(t_adj, lib_in))
         bound = (n * f * 2 + 4 * (e + n + 1) + n * f * 4) / HBM_BYTES_PER_S * 1e3
         rows["spmm_csr_bf16"]["per_width"][f"{f} transposed"] = dict(
-            ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=bound)
+            ms=k_ms, device_ms=k_dev, plain_ms=p_ms, library_ms=lib_ms,
+            bound_ms=bound)
         log(f"time F={f} transposed walk spmm_csr_bf16: kernel {k_ms:.4f} ms, "
             f"plain {p_ms:.4f} ms, torch.sparse.mm f32 {lib_ms:.4f} ms, bytes "
             f"bound {bound:.4f} ms (GCN backward)")
@@ -755,7 +865,7 @@ def phase_times(spmm_cuda, g, launches: dict, errs: dict) -> list:
             row["library_ms"] if name == "spmm_csr_bf16" else None,
             launches, errs,
             f"one all-node SAGE eval: F=128, 256, 256 over N={n}, E={e}",
-            {"per_width_ms": row["per_width"]}))
+            {"device_ms": row["device_ms"], "per_width_ms": row["per_width"]}))
         # every gathered row counted once per in-edge, over the HBM rate:
         # no bound, since x is partly served from L2
         log(f"{name}: E x F x itemsize of gathered rows over "
@@ -765,25 +875,42 @@ def phase_times(spmm_cuda, g, launches: dict, errs: dict) -> list:
 
 
 def phase_times_gat(gat_cuda, g, launches: dict, errs: dict) -> list:
-    """One GAT training step's two layers, with the attention dropout mask,
-    per kernel: kernel, plain version, bound. Bytes count each input read
-    once and each output written once; operations count an exponential as
-    one (forward about 2D + 6 per edge and head, backward 9D + 18)."""
+    """One GAT training step's two layers per kernel, dropout in seed mode
+    as the path runs it: kernel, plain version (for gat_prep the torch
+    prep, the path before this kernel), bound. Bytes count each input read
+    once and each output written once (no mask in seed mode, an 8-byte
+    seed); the mask mode's time and bound (the uint8 [E, H] mask read
+    once more) are in the rows' detail. Operations count an exponential as
+    one (forward about 2D + 6 per edge and head, backward 9D + 18, prep 4
+    per feature)."""
     n, e = g.n_nodes, g.n_edges
     idx_bytes = 4 * (e + n + 1)
-    rows = {name: dict(ms=0.0, plain_ms=0.0, bytes=0, ops=0, per_layer={})
-            for name in ("gat_fwd", "gat_bwd")}
+    rows = {name: dict(ms=0.0, device_ms=0.0, plain_ms=0.0, bytes=0, ops=0,
+                       per_layer={})
+            for name in ("gat_prep", "gat_fwd", "gat_bwd")}
     for h, d in GAT_SHAPES:
         hd = h * d
         args, dout, al_b = gat_inputs(gat_cuda, g, h, d, ATTN_DROP, 7)
+        margs = gat_inputs(gat_cuda, g, h, d, ATTN_DROP, 7, "mask")[0]
         _, smax, denom = gat_cuda.gat_fwd(*args)
-        # indices, bf16 features, f32 el, bf16 er, the uint8 keep mask
-        fwd_in = idx_bytes + n * hd * 2 + n * h * 4 + n * h * 2 + e * h
+        gen = torch.Generator(device=g.device).manual_seed(12)
+        feat = torch.randn((n, h, d), generator=gen, device=g.device)
+        al, ar = (0.3 * torch.randn((h, d), generator=gen, device=g.device)
+                  for _ in range(2))
+        # indices, bf16 features, f32 el, bf16 er, the seed
+        fwd_in = idx_bytes + n * hd * 2 + n * h * 4 + n * h * 2 + 8
         cases = {
+            # f32 features and attention vectors in; bf16 features, f32
+            # el and bf16 er out
+            "gat_prep": (lambda: gat_cuda.prep(feat, al, ar),
+                         lambda: gat_cuda.plain_prep(feat, al, ar),
+                         n * hd * 4 + 2 * hd * 4 + n * hd * 2 + n * h * 6,
+                         4 * n * hd, None),
             "gat_fwd": (lambda: gat_cuda.gat_fwd(*args),
                         lambda: gat_cuda.plain_gat_fwd(*args),
                         fwd_in + n * hd * 4 + 2 * n * h * 4,
-                        e * h * (2 * d + 6)),
+                        e * h * (2 * d + 6),
+                        lambda: gat_cuda.gat_fwd(*margs)),
             # plus max, denom, f32 dout and bf16 attn_l in; der, the bf16
             # [E, H*D] message and dattn_l out
             "gat_bwd": (lambda: gat_cuda.gat_bwd(*args, smax, denom, dout,
@@ -792,27 +919,43 @@ def phase_times_gat(gat_cuda, g, launches: dict, errs: dict) -> list:
                                                        dout, al_b),
                         fwd_in + 2 * n * h * 4 + n * hd * 4 + hd * 2
                         + n * h * 4 + e * hd * 2 + hd * 4,
-                        e * h * (9 * d + 18)),
+                        e * h * (9 * d + 18),
+                        lambda: gat_cuda.gat_bwd(*margs, smax, denom, dout,
+                                                 al_b)),
         }
-        for name, (kernel, plain, nbytes, ops) in cases.items():
-            k_ms, p_ms = time_ms(kernel), time_ms(plain, iters=5)
+        for name, (kernel, plain, nbytes, ops, masked) in cases.items():
+            (k_ms, k_dev), p_ms = kernel_times(kernel), time_ms(plain,
+                                                                  iters=5)
             row = rows[name]
             row["ms"] += k_ms
+            row["device_ms"] += k_dev
             row["plain_ms"] += p_ms
             row["bytes"] += nbytes
             row["ops"] += ops
-            row["per_layer"][f"H={h},D={d}"] = dict(
-                ms=k_ms, plain_ms=p_ms,
-                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
-            log(f"time (H, D) = ({h}, {d}) {name}: kernel {k_ms:.4f} ms, "
-                f"plain {p_ms:.4f} ms, bytes bound "
-                f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
+            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            detail = dict(ms=k_ms, device_ms=k_dev, plain_ms=p_ms,
+                          bound_ms=bound)
+            if masked is not None:
+                detail["mask_mode_ms"] = time_ms(masked)
+                detail["mask_mode_bound_ms"] = (
+                    (nbytes - 8 + e * h) / HBM_BYTES_PER_S * 1e3)
+            row["per_layer"][f"H={h},D={d}"] = detail
+            log(f"time (H, D) = ({h}, {d}) {name}: kernel {k_ms:.4f} ms "
+                f"(device {k_dev:.4f})"
+                + (" (seed mode), mask mode {:.4f} ms (bound {:.4f})".format(
+                    detail["mask_mode_ms"], detail["mask_mode_bound_ms"])
+                   if masked is not None else "")
+                + f", plain {p_ms:.4f} ms, bytes bound {bound:.4f} ms")
+        del args, margs, feat
     return [_row(name, row["ms"], row["plain_ms"], row["bytes"], row["ops"],
-                 # no single PyTorch call computes fused GAT attention
+                 # no single PyTorch call computes fused GAT attention, or
+                 # the bf16 cast with both per-head dot products
                  None, launches, errs,
                  f"one GAT training step's two layers, (H, D) = (8, 16) and "
-                 f"(1, 40), attention dropout {ATTN_DROP}, over N={n}, E={e}",
-                 {"per_layer_ms": row["per_layer"]})
+                 f"(1, 40), attention dropout {ATTN_DROP} (seed mode), over "
+                 f"N={n}, E={e}",
+                 {"device_ms": row["device_ms"],
+                  "per_layer_ms": row["per_layer"]})
             for name, row in rows.items()]
 
 
@@ -842,8 +985,8 @@ def phase_times_weighted(spmm_cuda, g, launches: dict, errs: dict) -> list:
     keep = torch.rand(e, generator=gen, device=g.device) >= EDGE_DROP
     w = keep.float() / (1.0 - EDGE_DROP)
     idx_bytes = 4 * (e + n + 1)
-    per_width, tot = {}, dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0,
-                              ops=0)
+    per_width, tot = {}, dict(ms=0.0, device_ms=0.0, plain_ms=0.0,
+                              library_ms=0.0, bytes=0, ops=0)
     walks = {"forward": (g.indptr, g.senders, None, w),
              "transposed": (g.t_indptr, g.t_receivers, g.t_edges,
                             w[g.t_edges.long()])}
@@ -860,12 +1003,13 @@ def phase_times_weighted(spmm_cuda, g, launches: dict, errs: dict) -> list:
                                    rtol=1e-5, atol=1e-4)
         nbytes = (n * f * 4 + e * 4 + idx_bytes + n * f * 4
                   + (e * 4 if widx is not None else 0))
-        k_ms, p_ms = time_ms(kernel), time_ms(plain, iters=5)
+        (k_ms, k_dev), p_ms = kernel_times(kernel), time_ms(plain, iters=5)
         lib_ms = time_ms(lambda: torch.sparse.mm(adj, lib_x))
         per_width[f"F={f} {walk}"] = dict(
-            ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+            ms=k_ms, device_ms=k_dev, plain_ms=p_ms, library_ms=lib_ms,
             bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
-        for key, val in (("ms", k_ms), ("plain_ms", p_ms),
+        for key, val in (("ms", k_ms), ("device_ms", k_dev),
+                         ("plain_ms", p_ms),
                          ("library_ms", lib_ms), ("bytes", nbytes),
                          ("ops", 2 * e * f)):
             tot[key] += APPNP_HOPS * val
@@ -892,12 +1036,12 @@ def phase_times_weighted(spmm_cuda, g, launches: dict, errs: dict) -> list:
         torch.testing.assert_close(
             torch.bmm(adj, lib_x).permute(1, 0, 2).reshape(n, -1), kernel(),
             rtol=0, atol=2.0 ** -8 * x.abs().max().item())
-        k_ms = time_ms(kernel)
+        k_ms, k_dev = kernel_times(kernel)
         p_ms = time_ms(lambda: spmm_cuda.plain_csr_wsum_bf16(
             g.indptr, g.senders, None, x2, wh, n), iters=5)
         lib_ms = time_ms(lambda: torch.bmm(adj, lib_x), iters=5)
         per_width[f"H={h},D={x.shape[2]} forward"] = dict(
-            ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+            ms=k_ms, device_ms=k_dev, plain_ms=p_ms, library_ms=lib_ms,
             bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
         log(f"time {tag} spmm_csr_weighted forward: kernel {k_ms:.4f} ms, "
             f"plain {p_ms:.4f} ms, torch.bmm sparse [H, N, N] {lib_ms:.4f} "
@@ -908,7 +1052,7 @@ def phase_times_weighted(spmm_cuda, g, launches: dict, errs: dict) -> list:
                  f"one APPNP training step's {2 * APPNP_HOPS} launches at "
                  f"F={f} ({APPNP_HOPS} forward, {APPNP_HOPS} transposed for "
                  f"dX), keep weights {{0, 2}}, over N={n}, E={e}",
-                 {"per_width_ms": per_width})]
+                 {"device_ms": tot["device_ms"], "per_width_ms": per_width})]
 
 
 def phase_times_softmax(gat_cuda, g, launches: dict, errs: dict) -> list:
@@ -926,8 +1070,8 @@ def phase_times_softmax(gat_cuda, g, launches: dict, errs: dict) -> list:
     dst = row_ids(g.indptr, n)
     order = torch.argsort(dst * n + g.senders.long())
     coo_idx = torch.stack([dst[order], g.senders.long()[order]])
-    rows = {name: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0, ops=0,
-                       per_heads={})
+    rows = {name: dict(ms=0.0, device_ms=0.0, plain_ms=0.0, library_ms=0.0,
+                       bytes=0, ops=0, per_heads={})
             for name in ("edge_softmax_fwd", "edge_softmax_bwd")}
     for h, _ in GAT_SHAPES:
         s = 3.0 * torch.randn((e, h), generator=gen, device=g.device)
@@ -966,32 +1110,36 @@ def phase_times_softmax(gat_cuda, g, launches: dict, errs: dict) -> list:
                 3 * e * h * 4 + (n + 1) * 4, 4 * e * h, lib_bwd_ms),
         }
         for name, (kernel, plain, nbytes, ops, lib) in cases.items():
-            k_ms, p_ms = time_ms(kernel), time_ms(plain, iters=5)
+            (k_ms, k_dev), p_ms = kernel_times(kernel), time_ms(plain,
+                                                                  iters=5)
             row = rows[name]
             row["ms"] += k_ms
+            row["device_ms"] += k_dev
             row["plain_ms"] += p_ms
             row["bytes"] += nbytes
             row["ops"] += ops
             row["library_ms"] += lib
             row["per_heads"][f"H={h}"] = dict(
-                ms=k_ms, plain_ms=p_ms, library_ms=lib,
+                ms=k_ms, device_ms=k_dev, plain_ms=p_ms, library_ms=lib,
                 bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
-            log(f"time scores [E, {h}] {name}: kernel {k_ms:.4f} ms, plain "
+            log(f"time scores [E, {h}] {name}: kernel {k_ms:.4f} ms (device "
+                f"{k_dev:.4f}), plain "
                 f"{p_ms:.4f} ms, library {lib:.4f} ms, bytes bound "
                 f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
     return [_row(name, row["ms"], row["plain_ms"], row["bytes"], row["ops"],
                  row["library_ms"], launches, errs,
                  f"the op-surface GAT layer's two shapes' softmax, scores "
                  f"[E, 8] and [E, 1], over N={n}, E={e}",
-                 {"per_heads_ms": row["per_heads"]})
+                 {"device_ms": row["device_ms"],
+                  "per_heads_ms": row["per_heads"]})
             for name, row in rows.items()]
 
 
 def phase_times_hub(spmm_cuda, gat_cuda, hub, kernels: list) -> None:
-    """One timing of each SpMM entry point at F = 40 and of gat_bwd at both
-    GAT shapes (keep mask on) on the hub graph, where one warp walks each
-    hub row alone; added to the rows' detail as `hub_graph_ms`, outside
-    their sums."""
+    """One timing of each SpMM entry point at F = 40 and of gat_fwd and
+    gat_bwd at both GAT shapes (dropout in seed mode) on the hub graph,
+    where one warp walks each hub row alone; added to the rows' detail as
+    `hub_graph_ms`, outside their sums."""
     gen = torch.Generator(device=hub.device).manual_seed(10)
     n, e = hub.n_nodes, hub.n_edges
     f = APPNP_F
@@ -1017,13 +1165,18 @@ def phase_times_hub(spmm_cuda, gat_cuda, hub, kernels: list) -> None:
             ms=ms, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)}
         log(f"time hub graph F={f} {name}: kernel {ms:.4f} ms, bytes bound "
             f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
-    detail["gat_bwd"] = {}
+    detail["gat_fwd"], detail["gat_bwd"] = {}, {}
     for h, d in GAT_SHAPES:
         args, dout, al_b = gat_inputs(gat_cuda, hub, h, d, ATTN_DROP, 11)
         _, smax, denom = gat_cuda.gat_fwd(*args)
-        ms = time_ms(lambda: gat_cuda.gat_bwd(*args, smax, denom, dout, al_b))
-        detail["gat_bwd"][f"H={h},D={d}"] = dict(ms=ms)
-        log(f"time hub graph (H, D) = ({h}, {d}) gat_bwd: kernel {ms:.4f} ms")
+        for name, fn in (
+                ("gat_fwd", lambda: gat_cuda.gat_fwd(*args)),
+                ("gat_bwd", lambda: gat_cuda.gat_bwd(*args, smax, denom, dout,
+                                                     al_b))):
+            ms = time_ms(fn)
+            detail[name][f"H={h},D={d}"] = dict(ms=ms)
+            log(f"time hub graph (H, D) = ({h}, {d}) {name}: kernel {ms:.4f} "
+                f"ms (seed mode)")
     for row in kernels:
         if row["name"] in detail:
             row["hub_graph_ms"] = detail[row["name"]]

@@ -1,5 +1,6 @@
-// GAT attention for Hopper (sm_90a) on the CSC: the fused attention forward
-// and backward, and the standalone segment softmax and its backward.
+// GAT attention for Hopper (sm_90a) on the CSC: the per-node prep, the fused
+// attention forward and backward, and the standalone segment softmax and its
+// backward.
 //
 // Replaces glnn_tpu/ops/gat_pallas.py:_gat_fwd_kernel (:158) and
 // :_gat_bwd_kernel (:187). Those run in AttentionPlan slot space: per dst
@@ -7,27 +8,78 @@
 // slot with a one-hot matmul, subtract the block's score max, and broadcast
 // per-head weights over features with a replication matrix, all because the
 // TPU's only fast reduction is the MXU. None of that carries over. Here the
-// edges are dst-sorted, one warp owns a dst row v and walks its in-edges
-// indptr[v]:indptr[v+1]; the per-node scalars el and er, both computed
-// outside (er as gat_pallas.py:409-420 computes it outside its kernel; el
-// once per node, where the TPU kernel computes it per slot in its body,
-// gat_pallas.py:107-118), make each score
-// s = leaky_relu(el[src,h] + er[v,h]) a two-load affair, and the softmax, the
-// dropout and the weighted sum are kept in registers.
+// edges are dst-sorted, one warp walks a dst row v's in-edges
+// indptr[v]:indptr[v+1], and the per-node scalars el and er make each score
+// s = leaky_relu(el[src,h] + er[v,h]) a two-load affair.
 //
-// Forward (gat_fwd). Lane layout: D = per-head width, H = heads. A lane
+// Prep (gat_prep). One pass over the f32 features [N, H, D] writes the bf16
+// features, el[u,h] = sum_j bf16(feat[u,h,j]) bf16(attn_l[h,j]) in f32 (the
+// TPU kernel's score matmul, gat_pallas.py:118, with its rounding, but once
+// per node: the TPU kernel computes it per slot in its body) and
+// er[v,h] = bf16(sum_j feat[v,h,j] attn_r[h,j] in f32) (one rounding, as
+// _prep at :409-420). Lanes lie across (row of D, column group) with 16-byte
+// loads, so a warp reads consecutive rows as one run; el and er are summed
+// over a row's lanes with shuffles. Folding el into gat_fwd per edge, as the
+// TPU kernel does, would gather every feature row twice under a max-first
+// softmax; a per-node el costs one [N, H] f32 array. Bound: bytes (the f32
+// features read once, the bf16 features written once).
+//
+// Dropout (both GAT kernels). A keep bit per (dst-sorted edge e, head h):
+// either from a uint8 [E, H] mask (the JAX "mask" mode, gat_pallas.py:149),
+// or generated in the kernel from a 64-bit seed read through a device
+// pointer with Philox4x32-10 (Random123's constants): key (seed lo, seed
+// hi), counter (e, h >> 2, 0, 0), word h & 3, kept iff word < thresh, with
+// thresh = min(keep * 2^32, 2^32 - 1) as _drop_spec_arg (:312) forms it. The
+// TPU kernel draws from its hardware PRNG (:152), which no other machine
+// reproduces; the seed mode is its counterpart and makes no [E, H] tensor.
+// The keep bits of an edge for the heads of a pass are one word (bit i for
+// head h0 + i), formed once per edge and 4-head block, not once per lane:
+// in gat_bwd by the lane that loads the edge's source index in its 32-edge
+// chunk, which hands the word out with the index through __shfl_sync; in
+// gat_fwd by as many neighbouring lanes as the edge spans 4-head blocks
+// (one Philox call each), into shared memory beside the edge's terms. A
+// kept edge's weight is inv_keep, a dropped one's 0, and without dropout
+// every weight is 1.
+//
+// Lane layout of the feature walks: D = per-head width, H = heads. A lane
 // holds VEC consecutive features (VEC the largest power of two <= 8 dividing
-// D: one load of up to 16 bytes), REPS such groups strided by LANES * VEC,
-// all in one head. LANES (a power of two <= 32) lanes cover a head, 32 / LANES
-// heads share a pass over the row's edges, and ceil(H / (32 / LANES)) passes
-// cover all heads ((8, 16): VEC 8, LANES 2; (1, 40): VEC 8, LANES 8). Per dst
-// row and head, an online softmax: the running segment max m and denominator
-// den (of the UNDROPPED weights, dgl GATConv semantics) are rescaled when m
-// rises, and the dropped weights p * keep / keep_prob scale the bf16 source
-// rows into an f32 accumulator. out = acc / den in f32. The segment's own max
-// is subtracted, so no segment underflows, unlike the TPU kernel's block max
-// (gat_pallas.py:35-42). A row with no in-edges writes zeros (and max 0,
-// den 0). The per-dst max and den [N, H] are written for the backward.
+// D: one load of up to 16 bytes), REPS such groups strided by LH * VEC, all
+// in one head. LH = ceil(D / VEC / REPS) lanes cover a head (not a power of
+// two: (1, 40) gives 5), HP heads an edge, and SLOTS = 32 / (HP * LH) edges
+// are walked at once ((8, 16): 16 lanes per edge, 2 slots; (1, 40): 5 lanes
+// per edge, 6 slots in gat_bwd, and 10 lanes of 8-byte loads, 3 slots, in
+// gat_fwd, whose folds cost more per slot); per-slot sums fold onto slot 0
+// with __shfl_down_sync at the row's end. The caller works the geometry out
+// (ops/gat_cuda.py `fwd_geometry`, `bwd_geometry`) and the kernels check
+// it. Enough blocks to fill every SM once (the caller asks the occupancy
+// of the instantiation) stride over the rows.
+//
+// Forward (gat_fwd). Per dst row and pass of up to 8 heads, a 32-edge chunk
+// at a time, the scores lie across lanes by edge: lane j loads chunk edge
+// j's source index and el[src, h0:h0+HP] (4 bytes per edge and head; el of
+// ogbn-arxiv's size stays in the 50 MB L2), so a chunk's scores cost one
+// round trip, not one per edge. Pass 1 takes each head's segment max across
+// the lanes (__shfl_xor_sync); pass 2 forms each term once with that final
+// max, p = exp(s - max), and the edge's keep bits, and leaves them in shared
+// memory (with the row's er and max: per-head values stay out of
+// registers); the feature layout then sums den += p (the UNDROPPED weights,
+// dgl GATConv semantics) and acc += p w f over the bf16 feature slices in
+// f32 per slot (a dropped edge's row is not read), and slot 0 writes
+// out = acc * (1 / den): one reciprocal per (row, head), and den >= 1 (the
+// max term is exp(0)), so the fast reciprocal is safe. No running max is
+// rescaled, so no branch diverges across heads and hub rows keep their
+// accuracy (an online rescaling cost the softmax kernel its tolerance on a
+// 20,000-edge row). The segment's own max is subtracted, so no segment
+// underflows, unlike the TPU kernel's block max (:35-42). The first
+// chunk's scores stay in shared memory between the passes; later chunks
+// (rows of more than 32 edges) load el again. A row with no in-edges
+// writes zeros (and max 0, den 0). The per-dst max and den [N, H] are
+// written for the backward. Bound: bytes (the bf16 features, el, er and
+// the indices read once, out, max and den written once). It runs far from
+// that bound: each row's score stage (el loads, two butterflies, the
+// exponentials and Philox) runs on 32 lanes for a mean of 15 edges;
+// tools/sweep_cuda_kernels.py (`gat_fwd_parts`) times the score stage and
+// the feature walk apart.
 //
 // Backward (gat_bwd). Per dst row v and head h, with alpha_e = exp(s_e - max)
 // / den from the forward's saved max and den, w_e the dropout weight and
@@ -38,68 +90,49 @@
 //   msg[e,h*D+j]    = alpha w dout[v,h,j] + ds_pre attn_l[h,j]   (bf16)
 //   dal_part[warp]  += ds_pre feat[src,h,:]               (f32, per warp)
 // The whole chain is f32: bf16 there gave ~10% gradient error
-// (gat_pallas.py:237-239). Warps stride over rows and each keeps its own
-// dattn_l partial, which the caller sums: no atomics, a deterministic result.
-// The message, in dst-sorted edge order, is reduced over sources by the CSR
-// SpMM kernel (spmm_csr.cu) over the transposed CSR, as _fused_bwd does with
+// (gat_pallas.py:237-239). Each warp keeps its own dattn_l partial, which
+// the caller sums: no atomics, a deterministic result. The message, in
+// dst-sorted edge order, is reduced over sources by the CSR SpMM kernel
+// (spmm_csr.cu) over the transposed CSR, as _fused_bwd does with
 // segment_reduce (gat_pallas.py:494). der and dattn_l could be written as
-// differences of row sums (sum c w g - t sum c, c = alpha leaky_relu'), which
-// would spare pass 2 the feature reads; where the attention is concentrated
-// and dout is large those differences cancel more than the per-edge sum
-// does (more than tenfold in tests/test_torch_kernel_design.py), so ds_pre
-// stays per edge.
-//
-// Bound on an H100: bytes. Per call the forward must read the bf16 features
-// once (most of the E gathers hit the 50 MB L2 at ogbn-arxiv scale), el, er,
-// the indices and the [E, H] keep mask, and write out, max and den; its
-// arithmetic (about 2 E H D flops plus E H exponentials) is far below the
-// card's rate. The backward's largest term is its [E, H*D] bf16 message write
-// (about 650 MB at E = 2.5M, H*D = 128); what holds it back is the latency of
-// each edge's chain (index, el[src] and feature-row loads, exp, the per-head
-// dot product). Its design:
-//   - lanes lie across (edge slot, head, column group): LH = ceil(D / VEC /
-//     REPS) lanes cover a head (not a power of two: (1, 40) gives 5), HP heads
-//     an edge, and SLOTS = 32 / (HP * LH) edges are walked at once ((8, 16):
-//     16 lanes per edge, 2 slots; (1, 40): 5 lanes per edge, 6 slots); g_e
-//     reduces over the head's LH lanes with __shfl_down_sync;
-//   - pass 1 forms alpha, w and g per edge and sums t, and keeps (alpha, w,
-//     w g, the leaky_relu' factor) of the row's first K edges in shared memory
-//     (K = 4 KB per warp / (16 bytes * HP));
-//   - pass 2 takes those terms from the cache and reads the edge's feature
-//     slice again for dattn_l (the row was just gathered by the same warp),
-//     and attn_l from L1, so that neither is held in registers across the
-//     row; only edges past K (hub rows) load el and recompute alpha and g;
-//   - one reciprocal of den per (row, head) replaces a division per edge;
-//   - the per-slot sums fold into slot 0 with __shfl_down_sync at the row's
-//     end (dattn_l at the kernel's end); enough blocks to fill every SM once
-//     (the caller asks the occupancy of the instantiation) stride over rows.
-// The caller works the geometry out (ops/gat_cuda.py `bwd_geometry`) and the
-// kernel checks it.
+// differences of row sums (sum c w g - t sum c, c = alpha leaky_relu'),
+// which would spare pass 2 the feature reads; where the attention is
+// concentrated and dout is large those differences cancel more than the
+// per-edge sum does (more than tenfold in tests/test_torch_kernel_design.py),
+// so ds_pre stays per edge. Its largest term is the [E, H*D] bf16 message
+// write (about 650 MB at E = 2.5M, H*D = 128). Pass 1 keeps (alpha, w, w g,
+// the leaky_relu' factor) of the row's first K edges in shared memory
+// (K = 4 KB per warp / (16 bytes * HP)); pass 2 takes those terms from the
+// cache and reads the edge's feature slice again for dattn_l (the row was
+// just gathered by the same warp), and attn_l from L1; only edges past K
+// load el and recompute alpha and g. Both passes regenerate the keep bits.
 //
 // The standalone segment softmax (edge_softmax_fwd, edge_softmax_bwd)
 // replaces :_smx_fwd_kernel (:694) and :_smx_bwd_kernel (:712), which run
 // the same one-hot slot-space reduction per dst block. Here scores are f32
 // [E, H] in dst-sorted edge order, so a dst row's scores are one contiguous
-// run of (end - start) * H floats. One warp owns a row; its lanes cover
-// (edge, head) pairs: G lanes per edge (G the smallest power of two >= H, at
-// most 32, more heads in further passes) and 32 / G edges per step, so the
-// warp reads the run with consecutive lanes on consecutive floats. The
-// forward finds each head's segment max (per lane, merged with
-// __shfl_xor_sync), sums exp(s - max) the same way with a compensated sum,
-// then writes alpha = exp(s - max) / sum: the segment's own max, not the
-// TPU kernel's block max (gat_pallas.py:700). Each term is formed with the
-// final max, not rescaled as an online softmax would rescale it: on a
-// 20,000-edge segment the rescaling cost more accuracy than the tests
-// allow. The backward sums t = sum_seg(alpha * dalpha) the same way and
-// writes
-// ds = alpha * dalpha - alpha * t. A row without in-edges writes nothing.
-// Both are bound by bytes (each reads its [E, H] inputs once and writes
-// [E, H] once; a few flops per element): the reads and writes are
-// coalesced, which is all the design does about it.
+// run of (end - start) * H floats. Lanes cover (edge, head) pairs: G lanes
+// per edge (G the smallest power of two >= H, at most 32, more heads in
+// further passes). The forward splits a warp into 32 / (G P) groups of P
+// edge slots, one group per consecutive row; a row of at most P R edges
+// (R = 8; the caller picks P, ops/gat_cuda.py `softmax_geometry`, so that
+// rows up to twice the mean in-degree fit) is read once into R registers
+// per lane, its max and sum taken with __shfl_xor_sync inside the group,
+// and alpha written from the registers. A longer row is walked afterwards
+// by the whole warp: the segment max first, then a compensated (Kahan) sum
+// of exp(s - max), since a plain f32 sum of a 20,000-edge segment's
+// exponentials is off by about 1e-5 of itself, then alpha = exp(s - max) /
+// sum. Every term is formed with the segment's own final max (the TPU
+// kernel subtracts its block's, gat_pallas.py:700). The backward sums
+// t = sum_seg(alpha * dalpha) and writes ds = alpha * dalpha - alpha * t,
+// one warp per row. A row without in-edges writes nothing. Both are bound by
+// bytes (each reads its [E, H] inputs once and writes [E, H] once; a few
+// flops per element).
 //
 // Interface: plain C, called through ctypes. Every entry point launches on
 // the given stream, never synchronises, allocates nothing, and returns
-// cudaGetLastError() (or cudaErrorInvalidValue for a shape it does not take).
+// cudaGetLastError() (or cudaErrorInvalidValue for a shape or geometry it
+// does not take).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -158,114 +191,146 @@ __device__ __forceinline__ void store_bf16(__nv_bfloat16* p, const float* in) {
   }
 }
 
+// VEC f32 values in one load of VEC * 4 bytes
+template <int VEC>
+__device__ __forceinline__ void load_f32(const float* p, float* out) {
+  if constexpr (VEC == 1) {
+    out[0] = *p;
+  } else if constexpr (VEC == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    out[0] = v.x;
+    out[1] = v.y;
+  } else {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    out[0] = v.x;
+    out[1] = v.y;
+    out[2] = v.z;
+    out[3] = v.w;
+  }
+}
+
 __device__ __forceinline__ float leaky(float x, float slope) {
   return x >= 0.f ? x : slope * x;
 }
 
-// dropout weight of edge e, head h: keep / keep_prob, or 1 without a mask
-__device__ __forceinline__ float drop_weight(const uint8_t* keep, int64_t e, int H, int h,
-                                             float inv_keep) {
-  if (keep == nullptr) return 1.f;
-  return keep[e * H + h] ? inv_keep : 0.f;
+// ---- dropout ---------------------------------------------------------------
+
+constexpr uint32_t kPhiloxM0 = 0xD2511F53u, kPhiloxM1 = 0xCD9E8D57u;
+constexpr uint32_t kPhiloxW0 = 0x9E3779B9u, kPhiloxW1 = 0xBB67AE85u;
+
+// Philox4x32-10 of counter c under key (k0, k1)
+__device__ __forceinline__ uint4 philox(uint4 c, uint32_t k0, uint32_t k1) {
+#pragma unroll
+  for (int i = 0; i < 10; ++i) {
+    if (i) {
+      k0 += kPhiloxW0;
+      k1 += kPhiloxW1;
+    }
+    const uint32_t hi0 = __umulhi(kPhiloxM0, c.x), lo0 = kPhiloxM0 * c.x;
+    const uint32_t hi1 = __umulhi(kPhiloxM1, c.z), lo1 = kPhiloxM1 * c.z;
+    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
+  }
+  return c;
 }
 
-template <int VEC, int REPS>
-__global__ void __launch_bounds__(kWarps * 32)
-gat_fwd_kernel(const int32_t* __restrict__ indptr, const int32_t* __restrict__ src_of,
-               const __nv_bfloat16* __restrict__ feat, const float* __restrict__ el,
-               const __nv_bfloat16* __restrict__ er, const uint8_t* __restrict__ keep,
-               float inv_keep, float slope, float* __restrict__ out,
-               float* __restrict__ smax, float* __restrict__ denom, int n_rows, int H,
-               int D, int lanes) {
+// what the caller passes: a keep mask or a seed (never both), or neither
+struct DropArgs {
+  const uint8_t* mask;                // uint8 [E, H], or null
+  const unsigned long long* seed;     // one 64-bit seed on the device, or null
+  unsigned thresh;                    // seed mode: keep iff word < thresh
+  float inv_keep;                     // a kept edge's weight
+};
+
+// the same, with the seed read once per thread
+struct Drop {
+  const uint8_t* mask;
+  bool seeded;
+  uint32_t k0, k1, thresh;
+  float inv_keep;
+};
+
+__device__ __forceinline__ Drop make_drop(const DropArgs& a) {
+  // without dropout every weight is 1, whatever inv_keep says
+  Drop d{a.mask, a.seed != nullptr, 0u, 0u, a.thresh,
+         a.mask != nullptr || a.seed != nullptr ? a.inv_keep : 1.f};
+  if (d.seeded) {
+    const unsigned long long s = *a.seed;
+    d.k0 = static_cast<uint32_t>(s);
+    d.k1 = static_cast<uint32_t>(s >> 32);
+  }
+  return d;
+}
+
+// keep bits of edge e for heads h0 .. h0 + hp - 1 (bit i for head h0 + i);
+// every bit set without dropout
+__device__ __forceinline__ unsigned keep_bits(const Drop& d, int64_t e, int H, int h0,
+                                              int hp) {
+  const int hn = min(hp, H - h0);
+  unsigned bits = 0;
+  if (d.mask != nullptr) {
+    const uint8_t* row = d.mask + e * H + h0;
+    for (int i = 0; i < hn; ++i) bits |= (row[i] ? 1u : 0u) << i;
+    return bits;
+  }
+  if (!d.seeded) return kFull;
+  uint4 w = make_uint4(0u, 0u, 0u, 0u);
+  for (int i = 0; i < hn; ++i) {
+    const int h = h0 + i;
+    if (i == 0 || (h & 3) == 0)
+      w = philox(make_uint4(static_cast<uint32_t>(e), static_cast<uint32_t>(h >> 2), 0u, 0u),
+                 d.k0, d.k1);
+    const int k = h & 3;
+    const uint32_t word = k == 0 ? w.x : k == 1 ? w.y : k == 2 ? w.z : w.w;
+    bits |= (word < d.thresh ? 1u : 0u) << i;
+  }
+  return bits;
+}
+
+// the keep bits of the n edges e0 .. e0 + n - 1 for heads h0 .. h0 + hn - 1
+// into bits[0 .. n) (bit i for head h0 + i). In seed mode the G 4-head
+// blocks an edge spans go to G neighbouring lanes, one Philox call each,
+// whose bits an OR over the G lanes joins: a chunk of at most 32 / G edges
+// takes one call per lane, where one lane per edge would take G. Every lane
+// of the warp must call it.
+__device__ __forceinline__ void chunk_keep_bits(const Drop& d, int64_t e0, int n, int H, int h0,
+                                                int hn, unsigned* bits) {
   const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (row >= n_rows) return;  // the whole warp leaves together
-  const int start = indptr[row];
-  const int end = indptr[row + 1];
-  const int hd = H * D;
-  const int sub = lane & (lanes - 1);
-
-  for (int h0 = 0; h0 < H; h0 += 32 / lanes) {
-    const int h = h0 + lane / lanes;
-    const bool head_ok = h < H;
-    const float er_v = head_ok ? __bfloat162float(er[static_cast<int64_t>(row) * H + h]) : 0.f;
-    float m = -CUDART_INF_F;
-    float den = 0.f;
-    float acc[REPS][VEC];
+  if (!d.seeded) {
+    if (lane < n) bits[lane] = keep_bits(d, e0 + lane, H, h0, hn);
+    return;
+  }
+  const int b0 = h0 >> 2;
+  const int g = ((h0 + hn - 1) >> 2) - b0 + 1;  // blocks spanned, <= 3 for hn <= 8
+  const int per = 32 / g;                       // edges per round
+  const int j0 = lane / g, c = lane - j0 * g;
+  for (int r = 0; r < n; r += per) {  // warp-uniform
+    const int j = r + j0;
+    unsigned part = 0;
+    if (j0 < per && j < n) {
+      const int blk = b0 + c;
+      const uint4 w =
+          philox(make_uint4(static_cast<uint32_t>(e0 + j), static_cast<uint32_t>(blk), 0u, 0u),
+                 d.k0, d.k1);
+      const uint32_t words[4] = {w.x, w.y, w.z, w.w};
 #pragma unroll
-    for (int r = 0; r < REPS; ++r)
-#pragma unroll
-      for (int k = 0; k < VEC; ++k) acc[r][k] = 0.f;
-
-    for (int e0 = start; e0 < end; e0 += 32) {
-      const int n = min(32, end - e0);
-      const int mine = lane < n ? src_of[e0 + lane] : 0;
-      for (int j = 0; j < n; ++j) {
-        const int src = __shfl_sync(kFull, mine, j);
-        if (!head_ok) continue;
-        const float s = leaky(el[static_cast<int64_t>(src) * H + h] + er_v, slope);
-        if (s > m) {  // rescale what was summed under the old max
-          const float c = expf(m - s);
-          den *= c;
-#pragma unroll
-          for (int r = 0; r < REPS; ++r)
-#pragma unroll
-            for (int k = 0; k < VEC; ++k) acc[r][k] *= c;
-          m = s;
-        }
-        const float p = expf(s - m);
-        den += p;
-        const float pw = p * drop_weight(keep, e0 + j, H, h, inv_keep);
-        const __nv_bfloat16* frow = feat + static_cast<int64_t>(src) * hd + h * D;
-#pragma unroll
-        for (int r = 0; r < REPS; ++r) {
-          const int col = (r * lanes + sub) * VEC;
-          if (col < D) {
-            float f[VEC];
-            load_bf16<VEC>(frow + col, f);
-#pragma unroll
-            for (int k = 0; k < VEC; ++k) acc[r][k] += pw * f[k];
-          }
-        }
+      for (int k = 0; k < 4; ++k) {
+        const int i = 4 * blk + k - h0;  // bit of head 4 blk + k
+        if (i >= 0 && i < hn) part |= (words[k] < d.thresh ? 1u : 0u) << i;
       }
     }
-    if (!head_ok) continue;
-    float* orow = out + static_cast<int64_t>(row) * hd + h * D;
-#pragma unroll
-    for (int r = 0; r < REPS; ++r) {
-      const int col = (r * lanes + sub) * VEC;
-      if (col < D) {
-#pragma unroll
-        for (int k = 0; k < VEC; ++k) orow[col + k] = den > 0.f ? acc[r][k] / den : 0.f;
-      }
+    for (int off = 1; off < g; ++off) {
+      const unsigned o = __shfl_down_sync(kFull, part, off);
+      if (c + off < g) part |= o;
     }
-    if (sub == 0) {
-      smax[static_cast<int64_t>(row) * H + h] = den > 0.f ? m : 0.f;
-      denom[static_cast<int64_t>(row) * H + h] = den;
-    }
+    if (c == 0 && j0 < per && j < n) bits[j] = part;
   }
 }
 
-// per-edge quantities of the backward, recomputed from the forward's inputs
-struct EdgeTerms {
-  float s_pre;  // el + er, before leaky_relu
-  float alpha;  // exp(s - max) / den
-  float w;      // dropout weight
-};
+// ---- shared pieces of the GAT kernels -------------------------------------
 
-__device__ __forceinline__ EdgeTerms edge_terms(float el_src, float er_v, float m_v,
-                                                float inv_den, const uint8_t* keep, int64_t e,
-                                                int H, int h, float inv_keep, float slope) {
-  EdgeTerms t;
-  t.s_pre = el_src + er_v;
-  t.alpha = expf(leaky(t.s_pre, slope) - m_v) * inv_den;
-  t.w = drop_weight(keep, e, H, h, inv_keep);
-  return t;
-}
-
-// sum over the lh lanes of a head (lh need not be a power of two), whose
+// sum over the lh lanes of a group (lh need not be a power of two), whose
 // first lane is lane - sub; every lane of the warp must call it and gets its
-// head's sum
+// group's sum
 __device__ __forceinline__ float head_sum(float v, int sub, int lh) {
   for (int off = 1; off < lh; off <<= 1) {
     const float o = __shfl_down_sync(kFull, v, off);
@@ -274,13 +339,21 @@ __device__ __forceinline__ float head_sum(float v, int sub, int lh) {
   return __shfl_sync(kFull, v, (threadIdx.x & 31) - sub);
 }
 
+struct Add {
+  __device__ __forceinline__ float operator()(float a, float b) const { return a + b; }
+};
+struct Max {
+  __device__ __forceinline__ float operator()(float a, float b) const { return fmaxf(a, b); }
+};
+
 // fold the per-slot values of `slots` slots of `le` lanes each onto slot 0
 // (slots [h, s) onto [0, s - h)); every lane of the warp must call it
-__device__ __forceinline__ float slot_fold(float v, int q, int slots, int le) {
+template <class Op = Add>
+__device__ __forceinline__ float slot_fold(float v, int q, int slots, int le, Op op = Op()) {
   for (int s = slots; s > 1;) {
     const int h = (s + 1) >> 1;
     const float o = __shfl_down_sync(kFull, v, h * le);
-    if (q + h < s) v += o;
+    if (q + h < s) v = op(v, o);
     s = h;
   }
   return v;
@@ -315,19 +388,285 @@ __device__ __forceinline__ float dot(const float (&f)[REPS][VEC], const float (&
   return part;
 }
 
-// At most 8 columns per lane, ptxas left to itself trims some of these
-// instantiations to an occupancy target by spilling; asking 3 resident
-// blocks per SM gives it a register budget (up to 85) that needs no spill.
+// the lane's place in the (edge slot, head, column group) layout
+struct Lanes {
+  int le;    // lanes per edge
+  int q;     // edge slot
+  int hh;    // head of the pass
+  int sub;   // column group within the head
+};
+
+__device__ __forceinline__ Lanes lanes_of(int lane, int lh, int hp) {
+  Lanes l;
+  l.le = hp * lh;
+  l.q = lane / l.le;
+  l.hh = (lane - l.q * l.le) / lh;
+  l.sub = lane - l.q * l.le - l.hh * lh;
+  return l;
+}
+
+// bit r: the lane's column group r lies in its head
 template <int VEC, int REPS>
-__global__ void __launch_bounds__(kWarps * 32, VEC * REPS <= 8 ? 3 : 1)
+__device__ __forceinline__ unsigned col_bits(bool lane_ok, int lh, int sub, int D) {
+  unsigned cols = 0;
+#pragma unroll
+  for (int r = 0; r < REPS; ++r) cols |= (lane_ok && (r * lh + sub) * VEC < D ? 1u : 0u) << r;
+  return cols;
+}
+
+// ---- prep ------------------------------------------------------------------
+
+// rows = N * H rows of D f32 features; lr lanes per row, 32 / lr rows per
+// warp step, REPS groups of VEC columns per lane
+template <int VEC, int REPS>
+__global__ void __launch_bounds__(kWarps * 32)
+gat_prep_kernel(const float* __restrict__ feat, const float* __restrict__ attn_l,
+                const float* __restrict__ attn_r, __nv_bfloat16* __restrict__ feat_b,
+                float* __restrict__ el, __nv_bfloat16* __restrict__ er, int64_t rows, int H,
+                int D, int lr) {
+  const int lane = threadIdx.x & 31;
+  const int warp = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int n_warps = gridDim.x * kWarps;
+  const int rpw = 32 / lr;
+  const int q = lane / lr;
+  const int sub = lane - q * lr;
+  for (int64_t r0 = static_cast<int64_t>(warp) * rpw; r0 < rows;
+       r0 += static_cast<int64_t>(n_warps) * rpw) {  // warp-uniform
+    const int64_t r = r0 + q;
+    const bool ok = q < rpw && r < rows;
+    const int h = ok ? static_cast<int>(r % H) : 0;
+    float sl = 0.f, sr = 0.f;
+#pragma unroll
+    for (int rep = 0; rep < REPS; ++rep) {
+      const int col = (rep * lr + sub) * VEC;
+      if (ok && col < D) {
+        float f[VEC], al[VEC], ar[VEC], fb[VEC];
+        load_f32<VEC>(feat + r * D + col, f);
+        load_f32<VEC>(attn_l + h * D + col, al);
+        load_f32<VEC>(attn_r + h * D + col, ar);
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) {
+          fb[k] = __bfloat162float(__float2bfloat16(f[k]));
+          sl += fb[k] * __bfloat162float(__float2bfloat16(al[k]));
+          sr += f[k] * ar[k];
+        }
+        store_bf16<VEC>(feat_b + r * D + col, fb);
+      }
+    }
+    sl = head_sum(sl, sub, lr);
+    sr = head_sum(sr, sub, lr);
+    if (ok && sub == 0) {
+      el[r] = sl;
+      er[r] = __float2bfloat16(sr);
+    }
+  }
+}
+
+struct PrepGeometry {
+  int vec, reps, lr;
+};
+
+constexpr int kPrepMaxReps = 8;
+
+// the prep's lane layout for rows of d f32 values whose base addresses are
+// aligned to `align` bytes; reps == 0 marks a width it does not take
+PrepGeometry prep_geometry(int d, uintptr_t align) {
+  int vec = 4;
+  while (vec > 1 && (d % vec != 0 || align % (vec * sizeof(float)) != 0)) vec /= 2;
+  const int groups = d / vec;
+  int reps = 1;
+  while (reps * 32 < groups) reps *= 2;
+  return {vec, reps <= kPrepMaxReps ? reps : 0, (groups + reps - 1) / reps};
+}
+
+#define PREP_CASES(X) \
+  X(1, 1) X(1, 2) X(1, 4) X(1, 8) X(2, 1) X(2, 2) X(2, 4) X(2, 8) X(4, 1) X(4, 2) X(4, 4) X(4, 8)
+
+// ---- the fused attention ---------------------------------------------------
+
+// per warp: the scores, then the terms p, of the edges of its chunk
+// [32][NH]; the chunk edges' keep bits; the row's er and segment max for
+// the heads of the pass
+template <int NH>
+struct FwdScratch {
+  float term[32 * NH];
+  unsigned bits[32];
+  float er[NH], max[NH];
+};
+
+// Scores lie across lanes by edge (lane j holds chunk edge j's NH heads of
+// the pass); features across (edge slot, head, column group). At most 8
+// columns per lane, ptxas left to itself trims some of these
+// instantiations to an occupancy target by spilling; asking resident
+// blocks per SM gives it a register budget that needs no spill: 5 blocks
+// (48 registers) for one load per lane, 4 (64) for several, which spill
+// under 48.
+template <int VEC, int REPS, int NH>
+__global__ void __launch_bounds__(kWarps * 32, VEC * REPS <= 8 ? (REPS == 1 ? 5 : 4) : 1)
+gat_fwd_kernel(const int32_t* __restrict__ indptr, const int32_t* __restrict__ src_of,
+               const __nv_bfloat16* __restrict__ feat, const float* __restrict__ el,
+               const __nv_bfloat16* __restrict__ er, DropArgs drop_args, float slope,
+               float* __restrict__ out, float* __restrict__ smax, float* __restrict__ denom,
+               int n_rows, int H, int D, int lh, int hp, int slots) {
+  __shared__ FwdScratch<NH> scratch[kWarps];
+  const int lane = threadIdx.x & 31;
+  const int warp = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int n_warps = gridDim.x * kWarps;
+  FwdScratch<NH>& sc = scratch[threadIdx.x >> 5];
+  const Drop drop = make_drop(drop_args);
+  const int hd = H * D;
+  const Lanes L = lanes_of(lane, lh, hp);
+
+  for (int row = warp; row < n_rows; row += n_warps) {  // warp-uniform
+    const int start = indptr[row];
+    const int end = indptr[row + 1];
+    for (int h0 = 0; h0 < H; h0 += hp) {  // one pass unless H > hp
+      const int hn = min(hp, H - h0);     // heads of the pass
+      const int h = h0 + L.hh;
+      const bool lane_ok = L.q < slots && L.hh < hn;
+      const unsigned cols = col_bits<VEC, REPS>(lane_ok, lh, L.sub, D);
+      const int64_t vh = static_cast<int64_t>(row) * H + h;
+      float* orow = out + static_cast<int64_t>(row) * hd + h * D;
+      if (start == end) {  // no in-edges: zeros
+        if (L.q == 0 && lane_ok) {
+#pragma unroll
+          for (int r = 0; r < REPS; ++r)
+            if (cols >> r & 1u)
+#pragma unroll
+              for (int k = 0; k < VEC; ++k) orow[(r * lh + L.sub) * VEC + k] = 0.f;
+          if (L.sub == 0) {
+            smax[vh] = 0.f;
+            denom[vh] = 0.f;
+          }
+        }
+        continue;
+      }
+      if (lane < hn) sc.er[lane] = __bfloat162float(er[static_cast<int64_t>(row) * H + h0 + lane]);
+      __syncwarp();
+
+      // pass 1: lane j scores chunk edge j for every head of the pass (the
+      // first chunk's scores stay in scratch); the segment max per head
+      // over the lanes
+      {
+        float m[NH];
+#pragma unroll
+        for (int i = 0; i < NH; ++i) m[i] = -CUDART_INF_F;
+        for (int e = start + lane; e - lane < end; e += 32) {  // warp-uniform
+          if (e < end) {
+            const float* elrow = el + static_cast<int64_t>(src_of[e]) * H + h0;
+#pragma unroll
+            for (int i = 0; i < NH; ++i)
+              if (i < hn) {
+                const float s = leaky(elrow[i] + sc.er[i], slope);
+                m[i] = fmaxf(m[i], s);
+                if (e - lane == start) sc.term[lane * NH + i] = s;
+              }
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < NH; ++i) {
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1)
+            m[i] = fmaxf(m[i], __shfl_xor_sync(kFull, m[i], off));
+          if (lane == i) sc.max[i] = m[i];
+        }
+      }
+      __syncwarp();
+
+      // pass 2, per chunk: lane j forms its edge's terms once with the
+      // final max, and its keep bits; then the feature lanes sum p (the
+      // denominator) and p w f, per slot
+      float den = 0.f;
+      float acc[REPS][VEC];
+#pragma unroll
+      for (int r = 0; r < REPS; ++r)
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) acc[r][k] = 0.f;
+      for (int e0 = start; e0 < end; e0 += 32) {
+        const int n = min(32, end - e0);
+        const int mine = lane < n ? src_of[e0 + lane] : 0;
+        if (lane < n) {
+          const float* elrow = el + static_cast<int64_t>(mine) * H + h0;
+#pragma unroll
+          for (int i = 0; i < NH; ++i)
+            if (i < hn) {
+              const float s = e0 == start ? sc.term[lane * NH + i]
+                                          : leaky(elrow[i] + sc.er[i], slope);
+              sc.term[lane * NH + i] = expf(s - sc.max[i]);
+            }
+        }
+        chunk_keep_bits(drop, e0, n, H, h0, hn, sc.bits);
+        __syncwarp();  // the terms written above are read by other lanes below
+        const int steps = (n + slots - 1) / slots;  // warp-uniform
+#pragma unroll 4
+        for (int j = 0; j < steps; ++j) {
+          const int k = j * slots + L.q;
+          const int src = __shfl_sync(kFull, mine, k & 31);
+          if (lane_ok && k < n) {
+            const float p = sc.term[k * NH + L.hh];
+            den += p;
+            if (sc.bits[k] >> L.hh & 1u) {  // a dropped edge's row is not read
+              const float pw = p * drop.inv_keep;
+              float f[REPS][VEC];
+              load_slice<VEC, REPS>(feat + static_cast<int64_t>(src) * hd + h * D, cols, lh,
+                                    L.sub, f);
+#pragma unroll
+              for (int r = 0; r < REPS; ++r)
+#pragma unroll
+                for (int c = 0; c < VEC; ++c) acc[r][c] += pw * f[r][c];
+            }
+          }
+        }
+        __syncwarp();  // every lane is done with the terms before the next chunk
+      }
+      den = slot_fold(den, L.q, slots, L.le);
+#pragma unroll
+      for (int r = 0; r < REPS; ++r)
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) acc[r][k] = slot_fold(acc[r][k], L.q, slots, L.le);
+      if (L.q == 0 && lane_ok) {
+        const float inv_den = __fdividef(1.f, den);  // den >= 1
+#pragma unroll
+        for (int r = 0; r < REPS; ++r)
+          if (cols >> r & 1u)
+#pragma unroll
+            for (int k = 0; k < VEC; ++k) orow[(r * lh + L.sub) * VEC + k] = acc[r][k] * inv_den;
+        if (L.sub == 0) {
+          smax[vh] = sc.max[L.hh];
+          denom[vh] = den;
+        }
+      }
+      __syncwarp();  // the scratch is read above before the next pass writes it
+    }
+  }
+}
+
+// per-edge quantities of the backward, recomputed from the forward's inputs
+struct EdgeTerms {
+  float s_pre;  // el + er, before leaky_relu
+  float alpha;  // exp(s - max) / den
+};
+
+__device__ __forceinline__ EdgeTerms edge_terms(float el_src, float er_v, float m_v,
+                                                float inv_den, float slope) {
+  EdgeTerms t;
+  t.s_pre = el_src + er_v;
+  t.alpha = expf(leaky(t.s_pre, slope) - m_v) * inv_den;
+  return t;
+}
+
+// 3 resident blocks per SM (up to 85 registers) as for gat_fwd; <2, 4>
+// spills under that budget once it forms keep bits, so it has none.
+template <int VEC, int REPS>
+__global__ void __launch_bounds__(kWarps * 32, VEC * REPS <= 8 && REPS < 4 ? 3 : 1)
 gat_bwd_kernel(const int32_t* __restrict__ indptr, const int32_t* __restrict__ src_of,
                const __nv_bfloat16* __restrict__ feat, const float* __restrict__ el,
-               const __nv_bfloat16* __restrict__ er, const uint8_t* __restrict__ keep,
-               float inv_keep, float slope, const float* __restrict__ smax,
-               const float* __restrict__ denom, const float* __restrict__ dout,
-               const __nv_bfloat16* __restrict__ attn_l, float* __restrict__ der,
-               __nv_bfloat16* __restrict__ msg, float* __restrict__ dal_part, int n_rows, int H,
-               int D, int lh, int hp, int slots, int kcache) {
+               const __nv_bfloat16* __restrict__ er, DropArgs drop_args, float slope,
+               const float* __restrict__ smax, const float* __restrict__ denom,
+               const float* __restrict__ dout, const __nv_bfloat16* __restrict__ attn_l,
+               float* __restrict__ der, __nv_bfloat16* __restrict__ msg,
+               float* __restrict__ dal_part, int n_rows, int H, int D, int lh, int hp, int slots,
+               int kcache) {
   // (alpha, w, w g, leaky_relu' factor) of the first kcache edges of the
   // warp's row, per head of the pass: [kWarps][kcache][hp]
   extern __shared__ float4 edge_cache[];
@@ -335,18 +674,15 @@ gat_bwd_kernel(const int32_t* __restrict__ indptr, const int32_t* __restrict__ s
   const int warp = blockIdx.x * kWarps + (threadIdx.x >> 5);
   const int n_warps = gridDim.x * kWarps;
   float4* cache = edge_cache + (threadIdx.x >> 5) * kcache * hp;
+  const Drop drop = make_drop(drop_args);
   const int hd = H * D;
-  const int le = hp * lh;  // lanes per edge
-  const int q = lane / le;
-  const int hh = (lane - q * le) / lh;
-  const int sub = lane - q * le - hh * lh;
+  const Lanes L = lanes_of(lane, lh, hp);
+  const int q = L.q, hh = L.hh, sub = L.sub, le = L.le;
 
   for (int h0 = 0; h0 < H; h0 += hp) {  // one pass unless H * LH > 32
     const int h = h0 + hh;
     const bool lane_ok = q < slots && h < H;
-    unsigned cols = 0;  // bit r: this lane's column group r lies in the head
-#pragma unroll
-    for (int r = 0; r < REPS; ++r) cols |= (lane_ok && (r * lh + sub) * VEC < D ? 1u : 0u) << r;
+    const unsigned cols = col_bits<VEC, REPS>(lane_ok, lh, sub, D);
     float dal[REPS][VEC];  // this lane's dattn_l partial for its columns
 #pragma unroll
     for (int r = 0; r < REPS; ++r)
@@ -379,25 +715,27 @@ gat_bwd_kernel(const int32_t* __restrict__ indptr, const int32_t* __restrict__ s
       for (int e0 = start; e0 < end; e0 += 32) {
         const int n = min(32, end - e0);
         const int mine = lane < n ? src_of[e0 + lane] : 0;
+        const unsigned kept = lane < n ? keep_bits(drop, e0 + lane, H, h0, hp) : 0u;
         const int steps = (n + slots - 1) / slots;  // warp-uniform
         for (int j = 0; j < steps; ++j) {
           const int k = j * slots + q;
           const int src = __shfl_sync(kFull, mine, k & 31);
+          const unsigned bits = __shfl_sync(kFull, kept, k & 31);
           const bool on = lane_ok && k < n;
-          EdgeTerms et{0.f, 0.f, 0.f};
+          EdgeTerms et{0.f, 0.f};
           float f[REPS][VEC];
           if (on) {
-            et = edge_terms(el[static_cast<int64_t>(src) * H + h], er_v, m_v, inv_den, keep, e0 + k,
-                            H, h, inv_keep, slope);
+            et = edge_terms(el[static_cast<int64_t>(src) * H + h], er_v, m_v, inv_den, slope);
             load_slice<VEC, REPS>(feat + static_cast<int64_t>(src) * hd + h * D, cols, lh, sub, f);
           }
           const float g = head_sum(on ? dot<VEC, REPS>(f, go, cols) : 0.f, sub, lh);
           if (!on) continue;
-          const float wg = et.w * g;
+          const float w = (bits >> hh & 1u) ? drop.inv_keep : 0.f;
+          const float wg = w * g;
           t += et.alpha * wg;
           const int ro = e0 - start + k;  // edge of the row
           if (ro < kcache && sub == 0)
-            cache[ro * hp + hh] = make_float4(et.alpha, et.w, wg, et.s_pre >= 0.f ? 1.f : slope);
+            cache[ro * hp + hh] = make_float4(et.alpha, w, wg, et.s_pre >= 0.f ? 1.f : slope);
         }
       }
       t = __shfl_sync(kFull, slot_fold(t, q, slots, le), lane - q * le);  // the row's t
@@ -411,9 +749,14 @@ gat_bwd_kernel(const int32_t* __restrict__ indptr, const int32_t* __restrict__ s
         const int n = min(32, end - e0);
         const int mine = lane < n ? src_of[e0 + lane] : 0;
         const int steps = (n + slots - 1) / slots;
+        // every step of the chunk cached: no keep bits needed (warp-uniform)
+        const bool chunk_cached = e0 - start + steps * slots <= kcache;
+        const unsigned kept =
+            lane < n && !chunk_cached ? keep_bits(drop, e0 + lane, H, h0, hp) : 0u;
         for (int j = 0; j < steps; ++j) {
           const int k = j * slots + q;
           const int src = __shfl_sync(kFull, mine, k & 31);
+          const unsigned bits = __shfl_sync(kFull, kept, k & 31);
           const bool on = lane_ok && k < n;
           const bool cached = e0 - start + (j + 1) * slots <= kcache;  // warp-uniform
           float4 es = make_float4(0.f, 0.f, 0.f, 0.f);  // (alpha, w, w g, leaky_relu')
@@ -422,9 +765,10 @@ gat_bwd_kernel(const int32_t* __restrict__ indptr, const int32_t* __restrict__ s
             if (cached) {
               es = cache[(e0 - start + k) * hp + hh];
             } else {
-              const EdgeTerms et = edge_terms(el[static_cast<int64_t>(src) * H + h], er_v, m_v,
-                                              inv_den, keep, e0 + k, H, h, inv_keep, slope);
-              es = make_float4(et.alpha, et.w, 0.f, et.s_pre >= 0.f ? 1.f : slope);
+              const EdgeTerms et =
+                  edge_terms(el[static_cast<int64_t>(src) * H + h], er_v, m_v, inv_den, slope);
+              es = make_float4(et.alpha, (bits >> hh & 1u) ? drop.inv_keep : 0.f, 0.f,
+                               et.s_pre >= 0.f ? 1.f : slope);
             }
             load_slice<VEC, REPS>(feat + static_cast<int64_t>(src) * hd + h * D, cols, lh, sub, f);
           }
@@ -469,49 +813,65 @@ gat_bwd_kernel(const int32_t* __restrict__ indptr, const int32_t* __restrict__ s
   }
 }
 
-struct Geometry {
-  int vec, lanes, reps;
-};
-
-constexpr int kMaxReps = 4;
-
-// the forward's lane layout for per-head width d (see the note at the top);
-// vec also divides the alignment of every base pointer it is used with.
-// reps == 0 marks a width the kernel does not take.
-Geometry geometry(int d, uintptr_t align) {
-  int vec = 8;
-  while (vec > 1 && (d % vec != 0 || align % (vec * sizeof(__nv_bfloat16)) != 0)) vec /= 2;
-  const int groups = d / vec;  // vec-wide groups per head
-  int lanes = 1;
-  while (lanes < groups && lanes < 32) lanes *= 2;
-  int reps = 1;
-  while (reps * lanes < groups) reps *= 2;
-  return {vec, lanes, reps <= kMaxReps ? reps : 0};
-}
-
 #define GAT_CASES(X) \
   X(1, 1) X(1, 2) X(1, 4) X(2, 1) X(2, 2) X(2, 4) X(4, 1) X(4, 2) X(4, 4) X(8, 1) X(8, 2) X(8, 4)
 
-// segment softmax: lanes per edge, G a power of two (see the note at the top)
-__global__ void __launch_bounds__(kWarps * 32)
-edge_softmax_fwd_kernel(const int32_t* __restrict__ indptr, const float* __restrict__ scores,
-                        float* __restrict__ alpha, int n_rows, int H, int G) {
+// the GAT kernels' lane layout (see the note at the top), as
+// ops/gat_cuda.py `fwd_geometry` and `bwd_geometry` work it out; gat_bwd
+// keeps kcache edges' terms per warp
+struct AttnGeometry {
+  int vec, reps, lh, hp, slots, kcache;
+};
+
+constexpr int kFwdMaxHeads = 8;  // heads of a gat_fwd pass (NH)
+
+int bwd_smem_bytes(const AttnGeometry& g) {
+  return kWarps * g.kcache * g.hp * static_cast<int>(sizeof(float4));
+}
+
+// a lane layout the kernels instantiate and that covers every column of
+// every head and keeps each lane's loads aligned
+bool lanes_ok(const AttnGeometry& g, int H, int D, uintptr_t align) {
+  return (g.vec == 1 || g.vec == 2 || g.vec == 4 || g.vec == 8) && D % g.vec == 0 &&
+         align % (g.vec * sizeof(__nv_bfloat16)) == 0 &&
+         (g.reps == 1 || g.reps == 2 || g.reps == 4) && g.lh >= 1 &&
+         g.lh * g.reps * g.vec >= D && g.hp >= 1 && g.hp <= H && g.slots >= 1 &&
+         g.hp * g.lh * g.slots <= 32;
+}
+
+// gat_fwd holds at most kFwdMaxHeads heads' scores per lane
+bool fwd_geometry_ok(const AttnGeometry& g, int H, int D, uintptr_t align) {
+  return lanes_ok(g, H, D, align) && g.hp <= kFwdMaxHeads;
+}
+
+// gat_bwd walks all heads at once when it walks several edges, and its
+// cache fits the shared memory a block gets without opting in
+bool bwd_geometry_ok(const AttnGeometry& g, int H, int D, uintptr_t align) {
+  return lanes_ok(g, H, D, align) && (g.slots == 1 || g.hp == H) && g.kcache >= 0 &&
+         bwd_smem_bytes(g) <= 48 * 1024;
+}
+
+bool drop_ok(const void* keep, const void* seed) { return keep == nullptr || seed == nullptr; }
+
+// ---- the standalone segment softmax ----------------------------------------
+
+int lanes_per_edge(int H) {
+  int g = 1;
+  while (g < H && g < 32) g *= 2;
+  return g;
+}
+
+// one segment's softmax by the whole warp: g lanes per edge, 32 / g edges
+// per step; the max first, then a compensated sum of exp(s - max)
+__device__ __forceinline__ void softmax_row_warp(const float* __restrict__ scores,
+                                                 float* __restrict__ alpha, int start, int end,
+                                                 int H, int G) {
   const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (row >= n_rows) return;  // the whole warp leaves together
-  const int start = indptr[row];
-  const int end = indptr[row + 1];
   const int per = 32 / G;  // edges per step
   const int slot = lane / G;
-
   for (int h0 = 0; h0 < H; h0 += G) {
     const int h = h0 + (lane & (G - 1));
     const bool head_ok = h < H;
-    // the segment max, then the sum of exp(s - max): every term is formed
-    // with the final max, as the plain version forms it, and the sum is
-    // compensated (Kahan's way), since with H >= 32 one lane sums a whole
-    // segment, and a plain f32 sum of a 20,000-edge segment's exponentials
-    // is off by about 1e-5 of itself
     float m = -CUDART_INF_F;
     if (head_ok)
       for (int e = start + slot; e < end; e += per)
@@ -532,8 +892,69 @@ edge_softmax_fwd_kernel(const int32_t* __restrict__ indptr, const float* __restr
     if (!head_ok) continue;
     for (int e = start + slot; e < end; e += per) {
       const int64_t i = static_cast<int64_t>(e) * H + h;
-      alpha[i] = expf(scores[i] - m) / den;
+      alpha[i] = __fdividef(expf(scores[i] - m), den);  // den >= 1
     }
+  }
+}
+
+// scores per lane that edge_softmax_fwd holds (SOFTMAX_REGS in
+// ops/gat_cuda.py; tools/sweep_cuda_kernels.py rebuilds other values)
+constexpr int kSoftmaxRegs = 8;
+
+// G lanes per edge, P edge slots per row, 32 / (G P) consecutive rows per
+// warp; a row of at most P R edges is held in R registers per lane. One
+// row group per warp (a grid of resident blocks striding over the groups
+// was 5-30% slower on the card).
+__global__ void __launch_bounds__(kWarps * 32)
+edge_softmax_fwd_kernel(const int32_t* __restrict__ indptr, const float* __restrict__ scores,
+                        float* __restrict__ alpha, int n_rows, int H, int G, int P) {
+  const int lane = threadIdx.x & 31;
+  const int gp = G * P;
+  const int row0 = (blockIdx.x * kWarps + (threadIdx.x >> 5)) * (32 / gp);
+  if (row0 >= n_rows) return;  // the whole warp leaves together
+  const int grp = lane / gp;
+  const int q = (lane - grp * gp) / G;  // edge slot
+  const int row = row0 + grp;
+  const bool row_ok = row < n_rows;
+  const int start = row_ok ? indptr[row] : 0;
+  const int end = row_ok ? indptr[row + 1] : 0;
+  constexpr int R = kSoftmaxRegs;
+  const bool fits = end - start <= P * R;
+
+  for (int h0 = 0; h0 < H; h0 += G) {
+    const int h = h0 + (lane & (G - 1));
+    const bool ok = fits && h < H;
+    float v[R];
+    float m = -CUDART_INF_F;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int e = start + q + r * P;
+      v[r] = ok && e < end ? scores[static_cast<int64_t>(e) * H + h] : -CUDART_INF_F;
+      m = fmaxf(m, v[r]);
+    }
+    for (int off = G; off < gp; off <<= 1) m = fmaxf(m, __shfl_xor_sync(kFull, m, off));
+    float den = 0.f;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      v[r] = ok && start + q + r * P < end ? expf(v[r] - m) : 0.f;
+      den += v[r];
+    }
+    for (int off = G; off < gp; off <<= 1) den += __shfl_xor_sync(kFull, den, off);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int e = start + q + r * P;
+      // den >= 1 (the max term is exp(0))
+      if (ok && e < end) alpha[static_cast<int64_t>(e) * H + h] = __fdividef(v[r], den);
+    }
+  }
+
+  // the warp's rows that did not fit, one after another by the whole warp
+  unsigned long_rows = __ballot_sync(kFull, row_ok && !fits && lane == grp * gp);
+  while (long_rows) {
+    const int first = __ffs(long_rows) - 1;
+    long_rows &= long_rows - 1;
+    const int lrow = row0 + first / gp;
+    softmax_row_warp(scores, alpha, indptr[lrow], indptr[lrow + 1], H, G);
   }
 }
 
@@ -569,62 +990,79 @@ edge_softmax_bwd_kernel(const int32_t* __restrict__ indptr, const float* __restr
   }
 }
 
-int lanes_per_edge(int H) {
-  int g = 1;
-  while (g < H && g < 32) g *= 2;
-  return g;
-}
-
-// the backward's lane layout (see the note at the top), as
-// ops/gat_cuda.py `bwd_geometry` works it out
-struct BwdGeometry {
-  int vec, reps, lh, hp, slots, kcache;
-};
-
-int bwd_smem_bytes(const BwdGeometry& g) {
-  return kWarps * g.kcache * g.hp * static_cast<int>(sizeof(float4));
-}
-
-// a geometry the kernel instantiates and that covers every column of every
-// head, keeps each lane's loads aligned and fits the shared memory a block
-// gets without opting in
-bool bwd_geometry_ok(const BwdGeometry& g, int H, int D, uintptr_t align) {
-  return (g.vec == 1 || g.vec == 2 || g.vec == 4 || g.vec == 8) && D % g.vec == 0 &&
-         align % (g.vec * sizeof(__nv_bfloat16)) == 0 &&
-         (g.reps == 1 || g.reps == 2 || g.reps == 4) && g.lh >= 1 &&
-         g.lh * g.reps * g.vec >= D && g.hp >= 1 && g.hp <= H && g.slots >= 1 &&
-         g.hp * g.lh * g.slots <= 32 && (g.slots == 1 || g.hp == H) && g.kcache >= 0 &&
-         bwd_smem_bytes(g) <= 48 * 1024;
-}
-
 }  // namespace
 
 extern "C" {
 
-// feat bf16 [n_src, H, D]; el f32 [n_src, H]; er bf16 [n_rows, H];
-// keep uint8 [E, H] or null; out f32 [n_rows, H, D]; smax, denom f32 [n_rows, H]
-int gat_fwd(const void* indptr, const void* src_of, const void* feat, const void* el,
-            const void* er, const void* keep, float inv_keep, float slope, void* out,
-            void* smax, void* denom, int n_rows, int H, int D, void* stream) {
-  if (n_rows <= 0 || H <= 0 || D <= 0) return static_cast<int>(cudaGetLastError());
-  const Geometry geo = geometry(D, reinterpret_cast<uintptr_t>(feat));
-  const dim3 grid((n_rows + kWarps - 1) / kWarps), block(kWarps * 32);
+// feat f32 [N, H, D]; attn_l, attn_r f32 [H, D]; feat_b bf16 [N, H, D];
+// el f32 [N, H]; er bf16 [N, H]
+int gat_prep(const void* feat, const void* attn_l, const void* attn_r, void* feat_b, void* el,
+             void* er, int n, int H, int D, void* stream) {
+  if (n <= 0 || H <= 0 || D <= 0) return static_cast<int>(cudaGetLastError());
+  // a bf16 store of VEC values needs half the alignment of an f32 load of
+  // VEC, so feat_b's address counts twice
+  const uintptr_t align = reinterpret_cast<uintptr_t>(feat) |
+                          reinterpret_cast<uintptr_t>(attn_l) |
+                          reinterpret_cast<uintptr_t>(attn_r) |
+                          (reinterpret_cast<uintptr_t>(feat_b) * 2);
+  const PrepGeometry geo = prep_geometry(D, align);
+  const int64_t rows = static_cast<int64_t>(n) * H;
+  const int64_t per_block = static_cast<int64_t>(32 / geo.lr) * kWarps;
+  const dim3 grid(static_cast<unsigned>((rows + per_block - 1) / per_block)), block(kWarps * 32);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define FWD_CASE(V, R)                                                                   \
-  case V * 16 + R:                                                                      \
-    gat_fwd_kernel<V, R><<<grid, block, 0, st>>>(                                       \
-        static_cast<const int32_t*>(indptr), static_cast<const int32_t*>(src_of),       \
-        static_cast<const __nv_bfloat16*>(feat), static_cast<const float*>(el),         \
-        static_cast<const __nv_bfloat16*>(er), static_cast<const uint8_t*>(keep),       \
-        inv_keep, slope, static_cast<float*>(out), static_cast<float*>(smax),           \
-        static_cast<float*>(denom), n_rows, H, D, geo.lanes);                           \
+#define PREP_CASE(V, R)                                                                      \
+  case V * 16 + R:                                                                          \
+    gat_prep_kernel<V, R><<<grid, block, 0, st>>>(                                          \
+        static_cast<const float*>(feat), static_cast<const float*>(attn_l),                 \
+        static_cast<const float*>(attn_r), static_cast<__nv_bfloat16*>(feat_b),             \
+        static_cast<float*>(el), static_cast<__nv_bfloat16*>(er), rows, H, D, geo.lr);      \
     break;
   switch (geo.vec * 16 + geo.reps) {
+    PREP_CASES(PREP_CASE)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef PREP_CASE
+  return static_cast<int>(cudaGetLastError());
+}
+
+// feat bf16 [n_src, H, D]; el f32 [n_src, H]; er bf16 [n_rows, H];
+// keep uint8 [E, H] or null; seed one uint64 on the device or null (not
+// both); out f32 [n_rows, H, D]; smax, denom f32 [n_rows, H];
+// (vec, reps, lh, hp, slots) as ops/gat_cuda.py `fwd_geometry` gives them
+int gat_fwd(const void* indptr, const void* src_of, const void* feat, const void* el,
+            const void* er, const void* keep, const void* seed, unsigned thresh, float inv_keep,
+            float slope, void* out, void* smax, void* denom, int n_rows, int H, int D,
+            int n_blocks, int vec, int reps, int lh, int hp, int slots, void* stream) {
+  if (n_rows <= 0 || H <= 0 || D <= 0 || n_blocks <= 0)
+    return static_cast<int>(cudaGetLastError());
+  const AttnGeometry geo{vec, reps, lh, hp, slots, 0};
+  if (!fwd_geometry_ok(geo, H, D, reinterpret_cast<uintptr_t>(feat)) || !drop_ok(keep, seed))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const DropArgs drop{static_cast<const uint8_t*>(keep),
+                      static_cast<const unsigned long long*>(seed), thresh, inv_keep};
+  const dim3 grid(n_blocks), block(kWarps * 32);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define FWD_LAUNCH(V, R, NH)                                                                 \
+  gat_fwd_kernel<V, R, NH><<<grid, block, 0, st>>>(                                         \
+      static_cast<const int32_t*>(indptr), static_cast<const int32_t*>(src_of),            \
+      static_cast<const __nv_bfloat16*>(feat), static_cast<const float*>(el),              \
+      static_cast<const __nv_bfloat16*>(er), drop, slope, static_cast<float*>(out),        \
+      static_cast<float*>(smax), static_cast<float*>(denom), n_rows, H, D, lh, hp, slots)
+#define FWD_CASE(V, R)          \
+  case V * 16 + R:              \
+    if (hp == 1)                \
+      FWD_LAUNCH(V, R, 1);      \
+    else                        \
+      FWD_LAUNCH(V, R, kFwdMaxHeads); \
+    break;
+  switch (vec * 16 + reps) {
     GAT_CASES(FWD_CASE)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef FWD_CASE
+#undef FWD_LAUNCH
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -634,15 +1072,19 @@ int gat_fwd(const void* indptr, const void* src_of, const void* feat, const void
 // (vec, reps, lh, hp, slots, kcache) as ops/gat_cuda.py `bwd_geometry`
 // gives them
 int gat_bwd(const void* indptr, const void* src_of, const void* feat, const void* el,
-            const void* er, const void* keep, float inv_keep, float slope, const void* smax,
-            const void* denom, const void* dout, const void* attn_l, void* der, void* msg,
-            void* dal_part, int n_rows, int H, int D, int n_blocks, int vec, int reps, int lh,
-            int hp, int slots, int kcache, void* stream) {
+            const void* er, const void* keep, const void* seed, unsigned thresh, float inv_keep,
+            float slope, const void* smax, const void* denom, const void* dout,
+            const void* attn_l, void* der, void* msg, void* dal_part, int n_rows, int H, int D,
+            int n_blocks, int vec, int reps, int lh, int hp, int slots, int kcache,
+            void* stream) {
   if (n_rows <= 0 || H <= 0 || D <= 0 || n_blocks <= 0)
     return static_cast<int>(cudaGetLastError());
-  const BwdGeometry geo{vec, reps, lh, hp, slots, kcache};
+  const AttnGeometry geo{vec, reps, lh, hp, slots, kcache};
   const uintptr_t align = reinterpret_cast<uintptr_t>(feat) | reinterpret_cast<uintptr_t>(msg);
-  if (!bwd_geometry_ok(geo, H, D, align)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!bwd_geometry_ok(geo, H, D, align) || !drop_ok(keep, seed))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const DropArgs drop{static_cast<const uint8_t*>(keep),
+                      static_cast<const unsigned long long*>(seed), thresh, inv_keep};
   const dim3 grid(n_blocks), block(kWarps * 32);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define BWD_CASE(V, R)                                                                      \
@@ -650,11 +1092,11 @@ int gat_bwd(const void* indptr, const void* src_of, const void* feat, const void
     gat_bwd_kernel<V, R><<<grid, block, bwd_smem_bytes(geo), st>>>(                         \
         static_cast<const int32_t*>(indptr), static_cast<const int32_t*>(src_of),          \
         static_cast<const __nv_bfloat16*>(feat), static_cast<const float*>(el),            \
-        static_cast<const __nv_bfloat16*>(er), static_cast<const uint8_t*>(keep),          \
-        inv_keep, slope, static_cast<const float*>(smax), static_cast<const float*>(denom), \
-        static_cast<const float*>(dout), static_cast<const __nv_bfloat16*>(attn_l),        \
-        static_cast<float*>(der), static_cast<__nv_bfloat16*>(msg),                        \
-        static_cast<float*>(dal_part), n_rows, H, D, lh, hp, slots, kcache);               \
+        static_cast<const __nv_bfloat16*>(er), drop, slope, static_cast<const float*>(smax), \
+        static_cast<const float*>(denom), static_cast<const float*>(dout),                 \
+        static_cast<const __nv_bfloat16*>(attn_l), static_cast<float*>(der),               \
+        static_cast<__nv_bfloat16*>(msg), static_cast<float*>(dal_part), n_rows, H, D, lh,  \
+        hp, slots, kcache);                                                                 \
     break;
   switch (vec * 16 + reps) {
     GAT_CASES(BWD_CASE)
@@ -665,10 +1107,31 @@ int gat_bwd(const void* indptr, const void* src_of, const void* feat, const void
   return static_cast<int>(cudaGetLastError());
 }
 
+// blocks of gat_fwd's instantiation for (vec, reps) and hp heads per pass
+// that one SM holds at once; a negative CUDA error code on failure
+int gat_fwd_blocks_per_sm(int vec, int reps, int hp) {
+  int n = 0;
+  cudaError_t err = cudaErrorInvalidValue;
+#define OCC_CASE(V, R)                                                                     \
+  case V * 16 + R:                                                                         \
+    err = hp == 1 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(                         \
+                        &n, gat_fwd_kernel<V, R, 1>, kWarps * 32, 0)                       \
+                  : cudaOccupancyMaxActiveBlocksPerMultiprocessor(                         \
+                        &n, gat_fwd_kernel<V, R, kFwdMaxHeads>, kWarps * 32, 0);           \
+    break;
+  switch (vec * 16 + reps) {
+    GAT_CASES(OCC_CASE)
+    default:
+      break;
+  }
+#undef OCC_CASE
+  return err == cudaSuccess ? n : -static_cast<int>(err);
+}
+
 // blocks of gat_bwd's instantiation for (vec, reps) that one SM holds at
 // once with the cache of (kcache, hp); a negative CUDA error code on failure
 int gat_bwd_blocks_per_sm(int vec, int reps, int kcache, int hp) {
-  const int smem = bwd_smem_bytes(BwdGeometry{vec, reps, 1, hp, 1, kcache});
+  const int smem = bwd_smem_bytes(AttnGeometry{vec, reps, 1, hp, 1, kcache});
   int n = 0;
   cudaError_t err = cudaErrorInvalidValue;
 #define OCC_CASE(V, R)                                                                      \
@@ -685,14 +1148,18 @@ int gat_bwd_blocks_per_sm(int vec, int reps, int kcache, int hp) {
   return err == cudaSuccess ? n : -static_cast<int>(err);
 }
 
-// scores f32 [E, H] in dst-sorted edge order; alpha f32 [E, H]
+// scores f32 [E, H] in dst-sorted edge order; alpha f32 [E, H]; p edge
+// slots per row as ops/gat_cuda.py `softmax_geometry` gives it
 int edge_softmax_fwd(const void* indptr, const void* scores, void* alpha, int n_rows, int H,
-                     void* stream) {
+                     int p, void* stream) {
   if (n_rows <= 0 || H <= 0) return static_cast<int>(cudaGetLastError());
-  const dim3 grid((n_rows + kWarps - 1) / kWarps), block(kWarps * 32);
+  const int g = lanes_per_edge(H);
+  if (p < 1 || (p & (p - 1)) != 0 || g * p > 32) return static_cast<int>(cudaErrorInvalidValue);
+  const int rows_per_block = 32 / (g * p) * kWarps;
+  const dim3 grid((n_rows + rows_per_block - 1) / rows_per_block), block(kWarps * 32);
   edge_softmax_fwd_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(indptr), static_cast<const float*>(scores),
-      static_cast<float*>(alpha), n_rows, H, lanes_per_edge(H));
+      static_cast<float*>(alpha), n_rows, H, g, p);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -143,24 +143,30 @@ def gat_attention(g, feat: torch.Tensor, attn_l: torch.Tensor,
                   gen: torch.Generator | None = None) -> torch.Tensor:
     """The whole GAT attention layer (scores -> leaky_relu -> edge_softmax
     -> attention dropout -> weighted aggregate) as one op. feat [N, H, D]
-    (= Wh), attn_l / attn_r [H, D]; returns [N, H, D]. The dropout keep
-    mask [E, H] is drawn from `gen` in dst-sorted edge order. Under a kernel
-    tier this is the fused attention (bf16 features, f32 softmax and sums);
-    otherwise the f32 composition of the plain ops."""
-    keep = None
+    (= Wh), attn_l / attn_r [H, D]; returns [N, H, D]. Dropout draws one
+    Philox seed from `gen` (an int64 tensor on feat's device, so no host
+    sync); the keep bits of (dst-sorted edge, head) follow from it
+    (`gat_cuda.philox_keep`), the same on every tier and device. Under a
+    kernel tier this is the fused attention (bf16 features, f32 softmax and
+    sums), whose kernels generate the bits themselves; otherwise the f32
+    composition of the plain ops."""
+    seed = None
+    inv_keep = 1.0 / (1.0 - drop_rate)
     if drop_rate > 0.0:
-        keep = torch.rand((g.n_edges, feat.shape[1]), generator=gen,
-                          device=feat.device) >= drop_rate
+        seed = torch.randint(2 ** 63 - 1, (1,), dtype=torch.int64,
+                             generator=gen, device=feat.device)
     if feat.dim() == 3 and _tier_selected(feat.device):
-        return gat_cuda.gat_attention(g, feat, attn_l, attn_r, slope, keep,
-                                      1.0 / (1.0 - drop_rate))
+        return gat_cuda.gat_attention(g, feat, attn_l, attn_r, slope, seed,
+                                      inv_keep)
     cuda_build.note_plain(feat)
     el = (feat * attn_l[None]).sum(-1)                 # [N, H]
     er = (feat * attn_r[None]).sum(-1)
     e = _ref.u_add_v(g, el, er)                        # [E, H]
     e = torch.where(e >= 0, e, slope * e)
     alpha = _ref.edge_softmax(g, e)
-    if keep is not None:
+    if seed is not None:
+        keep = gat_cuda.philox_keep(seed, g.n_edges, feat.shape[1],
+                                    1.0 / inv_keep)
         alpha = alpha * keep.to(alpha.dtype) / (1.0 - drop_rate)
     return _ref.u_mul_e_sum(g, feat, alpha)
 

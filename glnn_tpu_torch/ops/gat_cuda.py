@@ -7,50 +7,65 @@ s = leaky_relu(el[u,h] + er[v,h]), alpha = softmax of s over v's in-edges,
 dropout on alpha after the normalisation (dgl GATConv), and
 out[v,h,:] = sum alpha * feat[u,h,:].
 
-Prep outside the kernels (`prep`): feat is cast to bf16 once; er[v,h] in
-f32, rounded once to bf16, as `_prep` (gat_pallas.py:409-420) computes it
-outside its kernel; el[u,h] = <bf16 feat[u,h,:], bf16 attn_l[h,:]> summed
-in f32, the TPU kernel's score matmul (:118) with the same rounding, but
-computed here once per node in torch, where the TPU kernel computes it per
-slot inside its body.
-
-* `gat_fwd` (csrc/gat_csr.cu) walks the dst-sorted CSC, one warp per dst
-  row: segment max (not the TPU's block max), denominator of the undropped
-  weights, f32 accumulation of the bf16 source rows; it also writes the
+* `gat_prep` (csrc/gat_csr.cu) reads the f32 features once and writes the
+  bf16 features, el[u,h] = <bf16 feat[u,h,:], bf16 attn_l[h,:]> summed in
+  f32 (the TPU kernel's score matmul, gat_pallas.py:118, with the same
+  rounding, but once per node, where the TPU kernel computes it per slot
+  inside its body) and er[v,h] in f32 rounded once to bf16, as `_prep`
+  (:409-420) computes it outside its kernel. `prep` launches it on CUDA
+  tensors; its plain version is `plain_prep`.
+* `gat_fwd` walks the dst-sorted CSC a 32-edge chunk at a time: lane j
+  scores chunk edge j for up to 8 heads (the segment max first, not the
+  TPU's block max, then each term once with that max and the denominator
+  of the undropped weights), and lanes across (edge slot, head, column
+  group) accumulate the bf16 source rows in f32; it also writes the
   per-dst max and denominator [N, H] for the backward.
 * `gat_bwd` recomputes alpha from the same inputs and the saved max and
   denominator and runs the f32 softmax VJP: der [N, H] f32, the per-edge
   message msg[e,h,:] = alpha w dout[v,h,:] + ds_pre attn_l[h,:] in bf16
   (dst-sorted edge order, as gat_pallas.py:264 per slot), and per-warp
-  partials of dattn_l, summed here. Its lanes lie across (edge, head,
-  column group); its first pass keeps each edge's alpha, w, w g and
-  leaky_relu' factor in shared memory, from which the second forms the
-  VJP and the message; `bwd_geometry` works out that layout (see the
-  source's note) and the launch passes it, with a grid that fills every
-  SM once.
+  partials of dattn_l, summed here. Its first pass keeps each edge's
+  alpha, w, w g and leaky_relu' factor in shared memory, from which the
+  second forms the VJP and the message.
+* `fwd_geometry` / `bwd_geometry` work out both kernels' lane layout (see
+  the source's note) and the launch passes it, with a grid that fills
+  every SM once.
 * As `_fused_bwd` (:494-505): the message is reduced over sources by the
   CSR SpMM kernel over the transposed CSR (`t_indptr`, `t_edges`),
   dfeat_dst = der * attn_r, and dattn_r = einsum(der, feat) in plain torch.
 
-Dropout takes an explicit keep mask [E, H] (bool or uint8, dst-sorted edge
-order), as the JAX `"mask"` mode (gat_pallas.py:149-150); the mask is saved
-for the backward.
+Dropout (`keep`, dst-sorted edge order) is one of:
+* None: no dropout;
+* a keep mask [E, H], bool or uint8, as the JAX `"mask"` mode
+  (gat_pallas.py:149-150);
+* a seed, an int64 tensor of one element on the features' device: both
+  kernels generate the keep bits in their bodies with Philox4x32-10
+  (`philox_keep` is the same in plain torch), as the TPU kernels generate
+  theirs from the hardware PRNG (:141-155), so no [E, H] tensor exists;
+  the kernels read the seed through a pointer, so drawing it needs no
+  host sync. Edge e keeps head h iff word h & 3 of Philox(counter (e, h >> 2,
+  0, 0), key (seed lo, seed hi)) < keep_threshold(keep), the JAX rule
+  (:312). The seed is saved for the backward in place of a mask.
+A kept edge's weight is inv_keep (keep = 1 / inv_keep).
 
 The standalone segment softmax behind `ops.edge_softmax` replaces
 `gat_pallas.py:_smx_fwd_kernel` (:694) and `:_smx_bwd_kernel` (:712), with
 the contract of `gat_pallas.edge_softmax` (:786-806): f32 scores [E] or
 [E, H] in dst-sorted edge order in, alpha per dst segment out, in the same
 shape. `edge_softmax_fwd` subtracts the segment's own max (the TPU kernel
-subtracts its block's, :700); `edge_softmax_bwd` gives
-ds = alpha * dalpha - alpha * sum_seg(alpha * dalpha), all f32. Rows
+subtracts its block's, :700) and reads each short row's scores once
+(`softmax_geometry` packs several rows into a warp); `edge_softmax_bwd`
+gives ds = alpha * dalpha - alpha * sum_seg(alpha * dalpha), all f32. Rows
 without in-edges own no score and write nothing.
 
-Each kernel has a plain PyTorch version here (`plain_gat_fwd`,
-`plain_gat_bwd`, `plain_edge_softmax_fwd`, `plain_edge_softmax_bwd`) with
-the same rounding: bf16 features, bf16 er, a bf16 message; the softmax in
-f32. A wrapper takes it only for a tensor on the CPU; for a CUDA tensor
-it launches the kernel or raises. `counts` records kernel launches; plain
-calls on CUDA tensors go to `cuda_build.counts`.
+Each kernel has a plain PyTorch version here (`plain_prep`,
+`plain_gat_fwd`, `plain_gat_bwd`, `plain_edge_softmax_fwd`,
+`plain_edge_softmax_bwd`) with the same rounding: bf16 features, bf16 er,
+a bf16 message; the softmax in f32. A wrapper takes it only for a tensor
+on the CPU; for a CUDA tensor it launches the kernel or raises. `counts`
+records kernel launches, and for the two GAT kernels also the launches
+per dropout mode (`gat_fwd_seed`, `gat_fwd_mask`, `gat_bwd_seed`,
+`gat_bwd_mask`); plain calls on CUDA tensors go to `cuda_build.counts`.
 """
 
 from __future__ import annotations
@@ -63,21 +78,29 @@ import torch
 from glnn_tpu_torch.ops import cuda_build, spmm_cuda
 from glnn_tpu_torch.ops.cuda_build import note_plain, row_ids
 
-KERNELS = ("gat_fwd", "gat_bwd", "edge_softmax_fwd", "edge_softmax_bwd")
-counts = {name: 0 for name in KERNELS}
+KERNELS = ("gat_prep", "gat_fwd", "gat_bwd", "edge_softmax_fwd",
+           "edge_softmax_bwd")
+DROP_MODES = ("gat_fwd_seed", "gat_fwd_mask", "gat_bwd_seed", "gat_bwd_mask")
+counts = {name: 0 for name in KERNELS + DROP_MODES}
 
 WARPS_PER_BLOCK = 8      # kWarps in gat_csr.cu
+FWD_MAX_HEADS = 8        # heads per gat_fwd pass (kFwdMaxHeads)
+FWD_MAX_SLOTS = 4        # edges gat_fwd walks at once, where a load allows
 BWD_CACHE_BYTES = 4096   # shared memory per warp for gat_bwd's per-edge terms
+SOFTMAX_REGS = 8         # scores per lane in edge_softmax_fwd (kSoftmaxRegs)
 # per-head widths the kernels take: D / VEC <= 128, VEC the largest power
-# of two <= 8 dividing D (gat_csr.cu `geometry`)
+# of two <= 8 dividing D
 _MAX_GROUPS = 128
 
-_vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_vp, _ci, _cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+_cf = ctypes.c_float
 _SIGNATURES = {
-    "gat_fwd": [_vp] * 6 + [_cf, _cf] + [_vp] * 3 + [_ci] * 3 + [_vp],
-    "gat_bwd": [_vp] * 6 + [_cf, _cf] + [_vp] * 7 + [_ci] * 10 + [_vp],
+    "gat_prep": [_vp] * 6 + [_ci] * 3 + [_vp],
+    "gat_fwd": [_vp] * 7 + [_cu, _cf, _cf] + [_vp] * 3 + [_ci] * 9 + [_vp],
+    "gat_bwd": [_vp] * 7 + [_cu, _cf, _cf] + [_vp] * 7 + [_ci] * 10 + [_vp],
+    "gat_fwd_blocks_per_sm": [_ci] * 3,
     "gat_bwd_blocks_per_sm": [_ci] * 4,
-    "edge_softmax_fwd": [_vp] * 3 + [_ci] * 2 + [_vp],
+    "edge_softmax_fwd": [_vp] * 3 + [_ci] * 3 + [_vp],
     "edge_softmax_bwd": [_vp] * 4 + [_ci] * 2 + [_vp],
 }
 _blocks_per_sm: dict = {}
@@ -88,21 +111,87 @@ def reset_counts() -> None:
         counts[k] = 0
 
 
-class BwdGeometry(NamedTuple):
+# ---- Philox dropout -------------------------------------------------------
+
+PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+_U32 = 0xFFFFFFFF
+
+
+def keep_threshold(keep: float) -> int:
+    """Philox words below this are kept: min(keep * 2**32, 2**32 - 1), the
+    rule of gat_pallas._drop_spec_arg (:312)."""
+    return min(int(float(keep) * 2.0 ** 32), 2 ** 32 - 1)
+
+
+def _mulhilo(m: int, x: torch.Tensor):
+    """(hi, lo) 32-bit words of m * x for uint32 values in int64 tensors: x
+    is split into 16-bit halves, so no product passes 2**48."""
+    p_lo = m * (x & 0xFFFF)
+    p_hi = m * (x >> 16)
+    mid = ((p_hi & 0xFFFF) << 16) + p_lo
+    return (p_hi >> 16) + (mid >> 32), mid & _U32
+
+
+def philox4x32(ctr, key):
+    """Philox4x32-10 of four uint32 counter words under two key words, each
+    an int64 tensor (or int) holding a uint32 value; returns four words."""
+    c0, c1, c2, c3 = ctr
+    k0, k1 = key
+    for i in range(10):
+        if i:
+            k0, k1 = (k0 + PHILOX_W[0]) & _U32, (k1 + PHILOX_W[1]) & _U32
+        hi0, lo0 = _mulhilo(PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo(PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def philox_keep(seed: torch.Tensor, n_edges: int, heads: int,
+                keep: float) -> torch.Tensor:
+    """The keep mask [E, H] (bool, dst-sorted edge order) that the kernels
+    generate from `seed` (int64, one element): edge e keeps head h iff word
+    h & 3 of Philox4x32-10 at counter (e, h >> 2, 0, 0) under key (seed lo,
+    seed hi) is below keep_threshold(keep)."""
+    s = seed.reshape(-1)[:1].long()
+    key = (s & _U32, (s >> 32) & _U32)
+    e = torch.arange(n_edges, dtype=torch.int64, device=seed.device)
+    zero = torch.zeros_like(e)
+    words = [torch.stack(philox4x32((e, torch.full_like(e, c), zero, zero),
+                                    key), 1)
+             for c in range(-(-heads // 4))]
+    return torch.cat(words, 1)[:, :heads] < keep_threshold(keep)
+
+
+def _is_seed(keep) -> bool:
+    return keep is not None and keep.dtype == torch.int64
+
+
+# ---- geometry -------------------------------------------------------------
+
+class FwdGeometry(NamedTuple):
     vec: int     # bf16 features per load (a power of two <= 8 dividing D)
     reps: int    # loads per lane and head, strided by lh * vec
     lh: int      # lanes per head
     hp: int      # heads per pass over a row's edges
     slots: int   # edges walked at once
+
+
+class BwdGeometry(NamedTuple):
+    vec: int
+    reps: int
+    lh: int
+    hp: int
+    slots: int
     kcache: int  # edges per row whose terms stay in shared memory
 
 
-def bwd_geometry(h: int, d: int, align: int = 16) -> BwdGeometry:
-    """gat_bwd's lane layout for H = h heads of width D = d, given feature
-    and message base addresses aligned to `align` bytes: lanes across
-    (edge slot, head, column group), so that all heads share one pass when
-    H * lh <= 32, and 32 // (hp * lh) edges are walked at once."""
-    vec = 8
+def _lanes(h: int, d: int, align: int, max_heads: int, max_vec: int = 8):
+    """(vec, reps, lh, hp, slots): lanes across (edge slot, head, column
+    group), loads of the widest vec <= max_vec that d and the alignment
+    allow, up to max_heads heads in one pass when H * lh <= 32, and
+    32 // (hp * lh) edges walked at once."""
+    vec = max_vec
     while vec > 1 and (d % vec or align % (2 * vec)):
         vec //= 2
     groups = d // vec
@@ -110,9 +199,30 @@ def bwd_geometry(h: int, d: int, align: int = 16) -> BwdGeometry:
     while reps * 32 < groups:
         reps *= 2
     lh = -(-groups // reps)
-    hp = min(h, 32 // lh)
-    return BwdGeometry(vec, reps, lh, hp, 32 // (hp * lh),
-                       BWD_CACHE_BYTES // (16 * hp))
+    hp = min(h, 32 // lh, max_heads)
+    return vec, reps, lh, hp, 32 // (hp * lh)
+
+
+def fwd_geometry(h: int, d: int, align: int = 16) -> FwdGeometry:
+    """gat_fwd's lane layout for H = h heads of width D = d, given a feature
+    base address aligned to `align` bytes: at most FWD_MAX_HEADS heads per
+    pass, and the widest load (8 or 4 values) whose layout walks at most
+    FWD_MAX_SLOTS edges at once, else the widest: folding more slots'
+    sums costs more than wider loads save ((1, 40): 8-byte loads, 3 slots,
+    10-15% faster than 16-byte loads and 6 slots on the card,
+    tools/sweep_cuda_kernels.py)."""
+    layouts = [_lanes(h, d, align, FWD_MAX_HEADS, v) for v in (8, 4)]
+    fit = [g for g in layouts if g[4] <= FWD_MAX_SLOTS]
+    return FwdGeometry(*(fit or layouts)[0])
+
+
+def bwd_geometry(h: int, d: int, align: int = 16) -> BwdGeometry:
+    """gat_bwd's lane layout, given feature and message base addresses
+    aligned to `align` bytes (all heads in one pass where they fit); four
+    f32 terms of each row's first kcache edges stay in BWD_CACHE_BYTES per
+    warp."""
+    lanes = _lanes(h, d, align, h)
+    return BwdGeometry(*lanes, BWD_CACHE_BYTES // (16 * lanes[3]))
 
 
 def supported_width(d: int) -> bool:
@@ -141,10 +251,17 @@ def _check(indptr, senders, feat_b, el, er_b, keep):
     if indptr.numel() < er_b.shape[0] + 1:
         raise ValueError(f"indptr has {indptr.numel()} entries for "
                          f"{er_b.shape[0]} rows")
-    if keep is not None and (keep.dtype not in (torch.bool, torch.uint8)
-                             or keep.shape != (senders.numel(), h)):
-        raise TypeError(f"keep must be bool or uint8 [{senders.numel()}, {h}]")
-    if keep is not None and keep.device != feat_b.device:
+    if keep is None:
+        return
+    if _is_seed(keep):
+        if keep.numel() != 1:
+            raise TypeError(f"a dropout seed is one int64, got "
+                            f"{tuple(keep.shape)}")
+    elif (keep.dtype not in (torch.bool, torch.uint8)
+          or keep.shape != (senders.numel(), h)):
+        raise TypeError(f"keep must be a bool or uint8 [{senders.numel()}, "
+                        f"{h}] mask or an int64 seed")
+    if keep.device != feat_b.device:
         raise ValueError(f"keep must lie on {feat_b.device}")
     if feat_b.is_cuda and not supported_width(d):
         raise ValueError(f"the GAT kernels take per-head widths D with "
@@ -152,10 +269,23 @@ def _check(indptr, senders, feat_b, el, er_b, keep):
                          f"of two <= 8 dividing D); got D = {d}")
 
 
-def _keep_bytes(keep):
+def _plain_mask(keep, n_edges, heads, inv_keep):
+    """The keep mask a plain version applies: the seed's Philox mask, or the
+    mask as given."""
+    if _is_seed(keep):
+        return philox_keep(keep, n_edges, heads, 1.0 / inv_keep)
+    return keep
+
+
+def _drop_args(keep, inv_keep):
+    """(mask pointer, seed pointer, threshold, the counter of the mode) for
+    a launch; the mask is kept alive by the caller."""
     if keep is None:
-        return None
-    return keep.contiguous().view(torch.uint8)
+        return None, None, 0, None
+    if _is_seed(keep):
+        return (None, keep.data_ptr(), keep_threshold(1.0 / inv_keep),
+                "seed")
+    return keep.data_ptr(), None, 0, "mask"
 
 
 def _scores(indptr, senders, el, er_b, keep, inv_keep, slope, n_rows):
@@ -164,6 +294,7 @@ def _scores(indptr, senders, el, er_b, keep, inv_keep, slope, n_rows):
     dst = row_ids(indptr, n_rows)
     s_pre = el.index_select(0, src) + er_b.float().index_select(0, dst)
     s = torch.where(s_pre >= 0, s_pre, slope * s_pre)
+    keep = _plain_mask(keep, senders.numel(), el.shape[1], inv_keep)
     w = keep.float() * inv_keep if keep is not None else torch.ones_like(s)
     return src, dst, s_pre, s, w
 
@@ -209,36 +340,56 @@ def plain_gat_bwd(indptr, senders, feat_b, el, er_b, keep, inv_keep, slope,
     return der, msg, dal
 
 
-def _launch_fwd(indptr, senders, feat_b, el, er_b, keep, inv_keep, slope):
-    n_rows, (_, h, d) = er_b.shape[0], feat_b.shape
-    f32 = dict(dtype=torch.float32, device=feat_b.device)
-    out = torch.empty((n_rows, h, d), **f32)
-    smax = torch.empty((n_rows, h), **f32)
-    denom = torch.empty((n_rows, h), **f32)
-    keep = _keep_bytes(keep)
-    lib = cuda_build.load("gat", _SIGNATURES)
-    cuda_build.launch(
-        "gat_fwd", lib.gat_fwd, feat_b.device, indptr.data_ptr(),
-        senders.data_ptr(), feat_b.data_ptr(), el.data_ptr(), er_b.data_ptr(),
-        None if keep is None else keep.data_ptr(), inv_keep, slope,
-        out.data_ptr(), smax.data_ptr(), denom.data_ptr(), n_rows, h, d)
-    counts["gat_fwd"] += 1
-    return out, smax, denom
-
-
-def _bwd_blocks(lib, geo: BwdGeometry, device: torch.device) -> int:
-    """Blocks of gat_bwd that fill every SM of `device` once."""
-    key = (device, geo.vec, geo.reps, geo.kcache, geo.hp)
+def _blocks(lib, geo, device: torch.device) -> int:
+    """Blocks of gat_fwd (a FwdGeometry) or gat_bwd (a BwdGeometry) that
+    fill every SM of `device` once."""
+    key = (device, type(geo).__name__, geo)
     if key not in _blocks_per_sm:
         with torch.cuda.device(device):
-            per_sm = lib.gat_bwd_blocks_per_sm(geo.vec, geo.reps, geo.kcache,
-                                               geo.hp)
+            if isinstance(geo, FwdGeometry):
+                per_sm = lib.gat_fwd_blocks_per_sm(geo.vec, geo.reps, geo.hp)
+            else:
+                per_sm = lib.gat_bwd_blocks_per_sm(geo.vec, geo.reps,
+                                                   geo.kcache, geo.hp)
             props = torch.cuda.get_device_properties(device)
         if per_sm <= 0:
-            raise RuntimeError(f"gat_bwd occupancy query failed: CUDA error "
+            raise RuntimeError(f"gat occupancy query failed: CUDA error "
                                f"{-per_sm}")
         _blocks_per_sm[key] = per_sm * props.multi_processor_count
     return _blocks_per_sm[key]
+
+
+def _grid(lib, geo, device, n_rows):
+    return max(1, min(-(-n_rows // WARPS_PER_BLOCK),
+                      _blocks(lib, geo, device)))
+
+
+def _keep_arg(keep):
+    if keep is None or _is_seed(keep):
+        return keep
+    return keep.contiguous().view(torch.uint8)
+
+
+def _launch_fwd(indptr, senders, feat_b, el, er_b, keep, inv_keep, slope):
+    n_rows, (_, h, d) = er_b.shape[0], feat_b.shape
+    dev = feat_b.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    out = torch.empty((n_rows, h, d), **f32)
+    smax = torch.empty((n_rows, h), **f32)
+    denom = torch.empty((n_rows, h), **f32)
+    keep = _keep_arg(keep)
+    mask_ptr, seed_ptr, thresh, mode = _drop_args(keep, inv_keep)
+    geo = fwd_geometry(h, d, align=feat_b.data_ptr())
+    lib = cuda_build.load("gat", _SIGNATURES)
+    cuda_build.launch(
+        "gat_fwd", lib.gat_fwd, dev, indptr.data_ptr(), senders.data_ptr(),
+        feat_b.data_ptr(), el.data_ptr(), er_b.data_ptr(), mask_ptr,
+        seed_ptr, thresh, inv_keep, slope, out.data_ptr(), smax.data_ptr(),
+        denom.data_ptr(), n_rows, h, d, _grid(lib, geo, dev, n_rows), *geo)
+    counts["gat_fwd"] += 1
+    if mode:
+        counts[f"gat_fwd_{mode}"] += 1
+    return out, smax, denom
 
 
 def _launch_bwd(indptr, senders, feat_b, el, er_b, keep, inv_keep, slope,
@@ -250,21 +401,22 @@ def _launch_bwd(indptr, senders, feat_b, el, er_b, keep, inv_keep, slope,
     msg = torch.empty((n_edges, h, d), dtype=torch.bfloat16, device=dev)
     geo = bwd_geometry(h, d, align=feat_b.data_ptr() | msg.data_ptr())
     lib = cuda_build.load("gat", _SIGNATURES)
-    n_blocks = max(1, min(-(-n_rows // WARPS_PER_BLOCK),
-                          _bwd_blocks(lib, geo, dev)))
+    n_blocks = _grid(lib, geo, dev, n_rows)
     part = torch.empty((n_blocks * WARPS_PER_BLOCK, h, d),
                        dtype=torch.float32, device=dev)
-    keep = _keep_bytes(keep)
+    keep = _keep_arg(keep)
+    mask_ptr, seed_ptr, thresh, mode = _drop_args(keep, inv_keep)
     dout = dout.float().contiguous()
     al_b = al_b.contiguous()
     cuda_build.launch(
         "gat_bwd", lib.gat_bwd, dev, indptr.data_ptr(), senders.data_ptr(),
-        feat_b.data_ptr(), el.data_ptr(), er_b.data_ptr(),
-        None if keep is None else keep.data_ptr(), inv_keep, slope,
-        smax.data_ptr(), denom.data_ptr(), dout.data_ptr(), al_b.data_ptr(),
-        der.data_ptr(), msg.data_ptr(), part.data_ptr(), n_rows, h, d,
-        n_blocks, *geo)
+        feat_b.data_ptr(), el.data_ptr(), er_b.data_ptr(), mask_ptr,
+        seed_ptr, thresh, inv_keep, slope, smax.data_ptr(), denom.data_ptr(),
+        dout.data_ptr(), al_b.data_ptr(), der.data_ptr(), msg.data_ptr(),
+        part.data_ptr(), n_rows, h, d, n_blocks, *geo)
     counts["gat_bwd"] += 1
+    if mode:
+        counts[f"gat_bwd_{mode}"] += 1
     return der, msg, part.sum(0)
 
 
@@ -272,8 +424,9 @@ def gat_fwd(indptr, senders, feat_b, el, er_b, keep=None, inv_keep=1.0,
             slope=0.2):
     """Fused attention forward over the CSC (indptr, senders), whose
     `senders` holds exactly its indptr[-1] edges: feat_b bf16
-    [N, H, D], el f32 [N, H], er_b bf16 [N, H], keep [E, H] or None.
-    Returns (out f32 [N, H, D], max f32 [N, H], denom f32 [N, H])."""
+    [N, H, D], el f32 [N, H], er_b bf16 [N, H], keep a mask [E, H], a seed
+    or None (see the module note). Returns (out f32 [N, H, D], max f32
+    [N, H], denom f32 [N, H])."""
     _check(indptr, senders, feat_b, el, er_b, keep)
     if feat_b.is_cuda:
         return _launch_fwd(indptr, senders, feat_b.contiguous(), el, er_b,
@@ -296,14 +449,38 @@ def gat_bwd(indptr, senders, feat_b, el, er_b, keep, inv_keep, slope, smax,
                          slope, smax, denom, dout.float(), al_b)
 
 
-def prep(feat, attn_l, attn_r):
-    """(feat_b, el, er_b, al_b): bf16 features, el = <feat_b, bf16 attn_l>
-    in f32, er in f32 rounded once to bf16, bf16 attn_l."""
+def plain_prep(feat, attn_l, attn_r):
+    """Plain version of `gat_prep`: (feat_b, el, er_b, al_b), bf16 features,
+    el = <feat_b, bf16 attn_l> in f32, er in f32 rounded once to bf16, bf16
+    attn_l."""
+    note_plain(feat)
     feat_b = feat.to(torch.bfloat16).contiguous()
     al_b = attn_l.to(torch.bfloat16)
     el = (feat_b.float() * al_b.float()[None]).sum(-1)
     er_b = (feat.float() * attn_r.float()[None]).sum(-1).to(torch.bfloat16)
     return feat_b, el, er_b.contiguous(), al_b
+
+
+def prep(feat, attn_l, attn_r):
+    """(feat_b, el, er_b, al_b) of feat [N, H, D] and attn_l / attn_r
+    [H, D]: the gat_prep kernel on CUDA tensors, its plain version on the
+    CPU."""
+    if not feat.is_cuda:
+        return plain_prep(feat, attn_l, attn_r)
+    feat = feat.float().contiguous()
+    n, h, d = feat.shape
+    attn_l, attn_r = (a.float().contiguous() for a in (attn_l, attn_r))
+    if attn_l.shape != (h, d) or attn_r.shape != (h, d):
+        raise TypeError(f"attn_l and attn_r must be [{h}, {d}]")
+    feat_b = torch.empty((n, h, d), dtype=torch.bfloat16, device=feat.device)
+    el = torch.empty((n, h), dtype=torch.float32, device=feat.device)
+    er_b = torch.empty((n, h), dtype=torch.bfloat16, device=feat.device)
+    lib = cuda_build.load("gat", _SIGNATURES)
+    cuda_build.launch("gat_prep", lib.gat_prep, feat.device, feat.data_ptr(),
+                      attn_l.data_ptr(), attn_r.data_ptr(), feat_b.data_ptr(),
+                      el.data_ptr(), er_b.data_ptr(), n, h, d)
+    counts["gat_prep"] += 1
+    return feat_b, el, er_b, attn_l.to(torch.bfloat16)
 
 
 class _GATAttention(torch.autograd.Function):
@@ -340,13 +517,34 @@ class _GATAttention(torch.autograd.Function):
 def gat_attention(g, feat, attn_l, attn_r, slope: float = 0.2, keep=None,
                   inv_keep: float = 1.0):
     """The fused attention layer: feat [N, H, D] (= Wh), attn_l/attn_r
-    [H, D], keep [E, H] or None with inv_keep = 1 / keep probability.
-    Returns [N, H, D] in feat's dtype."""
+    [H, D], keep a mask [E, H], a seed or None, with inv_keep = 1 / keep
+    probability. Returns [N, H, D] in feat's dtype."""
     return _GATAttention.apply(feat, attn_l, attn_r, g, keep, float(inv_keep),
                                float(slope))
 
 
 # ---- the standalone segment softmax ---------------------------------------
+
+class SoftmaxGeometry(NamedTuple):
+    g: int   # lanes per edge (the smallest power of two >= H, at most 32)
+    p: int   # edge slots per row; 32 // (g * p) rows per warp
+    r: int   # scores per lane: rows of at most p * r edges are read once
+
+
+def softmax_geometry(h: int, n_edges: int, n_rows: int) -> SoftmaxGeometry:
+    """edge_softmax_fwd's layout for H = h heads: with SOFTMAX_REGS scores
+    per lane, the fewest edge slots per row (the most rows per warp) that
+    hold a row of twice the mean in-degree in registers."""
+    regs = SOFTMAX_REGS
+    g = 1
+    while g < h and g < 32:
+        g *= 2
+    target = 2 * -(-n_edges // max(n_rows, 1))
+    p = 1
+    while p * regs < target and g * p < 32:
+        p *= 2
+    return SoftmaxGeometry(g, p, regs)
+
 
 def _check_edge_rows(indptr, n_rows, *edge_arrays):
     for t in edge_arrays:
@@ -403,9 +601,10 @@ def edge_softmax_fwd(indptr, scores, n_rows):
         scores = scores.contiguous()
         alpha = torch.empty_like(scores)
         lib = cuda_build.load("gat", _SIGNATURES)
+        geo = softmax_geometry(scores.shape[1], scores.shape[0], n_rows)
         cuda_build.launch("edge_softmax_fwd", lib.edge_softmax_fwd,
                           scores.device, indptr.data_ptr(), scores.data_ptr(),
-                          alpha.data_ptr(), n_rows, scores.shape[1])
+                          alpha.data_ptr(), n_rows, scores.shape[1], geo.p)
         counts["edge_softmax_fwd"] += 1
         return alpha
     return plain_edge_softmax_fwd(indptr, scores, n_rows)

@@ -6,10 +6,14 @@ tests/test_torch_cuda.py` (the suite's conftest imports JAX, which the port
 does not need). Tolerances: the exact SpMM kernel and its plain version
 differ only in summation order (rtol 1e-5, atol 1e-4); int8 sums are exact
 (bit-equal). The GAT kernels differ from their plain versions in summation
-order and in the forward's online softmax, which rescales its running sums
-when the segment max rises: f32 outputs at rtol 1e-4 / atol 1e-4 x max;
-the bf16 message by at most one bf16 ulp (rtol 2**-7), since a last-bit
-f32 difference can round either way; the segment max is exact. The
+order and in the order of their f32 operations (the forward multiplies
+by one reciprocal of the denominator): f32 outputs at rtol 1e-4 / atol
+1e-4 x max; the bf16 message by at most one bf16 ulp (rtol 2**-7), since a
+last-bit f32 difference can round either way; the segment max is exact.
+In seed mode the kernels generate the dropout bits that `philox_keep`
+gives, so they are bit-equal to the mask mode fed that mask. `gat_prep`
+writes the bf16 features bit for bit, el up to its summation order (rtol
+1e-6 / atol 1e-6 x max) and er within one bf16 ulp. The
 weighted SpMM rounds the same f32 products as its plain version and
 differs in summation order only (rtol 1e-5, atol 1e-4); the segment
 softmax differs in the order of its f32 sums (rtol 1e-5 forward, 1e-4 for
@@ -42,10 +46,10 @@ def cuda():
 HUB_DEGREES = (0, 1, 31, 32, 33, 64, 65, 1000, 20000)
 HUB_NODES = 25000
 SPMM_WIDTHS = [1, 7, 40, 64, 100, 128, 256, 300]
-GAT_SHAPES = [(8, 16), (1, 40), (2, 7), (3, 5)]
+GAT_SHAPES = [(8, 16), (1, 40), (2, 7), (3, 5), (12, 4)]
 WEIGHTED_SHAPES = [(None, 1), (None, 7), (None, 40), (None, 64), (None, 100),
                    (None, 128), (8, 16), (1, 40), (3, 5), (2, 7)]
-SOFTMAX_HEADS = [None, 1, 3, 8, 40]
+SOFTMAX_HEADS = [None, 1, 3, 8, 32, 40]
 
 
 def _graph(n, e, seed, device, hub_free=0):
@@ -150,9 +154,12 @@ def _gat_inputs(g, h, d, drop, seed):
     return feat, al, ar, keep
 
 
-def _gat_matches_plain(g, h, d, drop, zero_rows):
+def _gat_matches_plain(g, h, d, drop, zero_rows, mode="mask"):
     feat, al, ar, keep = _gat_inputs(g, h, d, drop, 1)
     inv_keep = 1.0 / (1.0 - drop)
+    if drop and mode == "seed":
+        keep = torch.tensor([0x5EED0000 + h * d], dtype=torch.int64,
+                            device=g.device)
     feat_b, el, er_b, al_b = gat_cuda.prep(feat, al, ar)
     args = (g.indptr, g.senders, feat_b, el, er_b, keep, inv_keep, 0.2)
     out, smax, denom = gat_cuda.gat_fwd(*args)
@@ -187,6 +194,52 @@ def test_gat_kernels_match_plain_on_hub_rows(cuda, h, d, drop):
                        drop, slice(0, 1))
 
 
+@pytest.mark.parametrize("h,d", GAT_SHAPES)
+def test_gat_kernels_seed_mode_match_plain(cuda, h, d):
+    """Dropout generated in the kernels from a seed, against the plain
+    versions applying philox_keep's mask; on a graph and on hub rows."""
+    _gat_matches_plain(_graph(600, 7000, h * 10 + d, cuda, hub_free=25), h,
+                       d, 0.3, slice(0, 25), mode="seed")
+    _gat_matches_plain(_hub_graph(HUB_NODES, 7000, h * 10 + d, cuda), h, d,
+                       0.3, slice(0, 1), mode="seed")
+
+
+@pytest.mark.parametrize("h,d", GAT_SHAPES)
+def test_gat_seed_mode_bit_equal_to_mask_mode(cuda, h, d):
+    """Seed mode against mask mode fed philox_keep's mask on the device:
+    the same arithmetic, so a single differing keep bit would show."""
+    g = _hub_graph(HUB_NODES, 7000, h + d, cuda)
+    feat, al, ar, _ = _gat_inputs(g, h, d, 0.0, 3)
+    seed = torch.tensor([-0x123456789ABCDEF], dtype=torch.int64, device=cuda)
+    mask = gat_cuda.philox_keep(seed, g.n_edges, h, 0.7)
+    feat_b, el, er_b, al_b = gat_cuda.prep(feat, al, ar)
+    dout = torch.randn_like(feat)
+    gat_cuda.reset_counts()
+    got = []
+    for keep in (seed, mask):
+        args = (g.indptr, g.senders, feat_b, el, er_b, keep, 1 / 0.7, 0.2)
+        out, smax, denom = gat_cuda.gat_fwd(*args)
+        got.append((out, smax, denom)
+                   + gat_cuda.gat_bwd(*args, smax, denom, dout, al_b))
+    assert all(torch.equal(a, b) for a, b in zip(*got))
+    for mode in gat_cuda.DROP_MODES:
+        assert gat_cuda.counts[mode] == 1
+    assert 0.69 < mask.float().mean().item() < 0.71
+
+
+@pytest.mark.parametrize("h,d", GAT_SHAPES + [(4, 1024), (2, 100)])
+def test_gat_prep_matches_plain(cuda, h, d):
+    feat, al, ar, _ = _gat_inputs(_graph(3000, 10, h, cuda), h, d, 0.0, 4)
+    gat_cuda.reset_counts()
+    got = gat_cuda.prep(feat, al, ar)
+    want = gat_cuda.plain_prep(feat, al, ar)
+    torch.cuda.synchronize()
+    assert gat_cuda.counts["gat_prep"] == 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[3], want[3])
+    _close(got[1], want[1], rtol=1e-6, scale=1e-6)
+    _close(got[2], want[2], rtol=2.0 ** -7, scale=1e-6)
+
+
 def test_gat_layer_runs_the_kernels_and_no_plain_version(cuda):
     """ops.gat_attention on CUDA tensors: one forward and one backward
     kernel, the SpMM source reduce, no plain call; its gradient equals the
@@ -200,8 +253,10 @@ def test_gat_layer_runs_the_kernels_and_no_plain_version(cuda):
     cuda_build.reset_counts()
     out = ops.gat_attention(g, *leaves)
     out.backward(dout)
-    assert gat_cuda.counts == {"gat_fwd": 1, "gat_bwd": 1,
-                               "edge_softmax_fwd": 0, "edge_softmax_bwd": 0}
+    assert gat_cuda.counts == {"gat_prep": 1, "gat_fwd": 1, "gat_bwd": 1,
+                               "edge_softmax_fwd": 0, "edge_softmax_bwd": 0,
+                               "gat_fwd_seed": 0, "gat_fwd_mask": 0,
+                               "gat_bwd_seed": 0, "gat_bwd_mask": 0}
     assert spmm_cuda.counts == {"spmm_csr_bf16": 1, "spmm_csr_int8": 0,
                                 "spmm_csr_weighted": 0}
     assert cuda_build.counts == {"plain_on_cuda": 0}
@@ -330,3 +385,31 @@ def test_edge_softmax_kernels_match_plain(cuda, heads):
 def test_edge_softmax_kernels_match_plain_on_hub_rows(cuda, heads):
     _softmax_matches_plain(
         _hub_graph(HUB_NODES, 7000, 9 + (heads or 0), cuda), heads)
+
+
+def test_gat_layer_seed_mode_runs_no_mask(cuda):
+    """ops.gat_attention with dropout on CUDA: both kernels in seed mode,
+    the seed drawn from the generator on the device, and the gradient of
+    the plain chain fed philox_keep's mask of that seed."""
+    g = _graph(500, 6000, 12, cuda, hub_free=10)
+    feat, al, ar, _ = _gat_inputs(g, 8, 16, 0.0, 5)
+    leaves = [t.clone().requires_grad_(True) for t in (feat, al, ar)]
+    dout = torch.randn_like(feat)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    seed = torch.randint(2 ** 63 - 1, (1,), dtype=torch.int64,
+                         generator=torch.Generator(device=cuda).manual_seed(3),
+                         device=cuda)
+    gat_cuda.reset_counts()
+    cuda_build.reset_counts()
+    ops.gat_attention(g, *leaves, drop_rate=0.3, gen=gen).backward(dout)
+    assert gat_cuda.counts["gat_fwd_seed"] == 1
+    assert gat_cuda.counts["gat_bwd_seed"] == 1
+    assert gat_cuda.counts["gat_fwd_mask"] == gat_cuda.counts["gat_bwd_mask"] == 0
+    assert cuda_build.counts == {"plain_on_cuda": 0}
+    mask = gat_cuda.philox_keep(seed, g.n_edges, 8, 0.7)
+    feat_b, el, er_b, al_b = gat_cuda.plain_prep(feat, al, ar)
+    args = (g.indptr, g.senders, feat_b, el, er_b, mask, 1 / 0.7, 0.2)
+    _, smax, denom = gat_cuda.plain_gat_fwd(*args)
+    der, msg, dal = gat_cuda.plain_gat_bwd(*args, smax, denom, dout, al_b)
+    _close(leaves[1].grad, dal)
+    _close(leaves[2].grad, torch.einsum("nh,nhd->hd", der, feat))

@@ -301,6 +301,121 @@ def test_wrappers_reject_bad_inputs():
     assert not gat_cuda.supported_width(129)
 
 
+# ---- Philox dropout and the seed mode ------------------------------------
+
+@pytest.mark.parametrize("ctr,key,want", [
+    ((0, 0, 0, 0), (0, 0),
+     (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
+    ((0xFFFFFFFF,) * 4, (0xFFFFFFFF,) * 2,
+     (0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD)),
+    ((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344),
+     (0xA4093822, 0x299F31D0),
+     (0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1)),
+])
+def test_philox_known_answers(ctr, key, want):
+    """Philox4x32-10 in int64 torch against Random123's kat_vectors."""
+    got = gat_cuda.philox4x32([torch.tensor([c]) for c in ctr],
+                              [torch.tensor([k]) for k in key])
+    assert [int(w) for w in got] == list(want)
+
+
+def test_philox_keep_bits_and_statistics():
+    """philox_keep's bit (e, h) is word h & 3 of Philox at counter
+    (e, h >> 2, 0, 0) under key (seed lo, seed hi), kept below the JAX
+    threshold; on 10**5 draws the kept share, and the joint share of two
+    heads of an edge and of one head of neighbouring edges, lie within 4
+    sigma of keep and keep**2."""
+    keep, e, h = 0.7, 12500, 8
+    seed = torch.tensor([0x299F31D0A4093822], dtype=torch.int64)
+    mask = gat_cuda.philox_keep(seed, e, h, keep)
+    assert mask.shape == (e, h) and mask.dtype == torch.bool
+    thresh = gat_cuda.keep_threshold(keep)
+    assert thresh == int(keep * 2 ** 32)
+    assert gat_cuda.keep_threshold(1.0) == 2 ** 32 - 1
+    for edge in (0, 1, 4321):
+        for block in (0, 1):
+            words = gat_cuda.philox4x32(
+                [torch.tensor([c]) for c in (edge, block, 0, 0)],
+                [torch.tensor([0xA4093822]), torch.tensor([0x299F31D0])])
+            for k, w in enumerate(words):
+                assert bool(mask[edge, 4 * block + k]) == (int(w) < thresh)
+    m = mask.double()
+
+    def within(share, p, n):
+        return abs(share - p) < 4 * np.sqrt(p * (1 - p) / n)
+
+    assert within(m.mean().item(), keep, m.numel())
+    pairs = (m[:, 0::2] * m[:, 1::2]).flatten()
+    assert within(pairs.mean().item(), keep ** 2, pairs.numel())
+    pairs = (m[:-1:2] * m[1::2]).flatten()
+    assert within(pairs.mean().item(), keep ** 2, pairs.numel())
+    assert not torch.equal(mask, gat_cuda.philox_keep(seed + 1, e, h, keep))
+
+
+def _slot_mask(gj, keep):
+    """An edge-order keep mask carried to slot order through plan.edge_slot
+    (ghost slots 0), as gat_pallas's "mask" mode takes it."""
+    plan = gj.smx
+    slots = np.zeros((plan.slots, keep.shape[1]), np.float32)
+    slots[np.asarray(plan.edge_slot)] = keep.numpy()
+    return jnp.asarray(slots, jnp.bfloat16)
+
+
+@pytest.mark.parametrize("drop", [0.3, 0.5])
+def test_seed_mode_layer_matches_pallas_mask_mode(drop):
+    """The fused layer in seed mode (the plain versions apply philox_keep's
+    mask on the CPU) against the interpret-mode Pallas layer in "mask" mode
+    fed that mask: forward at rtol 2e-2 / atol 1e-2 x max, the three
+    gradients within 1e-2 of max (tests/test_pallas.py:451,489)."""
+    gt, gj = _graphs(e=1800, seed=7, plans=True)
+    feat, al, ar = _att(N, 2, 8, 7)
+    seed = torch.tensor([0x0123456789ABCDEF], dtype=torch.int64)
+    inv_keep = 1.0 / (1.0 - drop)
+    mask = _slot_mask(gj, gat_cuda.philox_keep(seed, gt.n_edges, 2,
+                                               1.0 - drop))
+
+    def pallas(f, a, b):
+        return gat_pallas._fused_gat(0.2, inv_keep, "mask", gj.smx, f, f, a,
+                                     b, mask)
+
+    want = np.asarray(pallas(*_j(feat, al, ar)))
+    leaves = [t.requires_grad_(True) for t in _t(feat, al, ar)]
+    out = gat_cuda.gat_attention(gt, *leaves, keep=seed, inv_keep=inv_keep)
+    np.testing.assert_allclose(out.detach().numpy(), want, rtol=2e-2,
+                               atol=1e-2 * np.abs(want).max())
+    torch.sin(out).sum().backward()
+    grads = jax.grad(lambda f, a, b: jnp.sum(jnp.sin(pallas(f, a, b))),
+                     argnums=(0, 1, 2))(*_j(feat, al, ar))
+    for leaf, w in zip(leaves, grads):
+        w = np.asarray(w)
+        assert np.abs(leaf.grad.numpy() - w).max() / (np.abs(w).max()
+                                                      + 1e-6) < 1e-2
+
+
+@pytest.mark.parametrize("h,d", [(8, 16), (1, 40), (3, 5)])
+def test_prep_matches_jax_rounding(h, d):
+    """prep's el against the TPU kernel's score matmul (bf16 features times
+    the bf16 block-diagonal attn_l, f32 sums; gat_pallas.py:118) at rtol
+    1e-6 (summation order), and er against gat_pallas._prep (the f32 sum
+    rounded once to bf16, :412-417) within one bf16 ulp."""
+    gt, gj = _graphs(plans=True)
+    feat, al, ar = _att(N, h, d, h + d)
+    _, el, er_b, al_b = gat_cuda.prep(*_t(feat, al, ar))
+    hdp = -(-h * d // 128) * 128
+    f2 = jnp.pad(jnp.asarray(feat).reshape(N, h * d).astype(jnp.bfloat16),
+                 ((0, 0), (0, hdp - h * d)))
+    al_blk = gat_pallas._block_diag_al(jnp.asarray(al), hdp)
+    want_el = np.asarray(jnp.dot(f2, al_blk.astype(jnp.bfloat16),
+                                 preferred_element_type=jnp.float32))[:, :h]
+    np.testing.assert_allclose(el.numpy(), want_el, rtol=1e-6,
+                               atol=1e-6 * np.abs(want_el).max())
+    er_pad, _, _ = gat_pallas._prep(gj.smx, *_j(feat, al, ar), hdp)
+    want_er = np.asarray(er_pad[:N, :h].astype(jnp.float32))
+    np.testing.assert_allclose(er_b.float().numpy(), want_er, rtol=2.0 ** -7,
+                               atol=1e-6)
+    assert torch.equal(al_b, torch.from_numpy(al).to(torch.bfloat16))
+
+
 # ---- the dispatcher -------------------------------------------------------
 
 def test_dispatcher_tiers_on_cpu():
@@ -323,27 +438,42 @@ def test_dispatcher_tiers_on_cpu():
         with ops.inference_mode():
             got = ops.gat_attention(gt, *_t(feat, al, ar)).numpy()
         np.testing.assert_array_equal(got, fused)
-    assert gat_cuda.counts == {k: 0 for k in gat_cuda.KERNELS}
+    assert gat_cuda.counts == {k: 0 for k in gat_cuda.KERNELS
+                               + gat_cuda.DROP_MODES}
     assert cuda_build.counts == {"plain_on_cuda": 0}
 
 
 def test_dispatcher_dropout_draws_edge_mask_from_generator():
+    """Dropout draws one Philox seed from the generator: the same generator
+    state gives the same output and the same mask on every tier. The f32
+    tier applies philox_keep's mask; the fused layer gets the seed, and on
+    the CPU its plain versions apply the same mask."""
     gt, _ = _graphs()
     feat, al, ar = _t(*_att(N, 2, 4, 12))
     outs = [ops.gat_attention(gt, feat, al, ar, drop_rate=0.5,
                               gen=torch.Generator().manual_seed(s))
             for s in (0, 0, 1)]
     assert torch.equal(outs[0], outs[1]) and not torch.equal(outs[0], outs[2])
-    keep = torch.rand((gt.n_edges, 2),
-                      generator=torch.Generator().manual_seed(0)) >= 0.5
+    seed = torch.randint(2 ** 63 - 1, (1,), dtype=torch.int64,
+                         generator=torch.Generator().manual_seed(0))
+    keep = gat_cuda.philox_keep(seed, gt.n_edges, 2, 0.5)
+    assert 0.4 < keep.float().mean().item() < 0.6
     ops.set_backend("pallas")
     fused = ops.gat_attention(gt, feat, al, ar, drop_rate=0.5,
                               gen=torch.Generator().manual_seed(0))
-    torch.testing.assert_close(
+    assert torch.equal(
         fused, gat_cuda.gat_attention(gt, feat, al, ar, keep=keep,
+                                      inv_keep=2.0))
+    assert torch.equal(
+        fused, gat_cuda.gat_attention(gt, feat, al, ar, keep=seed,
                                       inv_keep=2.0))
     torch.testing.assert_close(fused, outs[0], rtol=2e-2,
                                atol=1e-2 * outs[0].abs().max().item())
+    s = refops.u_add_v(gt, (feat * al[None]).sum(-1),
+                       (feat * ar[None]).sum(-1))
+    alpha = refops.edge_softmax(gt, torch.where(s >= 0, s, 0.2 * s))
+    want = refops.u_mul_e_sum(gt, feat, alpha * keep.float() / 0.5)
+    torch.testing.assert_close(outs[0], want, rtol=1e-5, atol=1e-6)
 
 
 def test_unported_edge_kernels_raise_under_kernel_tier(monkeypatch):

@@ -1,7 +1,7 @@
 """The CUDA kernels' design, checked on the CPU: the launch geometry that
-ops/spmm_cuda.py and ops/gat_cuda.py work out for the CSR SpMM and the GAT
-attention backward, and mirrors of the two kernels' walks in the kernels'
-order of operations.
+ops/spmm_cuda.py and ops/gat_cuda.py work out for the CSR SpMM, the GAT
+attention kernels and the segment softmax, and mirrors of the kernels'
+walks in the kernels' order of operations.
 
 * The SpMM mirror follows csrc/spmm_csr.cu: 32-edge chunks, edge groups
   taking every groups-th edge, column chunks of lanes * vec, and the fold
@@ -18,6 +18,19 @@ order of operations.
   plain_gat_bwd (1e-2 x max). The form the kernel does not take, der and
   dattn_l as differences of row sums, is shown to cancel worse where the
   attention is concentrated and dout is large.
+* The gat_fwd mirror follows its walk in f32: per 32-edge chunk, lane j
+  scores edge j for the heads of the pass; the segment max over the lanes,
+  then each term exp(s - max) once; the keep bits of each edge packed into
+  one word by its lane; p and p w f summed per edge slot in the feature
+  layout and folded onto slot 0; one reciprocal of den per (row, head). It is held against plain_gat_fwd
+  (out rtol 1e-4 / atol 1e-4 x max, the max exactly) on rows of 0 to 200
+  edges, a 150-edge hub row among them, with large logits, without
+  dropout and in seed mode.
+* The edge_softmax_fwd mirror packs 32 / (g p) consecutive rows into a
+  warp, reads a row of at most p r edges once into registers and sums it
+  with the kernel's butterfly, and walks longer rows with the whole warp
+  (max, then a compensated sum); it is held against plain_edge_softmax_fwd
+  (rtol 1e-5) and counts the reads of every score.
 """
 
 import jax
@@ -36,15 +49,15 @@ HUB = 150          # in-degree of row 1: several 32-edge chunks, past K
 BF16, F32, INT8 = 2, 4, 1
 
 
-def _graph_arrays(seed, hub_degrees=(HUB,)):
-    """Random edges into rows 20.., plus rows 1, 2, ... with the given
-    in-degrees from distinct sources; rows 0 and those past the hubs up to
-    19 receive nothing."""
+def _graph_arrays(seed, hub_degrees=(HUB,), n=N, n_random=2500):
+    """n_random random edges into rows 20.. of n, plus rows 1, 2, ... with
+    the given in-degrees from distinct sources; rows 0 and those past the
+    hubs up to 19 receive nothing."""
     rs = np.random.RandomState(seed)
-    src = [rs.randint(0, N, 2500)]
-    dst = [rs.randint(20, N, 2500)]
+    src = [rs.randint(0, n, n_random)]
+    dst = [rs.randint(20, n, n_random)]
     for row, deg in enumerate(hub_degrees, start=1):
-        src.append(rs.choice(np.arange(N), deg, replace=False))
+        src.append(rs.choice(np.arange(n), deg, replace=False))
         dst.append(np.full(deg, row))
     return np.concatenate(src), np.concatenate(dst)
 
@@ -100,6 +113,33 @@ def test_gat_bwd_geometry(heads, width, want):
     assert geo.hp * geo.lh * geo.slots <= 32
     assert 32 <= geo.kcache and geo.kcache * geo.hp * 16 <= 4096
     assert gat_cuda.bwd_geometry(heads, width, align=4).vec <= 2
+
+
+@pytest.mark.parametrize("heads,width,want", [
+    (8, 16, (8, 1, 2, 8, 2)), (1, 40, (4, 1, 10, 1, 3)),
+    (2, 7, (1, 1, 7, 2, 2)), (16, 8, (8, 1, 1, 8, 4)), (1, 16, (8, 1, 2, 1, 16))])
+def test_gat_fwd_geometry(heads, width, want):
+    """gat_fwd lays lanes out as gat_bwd does ((8, 16): 16 lanes per edge
+    and 2 slots), with at most 8 heads per pass and, where an 8-byte load
+    allows it, at most 4 slots ((1, 40): 10 lanes per edge and 3 slots,
+    where gat_bwd takes 5 and 6)."""
+    geo = gat_cuda.fwd_geometry(heads, width)
+    assert tuple(geo) == want
+    assert geo.hp <= gat_cuda.FWD_MAX_HEADS
+    assert geo.hp * geo.lh * geo.slots <= 32
+    assert width % geo.vec == 0 and geo.lh * geo.reps * geo.vec >= width
+
+
+@pytest.mark.parametrize("heads,n_edges,n_rows,want", [
+    (1, 2537353, 169343, (1, 4, 8)), (8, 2537353, 169343, (8, 4, 8)),
+    (3, 3000, 300, (4, 4, 8)), (40, 3000, 300, (32, 1, 8))])
+def test_softmax_geometry(heads, n_edges, n_rows, want):
+    """[E, 1] on the smoke graph packs 8 rows into a warp and [E, 8] one,
+    each holding a row of up to 32 edges (twice the mean in-degree, 15.0)
+    in 8 registers per lane."""
+    geo = gat_cuda.softmax_geometry(heads, n_edges, n_rows)
+    assert tuple(geo) == want
+    assert geo.g * geo.p <= 32 and 32 % (geo.g * geo.p) == 0
 
 
 # ---- the SpMM walk --------------------------------------------------------
@@ -268,3 +308,156 @@ def test_gat_bwd_mirror_through_layer_matches_pallas(monkeypatch, logit):
         w = np.asarray(w)
         assert np.abs(leaf.grad.numpy() - w).max() / (np.abs(w).max()
                                                       + 1e-6) < 1e-2
+
+
+# ---- the GAT attention forward ---------------------------------------------
+
+def _keep_words(keep, h0, hp):
+    """Per edge, the word the chunk lane packs: bit i for head h0 + i."""
+    n_edges, heads = keep.shape
+    words = torch.zeros(n_edges, dtype=torch.int64)
+    for i in range(min(hp, heads - h0)):
+        words |= keep[:, h0 + i].long() << i
+    return words
+
+
+def _gat_fwd_mirror(indptr, senders, feat_b, el, er_b, keep, inv_keep,
+                    slope):
+    """csrc/gat_csr.cu's gat_fwd in f32 torch on the CPU, one row and head
+    pass at a time: (out, max, denom)."""
+    n_rows, heads = er_b.shape
+    geo = gat_cuda.fwd_geometry(heads, feat_b.shape[2])
+    slots, hp = geo.slots, geo.hp
+    if keep is None:
+        inv_keep = 1.0    # without dropout every weight is 1
+    elif keep.dtype == torch.int64:
+        keep = gat_cuda.philox_keep(keep, senders.numel(), heads,
+                                    1.0 / inv_keep)
+    out = torch.zeros((n_rows,) + tuple(feat_b.shape[1:]))
+    smax = torch.zeros((n_rows, heads))
+    denom = torch.zeros((n_rows, heads))
+    for h0 in range(0, heads, hp):
+        hs = slice(h0, min(h0 + hp, heads))
+        words = (_keep_words(keep, h0, hp) if keep is not None
+                 else torch.full((senders.numel(),), (1 << 32) - 1))
+        bit = torch.arange(hs.stop - h0)
+        for v in range(n_rows):
+            a, b = int(indptr[v]), int(indptr[v + 1])
+            if a == b:
+                continue
+            src = senders[a:b].long()
+            s = el[src, hs] + er_b[v, hs].float()
+            s = torch.where(s >= 0, s, slope * s)                  # [e, hp]
+            m = s.max(0).values                  # the lanes' maxima, folded
+            p = torch.exp(s - m)                 # lane j: edge e0 + j
+            kept = (words[a:b, None] >> bit) & 1 == 1
+            pw = torch.where(kept, p * inv_keep, torch.zeros_like(p))
+            den = torch.zeros((slots, hs.stop - h0))
+            acc = torch.zeros((slots, hs.stop - h0, feat_b.shape[2]))
+            for e0 in range(0, b - a, 32):
+                n = min(32, b - a - e0)
+                for j in range(-(-n // slots)):
+                    for q in range(min(slots, n - j * slots)):
+                        k = e0 + j * slots + q
+                        den[q] += p[k]
+                        acc[q] += pw[k, :, None] * feat_b[src[k], hs].float()
+            den = _fold(den)
+            out[v, hs] = _fold(acc) * (1.0 / den)[:, None]
+            smax[v, hs], denom[v, hs] = m, den
+    return out, smax, denom
+
+
+@pytest.mark.parametrize("drop", ["none", "seed"])
+@pytest.mark.parametrize("h,d", [(8, 16), (1, 40), (3, 5), (12, 4)])
+def test_gat_fwd_mirror_matches_plain(h, d, drop):
+    """Rows of 0, 1, 31-33, 64, 65, 150 and 200 edges, logits of about
+    randn x 10 (concentrated attention); seed mode generates the mask from
+    a seed as the kernels do."""
+    g = build_graph(*_graph_arrays(h * d, (1, 31, 32, 33, 64, 65, 150, 200)),
+                    N)
+    rs = np.random.RandomState(d)
+    feat = torch.from_numpy(rs.randn(N, h, d).astype(np.float32))
+    al, ar = (torch.from_numpy((rs.randn(h, d) * 10 / np.sqrt(d))
+                               .astype(np.float32)) for _ in range(2))
+    feat_b, el, er_b, _ = gat_cuda.prep(feat, al, ar)
+    keep = (torch.tensor([987654321], dtype=torch.int64) if drop == "seed"
+            else None)
+    args = (g.indptr, g.senders, feat_b, el, er_b, keep, 1 / 0.7, 0.2)
+    got, want = _gat_fwd_mirror(*args), gat_cuda.plain_gat_fwd(*args)
+    _close(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+    _close(got[2], want[2], rtol=1e-5, scale=1e-6)
+    assert got[0][0].abs().max() == 0 and got[2][0].abs().max() == 0
+
+
+# ---- the segment softmax forward -------------------------------------------
+
+def _butterfly(parts):
+    """The kernel's __shfl_xor_sync sum over slots (a power of two)."""
+    parts = list(parts)
+    off = 1
+    while off < len(parts):
+        parts = [parts[q] + parts[q ^ off] for q in range(len(parts))]
+        off *= 2
+    return parts[0]
+
+
+def _softmax_fwd_mirror(indptr, scores, n_rows):
+    """csrc/gat_csr.cu's edge_softmax_fwd in f32 on the CPU: (alpha, reads
+    of each score, rows walked by the whole warp)."""
+    n_edges, heads = scores.shape
+    g, p, r = gat_cuda.softmax_geometry(heads, n_edges, n_rows)
+    alpha = torch.zeros_like(scores)
+    reads = torch.zeros(scores.shape, dtype=torch.int64)
+    long_rows = []
+    for v in range(n_rows):
+        a, b = int(indptr[v]), int(indptr[v + 1])
+        if b - a > p * r:
+            long_rows.append(v)
+            continue
+        if a == b:
+            continue
+        reads[a:b] += 1
+        vals = [scores[a + q:b:p] for q in range(p)]       # slot q's edges
+        m = torch.stack([x.max(0).values if len(x) else
+                         torch.full((heads,), -np.inf) for x in vals]).max(0)
+        ex = [torch.exp(x - m.values) for x in vals]
+        den = _butterfly([x.sum(0) for x in ex])
+        for q in range(p):
+            alpha[a + q:b:p] = ex[q] / den
+    per = 32 // g
+    for v in long_rows:
+        a, b = int(indptr[v]), int(indptr[v + 1])
+        reads[a:b] += 3               # max, sum and write passes
+        m = scores[a:b].max(0).values
+        parts = []
+        for q in range(per):
+            den = torch.zeros(heads)
+            comp = torch.zeros(heads)
+            for e in range(a + q, b, per):
+                y = torch.exp(scores[e] - m) - comp
+                t = den + y
+                comp = (t - den) - y
+                den = t
+            parts.append(den - comp)
+        alpha[a:b] = torch.exp(scores[a:b] - m) / _butterfly(parts)
+    return alpha, reads, long_rows
+
+
+@pytest.mark.parametrize("heads", [1, 3, 8, 40])
+def test_softmax_fwd_mirror_matches_plain(heads):
+    """Rows of 0-200 edges and one of 2,000 (mean in-degree about 10, so a
+    row of up to 32 edges is read once); the plain version at rtol 1e-5."""
+    g = build_graph(*_graph_arrays(heads, (1, 31, 32, 33, 64, 65, 200, 2000),
+                                   n=4000, n_random=40000), 4000)
+    s = torch.from_numpy(3 * np.random.RandomState(heads).randn(
+        g.n_edges, heads).astype(np.float32))
+    got, reads, long_rows = _softmax_fwd_mirror(g.indptr, s, g.n_nodes)
+    want = gat_cuda.plain_edge_softmax_fwd(g.indptr, s, g.n_nodes)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    deg = g.in_degrees.long()
+    geo = gat_cuda.softmax_geometry(heads, g.n_edges, g.n_nodes)
+    assert sorted(long_rows) == torch.nonzero(
+        deg > geo.p * geo.r).flatten().tolist()
+    short = ~torch.isin(g.receivers.long(), torch.tensor(long_rows))
+    assert (reads[short] == 1).all()

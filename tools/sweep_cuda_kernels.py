@@ -1,22 +1,35 @@
 #!/usr/bin/env python3
-"""Time variants of the port's two redesigned CUDA kernels on one GPU.
+"""Time variants of the port's redesigned CUDA kernels on one GPU.
 
     python3 tools/sweep_cuda_kernels.py [--out PATH]   # from the repository root
 
-Each variant is the source in glnn_tpu_torch/csrc with one bound changed
+Each variant is the source in glnn_tpu_torch/csrc with one thing changed
 in a copy: the minimum resident blocks per SM asked of ptxas
-(__launch_bounds__) for the CSR SpMM body (spmm_csr.cu) or for gat_bwd
-(gat_csr.cu), which caps the registers a thread may use. Every variant
-is built with the port's nvcc flags into a temporary directory, loaded in
-place of the port's library, checked against the plain version, and timed
-with CUDA events on the synth-n169343-c40-f128-d7 graph at the main
-paths' widths: the exact and int8 sums at F = 40, 64, 128, 256, the
-weighted sum at F = 40 (forward and transposed walk) and per head at
-(8, 16), each under every lane layout the kernel takes (the geometry is a
-launch argument, so these need no rebuild), and gat_bwd at (8, 16) and
-(1, 40) with the attention dropout mask. Prints each variant's ptxas registers and spill stores per
-instantiation and its times, and writes them all to PATH as JSON (by
-default build/sweep_cuda_kernels.json).
+(__launch_bounds__) for the CSR SpMM body (spmm_csr.cu), for gat_fwd or
+for gat_bwd (gat_csr.cu), which caps the registers a thread may use; the
+scores per lane R of edge_softmax_fwd (kSoftmaxRegs); or gat_fwd with one
+stage cut out, to split its time (`gat_fwd_parts`: "scores only" reads no
+feature row, "features only" loads no el, takes no max, forms every term
+as 1 and draws the keep bits from a multiplicative hash at the same keep
+rate, with no Philox). Every variant is built with the port's nvcc flags
+into a temporary directory, loaded in place of the port's library,
+checked against the plain version (the cut gat_fwd variants are only
+timed), and timed with CUDA events on the synth-n169343-c40-f128-d7
+graph at the main paths' widths:
+- the exact and int8 sums at F = 40, 64, 128, 256, the weighted sum at
+  F = 40 (forward and transposed walk) and per head at (8, 16), each under
+  every lane layout the kernel takes;
+- gat_fwd at (8, 16) and (1, 40), dropout in seed mode, under every lane
+  layout it takes (each load width, with all slots or one), with the
+  grid that fills every SM once and with one warp per row;
+- gat_fwd's cut variants at both shapes in seed mode, the port's layout;
+- gat_bwd at both shapes in seed mode; gat_prep at both shapes;
+- edge_softmax_fwd at [E, 1] and [E, 8] with R = 1, 2, 4, 8 scores per
+  lane (and the edge slots per row that R implies).
+The lane layouts and grids are launch arguments, so they need no
+rebuild. Prints each variant's ptxas registers, stack frame and spill
+stores per instantiation of the swept kernel and its times, and writes
+them all to PATH as JSON (by default build/sweep_cuda_kernels.json).
 """
 
 from __future__ import annotations
@@ -42,12 +55,29 @@ from glnn_tpu_torch.graph.datasets import load_synth_data  # noqa: E402
 from glnn_tpu_torch.ops import cuda_build, gat_cuda, spmm_cuda  # noqa: E402
 
 _port_geometry = spmm_cuda.geometry
+_port_fwd_geometry = gat_cuda.fwd_geometry
+_port_blocks = gat_cuda._blocks
 
-# the minimum blocks per SM of each variant; None: as the source has it,
-# 0: no minimum
-SPMM_VARIANTS = [None, 6, 0]
-GAT_VARIANTS = [None, 0]
+# each kernel's variants; None: the source as it is. spmm, gat_fwd,
+# gat_bwd: the minimum blocks per SM (0: no minimum); softmax: R;
+# gat_fwd_parts: the stage left in (None: the whole kernel, timed alike)
+VARIANTS = {"spmm": [None, 6, 0], "gat_fwd": [None, 0, 6], "gat_bwd": [None],
+            "softmax": [None, 1, 2, 4],
+            "gat_fwd_parts": [None, "scores only", "features only"]}
+KERNEL = {"spmm": "spmm_csr_kernel", "gat_fwd": "gat_fwd_kernel",
+          "gat_bwd": "gat_bwd_kernel", "softmax": "edge_softmax_fwd_kernel",
+          "gat_fwd_parts": "gat_fwd_kernel"}
+LIBRARY = {"spmm": "spmm", "gat_fwd": "gat", "gat_bwd": "gat",
+           "softmax": "gat", "gat_fwd_parts": "gat"}
 WIDTHS = (40, 64, 128, 256)
+# gat_fwd's keep bits in "features only": 8 heads' bits of edge e from
+# (e + 1) * 2654435761 * (2 i + 1) < thresh, about the seed mode's share
+_HASH_BITS = """{
+          const unsigned x = (static_cast<unsigned>(e0 + lane) + 1u) * 2654435761u;
+          unsigned b = 0;
+          for (int i = 0; i < 8; ++i) b |= (x * (2u * i + 1u) < drop.thresh ? 1u : 0u) << i;
+          if (lane < n) sc.bits[lane] = b;
+        }"""
 
 
 def _replace(src: str, pattern: str, new: str) -> str:
@@ -57,36 +87,74 @@ def _replace(src: str, pattern: str, new: str) -> str:
     return out
 
 
-def _variant_source(name: str, min_blocks) -> str:
-    src = (cuda_build._CSRC / cuda_build.SOURCES[name]).read_text()
-    if min_blocks is None:
+def _cut_gat_fwd(src: str, left: str) -> str:
+    """gat_fwd with only the stage `left` kept (see the module note)."""
+    head, body = src.split("\ngat_fwd_kernel(", 1)
+    body, tail = body.split("\n// per-edge quantities of the backward", 1)
+    if left == "scores only":
+        body = _replace(body, r"if \(sc\.bits\[k\] >> L\.hh & 1u\) \{",
+                        "if (false) {")
+    else:
+        body = _replace(body, r"(?s)      // pass 1:.*?(?=      __syncwarp\(\);"
+                        r"\n\n      // pass 2)",
+                        "      if (lane < NH) sc.max[lane] = 0.f;\n")
+        body = _replace(body, r"sc\.term\[lane \* NH \+ i\] = expf\(s - "
+                        r"sc\.max\[i\]\);", "sc.term[lane * NH + i] = 1.f;")
+        body = _replace(body, r"chunk_keep_bits\(drop, e0, n, H, h0, hn, "
+                        r"sc\.bits\);", lambda _: _HASH_BITS)
+    return (head + "\ngat_fwd_kernel(" + body
+            + "\n// per-edge quantities of the backward" + tail)
+
+
+def _variant_source(name: str, variant) -> str:
+    src = (cuda_build._CSRC / cuda_build.SOURCES[LIBRARY[name]]).read_text()
+    if variant is None:
         return src
-    kernel = "spmm_csr_kernel" if name == "spmm" else "gat_bwd_kernel"
-    bounds = ("__launch_bounds__(kWarps * 32)" if not min_blocks else
-              f"__launch_bounds__(kWarps * 32, {min_blocks})")
-    return _replace(src, rf"__launch_bounds__\([^\n]*\)\n{kernel}\(",
-                    f"{bounds}\n{kernel}(")
+    if name == "softmax":
+        return _replace(src, r"constexpr int kSoftmaxRegs = \d+;",
+                        f"constexpr int kSoftmaxRegs = {variant};")
+    if name == "gat_fwd_parts":
+        return _cut_gat_fwd(src, variant)
+    bounds = ("__launch_bounds__(kWarps * 32)" if not variant else
+              f"__launch_bounds__(kWarps * 32, {variant})")
+    return _replace(src, rf"__launch_bounds__\([^\n]*\)\n{KERNEL[name]}\(",
+                    f"{bounds}\n{KERNEL[name]}(")
+
+
+def ptxas_table(messages: str, kernel: str) -> dict:
+    """{instantiation: {registers, stack, spill_stores}} of `kernel` from
+    nvcc -Xptxas -v messages (two integer template arguments as
+    "VEC,REPS", others mangled as they are, none as "-")."""
+    table, current = {}, None
+    for line in messages.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(rf"{kernel}(?:I(.*?)EEv)?", line)
+            args = m.group(1) if m else None
+            ints = re.fullmatch(r"Li(\d+)ELi(\d+)E", args) if args else None
+            current = (f"{ints[1]},{ints[2]}" if ints
+                       else (args or "-") if m else None)
+            if current:
+                table[current] = {}
+        elif current:
+            for n, what in re.findall(r"(\d+) (bytes stack frame|bytes spill "
+                                      r"stores|registers)", line):
+                key = {"bytes stack frame": "stack", "registers": "registers",
+                       "bytes spill stores": "spill_stores"}[what]
+                table[current][key] = int(n)
+    return table
 
 
 def _build(job) -> tuple:
-    name, min_blocks, tmp = job
-    stem = f"{name}_b{min_blocks}"
+    name, variant, tmp = job
+    stem = re.sub(r"\W", "_", f"{name}_{variant}")
     cu = Path(tmp) / f"{stem}.cu"
-    cu.write_text(_variant_source(name, min_blocks))
+    cu.write_text(_variant_source(name, variant))
     lib = Path(tmp) / f"lib{stem}.so"
     res = subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o",
                           str(lib), str(cu)], capture_output=True, text=True)
     if res.returncode:
         raise RuntimeError(res.stderr)
-    kernel = "spmm_csr_kernel" if name == "spmm" else "gat_bwd_kernel"
-    ptxas, current = [], None
-    for line in res.stderr.splitlines():
-        if "Compiling entry function" in line:
-            current = line if kernel in line else None
-        elif current and ("registers" in line or "spill" in line):
-            nums = re.findall(r"(\d+) (bytes spill stores|registers)", line)
-            ptxas += [f"{n} {what.split()[-1]}" for n, what in nums]
-    return job, lib, ptxas
+    return job, lib, ptxas_table(res.stderr, KERNEL[name])
 
 
 def _load(name: str, lib: Path, signatures: dict) -> None:
@@ -162,7 +230,59 @@ def _time_spmm(g) -> dict:
     return out
 
 
-def _time_gat(g) -> dict:
+def _fwd_layouts(h: int, d: int):
+    """Every lane layout gat_fwd takes at (h, d): each load width dividing
+    d, with the slots that fill the warp and with one slot."""
+    out, vec = [], 8
+    while vec >= 1:
+        if d % vec == 0:
+            groups = d // vec
+            reps = 1
+            while reps * 32 < groups:
+                reps *= 2
+            if reps <= 4:
+                lh = -(-groups // reps)
+                hp = min(h, 32 // lh, gat_cuda.FWD_MAX_HEADS)
+                for slots in sorted({32 // (hp * lh), 1}, reverse=True):
+                    out.append((vec, reps, lh, hp, slots))
+        vec //= 2
+    return out
+
+
+def _time_gat_fwd(g) -> dict:
+    """gat_fwd (seed mode) under every lane layout and grid; the port's own
+    choice is marked with a '*'."""
+    out = {}
+    for h, d in chip_smoke.GAT_SHAPES:
+        args, _, _ = chip_smoke.gat_inputs(gat_cuda, g, h, d,
+                                           chip_smoke.ATTN_DROP, 7)
+        want = gat_cuda.plain_gat_fwd(*args)
+        chosen = _port_fwd_geometry(h, d)
+        times = {}
+        try:
+            for lanes in _fwd_layouts(h, d):
+                geo = gat_cuda.FwdGeometry(*lanes)
+                gat_cuda.fwd_geometry = lambda *a, _g=geo, **k: _g
+                for grid in ("fill", "rows"):
+                    gat_cuda._blocks = (_port_blocks if grid == "fill"
+                                        else lambda *a: 1 << 30)
+                    got = gat_cuda.gat_fwd(*args)
+                    chip_smoke._held("out", got[0], want[0], 1e-4, 1e-4)
+                    mark = "*" if geo == chosen and grid == "fill" else ""
+                    times[f"{tuple(geo)} {grid}{mark}"] = chip_smoke.time_ms(
+                        lambda: gat_cuda.gat_fwd(*args))
+        finally:
+            gat_cuda.fwd_geometry = _port_fwd_geometry
+            gat_cuda._blocks = _port_blocks
+        best = min(times, key=times.get)
+        print(f"  gat_fwd ({h}, {d}): port's "
+              f"{[v for k, v in times.items() if k.endswith('*')]} ms, best "
+              f"{best} {times[best]:.4f} ms", flush=True)
+        out[f"gat_fwd ({h}, {d})"] = times
+    return out
+
+
+def _time_gat_bwd(g) -> dict:
     out = {}
     for h, d in chip_smoke.GAT_SHAPES:
         args, dout, al_b = chip_smoke.gat_inputs(gat_cuda, g, h, d,
@@ -174,6 +294,55 @@ def _time_gat(g) -> dict:
         chip_smoke._held("msg", got[1], want[1], 2.0 ** -7, 1e-5)
         out[f"gat_bwd ({h}, {d})"] = chip_smoke.time_ms(
             lambda: gat_cuda.gat_bwd(*args, smax, denom, dout, al_b))
+        gen = torch.Generator(device=g.device).manual_seed(12)
+        feat = torch.randn((g.n_nodes, h, d), generator=gen, device=g.device)
+        al, ar = (torch.randn((h, d), generator=gen, device=g.device)
+                  for _ in range(2))
+        out[f"gat_prep ({h}, {d})"] = chip_smoke.time_ms(
+            lambda: gat_cuda.prep(feat, al, ar))
+    print("  " + ", ".join(f"{k} {v:.4f}" for k, v in out.items()),
+          flush=True)
+    return out
+
+
+def _time_gat_fwd_parts(g, left) -> dict:
+    """A cut gat_fwd (seed mode, the port's layout and grid) at both GAT
+    shapes; its output is not gat_fwd's, so it is only timed."""
+    out, left = {}, left or "whole"
+    for h, d in chip_smoke.GAT_SHAPES:
+        args, _, _ = chip_smoke.gat_inputs(gat_cuda, g, h, d,
+                                           chip_smoke.ATTN_DROP, 7)
+        out[f"gat_fwd ({h}, {d}) {left}"] = chip_smoke.time_ms(
+            lambda: gat_cuda.gat_fwd(*args))
+    print("  " + ", ".join(f"{k} {v:.4f}" for k, v in out.items()),
+          flush=True)
+    return out
+
+
+def _time_softmax(g, regs: int) -> dict:
+    """edge_softmax_fwd built with R = regs scores per lane, with the edge
+    slots per row that R implies."""
+    out, n = {}, g.n_nodes
+    gen = torch.Generator(device=g.device).manual_seed(8)
+    port_regs = gat_cuda.SOFTMAX_REGS
+    gat_cuda.SOFTMAX_REGS = regs
+    try:
+        for h in (1, 8):
+            s = 3.0 * torch.randn((g.n_edges, h), generator=gen,
+                                  device=g.device)
+            want = gat_cuda.plain_edge_softmax_fwd(g.indptr, s, n)
+            torch.testing.assert_close(
+                gat_cuda.edge_softmax_fwd(g.indptr, s, n), want,
+                rtol=1e-5, atol=1e-6)
+            geo = gat_cuda.softmax_geometry(h, g.n_edges, n)
+            mark = "*" if regs == port_regs else ""
+            out[f"[E, {h}] {tuple(geo)}{mark}"] = chip_smoke.time_ms(
+                lambda: gat_cuda.edge_softmax_fwd(g.indptr, s, n))
+    finally:
+        gat_cuda.SOFTMAX_REGS = port_regs
+    print("  edge_softmax_fwd " + ", ".join(f"{k} {v:.4f}"
+                                            for k, v in out.items()),
+          flush=True)
     return out
 
 
@@ -181,7 +350,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path,
                     default=ROOT / "build" / "sweep_cuda_kernels.json")
-    out_path = ap.parse_args().out
+    ap.add_argument("--kernels", default=",".join(VARIANTS),
+                    help="comma-separated subset of " + ", ".join(VARIANTS))
+    opts = ap.parse_args()
+    out_path, kernels = opts.out, opts.kernels.split(",")
     if not torch.cuda.is_available():
         print("sweep_cuda_kernels: no CUDA device is available",
               file=sys.stderr)
@@ -194,23 +366,29 @@ def main() -> int:
     g = host.to_device(torch.device("cuda:0"))
     rows = []
     with tempfile.TemporaryDirectory() as tmp:
-        jobs = ([("spmm", b, tmp) for b in SPMM_VARIANTS]
-                + [("gat", b, tmp) for b in GAT_VARIANTS])
+        jobs = [(name, b, tmp) for name, bs in VARIANTS.items()
+                if name in kernels for b in bs]
         with ThreadPoolExecutor(os.cpu_count() or 4) as pool:
             built = list(pool.map(_build, jobs))
-        for (name, min_blocks, _), lib, ptxas in built:
-            sigs = (spmm_cuda._SIGNATURES if name == "spmm"
+        for (name, variant, _), lib, ptxas in built:
+            library = LIBRARY[name]
+            sigs = (spmm_cuda._SIGNATURES if library == "spmm"
                     else gat_cuda._SIGNATURES)
-            _load(name, lib, sigs)
+            _load(library, lib, sigs)
             gat_cuda._blocks_per_sm.clear()
-            times = _time_spmm(g) if name == "spmm" else _time_gat(g)
-            rows.append(dict(kernel=name, min_blocks=min_blocks,
-                             ptxas=ptxas, ms=times))
-            print(f"{name} min_blocks {min_blocks}: ptxas {ptxas}",
-                  flush=True)
-            if name == "gat":
-                print("  " + ", ".join(f"{k} {v:.4f}"
-                                       for k, v in times.items()), flush=True)
+            if name == "spmm":
+                times = _time_spmm(g)
+            elif name == "gat_fwd":
+                times = _time_gat_fwd(g)
+            elif name == "gat_fwd_parts":
+                times = _time_gat_fwd_parts(g, variant)
+            elif name == "softmax":
+                times = _time_softmax(g, variant or gat_cuda.SOFTMAX_REGS)
+            else:
+                times = _time_gat_bwd(g)
+            rows.append(dict(kernel=name, variant=variant, ptxas=ptxas,
+                             ms=times))
+            print(f"{name} variant {variant}: ptxas {ptxas}", flush=True)
     out_path.parent.mkdir(parents=True, exist_ok=True)
     with open(out_path, "w") as f:
         json.dump({"device": smi, "variants": rows}, f, indent=1)
