@@ -42,6 +42,11 @@ Phases, each fatal on failure:
      - the segment softmax on [E], [E, 8] and [E, 1] scores (randn x 3),
        forward at rtol 1e-5 and gradient at rtol 1e-4
        (tests/test_pallas.py:368,421), atol 1e-6 x max|want|;
+     - the f32 SpMM (feature_prop's hops) at F = 128 on the forward and the
+       transposed walk: each element within 1e-5 of its row's magnitude
+       (the sum of |x| over its edges; only the summation order differs),
+       and a 2-hop feature_prop against the plain hops at rtol 1e-5 / atol
+       1e-5 x max|want|;
      all of it twice: on the synth graph, and on a hub graph of the same N
      and E whose first rows have HUB_DEGREES in- and out-edges (0 to
      20,000: every kernel walks a row in 32-edge chunks, and the synth
@@ -76,9 +81,26 @@ Phases, each fatal on failure:
        alpha 0.1, edge drop 0.5, all at F = 40), then an MLP student:
        spmm_csr_weighted exactly 10 x 3 x 2 = 60, spmm_csr_int8 10 x 3 =
        30, spmm_csr_bf16 10 (the final eval);
-     every other kernel exactly 0 on the GCN and APPNP paths; no plain
-     version may run on a CUDA tensor, and each out.npz must hold finite
-     [169343, 40] log-probs;
+     - the inductive setting (--exp_setting ind --split_rate 0.2: 9,724
+       inductive test nodes, an observed graph of 159,619 nodes): SAGE ind
+       then an MLP student ind, spmm_csr_int8 exactly 3 layers x 3 evals x
+       2 graphs = 18 and spmm_csr_bf16 3 x 2 = 6 (the final eval on both
+       graphs; sampled training runs no kernel); GAT ind then MLP ind,
+       gat_prep and gat_fwd 2 x (3 steps on the observed graph + 2 graphs
+       x (3 evals + 1 final eval)) = 22, gat_bwd 6, all training launches
+       in seed mode; each score line two finite scores;
+     - a GCN teacher and an MLP student with --feature_aug_k 2
+       --compute_min_cut --save_results: spmm_csr_f32 2 hops x 2 CLIs = 4
+       (the teacher, GA2GCN, finds no config row and runs the defaults,
+       hidden 128 without dropout: spmm_csr_bf16 2 x (3 + 1) + 3 = 11, one
+       transposed walk a step, spmm_csr_int8 6); the runs land in
+       aug_features/aug_hop_2/.../GA2GCN and GCN_GA2MLP, each model.ckpt
+       loads into a fresh Model whose exact eval gives its out.npz again
+       (1e-5), each loss_and_score.npz has a 7-field row per eval and each
+       min_cut_loss holds a finite value;
+     every other kernel exactly 0 on the GCN, APPNP, SAGE ind and feature
+     aug paths; no plain version may run on a CUDA tensor, and each out.npz
+     must hold finite [169343, 40] log-probs;
   5. time each kernel and its plain version with CUDA events (a kernel's
      `ms` from 20 calls back to back, which holds the wrapper's Python and
      launch overhead where that is the slower side; its device time from
@@ -87,10 +109,12 @@ Phases, each fatal on failure:
      for the SpMM sums, torch.bmm of a sparse [H, N, N] for the per-head
      weighted sum, torch.sparse.softmax and its backward for the softmax;
      no single PyTorch call computes fused GAT attention or the int8
-     tier's sum), and compute each kernel's bound: the GAT kernels in seed
+     tier's sum; torch.sparse.mm of the f32 CSR for the f32 SpMM at
+     F = 128), and compute each kernel's bound: the GAT kernels in seed
      mode, as the path runs them (no mask bytes), with the mask mode's
      time and bound in the rows' detail; then time the SpMM kernels at
-     F = 40 and gat_fwd and gat_bwd at both GAT shapes on the hub graph,
+     F = 40 (the f32 one at F = 128) and gat_fwd and gat_bwd at both GAT
+     shapes on the hub graph,
      where one warp walks each hub row alone (in the rows' detail, outside
      their sums).
 Prints the card's name and power limit and a `kernels` JSON line; the last
@@ -116,7 +140,9 @@ import torch
 DATASET = "synth-n169343-c40-f128-d7"
 N_NODES, N_CLASSES = 169343, 40
 TEACHER_EPOCHS = 3
-STUDENT_EPOCHS = 3
+# one distillation epoch per path: a student epoch is about 500 host-bound
+# MLP steps (3-4 s at the ogbn-arxiv sizes) and launches no kernel
+STUDENT_EPOCHS = 1
 # per-class train/val counts that give ogbn-arxiv's split sizes on the
 # synth graph's 40 round-robin classes: 90,920 train (arxiv 90,941) and
 # 29,800 valid (29,799); the rest, 48,623, is test (48,603)
@@ -126,6 +152,12 @@ GAT_SHAPES = ((8, 16), (1, 40))   # (heads, per-head width) of the 2 layers
 ATTN_DROP = 0.3              # the GAT row's attention dropout
 GCN_WIDTHS = (64, 40)        # F of the two GCN layers' aggregations
 APPNP_F, APPNP_HOPS, EDGE_DROP = 40, 10, 0.5
+SPLIT_RATE = 0.2             # --split_rate of the inductive paths
+# the inductive split of the smoke sizes: int(48,623 x 0.2) inductive test
+# nodes, and the rest in the observed graph
+N_IND = 9724
+N_OBS = N_NODES - N_IND
+AUG_K, AUG_F = 2, 128        # --feature_aug_k, and the features it propagates
 # in-degrees (and out-degrees) of the hub graph's first rows: empty, one
 # edge, either side of one and two 32-edge chunks, and two long rows
 HUB_DEGREES = (0, 1, 31, 32, 33, 64, 65, 1000, 20000)
@@ -134,6 +166,7 @@ FP32_OPS_PER_S = 67e12       # H100 SXM, outside the tensor cores
 SOURCES = {"spmm_csr_bf16": "glnn_tpu_torch/csrc/spmm_csr.cu",
            "spmm_csr_int8": "glnn_tpu_torch/csrc/spmm_csr.cu",
            "spmm_csr_weighted": "glnn_tpu_torch/csrc/spmm_csr.cu",
+           "spmm_csr_f32": "glnn_tpu_torch/csrc/spmm_csr.cu",
            "gat_prep": "glnn_tpu_torch/csrc/gat_csr.cu",
            "gat_fwd": "glnn_tpu_torch/csrc/gat_csr.cu",
            "gat_bwd": "glnn_tpu_torch/csrc/gat_csr.cu",
@@ -150,6 +183,10 @@ REPLACES = {
     "edge_softmax_bwd": "glnn_tpu/ops/gat_pallas.py:712 (_smx_bwd_kernel)",
 }
 REPLACES["spmm_csr_int8"] = REPLACES["spmm_csr_bf16"]
+REPLACES["spmm_csr_f32"] = (
+    "none: the f32 XLA segment sum glnn_tpu/ops/refops.py:37 (copy_u_sum) "
+    "under glnn_tpu/ops/graph_utils.py:22 (feature_prop) reaches no "
+    "pallas_call")
 REPLACES["spmm_csr_weighted"] = (REPLACES["spmm_csr_bf16"] + ", weighted "
                                  "(u_mul_e_sum, glnn_tpu/ops/spmm_pallas.py:438)")
 
@@ -276,6 +313,46 @@ def phase_check(spmm_cuda, g) -> dict:
             log(f"check F={f}: {tier} tier gradient vs plain max|err| "
                 f"{err:.3e}")
     return errs
+
+
+def phase_check_f32(spmm_cuda, refops, g) -> float:
+    """spmm_csr_f32 (feature_prop's hops) vs its plain version on the card
+    at F = 128, on the forward and the transposed walk: f32 rows summed in
+    f32 in another order, so each output element within 1e-5 of its row's
+    magnitude (the sum of |x| over the row's edges, far above the rounding
+    of either order); then one feature_prop of AUG_K hops against the same
+    hops through the plain version."""
+    from glnn_tpu_torch.ops.graph_utils import feature_prop
+
+    gen = torch.Generator(device=g.device).manual_seed(13)
+    n = g.n_nodes
+    x = torch.randn((n, AUG_F), generator=gen, device=g.device)
+    err = 0.0
+    for walk, indptr, cols in (("forward", g.indptr, g.senders),
+                               ("transposed", g.t_indptr, g.t_receivers)):
+        got = spmm_cuda.csr_sum_f32(indptr, cols, x, n)
+        want = refops.csr_sum_f32(indptr, cols, x, n)
+        mag = refops.csr_sum_f32(indptr, cols, x.abs(), n)
+        torch.cuda.synchronize()
+        diff = (got - want).abs()
+        if not bool((diff <= 1e-5 * mag).all()):
+            raise AssertionError(f"spmm_csr_f32 {walk} walk: max |err| "
+                                 f"{diff.max().item():.3e} over 1e-5 of its "
+                                 f"row's magnitude")
+        err = max(err, diff.max().item())
+        log(f"check F={AUG_F}: spmm_csr_f32 {walk} walk vs plain max|err| "
+            f"{diff.max().item():.3e} (max row magnitude "
+            f"{mag.max().item():.3e})")
+    got = feature_prop(x, g, AUG_K)
+    norm = torch.rsqrt(g.in_degrees.clamp(min=1.0))[:, None]
+    want = x
+    for _ in range(AUG_K):
+        want = refops.csr_sum_f32(g.indptr, g.senders, want * norm, n) * norm
+    torch.cuda.synchronize()
+    err = max(err, _held("feature_prop", got, want, 1e-5, 1e-5))
+    log(f"check feature_prop, {AUG_K} hops at F={AUG_F}: vs plain max|err| "
+        f"{(got - want).abs().max().item():.3e}")
+    return err
 
 
 def gat_inputs(gat_cuda, g, h, d, drop, seed, mode="seed"):
@@ -653,58 +730,151 @@ def _config_yaml(path: str) -> None:
     log(f"main path config: {rows}, defaults {table['defaults']}")
 
 
-def drive_path(teacher: str, workdir: str, common: list, modules) -> dict:
-    """Teacher then MLP student through the CLIs, the counts of `modules`
-    set to 0 just before and read just after; checks the score line and
-    out.npz."""
+def run_dir(workdir: str, sub: str, model: str) -> str:
+    """A CLI run's directory under workdir/outputs."""
+    return os.path.join(workdir, "outputs", sub, DATASET, model, "seed_0")
+
+
+def check_out(path: str, tag: str) -> np.ndarray:
+    """out.npz at `path`: finite [N_NODES, N_CLASSES] log-probs."""
+    out = np.load(path)["arr_0"]
+    lse = np.log(np.exp(out.astype(np.float64)).sum(axis=1))
+    if out.shape != (N_NODES, N_CLASSES) or not np.isfinite(out).all():
+        raise AssertionError(f"{tag} out.npz: shape {out.shape}, finite "
+                             f"{np.isfinite(out).all()}")
+    if np.abs(lse).max() > 1e-4:
+        raise AssertionError(f"{tag} out.npz rows are not log-probs: max "
+                             f"|logsumexp| {np.abs(lse).max()}")
+    log(f"{tag} out.npz: {out.shape} finite, max |logsumexp| "
+        f"{np.abs(lse).max():.2e}")
+    return out
+
+
+def drive_path(teacher: str, workdir: str, common: list, modules,
+               extra=(), sub="transductive", names=None) -> dict:
+    """Teacher then MLP student through the CLIs with the options `extra`,
+    the counts of `modules` set to 0 just before and read just after;
+    checks both score lines (two scores each in ind) and both out.npz
+    under outputs/<sub>, the runs' directories `names` (teacher, student;
+    by default the option-free names)."""
     from glnn_tpu_torch.cli import train_student, train_teacher
 
-    student_out = io.StringIO()
+    names = names or (teacher, f"{teacher}_MLP")
+    tag = " ".join([teacher, *extra])
+    printed = [io.StringIO(), io.StringIO()]
     for module in modules:
         module.reset_counts()
     t0 = time.perf_counter()
-    train_teacher.main(common + ["--teacher", teacher, "--max_epoch",
-                                 str(TEACHER_EPOCHS)])
+    with contextlib.redirect_stdout(printed[0]):
+        train_teacher.main(common + ["--teacher", teacher, "--max_epoch",
+                                     str(TEACHER_EPOCHS), *extra])
     t1 = time.perf_counter()
-    with contextlib.redirect_stdout(student_out):
+    with contextlib.redirect_stdout(printed[1]):
         train_student.main(
             common + ["--teacher", teacher, "--student", "MLP", "--max_epoch",
                       str(STUDENT_EPOCHS), "--out_t_path",
-                      os.path.join(workdir, "outputs")])
+                      os.path.join(workdir, "outputs"), *extra])
     t2 = time.perf_counter()
     counts = {k: v for module in modules for k, v in module.counts.items()}
-    log(f"{teacher} path: teacher {t1 - t0:.2f} s ({TEACHER_EPOCHS} epochs), "
+    log(f"{tag} path: teacher {t1 - t0:.2f} s ({TEACHER_EPOCHS} epochs), "
         f"student {t2 - t1:.2f} s ({STUDENT_EPOCHS} epochs); counts {counts}")
-    for model in (teacher, f"{teacher}_MLP"):
-        with open(os.path.join(workdir, "outputs", "transductive", DATASET,
-                               model, "seed_0", "log")) as f:
+    for model in names:
+        with open(os.path.join(run_dir(workdir, sub, model), "log")) as f:
             for line in f:
-                if "mean epoch time" in line or "Best valid" in line:
+                if any(k in line for k in ("mean epoch time", "Best valid",
+                                           "Observed graph")):
                     log(f"  {model} log: {line.split(': ', 1)[1].strip()}")
 
-    score = student_out.getvalue().strip()
-    print(score)
-    if not score or not all(math.isfinite(float(s)) for s in score.split()):
-        raise AssertionError(f"student printed no score line: {score!r}")
+    n_scores = 2 if "ind" in extra else 1
+    for model, text in zip(names, printed):
+        score = text.getvalue().strip()
+        print(score)
+        if (len(score.split()) != n_scores
+                or not all(math.isfinite(float(s)) for s in score.split())):
+            raise AssertionError(f"{model} printed no line of {n_scores} "
+                                 f"finite scores: {score!r}")
+        check_out(os.path.join(run_dir(workdir, sub, model), "out.npz"),
+                  model)
     if counts["plain_on_cuda"]:
         raise AssertionError(f"{counts['plain_on_cuda']} plain-version calls "
-                             f"on CUDA tensors on the {teacher} path")
-    out_file = os.path.join(workdir, "outputs", "transductive", DATASET,
-                            teacher, "seed_0", "out.npz")
-    out = np.load(out_file)["arr_0"]
-    lse = np.log(np.exp(out.astype(np.float64)).sum(axis=1))
-    if out.shape != (N_NODES, N_CLASSES) or not np.isfinite(out).all():
-        raise AssertionError(f"{teacher} out.npz: shape {out.shape}, finite "
-                             f"{np.isfinite(out).all()}")
-    if np.abs(lse).max() > 1e-4:
-        raise AssertionError(f"{teacher} out.npz rows are not log-probs: max "
-                             f"|logsumexp| {np.abs(lse).max()}")
-    log(f"{teacher} out.npz: {out.shape} finite, max |logsumexp| "
-        f"{np.abs(lse).max():.2e}")
+                             f"on CUDA tensors on the {tag} path")
     return counts
 
 
-def phase_main_path(cuda_build, spmm_cuda, gat_cuda, workdir: str) -> dict:
+def check_counts(tag: str, got: dict, launched: dict) -> None:
+    """Every kernel launched exactly as `launched` says, the others 0."""
+    want = dict.fromkeys(got, 0)
+    want.update(launched)
+    if got != want:
+        raise AssertionError(f"the {tag} path launched {got}, expected {want}")
+
+
+def gat_counts(evals: int, graphs: int) -> dict:
+    """The GAT path's launches of the two-layer teacher: TEACHER_EPOCHS
+    training steps (dropout from a seed), `evals` intermediate evals and one
+    final eval, each eval on `graphs` graphs."""
+    layers = len(GAT_SHAPES)
+    forwards = layers * (TEACHER_EPOCHS + graphs * (evals + 1))
+    return {"gat_prep": forwards, "gat_fwd": forwards,
+            "gat_bwd": layers * TEACHER_EPOCHS,
+            "gat_fwd_seed": layers * TEACHER_EPOCHS, "gat_fwd_mask": 0,
+            "gat_bwd_seed": layers * TEACHER_EPOCHS, "gat_bwd_mask": 0}
+
+
+def check_gat(tag: str, got: dict, want: dict) -> None:
+    for name, n in want.items():
+        if got[name] != n:
+            raise AssertionError(f"{name} launched {got[name]} times on the "
+                                 f"{tag} path, expected {n}")
+    if got["spmm_csr_bf16"] < want["gat_bwd"]:
+        raise AssertionError(f"the GAT backward's source reduce launched "
+                             f"{got['spmm_csr_bf16']} times on the {tag} "
+                             f"path, expected at least {want['gat_bwd']}")
+
+
+def check_saved(workdir: str, cfg: str, sub: str, names, host, g) -> None:
+    """--save_results and --compute_min_cut of the feature-aug path, whose
+    runs `names` lie under outputs/<sub>: each run's model.ckpt loads into a
+    fresh Model whose exact eval on the propagated features gives its
+    out.npz again (1e-5), loss_and_score.npz has a 7-field row per eval,
+    and min_cut_loss holds a finite value."""
+    from glnn_tpu_torch.cli import train_teacher
+    from glnn_tpu_torch.nn import Model
+    from glnn_tpu_torch.ops.graph_utils import feature_prop
+    from glnn_tpu_torch.train import make_eval_fn
+    from glnn_tpu_torch.utils import get_training_config, load_model
+    from glnn_tpu_torch.utils.config import merge_args_with_config
+
+    feats = feature_prop(torch.as_tensor(host.ndata["feat"], device=g.device),
+                         g, AUG_K)
+    args = vars(train_teacher.get_args([]))
+    for name in names:
+        path = run_dir(workdir, sub, name)
+        conf = merge_args_with_config(
+            dict(args, feat_dim=AUG_F, label_dim=N_CLASSES),
+            get_training_config(cfg, name.split("_")[-1], DATASET))
+        model = Model(conf).to(g.device)
+        model.load_state_dict(load_model(os.path.join(path, "model.ckpt")))
+        got = make_eval_fn(model, exact=True)(None if model.is_mlp else g,
+                                              feats).cpu().numpy()
+        want = np.load(os.path.join(path, "out.npz"))["arr_0"]
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5,
+                                   err_msg=f"{name}: model.ckpt's eval")
+        rows = np.load(os.path.join(path, "loss_and_score.npz"))["arr_0"]
+        if rows.shape != (TEACHER_EPOCHS if name == names[0]
+                          else STUDENT_EPOCHS, 7):
+            raise AssertionError(f"{name} loss_and_score.npz {rows.shape}")
+        with open(os.path.join(os.path.dirname(path), "min_cut_loss")) as f:
+            cut = [float(v) for v in f.read().split()]
+        if len(cut) != 1 or not math.isfinite(cut[0]):
+            raise AssertionError(f"{name} min_cut_loss {cut}")
+        log(f"{name}: model.ckpt's exact eval gives out.npz again, max|err| "
+            f"{np.abs(got - want).max():.2e}; loss_and_score {rows.shape}; "
+            f"min-cut loss {cut[0]}")
+
+
+def phase_main_path(cuda_build, spmm_cuda, gat_cuda, workdir: str, host,
+                    g) -> dict:
     cfg = os.path.join(workdir, "arxiv.conf.yaml")
     _config_yaml(cfg)
     common = ["--device", "0", "--dataset", DATASET, "--eval_interval", "1",
@@ -718,21 +888,7 @@ def phase_main_path(cuda_build, spmm_cuda, gat_cuda, workdir: str) -> dict:
         if sage[name] == 0:
             raise AssertionError(f"{name} never launched on the SAGE path")
     gat = drive_path("GAT", workdir, common, modules)
-    layers = len(GAT_SHAPES)
-    want = {"gat_prep": layers * (2 * TEACHER_EPOCHS + 1),
-            "gat_fwd": layers * (2 * TEACHER_EPOCHS + 1),
-            "gat_bwd": layers * TEACHER_EPOCHS,
-            # dropout only in training, and there always from a seed
-            "gat_fwd_seed": layers * TEACHER_EPOCHS, "gat_fwd_mask": 0,
-            "gat_bwd_seed": layers * TEACHER_EPOCHS, "gat_bwd_mask": 0}
-    for name, n in want.items():
-        if gat[name] != n:
-            raise AssertionError(f"{name} launched {gat[name]} times on the "
-                                 f"GAT path, expected {n}")
-    if gat["spmm_csr_bf16"] < want["gat_bwd"]:
-        raise AssertionError(f"the GAT backward's source reduce launched "
-                             f"{gat['spmm_csr_bf16']} times, expected at "
-                             f"least {want['gat_bwd']}")
+    check_gat("GAT", gat, gat_counts(TEACHER_EPOCHS, 1))
     # per path: eval-mode launches per epoch (int8 tier), training launches
     # per epoch (forward and backward), the final exact eval's launches
     expect = {
@@ -744,13 +900,42 @@ def phase_main_path(cuda_build, spmm_cuda, gat_cuda, workdir: str) -> dict:
     }
     paths = {"SAGE": sage, "GAT": gat}
     for teacher, launched in expect.items():
-        got = drive_path(teacher, workdir, common, modules)
-        want = dict.fromkeys(got, 0)
-        want.update(launched)
-        if got != want:
-            raise AssertionError(f"the {teacher} path launched {got}, "
-                                 f"expected {want}")
-        paths[teacher] = got
+        paths[teacher] = drive_path(teacher, workdir, common, modules)
+        check_counts(teacher, paths[teacher], launched)
+
+    # the inductive setting: training on the observed graph, every eval on
+    # the observed and the full graph; sampled SAGE trains on no kernel
+    ind = ["--exp_setting", "ind", "--split_rate", str(SPLIT_RATE)]
+    sub = f"inductive/split_rate_{SPLIT_RATE}"
+    paths["SAGE ind"] = drive_path("SAGE", workdir, common, modules, ind, sub)
+    check_counts("SAGE ind", paths["SAGE ind"], {
+        "spmm_csr_int8": len(WIDTHS) * TEACHER_EPOCHS * 2,
+        "spmm_csr_bf16": len(WIDTHS) * 2})
+    paths["GAT ind"] = drive_path("GAT", workdir, common, modules, ind, sub)
+    check_gat("GAT ind", paths["GAT ind"], gat_counts(TEACHER_EPOCHS, 2))
+    with open(os.path.join(run_dir(workdir, sub, "SAGE"), "log")) as f:
+        want = f"Observed graph: {N_OBS} nodes"
+        if want not in f.read():
+            raise AssertionError(f"the SAGE ind log lacks {want!r}")
+
+    # GCN with the propagated features (both CLIs: AUG_K hops of the f32
+    # kernel each), the min-cut loss and the saved results
+    aug = ["--feature_aug_k", str(AUG_K), "--compute_min_cut",
+           "--save_results"]
+    aug_sub = f"aug_features/aug_hop_{AUG_K}/transductive"
+    names = (f"GA{AUG_K}GCN", f"GCN_GA{AUG_K}MLP")
+    paths["GCN aug"] = drive_path("GCN", workdir, common, modules, aug,
+                                  aug_sub, names)
+    # GA2GCN finds no config row (the reference's quirk): hidden 128 from
+    # the defaults and no dropout. Layer 1 then sums its 128 input
+    # features before W, and they need no gradient: one transposed walk
+    # per step, not two
+    check_counts("GCN aug", paths["GCN aug"], {
+        "spmm_csr_bf16": len(GCN_WIDTHS) * (TEACHER_EPOCHS + 1)
+        + TEACHER_EPOCHS,
+        "spmm_csr_int8": len(GCN_WIDTHS) * TEACHER_EPOCHS,
+        "spmm_csr_f32": 2 * AUG_K})
+    check_saved(workdir, cfg, aug_sub, names, host, g)
     return paths
 
 
@@ -1055,6 +1240,35 @@ def phase_times_weighted(spmm_cuda, g, launches: dict, errs: dict) -> list:
                  {"device_ms": tot["device_ms"], "per_width_ms": per_width})]
 
 
+def phase_times_f32(spmm_cuda, refops, g, launches: dict, errs: dict) -> list:
+    """One feature_prop hop at F = AUG_F (the smoke features' width):
+    kernel, plain version (refops.csr_sum_f32), library call
+    (torch.sparse.mm of the f32 CSR adjacency, the same function), bound.
+    Bytes: the f32 x rows read once, the indices, the f32 output."""
+    gen = torch.Generator(device=g.device).manual_seed(14)
+    n, e, f = g.n_nodes, g.n_edges, AUG_F
+    x = torch.randn((n, f), generator=gen, device=g.device)
+    adj = _library_csr(g.indptr, g.senders, torch.ones(e, device=g.device), n)
+
+    def kernel():
+        return spmm_cuda.csr_sum_f32(g.indptr, g.senders, x, n)
+
+    torch.testing.assert_close(torch.sparse.mm(adj, x), kernel(), rtol=1e-5,
+                               atol=1e-4)
+    k_ms, k_dev = kernel_times(kernel)
+    p_ms = time_ms(lambda: refops.csr_sum_f32(g.indptr, g.senders, x, n),
+                   iters=5)
+    lib_ms = time_ms(lambda: torch.sparse.mm(adj, x))
+    nbytes = n * f * 4 + 4 * (e + n + 1) + n * f * 4
+    log(f"time F={f} spmm_csr_f32: kernel {k_ms:.4f} ms (device {k_dev:.4f}), "
+        f"plain {p_ms:.4f} ms, torch.sparse.mm f32 {lib_ms:.4f} ms, bytes "
+        f"bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms; E x F x 4 gathered "
+        f"bytes would take {e * f * 4 / HBM_BYTES_PER_S * 1e3:.4f} ms")
+    return [_row("spmm_csr_f32", k_ms, p_ms, nbytes, e * f, lib_ms, launches,
+                 errs, f"one feature_prop hop at F={f} over N={n}, E={e}",
+                 {"device_ms": k_dev})]
+
+
 def phase_times_softmax(gat_cuda, g, launches: dict, errs: dict) -> list:
     """The segment softmax at the GAT shapes' heads ([E, 8] and [E, 1]):
     kernel, plain version, bound; the forward also against
@@ -1136,8 +1350,9 @@ def phase_times_softmax(gat_cuda, g, launches: dict, errs: dict) -> list:
 
 
 def phase_times_hub(spmm_cuda, gat_cuda, hub, kernels: list) -> None:
-    """One timing of each SpMM entry point at F = 40 and of gat_fwd and
-    gat_bwd at both GAT shapes (dropout in seed mode) on the hub graph,
+    """One timing of each SpMM entry point at F = 40 (the f32 one at
+    AUG_F) and of gat_fwd and gat_bwd at both GAT shapes (dropout in seed
+    mode) on the hub graph,
     where one warp walks each hub row alone; added to the rows' detail as
     `hub_graph_ms`, outside their sums."""
     gen = torch.Generator(device=hub.device).manual_seed(10)
@@ -1149,22 +1364,28 @@ def phase_times_hub(spmm_cuda, gat_cuda, hub, kernels: list) -> None:
     w = (torch.rand(e, generator=gen, device=hub.device)
          >= EDGE_DROP).float() / (1.0 - EDGE_DROP)
     idx_bytes = 4 * (e + n + 1)
+    x_aug = torch.randn((n, AUG_F), generator=gen, device=hub.device)
+    # (kernel, width, bytes)
     cases = {
         "spmm_csr_bf16": (lambda: spmm_cuda.csr_sum_bf16(
-            hub.indptr, hub.senders, xb, n), n * f * 6 + idx_bytes),
+            hub.indptr, hub.senders, xb, n), f, n * f * 6 + idx_bytes),
         "spmm_csr_int8": (lambda: spmm_cuda.csr_sum_int8(
-            hub.indptr, hub.senders, q, s, n), n * f * 5 + 4 * f + idx_bytes),
+            hub.indptr, hub.senders, q, s, n), f,
+            n * f * 5 + 4 * f + idx_bytes),
         "spmm_csr_weighted": (lambda: spmm_cuda.csr_wsum_bf16(
-            hub.indptr, hub.senders, None, x, w, n),
+            hub.indptr, hub.senders, None, x, w, n), f,
             n * f * 8 + e * 4 + idx_bytes),
+        "spmm_csr_f32": (lambda: spmm_cuda.csr_sum_f32(
+            hub.indptr, hub.senders, x_aug, n), AUG_F,
+            n * AUG_F * 8 + idx_bytes),
     }
     detail = {}
-    for name, (kernel, nbytes) in cases.items():
+    for name, (kernel, width, nbytes) in cases.items():
         ms = time_ms(kernel)
-        detail[name] = {f"F={f}": dict(
+        detail[name] = {f"F={width}": dict(
             ms=ms, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)}
-        log(f"time hub graph F={f} {name}: kernel {ms:.4f} ms, bytes bound "
-            f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
+        log(f"time hub graph F={width} {name}: kernel {ms:.4f} ms, bytes "
+            f"bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
     detail["gat_fwd"], detail["gat_bwd"] = {}, {}
     for h, d in GAT_SHAPES:
         args, dout, al_b = gat_inputs(gat_cuda, hub, h, d, ATTN_DROP, 11)
@@ -1188,7 +1409,7 @@ def main() -> int:
         return 2
     from glnn_tpu_torch import ops
     from glnn_tpu_torch.graph.datasets import load_synth_data
-    from glnn_tpu_torch.ops import cuda_build, gat_cuda, spmm_cuda
+    from glnn_tpu_torch.ops import cuda_build, gat_cuda, refops, spmm_cuda
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1212,6 +1433,7 @@ def main() -> int:
     for tag, gr, into in (("smoke", g, errs), ("hub", hub, hub_errs)):
         log(f"checks on the {tag} graph")
         into.update(phase_check(spmm_cuda, gr))
+        into["spmm_csr_f32"] = phase_check_f32(spmm_cuda, refops, gr)
         into.update(phase_check_gat(gat_cuda, gr))
         phase_check_gat_layer(gat_cuda, gr)
         into["spmm_csr_weighted"] = phase_check_weighted(spmm_cuda, gr)
@@ -1224,11 +1446,13 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as workdir:
-        launches = phase_main_path(cuda_build, spmm_cuda, gat_cuda, workdir)
+        launches = phase_main_path(cuda_build, spmm_cuda, gat_cuda, workdir,
+                                   host, g)
     launches["op_surface"] = op_surface
 
     kernels = (phase_times(spmm_cuda, g, launches, errs)
                + phase_times_weighted(spmm_cuda, g, launches, errs)
+               + phase_times_f32(spmm_cuda, refops, g, launches, errs)
                + phase_times_gat(gat_cuda, g, launches, errs)
                + phase_times_softmax(gat_cuda, g, launches, errs))
     phase_times_hub(spmm_cuda, gat_cuda, hub, kernels)

@@ -1,7 +1,10 @@
 """Shared CLI plumbing for the teacher/student entry points
 (`glnn_tpu/cli/common.py`): the same flags with the same defaults, and the
-same output layout `outputs/transductive/<dataset>/<model>/seed_<s>/` with
-`log` and `out.npz`, and an append-only `exp_results` one level up.
+same output layout `outputs/transductive/<dataset>/<model>/seed_<s>/` (or
+`outputs/inductive/split_rate_<r>/<dataset>/<model>/seed_<s>/`) with `log`
+and `out.npz` (with --save_results also `loss_and_score.npz` and
+`model.ckpt`), and an append-only `exp_results` (and `min_cut_loss`) one
+level up.
 """
 
 from __future__ import annotations
@@ -30,12 +33,11 @@ def add_common_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--num_exp", type=int, default=1,
                         help="Repeat how many experiments")
     parser.add_argument("--exp_setting", type=str, default="tran",
-                        help="One of [tran, ind] (ind: not ported yet)")
+                        help="One of [tran, ind]")
     parser.add_argument("--eval_interval", type=int, default=1,
                         help="Evaluate once per how many epochs")
     parser.add_argument("--save_results", action="store_true",
-                        help="Also save loss curves and model checkpoint "
-                             "(not ported yet)")
+                        help="Also save loss curves and model checkpoint")
     parser.add_argument("--n_shards", type=int, default=1,
                         help="Devices to shard over (not ported yet; 1)")
     parser.add_argument("--debug_checks", action="store_true",
@@ -103,26 +105,21 @@ def add_common_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--feature_noise", type=float, default=0,
                         help="Blend features with white noise: (1-a)x + aN")
     parser.add_argument("--split_rate", type=float, default=0.2,
-                        help="Inductive split rate (not ported yet)")
+                        help="Inductive split rate")
     parser.add_argument("--compute_min_cut", action="store_true",
-                        help="Compute and append the min-cut loss (not "
-                             "ported yet)")
+                        help="Compute and append the min-cut loss "
+                             "(transductive only)")
     parser.add_argument("--feature_aug_k", type=int, default=0,
-                        help="GA-MLP: propagate features k hops first (not "
-                             "ported yet)")
+                        help="GA-MLP: propagate features k hops first")
 
 
 # option -> (value that is ported, ROADMAP item that ports the rest)
 _UNPORTED = (
-    ("exp_setting", lambda v: v == "tran", "queue A item 5 (inductive runners)"),
-    ("n_shards", lambda v: int(v or 1) <= 1, "queue A item 11 (distributed)"),
+    ("n_shards", lambda v: int(v or 1) <= 1, "queue A item 6 (distributed)"),
     ("sampler_tier", lambda v: (v or "floyd") == "floyd",
-     "queue A item 6 (window sampler)"),
+     "queue A item 4 (window sampler)"),
     ("compute_dtype", lambda v: (v or "float32") in ("float32", "f32"),
      "queue A item 4 (bf16 compute)"),
-    ("feature_aug_k", lambda v: not v, "queue A item 7 (feature_prop)"),
-    ("compute_min_cut", lambda v: not v, "queue A item 7 (min-cut loss)"),
-    ("save_results", lambda v: not v, "queue A item 7 (checkpoints)"),
 )
 
 
@@ -167,18 +164,72 @@ def teacher_output_dir(args, model_name: str) -> Path:
         return Path.cwd().joinpath(args.output_path, "transductive",
                                    args.dataset, model_name,
                                    f"seed_{args.seed}")
+    if args.exp_setting == "ind":
+        return Path.cwd().joinpath(args.output_path, "inductive",
+                                   f"split_rate_{args.split_rate}",
+                                   args.dataset, model_name,
+                                   f"seed_{args.seed}")
     raise ValueError(f"Unknown experiment setting! {args.exp_setting}")
 
 
 def apply_output_path_reroutes(args, is_student: bool = False) -> None:
-    """Noisy-feature runs get a rerouted output root (seed 0 only, as in the
-    reference, whose repeat_run mutates the seed after the first run)."""
+    """Noisy-feature and feature-aug runs get a rerouted output root (seed 0
+    only, as in the reference, whose repeat_run mutates the seed after the
+    first run). A feature-aug run also prefixes the teacher's or student's
+    name with GA<k>, so that the config lookup then finds no row: the
+    reference's behaviour, kept."""
     if args.feature_noise != 0 and args.seed == 0:
         args.output_path = str(Path.cwd().joinpath(
             args.output_path, "noisy_features", f"noise_{args.feature_noise}"
         ))
         if is_student:
             args.out_t_path = args.output_path
+    if args.feature_aug_k > 0 and args.seed == 0:
+        args.output_path = str(Path.cwd().joinpath(
+            args.output_path, "aug_features", f"aug_hop_{args.feature_aug_k}"
+        ))
+        if is_student:
+            args.student = f"GA{args.feature_aug_k}{args.student}"
+        else:
+            args.teacher = f"GA{args.feature_aug_k}{args.teacher}"
+
+
+def propagate_features(feats, k: int, g, obs_g=None, idx_obs=None):
+    """--feature_aug_k: k hops of `feature_prop` of all rows over the device
+    graph g; in the inductive setting the obs rows are propagated over the
+    observed device graph obs_g instead and written over the full-graph
+    ones. Returns numpy f32."""
+    from glnn_tpu_torch.ops.graph_utils import feature_prop
+
+    def prop(x, graph):
+        x = torch.as_tensor(np.asarray(x, np.float32), device=graph.device)
+        return feature_prop(x, graph, k).cpu().numpy()
+
+    out = prop(feats, g)
+    if obs_g is not None:
+        out[idx_obs] = prop(feats[idx_obs], obs_g)
+    return out
+
+
+def save_results(output_dir: Path, loss_and_score, state_out) -> None:
+    """--save_results: the loss curves as `loss_and_score.npz` (rows of 7
+    fields, 9 inductive) and the best model's state dict as `model.ckpt`."""
+    from glnn_tpu_torch.utils.checkpoint import save_model
+
+    np.savez(output_dir.joinpath("loss_and_score"), np.array(loss_and_score))
+    save_model(output_dir.joinpath("model.ckpt"), state_out["state_dict"])
+
+
+def append_min_cut(output_dir: Path, g, out) -> None:
+    """--compute_min_cut: append the min-cut loss of the all-node
+    log-probs `out` over the device graph g to `min_cut_loss` one level
+    above output_dir."""
+    from glnn_tpu_torch.ops.graph_utils import compute_min_cut_loss
+
+    loss = float(compute_min_cut_loss(
+        g, torch.as_tensor(np.asarray(out), device=g.device)))
+    with open(output_dir.parent.joinpath("min_cut_loss"), "a+") as f:
+        f.write(f"{loss :.4f}\n")
 
 
 def add_feature_noise(feats, noise: float, seed: int):

@@ -6,8 +6,11 @@
 
 Reads the teacher's `out.npz` from the same path scheme rooted at
 --out_t_path (a teacher of either package will do), then runs
-distill_run_transductive. Default --lamb 0 is pure distillation (the
-hard-label pass still runs, scaled to zero).
+distill_run_transductive, or distill_run_inductive with the soft labels of
+the observed nodes only (--exp_setting ind, --split_rate). Default --lamb 0
+is pure distillation (the hard-label pass still runs, scaled to zero). The
+student is graph-free: the graph is built on the device only for
+--feature_aug_k and --compute_min_cut (tran).
 """
 
 from __future__ import annotations
@@ -21,23 +24,31 @@ import torch
 from glnn_tpu_torch.cli.common import (
     add_common_args,
     add_feature_noise,
+    append_min_cut,
     apply_output_path_reroutes,
     configure_numerics,
+    propagate_features,
     reject_unported,
     resolve_device,
+    save_results,
     score_line,
     setup_backend,
     teacher_output_dir,
 )
 from glnn_tpu_torch.graph.datasets import load_data, load_out_t
 from glnn_tpu_torch.nn.models import Model
-from glnn_tpu_torch.train import distill_run_transductive, make_adam
+from glnn_tpu_torch.train import (
+    distill_run_inductive,
+    distill_run_transductive,
+    make_adam,
+)
 from glnn_tpu_torch.utils import (
     check_readable,
     check_writable,
     get_evaluator,
     get_logger,
     get_training_config,
+    graph_split,
     set_seed,
 )
 from glnn_tpu_torch.utils.config import merge_args_with_config
@@ -111,18 +122,47 @@ def run(args):
         logger.debug(f"teacher score on {name} data: "
                      f"{evaluator(out_t[idx], labels[idx])}")
 
-    idx_t = np.concatenate([idx_train, idx_val, idx_test])
     loss_and_score = []
-    out, score_val, score_test = distill_run_transductive(
-        conf, model, feats, labels, out_t, (idx_train, idx_t, idx_val, idx_test),
-        optimizer, logger, loss_and_score, device)
+    state_out = {} if args.save_results else None
+    min_cut = args.compute_min_cut and args.exp_setting == "tran"
+    graph = (g.to_device(device) if args.feature_aug_k > 0 or min_cut
+             else None)
+    if args.exp_setting == "tran":
+        idx_t = np.concatenate([idx_train, idx_val, idx_test])
+        if args.feature_aug_k > 0:
+            feats = propagate_features(feats, args.feature_aug_k, graph)
+        out, score_val, score_test = distill_run_transductive(
+            conf, model, feats, labels, out_t,
+            (idx_train, idx_t, idx_val, idx_test), optimizer, logger,
+            loss_and_score, device, state_out)
+        score_lst = [score_test]
+    else:   # "ind" (teacher_output_dir rejected any other setting)
+        obs_idx_train, obs_idx_val, obs_idx_test, idx_obs, idx_test_ind = (
+            graph_split(idx_train, idx_val, idx_test, args.split_rate,
+                        args.seed))
+        obs_idx_t = np.concatenate([obs_idx_train, obs_idx_val, obs_idx_test])
+        if args.feature_aug_k > 0:
+            feats = propagate_features(
+                feats, args.feature_aug_k, graph,
+                g.subgraph(idx_obs).to_device(device), idx_obs)
+        out, score_val, score_test_tran, score_test_ind = (
+            distill_run_inductive(
+                conf, model, feats, labels, out_t,
+                (obs_idx_train, obs_idx_t, obs_idx_val, obs_idx_test, idx_obs,
+                 idx_test_ind), optimizer, logger, loss_and_score, device,
+                state_out))
+        score_lst = [score_test_tran, score_test_ind]
 
     logger.info(
         f"num_layers: {conf['num_layers']}. hidden_dim: "
         f"{conf['hidden_dim']}. dropout_ratio: {conf['dropout_ratio']}"
     )
     np.savez(output_dir.joinpath("out"), out)
-    return [score_test]
+    if args.save_results:
+        save_results(output_dir, loss_and_score, state_out)
+    if min_cut:
+        append_min_cut(output_dir, graph, out)
+    return score_lst
 
 
 def main(argv=None):

@@ -10,9 +10,12 @@ SAGE trains on fanout-sampled minibatches (full-batch with
 --sage_sampling full); GCN, GAT and APPNP train full-batch.
 
 Pipeline: seed -> output dir -> load data -> optional feature noise ->
-YAML config merge (YAML beats CLI) -> Model + Adam -> run_transductive ->
-`out.npz` all-node log-probs; `--num_exp` aggregates mean/std into
-`exp_results`. Runs on cuda:<--device>, or on the CPU with --device -1.
+YAML config merge (YAML beats CLI) -> Model + Adam -> optional feature
+propagation (--feature_aug_k) -> run_transductive, or run_inductive on the
+observed subgraph (--exp_setting ind, --split_rate) -> `out.npz` all-node
+log-probs (+ --save_results curves and checkpoint, + --compute_min_cut in
+tran); `--num_exp` aggregates mean/std into `exp_results`. Runs on
+cuda:<--device>, or on the CPU with --device -1.
 """
 
 from __future__ import annotations
@@ -25,21 +28,25 @@ import torch
 from glnn_tpu_torch.cli.common import (
     add_common_args,
     add_feature_noise,
+    append_min_cut,
     apply_output_path_reroutes,
     configure_numerics,
+    propagate_features,
     reject_unported,
     resolve_device,
+    save_results,
     score_line,
     setup_backend,
     teacher_output_dir,
 )
 from glnn_tpu_torch.graph.datasets import load_data
 from glnn_tpu_torch.nn.models import Model
-from glnn_tpu_torch.train import make_adam, run_transductive
+from glnn_tpu_torch.train import make_adam, run_inductive, run_transductive
 from glnn_tpu_torch.utils import (
     check_writable,
     get_logger,
     get_training_config,
+    graph_split,
     set_seed,
 )
 from glnn_tpu_torch.utils.config import merge_args_with_config
@@ -54,7 +61,8 @@ def get_args(argv=None):
 
 
 def run(args):
-    """Train one teacher; returns [score_test]."""
+    """Train one teacher; returns the score list ([score_test] in tran,
+    [score_test_tran, score_test_ind] in ind)."""
     reject_unported(vars(args))
     set_seed(args.seed)
     device = resolve_device(args.device)
@@ -94,19 +102,47 @@ def run(args):
     model = Model(conf, gen=torch.Generator().manual_seed(args.seed)).to(device)
     optimizer = make_adam(model.parameters(), conf["learning_rate"],
                           conf["weight_decay"])
-    graph = None if model.is_mlp else g.to_device(device)
+    # an MLP teacher needs the graph only to propagate features or for the
+    # min-cut loss
+    uses_graph = not model.is_mlp or args.feature_aug_k > 0
+    graph = (g.to_device(device) if uses_graph or args.compute_min_cut
+             else None)
 
     loss_and_score = []
-    out, score_val, score_test = run_transductive(
-        conf, model, graph, feats, labels, (idx_train, idx_val, idx_test),
-        optimizer, logger, loss_and_score, device)
+    state_out = {} if args.save_results else None
+    if args.exp_setting == "tran":
+        if args.feature_aug_k > 0:
+            feats = propagate_features(feats, args.feature_aug_k, graph)
+        out, score_val, score_test = run_transductive(
+            conf, model, graph, feats, labels, (idx_train, idx_val, idx_test),
+            optimizer, logger, loss_and_score, device, state_out)
+        score_lst = [score_test]
+    else:   # "ind" (teacher_output_dir rejected any other setting)
+        indices = graph_split(idx_train, idx_val, idx_test, args.split_rate,
+                              args.seed)
+        obs_graph = (g.subgraph(indices[3]).to_device(device) if uses_graph
+                     else None)
+        if obs_graph is not None:
+            logger.info(f"Observed graph: {obs_graph.n_nodes} nodes, "
+                        f"{obs_graph.n_edges} edges.")
+        if args.feature_aug_k > 0:
+            feats = propagate_features(feats, args.feature_aug_k, graph,
+                                       obs_graph, indices[3])
+        out, score_val, score_test_tran, score_test_ind = run_inductive(
+            conf, model, graph, obs_graph, feats, labels, indices, optimizer,
+            logger, loss_and_score, device, state_out)
+        score_lst = [score_test_tran, score_test_ind]
 
     logger.info(
         f"num_layers: {conf['num_layers']}. hidden_dim: "
         f"{conf['hidden_dim']}. dropout_ratio: {conf['dropout_ratio']}"
     )
     np.savez(output_dir.joinpath("out"), out)
-    return [score_test]
+    if args.save_results:
+        save_results(output_dir, loss_and_score, state_out)
+    if args.exp_setting == "tran" and args.compute_min_cut:
+        append_min_cut(output_dir, graph, out)
+    return score_lst
 
 
 def main(argv=None):

@@ -5,7 +5,7 @@ Ported: the offline `synth-*` planted-partition family
 (`synth[-<key><val>...]`, e.g. `synth-n169343-c40-f128-d7`), built with the
 same numpy calls as the JAX package, so both give identical graphs,
 features, labels and splits. The CPF, OGB, NonHom and BGNN loaders are not
-ported yet (ROADMAP queue A item 1) and raise.
+ported yet (ROADMAP queue A item 5) and raise.
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ def load_data(dataset: str, dataset_path: str, **kwargs):
         if dataset in names:
             raise NotImplementedError(
                 f"the {family} loader ({dataset}) is not ported to "
-                "glnn_tpu_torch yet (ROADMAP queue A item 1); use a "
+                "glnn_tpu_torch yet (ROADMAP queue A item 5); use a "
                 "synth-* dataset or the glnn_tpu package")
     if dataset.startswith(SYNTH_prefix):
         return load_synth_data(

@@ -2,9 +2,11 @@
 ingest needs.
 
 Counterpart of `glnn_tpu/graph/host.py`, reduced to what the ported
-datasets use. `to_bidirected` is a local numpy copy of
-`glnn_tpu/native/__init__.py:105-118`'s fallback, which gives the same edge
-order as the native library (both sort by the key src * n + dst).
+datasets and the inductive split use. `to_bidirected` and
+`induced_subgraph` are local numpy copies of the fallbacks in
+`glnn_tpu/native/__init__.py` (:105-118, :147-150), which give the same
+edge order as the native library (to_bidirected sorts by the key
+src * n + dst; induced_subgraph keeps the edges' order).
 """
 
 from __future__ import annotations
@@ -22,6 +24,18 @@ def to_bidirected(src, dst, n: int):
     d2 = np.concatenate([dst, src])
     _, keep = np.unique(s2 * n + d2, return_index=True)
     return s2[keep], d2[keep]
+
+
+def induced_subgraph(src, dst, n: int, idx):
+    """The edges with both ends in idx, relabelled so that new id i is
+    idx[i], in their original order (self-loops on idx survive)."""
+    src = np.asarray(src, np.int64)
+    dst = np.asarray(dst, np.int64)
+    idx = np.asarray(idx, np.int64)
+    new_id = np.full(n, -1, np.int64)
+    new_id[idx] = np.arange(idx.shape[0])
+    keep = (new_id[src] >= 0) & (new_id[dst] >= 0)
+    return new_id[src[keep]], new_id[dst[keep]]
 
 
 class HostGraph:
@@ -55,6 +69,15 @@ class HostGraph:
         loops = np.arange(self.n_nodes, dtype=np.int64)
         return self._with_edges(np.concatenate([self.src, loops]),
                                 np.concatenate([self.dst, loops]))
+
+    def subgraph(self, idx) -> "HostGraph":
+        """Node-induced subgraph, relabelled so that new id i == idx[i],
+        with `ndata` sliced to idx."""
+        idx = np.asarray(idx, np.int64)
+        g = HostGraph(*induced_subgraph(self.src, self.dst, self.n_nodes, idx),
+                      idx.shape[0])
+        g.ndata = {k: v[idx] for k, v in self.ndata.items()}
+        return g
 
     def to_device(self, device) -> Graph:
         return build_graph(self.src, self.dst, self.n_nodes).to(device)

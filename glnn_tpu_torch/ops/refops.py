@@ -6,12 +6,23 @@ from __future__ import annotations
 import torch
 
 from glnn_tpu_torch.graph.container import Graph
+from glnn_tpu_torch.ops.cuda_build import note_plain, row_ids
 
 
 def copy_u_sum(g: Graph, x: torch.Tensor) -> torch.Tensor:
     """h_v = sum_{u in N_in(v)} x_u (GSpMM copy_u -> sum), in x's dtype."""
     out = x.new_zeros((g.n_nodes,) + tuple(x.shape[1:]))
     return out.index_add_(0, g.receivers, x.index_select(0, g.senders))
+
+
+def csr_sum_f32(indptr: torch.Tensor, indices: torch.Tensor, x: torch.Tensor,
+                n_rows: int) -> torch.Tensor:
+    """Plain version of the spmm_csr_f32 kernel: out[v] = sum over
+    indptr[v]:indptr[v+1] of x[indices[e]], an f32 segment sum."""
+    note_plain(x)
+    msgs = x.index_select(0, indices[: int(indptr[n_rows])])
+    out = x.new_zeros((n_rows, x.shape[1]))
+    return out.index_add_(0, row_ids(indptr, n_rows), msgs)
 
 
 def copy_u_mean(g: Graph, x: torch.Tensor) -> torch.Tensor:

@@ -37,9 +37,16 @@ through `t_edges`, for dX; and, only when the weights need a gradient, the
 SDDMM dW[e] = <x[src(e)], dH[dst(e)]> (per head: summed over D) in plain
 f32 torch, which JAX also leaves outside its kernel.
 
-Every reduction has a plain PyTorch version here (`plain_csr_sum_bf16`,
-`plain_csr_sum_int8`, `plain_csr_wsum_bf16`) with the same rounding and
-quantisation. A wrapper
+The f32 sum behind `feature_prop` (--feature_aug_k) is a fourth
+instantiation, `spmm_csr_f32`: H[v] = sum over in-edges e of x[src(e)], f32
+rows summed in f32. It has no TPU kernel: JAX takes an f32 XLA segment sum
+there (`glnn_tpu/ops/refops.py:37 copy_u_sum` under
+`glnn_tpu/ops/graph_utils.py:22`), and rounding the messages to bf16 would
+compound over the hops. Its plain version is `refops.csr_sum_f32`.
+
+Every reduction has a plain PyTorch version (`plain_csr_sum_bf16`,
+`plain_csr_sum_int8`, `plain_csr_wsum_bf16` here, `refops.csr_sum_f32`) with
+the same rounding and quantisation. A wrapper
 takes it only for a tensor on the CPU; for a CUDA tensor it launches the
 kernel or raises. `counts` records kernel launches per instantiation;
 plain-version calls on CUDA tensors go to `cuda_build.counts`.
@@ -54,14 +61,16 @@ import ctypes
 
 import torch
 
-from glnn_tpu_torch.ops import cuda_build
+from glnn_tpu_torch.ops import cuda_build, refops
 from glnn_tpu_torch.ops.cuda_build import note_plain, row_ids
 
-KERNELS = ("spmm_csr_bf16", "spmm_csr_int8", "spmm_csr_weighted")
+KERNELS = ("spmm_csr_bf16", "spmm_csr_int8", "spmm_csr_weighted",
+           "spmm_csr_f32")
 counts = {name: 0 for name in KERNELS}
 
 _vp, _ci = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"spmm_csr_bf16": [_vp] * 4 + [_ci] * 5 + [_vp],
+               "spmm_csr_f32": [_vp] * 4 + [_ci] * 5 + [_vp],
                "spmm_csr_int8": [_vp] * 5 + [_ci] * 5 + [_vp],
                "spmm_csr_weighted": [_vp] * 6 + [_ci] * 6 + [_vp]}
 
@@ -148,6 +157,15 @@ def csr_sum_bf16(indptr, indices, xb, n_rows):
     if xb.is_cuda:
         return _launch("spmm_csr_bf16", indptr, indices, xb, None, n_rows)
     return plain_csr_sum_bf16(indptr, indices, xb, n_rows)
+
+
+def csr_sum_f32(indptr, indices, x, n_rows):
+    """out[v] = sum_{e in indptr[v]:indptr[v+1]} x[indices[e]], f32 rows
+    summed in f32; on a CPU tensor its plain version, refops.csr_sum_f32."""
+    _check(indptr, indices, x, n_rows, torch.float32)
+    if x.is_cuda:
+        return _launch("spmm_csr_f32", indptr, indices, x, None, n_rows)
+    return refops.csr_sum_f32(indptr, indices, x, n_rows)
 
 
 def csr_sum_int8(indptr, indices, q, scale, n_rows):

@@ -1,5 +1,4 @@
-"""Train/eval functions and the transductive runners
-(`glnn_tpu/train/engine.py`).
+"""Train/eval functions and the four runners (`glnn_tpu/train/engine.py`).
 
 * `make_gnn_train_step`: the full-batch GNN step (GCN, GAT, APPNP, and SAGE
   with --sage_sampling full): NLL on idx_train, Adam step; the runner's
@@ -13,11 +12,18 @@
 * `make_mlp_eval_fn`: chunked eval, no tail dropping.
 * Runners: eval every `eval_interval` epochs, best snapshot on
   score_val >= best (ties refresh it), early stop when count == patience,
-  restore the best before the final eval. Distillation runs two optimizer
-  passes per epoch (hard labels scaled by lamb, then teacher log-probs
-  scaled by 1 - lamb); Adam advances on the zero-scaled pass too.
-
-The inductive runners are not ported yet (ROADMAP queue A item 5).
+  restore the best before the final eval; `state_out`, when given, receives
+  the restored best `state_dict` and `best_epoch` (for --save_results).
+  Distillation runs two optimizer passes per epoch (hard labels scaled by
+  lamb, then teacher log-probs scaled by 1 - lamb); Adam advances on the
+  zero-scaled pass too.
+* Inductive runners: train on the observed subgraph only (obs-local
+  indices `obs_idx_*` are positions within `idx_obs`; obs node i is global
+  node idx_obs[i]). A GNN evaluates twice per eval, on `obs_g` with the obs
+  features and on the full `g`; an MLP once on all features, its obs rows
+  taken by `idx_obs`. The returned all-node log-probs merge the two:
+  `out = out_all; out[idx_obs] = obs_out`. Rows of `loss_and_score` have 9
+  fields (7 transductive).
 """
 
 from __future__ import annotations
@@ -169,8 +175,77 @@ def _use_sampled_sage(conf, model) -> bool:
             and conf.get("sage_sampling", "auto") != "full")
 
 
+def _metrics_row(evals):
+    """[loss_1, ..., loss_k, score_1, ..., score_k] of (out, labels, idx)
+    triples."""
+    pairs = [_subset_metrics(*e) for e in evals]
+    return [p[0] for p in pairs] + [p[1] for p in pairs]
+
+
+def _fit(conf, model, logger, loss_and_score, train_epoch, eval_row,
+         score_names, where, state_out):
+    """The epoch loop every runner shares: `train_epoch(epoch)` -> loss (a
+    host float), and every eval_interval epochs `eval_row()` -> the metrics
+    row (losses, then scores named `score_names`, score_val second). Stops at
+    patience or max_epoch, restores the best snapshot into `model` and fills
+    `state_out`; returns the best epoch."""
+    tracker = _BestTracker(model)
+    timer = StepTimer()
+    k = len(score_names)
+    for epoch in range(1, conf["max_epoch"] + 1):
+        with timer:
+            loss = train_epoch(epoch)
+        _debug_guard(conf, loss, epoch, where)
+        if epoch % conf["eval_interval"] == 0:
+            row = eval_row()
+            logger.debug(f"Ep {epoch:3d} | loss: {loss:.4f} | " + " | ".join(
+                f"{name}: {v:.4f}" for name, v in zip(score_names, row[k:])))
+            loss_and_score.append([epoch, *row])
+            tracker.update(epoch, row[k + 1], model)
+
+        if tracker.count == conf["patience"] or epoch == conf["max_epoch"]:
+            break
+
+    logger.info(
+        f"mean epoch time: {timer.mean * 1e3:.1f} ms over {timer.count} epochs")
+    restore(model, tracker.snap)
+    if state_out is not None:
+        state_out["state_dict"] = tracker.snap
+        state_out["best_epoch"] = tracker.best_epoch
+    return tracker.best_epoch
+
+
+def _log_final(logger, best_epoch, **scores):
+    logger.info(f"Best valid model at epoch: {best_epoch: 3d}, " + ", ".join(
+        f"{name}: {v:.4f}" for name, v in scores.items()))
+
+
+def _teacher_epoch_fn(conf, model, optimizer, logger, g, feats, labels,
+                      idx_train, gen):
+    """epoch(epoch) -> loss for an MLP, a sampled-SAGE or a full-batch GNN
+    teacher training on (g, feats, labels, idx_train)."""
+    if model.is_mlp:
+        epoch_fn = make_mlp_epoch_fn(model, optimizer, conf["batch_size"],
+                                     "nll")
+        feats_train, labels_train = feats[idx_train], labels[idx_train]
+        return lambda epoch: epoch_fn(feats_train, labels_train, gen)
+    if _use_sampled_sage(conf, model):
+        epoch_fn = make_sage_sampled_epoch_fn(
+            model, optimizer, conf["batch_size"], _fanouts(conf))
+
+        def sampled(epoch):
+            loss, overflow = epoch_fn(g, feats, labels, idx_train, gen)
+            if overflow:
+                logger.warning(f"Ep {epoch}: sampler frontier cap overflow")
+            return loss
+        return sampled
+    step_fn = make_gnn_train_step(model, optimizer)
+    # sync before the timer reads, as the JAX runner does
+    return lambda epoch: float(step_fn(g, feats, labels, idx_train, gen))
+
+
 def run_transductive(conf, model, g, feats, labels, indices, optimizer,
-                     logger, loss_and_score, device):
+                     logger, loss_and_score, device, state_out=None):
     """Teacher training, transductive: an MLP, a sampled-SAGE or a
     full-batch GNN (GCN, GAT, APPNP, full SAGE) teacher on `device`. Returns
     (out, score_val, score_test) with `out` the all-node log-probs (numpy)
@@ -179,124 +254,169 @@ def run_transductive(conf, model, g, feats, labels, indices, optimizer,
     idx_train, idx_val, idx_test = _tensors(device, *indices)
     gen = torch.Generator(device=device).manual_seed(int(conf["seed"]))
 
-    is_mlp = model.is_mlp
-    sampled = _use_sampled_sage(conf, model)
-    if is_mlp:
-        epoch_fn = make_mlp_epoch_fn(model, optimizer, conf["batch_size"],
-                                     "nll")
+    train_epoch = _teacher_epoch_fn(conf, model, optimizer, logger, g, feats,
+                                    labels, idx_train, gen)
+    if model.is_mlp:
         eval_fn = make_mlp_eval_fn(
             model, conf.get("eval_batch_size", conf["batch_size"]))
         final_fn = eval_fn
-        feats_train, labels_train = feats[idx_train], labels[idx_train]
     else:
-        if sampled:
-            epoch_fn = make_sage_sampled_epoch_fn(
-                model, optimizer, conf["batch_size"], _fanouts(conf))
-        else:
-            step_fn = make_gnn_train_step(model, optimizer)
         eval_fn = partial(make_eval_fn(model), g)
         # the final log-probs become out.npz, the student's KL targets:
         # always the exact tier
         final_fn = partial(make_eval_fn(model, exact=True), g)
 
-    tracker = _BestTracker(model)
-    timer = StepTimer()
-    for epoch in range(1, conf["max_epoch"] + 1):
-        with timer:
-            if is_mlp:
-                loss = epoch_fn(feats_train, labels_train, gen)
-            elif sampled:
-                loss, overflow = epoch_fn(g, feats, labels, idx_train, gen)
-                if overflow:
-                    logger.warning(f"Ep {epoch}: sampler frontier cap overflow")
-            else:
-                # sync before the timer reads, as the JAX runner does
-                loss = float(step_fn(g, feats, labels, idx_train, gen))
-        _debug_guard(conf, loss, epoch, "teacher tran runner")
-        if epoch % conf["eval_interval"] == 0:
-            out = eval_fn(feats)
-            loss_train, score_train = _subset_metrics(out, labels, idx_train)
-            loss_val, score_val = _subset_metrics(out, labels, idx_val)
-            loss_test, score_test = _subset_metrics(out, labels, idx_test)
-            logger.debug(
-                f"Ep {epoch:3d} | loss: {loss:.4f} | "
-                f"s_train: {score_train:.4f} | s_val: {score_val:.4f} | "
-                f"s_test: {score_test:.4f}"
-            )
-            loss_and_score.append([epoch, loss_train, loss_val, loss_test,
-                                   score_train, score_val, score_test])
-            tracker.update(epoch, score_val, model)
+    def eval_row():
+        out = eval_fn(feats)
+        return _metrics_row((out, labels, idx)
+                            for idx in (idx_train, idx_val, idx_test))
 
-        if tracker.count == conf["patience"] or epoch == conf["max_epoch"]:
-            break
-
-    logger.info(
-        f"mean epoch time: {timer.mean * 1e3:.1f} ms over {timer.count} epochs")
-    restore(model, tracker.snap)
+    best = _fit(conf, model, logger, loss_and_score, train_epoch, eval_row,
+                ("s_train", "s_val", "s_test"), "teacher tran runner",
+                state_out)
     out = final_fn(feats)
     _, score_val = _subset_metrics(out, labels, idx_val)
     _, score_test = _subset_metrics(out, labels, idx_test)
-    logger.info(
-        f"Best valid model at epoch: {tracker.best_epoch: 3d}, "
-        f"score_val: {score_val:.4f}, score_test: {score_test:.4f}"
-    )
+    _log_final(logger, best, score_val=score_val, score_test=score_test)
     return out.cpu().numpy(), score_val, score_test
 
 
-def distill_run_transductive(conf, model, feats, labels, out_t_all,
-                             distill_indices, optimizer, logger,
-                             loss_and_score, device):
-    """GLNN distillation, transductive: per epoch a hard-label pass on idx_l
-    scaled by lamb, then a teacher log-prob pass on idx_t scaled by
-    1 - lamb. Returns (out, score_val, score_test)."""
-    lamb = conf["lamb"]
-    feats, labels, out_t_all = _tensors(
-        device, np.asarray(feats, np.float32), labels,
-        np.asarray(out_t_all, np.float32))
-    idx_l, idx_t, idx_val, idx_test = _tensors(device, *distill_indices)
-    feats_l, labels_l = feats[idx_l], labels[idx_l]
-    feats_t, out_t = feats[idx_t], out_t_all[idx_t]
+def run_inductive(conf, model, g, obs_g, feats, labels, indices, optimizer,
+                  logger, loss_and_score, device, state_out=None):
+    """Teacher training, inductive: trains on the observed subgraph `obs_g`
+    (node i is global node idx_obs[i]) and evaluates on it and on the full
+    `g`. `indices` = (obs_idx_train, obs_idx_val, obs_idx_test, idx_obs,
+    idx_test_ind), as `graph_split` gives them. Returns (out, score_val,
+    score_test_tran, score_test_ind) with `out` the merged all-node
+    log-probs (numpy)."""
+    feats, labels = _tensors(device, np.asarray(feats, np.float32), labels)
+    (obs_idx_train, obs_idx_val, obs_idx_test, idx_obs,
+     idx_test_ind) = _tensors(device, *indices)
+    obs_feats, obs_labels = feats[idx_obs], labels[idx_obs]
     gen = torch.Generator(device=device).manual_seed(int(conf["seed"]))
 
-    batch_size = conf["batch_size"]
+    train_epoch = _teacher_epoch_fn(conf, model, optimizer, logger, obs_g,
+                                    obs_feats, obs_labels, obs_idx_train, gen)
+    if model.is_mlp:
+        mlp_eval = make_mlp_eval_fn(
+            model, conf.get("eval_batch_size", conf["batch_size"]))
+
+        def evaluate(exact=False):
+            """(obs_out, out_all): one pass over all features."""
+            out_all = mlp_eval(feats)
+            return out_all[idx_obs], out_all
+    else:
+        # the final log-probs become out.npz: the exact tier on both graphs
+        eval_fns = (make_eval_fn(model), make_eval_fn(model, exact=True))
+
+        def evaluate(exact=False):
+            """(obs_out, out_all): an obs graph and a full graph pass."""
+            fn = eval_fns[exact]
+            return fn(obs_g, obs_feats), fn(g, feats)
+
+    def eval_row():
+        obs_out, out_all = evaluate()
+        return _metrics_row(
+            [(obs_out, obs_labels, idx)
+             for idx in (obs_idx_train, obs_idx_val, obs_idx_test)]
+            + [(out_all, labels, idx_test_ind)])
+
+    best = _fit(conf, model, logger, loss_and_score, train_epoch, eval_row,
+                ("s_train", "s_val", "s_tt", "s_ti"), "teacher ind runner",
+                state_out)
+    obs_out, out_all = evaluate(exact=True)
+    _, score_val = _subset_metrics(obs_out, obs_labels, obs_idx_val)
+    _, score_test_tran = _subset_metrics(obs_out, obs_labels, obs_idx_test)
+    _, score_test_ind = _subset_metrics(out_all, labels, idx_test_ind)
+    _log_final(logger, best, score_val=score_val,
+               score_test_tran=score_test_tran, score_test_ind=score_test_ind)
+    out = out_all.clone()
+    out[idx_obs] = obs_out
+    return out.cpu().numpy(), score_val, score_test_tran, score_test_ind
+
+
+def _distill_epoch_fn(conf, model, optimizer, feats_l, labels_l, feats_t,
+                      out_t, gen):
+    """epoch(epoch) -> loss_l + loss_t: the hard-label pass scaled by lamb,
+    then the teacher log-prob pass scaled by 1 - lamb."""
+    lamb, batch_size = conf["lamb"], conf["batch_size"]
     hard_epoch = make_mlp_epoch_fn(model, optimizer, batch_size, "nll",
                                    lamb=lamb)
     soft_epoch = make_mlp_epoch_fn(model, optimizer, batch_size, "kl",
                                    lamb=1.0 - lamb)
-    eval_fn = make_mlp_eval_fn(model, conf.get("eval_batch_size", batch_size))
+    return lambda epoch: (hard_epoch(feats_l, labels_l, gen)
+                          + soft_epoch(feats_t, out_t, gen))
 
-    tracker = _BestTracker(model)
-    timer = StepTimer()
-    for epoch in range(1, conf["max_epoch"] + 1):
-        with timer:
-            loss = (hard_epoch(feats_l, labels_l, gen)
-                    + soft_epoch(feats_t, out_t, gen))
-        _debug_guard(conf, loss, epoch, "distill runner")
-        if epoch % conf["eval_interval"] == 0:
-            out = eval_fn(feats)
-            # the logged loss_l is the eval-mode NLL on the hard-label set
-            loss_l_ev, score_l = _subset_metrics(out, labels, idx_l)
-            loss_val, score_val = _subset_metrics(out, labels, idx_val)
-            loss_test, score_test = _subset_metrics(out, labels, idx_test)
-            logger.debug(
-                f"Ep {epoch:3d} | loss: {loss:.4f} | s_l: {score_l:.4f} | "
-                f"s_val: {score_val:.4f} | s_test: {score_test:.4f}"
-            )
-            loss_and_score.append([epoch, loss_l_ev, loss_val, loss_test,
-                                   score_l, score_val, score_test])
-            tracker.update(epoch, score_val, model)
 
-        if tracker.count == conf["patience"] or epoch == conf["max_epoch"]:
-            break
+def distill_run_transductive(conf, model, feats, labels, out_t_all,
+                             distill_indices, optimizer, logger,
+                             loss_and_score, device, state_out=None):
+    """GLNN distillation, transductive: per epoch a hard-label pass on idx_l
+    scaled by lamb, then a teacher log-prob pass on idx_t scaled by
+    1 - lamb. Returns (out, score_val, score_test)."""
+    feats, labels, out_t_all = _tensors(
+        device, np.asarray(feats, np.float32), labels,
+        np.asarray(out_t_all, np.float32))
+    idx_l, idx_t, idx_val, idx_test = _tensors(device, *distill_indices)
+    gen = torch.Generator(device=device).manual_seed(int(conf["seed"]))
+    train_epoch = _distill_epoch_fn(conf, model, optimizer, feats[idx_l],
+                                    labels[idx_l], feats[idx_t],
+                                    out_t_all[idx_t], gen)
+    eval_fn = make_mlp_eval_fn(model, conf.get("eval_batch_size",
+                                               conf["batch_size"]))
 
-    logger.info(
-        f"mean epoch time: {timer.mean * 1e3:.1f} ms over {timer.count} epochs")
-    restore(model, tracker.snap)
+    def eval_row():
+        out = eval_fn(feats)
+        # the logged loss_l is the eval-mode NLL on the hard-label set
+        return _metrics_row((out, labels, idx)
+                            for idx in (idx_l, idx_val, idx_test))
+
+    best = _fit(conf, model, logger, loss_and_score, train_epoch, eval_row,
+                ("s_l", "s_val", "s_test"), "distill runner", state_out)
     out = eval_fn(feats)
     _, score_val = _subset_metrics(out, labels, idx_val)
     _, score_test = _subset_metrics(out, labels, idx_test)
-    logger.info(
-        f"Best valid model at epoch: {tracker.best_epoch: 3d}, "
-        f"score_val: {score_val:.4f}, score_test: {score_test:.4f}"
-    )
+    _log_final(logger, best, score_val=score_val, score_test=score_test)
     return out.cpu().numpy(), score_val, score_test
+
+
+def distill_run_inductive(conf, model, feats, labels, out_t_all,
+                          distill_indices, optimizer, logger,
+                          loss_and_score, device, state_out=None):
+    """GLNN distillation, inductive: the soft-label set is the observed
+    train + val + test only. `distill_indices` = (obs_idx_l, obs_idx_t,
+    obs_idx_val, obs_idx_test, idx_obs, idx_test_ind). One eval on all
+    features; the obs rows are taken by idx_obs. Returns (out, score_val,
+    score_test_tran, score_test_ind)."""
+    feats, labels, out_t_all = _tensors(
+        device, np.asarray(feats, np.float32), labels,
+        np.asarray(out_t_all, np.float32))
+    (obs_idx_l, obs_idx_t, obs_idx_val, obs_idx_test, idx_obs,
+     idx_test_ind) = _tensors(device, *distill_indices)
+    obs_feats, obs_labels = feats[idx_obs], labels[idx_obs]
+    obs_out_t = out_t_all[idx_obs]
+    gen = torch.Generator(device=device).manual_seed(int(conf["seed"]))
+    train_epoch = _distill_epoch_fn(
+        conf, model, optimizer, obs_feats[obs_idx_l], obs_labels[obs_idx_l],
+        obs_feats[obs_idx_t], obs_out_t[obs_idx_t], gen)
+    eval_fn = make_mlp_eval_fn(model, conf.get("eval_batch_size",
+                                               conf["batch_size"]))
+
+    def eval_row():
+        out_all = eval_fn(feats)
+        obs_out = out_all[idx_obs]
+        return _metrics_row(
+            [(obs_out, obs_labels, idx)
+             for idx in (obs_idx_l, obs_idx_val, obs_idx_test)]
+            + [(out_all, labels, idx_test_ind)])
+
+    best = _fit(conf, model, logger, loss_and_score, train_epoch, eval_row,
+                ("s_l", "s_val", "s_tt", "s_ti"), "distill runner", state_out)
+    out = eval_fn(feats)
+    obs_out = out[idx_obs]
+    _, score_val = _subset_metrics(obs_out, obs_labels, obs_idx_val)
+    _, score_test_tran = _subset_metrics(obs_out, obs_labels, obs_idx_test)
+    _, score_test_ind = _subset_metrics(out, labels, idx_test_ind)
+    _log_final(logger, best, score_val=score_val,
+               score_test_tran=score_test_tran, score_test_ind=score_test_ind)
+    return out.cpu().numpy(), score_val, score_test_tran, score_test_ind

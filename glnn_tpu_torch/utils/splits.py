@@ -1,14 +1,39 @@
-"""Stratified train/val/test splits (`glnn_tpu/utils/splits.py`).
+"""Train/val/test splits (`glnn_tpu/utils/splits.py`).
 
 Given the same `np.random.RandomState(seed)`, these issue the same sequence
-of `choice` calls as the JAX package and the reference, so splits are
-identical. The inductive `graph_split` comes with the inductive runners
-(ROADMAP queue A item 5).
+of `choice` and `permutation` calls as the JAX package, so splits are
+identical:
+* `get_train_val_test_split`: per-class stratified (or size-based) splits;
+* `graph_split`: the inductive split. `rate` of the test set is hidden as
+  the inductive test set; train, val and the rest of the test set form the
+  observed graph, `idx_obs = concat(train, val, test_tran)` (not sorted:
+  obs node i is global node idx_obs[i]). It returns the obs-local index
+  system (`obs_idx_*`, positions within idx_obs) and the global indices
+  (`idx_obs`, `idx_test_ind`).
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+
+def idx_split(idx: np.ndarray, ratio: float, seed: int = 0):
+    """Randomly split idx into (ratio, 1 - ratio) portions."""
+    idx = np.asarray(idx)
+    perm = np.random.RandomState(seed).permutation(len(idx))
+    cut = int(len(idx) * ratio)
+    return idx[perm[:cut]], idx[perm[cut:]]
+
+
+def graph_split(idx_train, idx_val, idx_test, rate: float, seed: int):
+    """(obs_idx_train, obs_idx_val, obs_idx_test, idx_obs, idx_test_ind)."""
+    idx_train, idx_val = np.asarray(idx_train), np.asarray(idx_val)
+    idx_test_ind, idx_test_tran = idx_split(idx_test, rate, seed)
+    idx_obs = np.concatenate([idx_train, idx_val, idx_test_tran])
+    n1, n2 = idx_train.shape[0], idx_val.shape[0]
+    obs_idx_all = np.arange(idx_obs.shape[0])
+    return (obs_idx_all[:n1], obs_idx_all[n1:n1 + n2], obs_idx_all[n1 + n2:],
+            idx_obs, idx_test_ind)
 
 
 def sample_per_class(random_state, labels_onehot, num_examples_per_class,

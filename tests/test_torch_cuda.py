@@ -4,7 +4,8 @@ Marked `cuda`; each test skips where no CUDA device is present. Run on a
 GPU machine with `python -m pytest --noconftest -m cuda
 tests/test_torch_cuda.py` (the suite's conftest imports JAX, which the port
 does not need). Tolerances: the exact SpMM kernel and its plain version
-differ only in summation order (rtol 1e-5, atol 1e-4); int8 sums are exact
+differ only in summation order (rtol 1e-5, atol 1e-4), and so do the f32
+kernel (feature_prop's hops) and its plain version; int8 sums are exact
 (bit-equal). The GAT kernels differ from their plain versions in summation
 order and in the order of their f32 operations (the forward multiplies
 by one reciprocal of the denominator): f32 outputs at rtol 1e-4 / atol
@@ -31,7 +32,8 @@ import torch
 
 from glnn_tpu_torch import ops
 from glnn_tpu_torch.graph.container import build_graph
-from glnn_tpu_torch.ops import cuda_build, gat_cuda, spmm_cuda
+from glnn_tpu_torch.ops import (cuda_build, gat_cuda, graph_utils, refops,
+                                spmm_cuda)
 
 pytestmark = pytest.mark.cuda
 
@@ -125,9 +127,41 @@ def test_launch_counters_and_no_plain_calls(cuda):
     spmm_cuda.copy_u_sum(g, x)
     spmm_cuda.copy_u_sum_int8(g, x)
     spmm_cuda.u_mul_e_sum(g, x, torch.rand(g.n_edges, device=cuda))
+    graph_utils.feature_prop(x, g, 2)
     assert spmm_cuda.counts == {"spmm_csr_bf16": 1, "spmm_csr_int8": 1,
-                                "spmm_csr_weighted": 1}
+                                "spmm_csr_weighted": 1, "spmm_csr_f32": 2}
     assert cuda_build.counts == {"plain_on_cuda": 0}
+
+
+def _f32_matches_plain(g, f, zero_rows):
+    x = torch.randn((g.n_nodes, f), device=g.device)
+    for indptr, cols in ((g.indptr, g.senders), (g.t_indptr, g.t_receivers)):
+        got = spmm_cuda.csr_sum_f32(indptr, cols, x, g.n_nodes)
+        want = refops.csr_sum_f32(indptr, cols, x, g.n_nodes)
+        magnitude = refops.csr_sum_f32(indptr, cols, x.abs(), g.n_nodes)
+        assert bool(((got - want).abs() <= 1e-5 * magnitude).all())
+        if indptr is g.indptr:
+            assert got[zero_rows].abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("f", SPMM_WIDTHS)
+def test_f32_kernel_matches_plain(cuda, f):
+    """spmm_csr_f32 (feature_prop's hops) against refops.csr_sum_f32: f32
+    rows summed in f32 in another order, so each element within 1e-5 of
+    its row's magnitude (the sum of |x| over the row's edges). A fixed
+    rtol does not fit: on a 20,000-edge row the two orders differ by
+    about 1e-3 on sums of about 100 (measured on an H100)."""
+    _f32_matches_plain(_graph(500, 6000, f, cuda, hub_free=20), f,
+                       slice(0, 20))
+    _f32_matches_plain(_hub_graph(HUB_NODES, 6000, f, cuda), f, slice(0, 1))
+
+
+def test_feature_prop_on_cuda_matches_cpu(cuda):
+    g = _graph(400, 5000, 6, cuda)
+    x = torch.randn((g.n_nodes, 128), device=cuda)
+    got = graph_utils.feature_prop(x, g, 3)
+    want = graph_utils.feature_prop(x.cpu(), g.to("cpu"), 3)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
 
 
 def test_empty_graph_rows(cuda):
@@ -258,7 +292,7 @@ def test_gat_layer_runs_the_kernels_and_no_plain_version(cuda):
                                "gat_fwd_seed": 0, "gat_fwd_mask": 0,
                                "gat_bwd_seed": 0, "gat_bwd_mask": 0}
     assert spmm_cuda.counts == {"spmm_csr_bf16": 1, "spmm_csr_int8": 0,
-                                "spmm_csr_weighted": 0}
+                                "spmm_csr_weighted": 0, "spmm_csr_f32": 0}
     assert cuda_build.counts == {"plain_on_cuda": 0}
 
     feat_b, el, er_b, al_b = gat_cuda.prep(feat, al, ar)
