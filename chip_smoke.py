@@ -47,6 +47,18 @@ Phases, each fatal on failure:
        (the sum of |x| over its edges; only the summation order differs),
        and a 2-hop feature_prop against the plain hops at rtol 1e-5 / atol
        1e-5 x max|want|;
+     - the sampler at the SAGE path's batch (512) and fanouts (5, 10, 15):
+       Floyd, the window tier with and without the aligned table, dedup
+       mode with worst-case caps and with tight caps, on the card bit-equal
+       to the CPU from the same uniforms, the tight caps overflowed; on the
+       synth graph both window variants equal Floyd, on the hub graph every
+       id sampled for a node of more than 64 in-edges lies in its fold
+       window (its first 64 in-edges with the table, its in-window edges
+       without);
+     - both unweighted SpMM kernels on bf16 x at F = 128 and 256 through
+       copy_u_sum / copy_u_sum_int8 (the bf16 compute tier): the exact
+       tier's bf16 output within one bf16 ulp of the plain version's sum
+       cast to bf16, the int8 tier bit for bit;
      all of it twice: on the synth graph, and on a hub graph of the same N
      and E whose first rows have HUB_DEGREES in- and out-edges (0 to
      20,000: every kernel walks a row in 32-edge chunks, and the synth
@@ -98,8 +110,13 @@ Phases, each fatal on failure:
        loads into a fresh Model whose exact eval gives its out.npz again
        (1e-5), each loss_and_score.npz has a 7-field row per eval and each
        min_cut_loss holds a finite value;
-     every other kernel exactly 0 on the GCN, APPNP, SAGE ind and feature
-     aug paths; no plain version may run on a CUDA tensor, and each out.npz
+     - "SAGE window bf16": the SAGE teacher with --sampler_tier window
+       --compute_dtype bfloat16 (the aligned window table on the graph),
+       then a bf16 MLP student, with --save_results: spmm_csr_int8 exactly
+       3 layers x 3 evals = 9 and spmm_csr_bf16 3 (the final eval), on
+       bf16 x; every floating tensor of both model.ckpt files f32;
+     every other kernel exactly 0 on the GCN, APPNP, SAGE ind, feature
+     aug and window bf16 paths; no plain version may run on a CUDA tensor, and each out.npz
      must hold finite [169343, 40] log-probs;
   5. time each kernel and its plain version with CUDA events (a kernel's
      `ms` from 20 calls back to back, which holds the wrapper's Python and
@@ -116,7 +133,11 @@ Phases, each fatal on failure:
      F = 40 (the f32 one at F = 128) and gat_fwd and gat_bwd at both GAT
      shapes on the hub graph,
      where one warp walks each hub row alone (in the rows' detail, outside
-     their sums).
+     their sums);
+  6. time the sampled SAGE epoch in floyd/f32, window/f32 and window/bf16,
+     and the all-node MLP student inference in f32 and bf16 (its log-probs
+     within 3e-2 x max of f32's), each on a line with the card's name and
+     power limit.
 Prints the card's name and power limit and a `kernels` JSON line; the last
 line is {"ok": true, "device": {...}}. Exits non-zero, with no result
 line, when there is no CUDA device or the port is missing.
@@ -125,6 +146,7 @@ line, when there is no CUDA device or the port is missing.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -158,6 +180,11 @@ SPLIT_RATE = 0.2             # --split_rate of the inductive paths
 N_IND = 9724
 N_OBS = N_NODES - N_IND
 AUG_K, AUG_F = 2, 128        # --feature_aug_k, and the features it propagates
+BATCH, FANOUTS = 512, (5, 10, 15)   # the SAGE row's batch and fan_out
+# the "SAGE window bf16" path's options; --save_results for its checkpoints
+WINDOW_BF16 = ("--sampler_tier", "window", "--compute_dtype", "bfloat16",
+               "--save_results")
+TIMED_EPOCHS = 3             # per sampler tier and dtype, after one warmup
 # in-degrees (and out-degrees) of the hub graph's first rows: empty, one
 # edge, either side of one and two 32-edge chunks, and two long rows
 HUB_DEGREES = (0, 1, 31, 32, 33, 64, 65, 1000, 20000)
@@ -312,6 +339,142 @@ def phase_check(spmm_cuda, g) -> dict:
             errs["spmm_csr_bf16"] = max(errs["spmm_csr_bf16"], err)
             log(f"check F={f}: {tier} tier gradient vs plain max|err| "
                 f"{err:.3e}")
+    return errs
+
+
+def sampler_cases(g, seeds):
+    """(tag, graph, kwargs) of every sampler tier and frontier mode the
+    checks hold on the card: Floyd, the window tier with and without the
+    aligned table, dedup with worst-case caps and with tight caps (which
+    must overflow)."""
+    from glnn_tpu_torch.sampling import frontier_caps
+
+    worst = frontier_caps(len(seeds), FANOUTS, g.n_nodes)
+    tight = [8 * len(seeds), 4 * len(seeds), 2 * len(seeds), len(seeds)]
+    table = g.with_window_table()
+    return [("floyd", g, {}),
+            ("window, table", table, {"method": "window"}),
+            ("window, no table", g, {"method": "window"}),
+            ("dedup worst caps, floyd", g, {"caps": worst}),
+            ("dedup tight caps, window", table,
+             {"caps": tight, "method": "window"})]
+
+
+def _uniforms(seeds, kwargs, gen):
+    """Each hop's uniforms for a frontier of the size the mode gives it."""
+    caps = kwargs.get("caps")
+    sizes, c = [0] * len(FANOUTS), len(seeds)
+    for i in range(len(FANOUTS) - 1, -1, -1):
+        sizes[i] = c
+        c = caps[i] + 1 if caps else c * (FANOUTS[i] + 1)
+    return [torch.rand((c, f), generator=gen) for c, f in zip(sizes, FANOUTS)]
+
+
+def _same_blocks(a, b) -> bool:
+    return (torch.equal(a.input_nodes.cpu(), b.input_nodes.cpu())
+            and bool(a.overflowed) == bool(b.overflowed)
+            and all(torch.equal(x.cpu(), y.cpu())
+                    for field in ("nbr_local", "valid", "self_local",
+                                  "out_real")
+                    for x, y in zip(getattr(a, field), getattr(b, field))))
+
+
+def phase_check_sampler(g, tag: str) -> None:
+    """The sampler on the card against the CPU from the same uniforms, at
+    the SAGE path's batch and fanouts: every tier and mode bit-equal, and
+    the tight caps overflowed. On the smoke graph (in-degrees <= 29) the
+    window tier equals Floyd; on the hub graph every id the window tier
+    samples for a node of more than 64 in-edges lies in its fold window:
+    its first 64 in-edges with the table, its in-window edges without."""
+    from glnn_tpu_torch.sampling import sample_blocks
+
+    gen = torch.Generator().manual_seed(21)
+    n = g.n_nodes
+    hubs = [i for i, d in enumerate(HUB_DEGREES) if d > 64]
+    if tag == "hub":          # every hub of more than 64 in-edges, and more
+        seeds = torch.cat([torch.tensor(hubs), torch.randint(
+            len(HUB_DEGREES), n, (BATCH - len(hubs) - 2,), generator=gen)])
+    else:
+        seeds = torch.randint(0, n, (BATCH - 2,), generator=gen)
+    seeds = torch.cat([seeds, torch.full((2,), n)]).to(torch.int32)
+    g_cpu = g.to("cpu")
+    blocks = {}
+    concat_uniforms = _uniforms(seeds, {}, gen)   # the same for every tier
+    for name, gr, kwargs in sampler_cases(g, seeds):
+        uniforms = (_uniforms(seeds, kwargs, gen) if kwargs.get("caps")
+                    else concat_uniforms)
+        got = sample_blocks(gr, seeds.to(g.device), FANOUTS,
+                            uniforms=uniforms, **kwargs)
+        want = sample_blocks(dataclasses.replace(g_cpu, win1=gr.win1), seeds,
+                             FANOUTS, uniforms=uniforms, **kwargs)
+        torch.cuda.synchronize()
+        if not _same_blocks(got, want):
+            raise AssertionError(f"sampler {name} on the {tag} graph: the card "
+                                 f"differs from the CPU")
+        # (worst-case caps stop at N, so a frontier holding every node and
+        # the ghost id sets the flag too, as in JAX)
+        if "tight" in name and not bool(got.overflowed):
+            raise AssertionError(f"sampler {name} on the {tag} graph did not "
+                                 f"overflow")
+        log(f"check sampler {name} ({tag} graph, batch {BATCH}, fanouts "
+            f"{FANOUTS}): card bit-equal to CPU, frontier "
+            f"{got.input_nodes.numel()}, overflowed {bool(got.overflowed)}")
+        if not kwargs.get("caps"):
+            blocks[name] = got
+    if tag == "smoke":
+        if int(g.in_degrees.max()) > 64:
+            raise AssertionError("the smoke graph has in-degrees over 64")
+        for name in ("window, table", "window, no table"):
+            if not _same_blocks(blocks[name], blocks["floyd"]):
+                raise AssertionError(f"sampler {name} differs from Floyd "
+                                     f"below in-degree 64")
+        log("check sampler: both window variants equal Floyd on the smoke "
+            "graph (in-degrees <= 29)")
+        return
+    indptr, senders = g_cpu.indptr.long(), g_cpu.senders
+    for name in ("window, table", "window, no table"):
+        nbr = blocks[name].input_nodes.cpu()[len(seeds):len(seeds) * (FANOUTS[-1] + 1)]
+        nbr = nbr.view(len(seeds), FANOUTS[-1])
+        for i, v in enumerate(hubs):
+            start, deg = int(indptr[v]), int(indptr[v + 1] - indptr[v])
+            cap = 64 if "no table" not in name else min(deg, 128 - start % 64)
+            allowed = set(senders[start:start + cap].tolist())
+            if not set(nbr[i].tolist()) <= allowed:
+                raise AssertionError(f"sampler {name}: hub {v} (in-degree "
+                                     f"{deg}) sampled outside its window")
+        log(f"check sampler {name}: hubs of in-degree "
+            f"{[HUB_DEGREES[v] for v in hubs]} sample only inside their fold "
+            f"window")
+
+
+def phase_check_bf16(spmm_cuda, g) -> dict:
+    """Both unweighted SpMM kernels on bf16 x at the SAGE widths through
+    copy_u_sum / copy_u_sum_int8, as the bf16 compute tier calls them: the
+    exact tier's bf16 output within one bf16 ulp of the plain version's f32
+    sum cast to bf16 (rtol 2**-7, atol 1e-5 x max|want|: a last-bit f32
+    difference can round either way), the int8 tier's bit for bit (q and s
+    from the same quantize_cols, exact int32 sums)."""
+    gen = torch.Generator(device=g.device).manual_seed(22)
+    n = g.n_nodes
+    errs = {"spmm_csr_bf16": 0.0, "spmm_csr_int8": 0.0}
+    for f in sorted(set(WIDTHS)):
+        x = torch.randn((n, f), generator=gen, device=g.device).bfloat16()
+        got = spmm_cuda.copy_u_sum(g, x)
+        want = spmm_cuda.plain_csr_sum_bf16(g.indptr, g.senders, x, n)
+        q, s = spmm_cuda.quantize_cols(x)
+        got_q = spmm_cuda.copy_u_sum_int8(g, x)
+        want_q = spmm_cuda.plain_csr_sum_int8(g.indptr, g.senders, q, s, n)
+        torch.cuda.synchronize()
+        if got.dtype != torch.bfloat16 or got_q.dtype != torch.bfloat16:
+            raise AssertionError(f"bf16 x gave {got.dtype} / {got_q.dtype}")
+        err = _held("bf16 x exact tier", got, want.bfloat16(), 2.0 ** -7, 1e-5)
+        if not torch.equal(got_q, want_q.bfloat16()):
+            raise AssertionError(f"int8 tier on bf16 x differs from plain at "
+                                 f"F={f}")
+        errs["spmm_csr_bf16"] = max(errs["spmm_csr_bf16"], err)
+        log(f"check F={f}, bf16 x: exact tier vs plain cast to bf16 max|err| "
+            f"{err:.3e} (max|want| {want.abs().max().item():.3e}); int8 tier "
+            f"bit-equal")
     return errs
 
 
@@ -873,15 +1036,43 @@ def check_saved(workdir: str, cfg: str, sub: str, names, host, g) -> None:
             f"min-cut loss {cut[0]}")
 
 
+def common_args(cfg: str, workdir: str) -> list:
+    """The options every path's CLIs share, with outputs under workdir."""
+    return ["--device", "0", "--dataset", DATASET, "--eval_interval", "1",
+            "--labelrate_train", str(LABELRATE_TRAIN),
+            "--labelrate_val", str(LABELRATE_VAL),
+            "--model_config_path", cfg, "--output_path",
+            os.path.join(workdir, "outputs")]
+
+
+def check_window_bf16(workdir: str) -> None:
+    """The "SAGE window bf16" path's runs: the teacher's conf took the
+    window tier and bf16, and every floating tensor of both saved models
+    (parameters and batch-norm statistics) is f32."""
+    from glnn_tpu_torch.utils import load_model
+
+    with open(os.path.join(run_dir(workdir, "transductive", "SAGE"),
+                           "log")) as f:
+        text = f.read()
+    for want in ("'sampler_tier': 'window'", "'compute_dtype': 'bfloat16'"):
+        if want not in text:
+            raise AssertionError(f"the window bf16 teacher's log lacks {want}")
+    for model in ("SAGE", "SAGE_MLP"):
+        state = load_model(os.path.join(
+            run_dir(workdir, "transductive", model), "model.ckpt"))
+        bad = {k: v.dtype for k, v in state.items()
+               if v.is_floating_point() and v.dtype != torch.float32}
+        if bad:
+            raise AssertionError(f"{model} saved non-f32 tensors {bad}")
+        log(f"{model} (window, bf16) model.ckpt: {len(state)} tensors, every "
+            f"floating one f32")
+
+
 def phase_main_path(cuda_build, spmm_cuda, gat_cuda, workdir: str, host,
                     g) -> dict:
     cfg = os.path.join(workdir, "arxiv.conf.yaml")
     _config_yaml(cfg)
-    common = ["--device", "0", "--dataset", DATASET, "--eval_interval", "1",
-              "--labelrate_train", str(LABELRATE_TRAIN),
-              "--labelrate_val", str(LABELRATE_VAL),
-              "--model_config_path", cfg, "--output_path",
-              os.path.join(workdir, "outputs")]
+    common = common_args(cfg, workdir)
     modules = (cuda_build, spmm_cuda, gat_cuda)
     sage = drive_path("SAGE", workdir, common, modules)
     for name in ("spmm_csr_bf16", "spmm_csr_int8"):
@@ -936,6 +1127,17 @@ def phase_main_path(cuda_build, spmm_cuda, gat_cuda, workdir: str, host,
         "spmm_csr_int8": len(GCN_WIDTHS) * TEACHER_EPOCHS,
         "spmm_csr_f32": 2 * AUG_K})
     check_saved(workdir, cfg, aug_sub, names, host, g)
+
+    # the window sampler tier with the aligned table and bf16 compute: the
+    # sampled training runs no kernel; every eval's aggregations take bf16
+    # x (int8 in the 3 intermediate evals, exact in the final one)
+    wdir = os.path.join(workdir, "window_bf16")
+    paths["SAGE window bf16"] = drive_path(
+        "SAGE", wdir, common_args(cfg, wdir), modules, WINDOW_BF16)
+    check_counts("SAGE window bf16", paths["SAGE window bf16"], {
+        "spmm_csr_int8": len(WIDTHS) * TEACHER_EPOCHS,
+        "spmm_csr_bf16": len(WIDTHS)})
+    check_window_bf16(wdir)
     return paths
 
 
@@ -1349,6 +1551,76 @@ def phase_times_softmax(gat_cuda, g, launches: dict, errs: dict) -> list:
             for name, row in rows.items()]
 
 
+def phase_times_tiers(host, labels, idx_train, g, card: str) -> dict:
+    """The sampled SAGE epoch at the ogbn-arxiv recipe (3 x 256, batch norm,
+    dropout 0.2, fan_out 5,10,15, 178 batches of 512) in floyd/f32,
+    window/f32 and window/bf16 (the window tier with the aligned table),
+    TIMED_EPOCHS epochs each after one warmup, round-robin across the
+    three, each on its own model from seed 0; then the all-node MLP student inference (3 x 256, batch norm,
+    N = 169,343) in f32 and in bf16 with the same weights, CUDA events over
+    20 calls. Host wall clock for the epochs (they are host-bound), each
+    line with the card's name and power limit."""
+    from glnn_tpu_torch.nn import Model
+    from glnn_tpu_torch.train import make_adam, make_mlp_eval_fn
+    from glnn_tpu_torch.train.sage_sampled import make_sage_sampled_epoch_fn
+
+    dev = g.device
+    feats = torch.as_tensor(host.ndata["feat"], device=dev)
+    labels = torch.as_tensor(labels, device=dev)
+    idx_train = torch.as_tensor(idx_train, device=dev)
+    base = dict(num_layers=3, hidden_dim=256, feat_dim=feats.shape[1],
+                label_dim=N_CLASSES, dropout_ratio=0.2, norm_type="batch")
+    out = {"card": card, "sage_epoch_s": {}, "mlp_inference_ms": {}}
+    table = g.with_window_table()
+    runs = {}
+    for tier, dtype, graph in (("floyd", "float32", g),
+                               ("window", "float32", table),
+                               ("window", "bfloat16", table)):
+        model = Model(dict(base, model_name="SAGE", compute_dtype=dtype),
+                      torch.Generator().manual_seed(0)).to(dev)
+        epoch = make_sage_sampled_epoch_fn(
+            model, make_adam(model.parameters(), 0.01, 0.0), BATCH, FANOUTS,
+            sampler_tier=tier)
+        runs[f"{tier}/{dtype}"] = (epoch, graph,
+                                   torch.Generator(device=dev).manual_seed(0))
+    # one warmup epoch each, then the timed epochs round-robin, so that a
+    # drift of the host's speed over the phase reaches every tier alike
+    for rnd in range(1 + TIMED_EPOCHS):
+        for key, (epoch, graph, gen) in runs.items():
+            t0 = time.perf_counter()
+            loss, _ = epoch(graph, feats, labels, idx_train, gen)
+            dt = time.perf_counter() - t0
+            if not math.isfinite(loss):
+                raise AssertionError(f"sampled epoch {key}: loss {loss}")
+            if rnd:
+                out["sage_epoch_s"].setdefault(key, []).append(dt)
+    for key, times in out["sage_epoch_s"].items():
+        log(f"time sampled SAGE epoch {key}: {times} s; {card}")
+    del runs
+    outs = {}
+    f32 = Model(dict(base, model_name="MLP"), torch.Generator().manual_seed(0))
+    for dtype in ("float32", "bfloat16"):
+        model = Model(dict(base, model_name="MLP", compute_dtype=dtype))
+        model.load_state_dict(f32.state_dict())
+        evaluate = make_mlp_eval_fn(model.to(dev))
+        outs[dtype] = evaluate(feats)
+        ms = time_ms(lambda: evaluate(feats))
+        out["mlp_inference_ms"][dtype] = ms
+        log(f"time MLP student all-node inference (3 x 256, batch norm, "
+            f"N={feats.shape[0]}) {dtype}: {ms:.4f} ms; {card}")
+    want, got = outs["float32"], outs["bfloat16"]
+    agree = (want.argmax(1) == got.argmax(1)).float().mean().item()
+    err = (got - want).abs().max().item()
+    # the bound tests/test_torch_bf16_window.py holds bf16 logits to
+    if got.dtype != torch.float32 or err > 3e-2 * want.abs().max().item():
+        raise AssertionError(f"bf16 MLP inference: {got.dtype}, max|err| "
+                             f"{err} against f32")
+    log(f"bf16 MLP inference: f32 log-probs, max|err| {err:.3e} against f32 "
+        f"(max|f32| {want.abs().max().item():.3e}), argmax equal on "
+        f"{agree:.4%} of rows (random weights)")
+    return out
+
+
 def phase_times_hub(spmm_cuda, gat_cuda, hub, kernels: list) -> None:
     """One timing of each SpMM entry point at F = 40 (the f32 one at
     AUG_F) and of gat_fwd and gat_bwd at both GAT shapes (dropout in seed
@@ -1418,7 +1690,12 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)}")
     phase_build(cuda_build)
 
-    host, *_ = load_synth_data(DATASET, 0, 20, 30)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    host, labels, idx_train, *_ = load_synth_data(
+        DATASET, 0, LABELRATE_TRAIN, LABELRATE_VAL)
     dev = torch.device("cuda:0")
     g = host.to_device(dev)
     hub = hub_graph(g.n_nodes, g.n_edges, 9).to(dev)
@@ -1438,10 +1715,18 @@ def main() -> int:
         phase_check_gat_layer(gat_cuda, gr)
         into["spmm_csr_weighted"] = phase_check_weighted(spmm_cuda, gr)
         into.update(phase_check_softmax(gat_cuda, gr))
+        phase_check_sampler(gr, tag)
+        for name, err in phase_check_bf16(spmm_cuda, gr).items():
+            into[f"{name} bf16 x"] = err
         log(f"{tag} graph: max|err| per kernel {into}")
         torch.cuda.empty_cache()
     for name, err in hub_errs.items():
         errs[name] = max(errs[name], err)
+    # the bf16-input checks are held in bf16 ulps, apart from the f32 ones
+    bf16_errs = {name: errs.pop(f"{name} bf16 x")
+                 for name in ("spmm_csr_bf16", "spmm_csr_int8")}
+    for name in bf16_errs:
+        hub_errs.pop(f"{name} bf16 x")
     op_surface = phase_op_surface(ops, cuda_build, spmm_cuda, gat_cuda, g)
     torch.cuda.empty_cache()
 
@@ -1458,12 +1743,12 @@ def main() -> int:
     phase_times_hub(spmm_cuda, gat_cuda, hub, kernels)
     for row in kernels:
         row["hub_graph_max_abs_err"] = hub_errs[row["name"]]
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True,
-        timeout=60).stdout.strip()
+        if row["name"] in bf16_errs:
+            row["bf16_x_max_abs_err"] = bf16_errs[row["name"]]
+    tiers = phase_times_tiers(host, labels, idx_train, g, smi)
+    log(f"tier times {json.dumps(tiers)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
-    print(smi.splitlines()[0])
+    print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

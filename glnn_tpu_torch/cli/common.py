@@ -82,11 +82,18 @@ def add_common_args(parser: argparse.ArgumentParser) -> None:
                         help="Comma list of per-layer fanouts for sampled SAGE")
     parser.add_argument("--sampler_tier", type=str, default="floyd",
                         choices=["floyd", "window"],
-                        help="Neighbour-sampling tier (window: not ported yet)")
+                        help="Neighbour-sampling tier of the sampled SAGE "
+                             "teacher: floyd = DGL-exact offsets; window = "
+                             "the same offsets folded into each node's "
+                             "aligned 64-edge window (equal to floyd for "
+                             "in-degrees <= 64; heavier nodes sample from "
+                             "their first 64 in-edges)")
     parser.add_argument("--compute_dtype", type=str, default="float32",
                         choices=["float32", "bfloat16"],
-                        help="Activation compute dtype (bfloat16: not ported "
-                             "yet)")
+                        help="Activation compute dtype of the SAGE teacher "
+                             "and the MLP student (GCN, GAT and APPNP "
+                             "ignore it); parameters, norm statistics, "
+                             "losses and out.npz stay float32")
     parser.add_argument("--num_workers", type=int, default=0,
                         help="Unused (sampling runs on the device); kept for "
                              "flag compatibility")
@@ -116,10 +123,6 @@ def add_common_args(parser: argparse.ArgumentParser) -> None:
 # option -> (value that is ported, ROADMAP item that ports the rest)
 _UNPORTED = (
     ("n_shards", lambda v: int(v or 1) <= 1, "queue A item 6 (distributed)"),
-    ("sampler_tier", lambda v: (v or "floyd") == "floyd",
-     "queue A item 4 (window sampler)"),
-    ("compute_dtype", lambda v: (v or "float32") in ("float32", "f32"),
-     "queue A item 4 (bf16 compute)"),
 )
 
 

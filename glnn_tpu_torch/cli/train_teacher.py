@@ -7,7 +7,9 @@ soft labels (`glnn_tpu/cli/train_teacher.py`).
         --dataset synth-n512-c5-f32-d8-noise3.0 [--device -1]
 
 SAGE trains on fanout-sampled minibatches (full-batch with
---sage_sampling full); GCN, GAT and APPNP train full-batch.
+--sage_sampling full; --sampler_tier window reads each node's aligned
+64-edge window); GCN, GAT and APPNP train full-batch. --compute_dtype
+bfloat16 runs SAGE and MLP activations in bf16.
 
 Pipeline: seed -> output dir -> load data -> optional feature noise ->
 YAML config merge (YAML beats CLI) -> Model + Adam -> optional feature
@@ -42,6 +44,7 @@ from glnn_tpu_torch.cli.common import (
 from glnn_tpu_torch.graph.datasets import load_data
 from glnn_tpu_torch.nn.models import Model
 from glnn_tpu_torch.train import make_adam, run_inductive, run_transductive
+from glnn_tpu_torch.train.engine import _use_sampled_sage
 from glnn_tpu_torch.utils import (
     check_writable,
     get_logger,
@@ -103,10 +106,13 @@ def run(args):
     optimizer = make_adam(model.parameters(), conf["learning_rate"],
                           conf["weight_decay"])
     # an MLP teacher needs the graph only to propagate features or for the
-    # min-cut loss
+    # min-cut loss; the window tier of a sampled SAGE teacher reads the
+    # aligned window table, on the full and the observed graph
     uses_graph = not model.is_mlp or args.feature_aug_k > 0
-    graph = (g.to_device(device) if uses_graph or args.compute_min_cut
-             else None)
+    want_win1 = (conf.get("sampler_tier") == "window"
+                 and _use_sampled_sage(conf, model))
+    graph = (g.to_device(device, window_table=want_win1)
+             if uses_graph or args.compute_min_cut else None)
 
     loss_and_score = []
     state_out = {} if args.save_results else None
@@ -120,8 +126,8 @@ def run(args):
     else:   # "ind" (teacher_output_dir rejected any other setting)
         indices = graph_split(idx_train, idx_val, idx_test, args.split_rate,
                               args.seed)
-        obs_graph = (g.subgraph(indices[3]).to_device(device) if uses_graph
-                     else None)
+        obs_graph = (g.subgraph(indices[3]).to_device(
+            device, window_table=want_win1) if uses_graph else None)
         if obs_graph is not None:
             logger.info(f"Observed graph: {obs_graph.n_nodes} nodes, "
                         f"{obs_graph.n_edges} edges.")

@@ -6,8 +6,13 @@ SpMM walks directly; the transposed, src-sorted CSR (`t_indptr`,
 `t_receivers`) carries the kernel's backward (dX = A^T dH), and `t_edges`
 lets the same kernel reduce per-edge messages (kept in dst-sorted edge
 order) over sources, as the GAT backward does. The TPU plans
-(SpmmPlan, AttentionPlan) and the window table are TPU geometry and have no
-counterpart here.
+(SpmmPlan, AttentionPlan) are TPU geometry and have no counterpart here.
+The aligned window table (`Graph.with_window_table`, JAX's `win1` [N+1, 64]
+of each node's first 64 in-neighbours) is TPU gather geometry too: on the
+GPU one index gather of `senders[indptr[v] + lane]` reads the same id. What
+the table changes is the window sampler's fold rule for nodes of more than
+64 in-edges (`sampling/sampler.py`), so the port keeps only a mark,
+`win1`.
 """
 
 from __future__ import annotations
@@ -33,6 +38,9 @@ class Graph:
       t_edges:     int32[E]   for each src-sorted slot, that edge's position
                               in the dst-sorted edge list.
       n_nodes, n_edges: ints.
+      win1:        the graph carries the aligned window table
+                   (`with_window_table`). It selects the window sampler's
+                   1-row fold rule.
     """
 
     senders: torch.Tensor
@@ -45,6 +53,7 @@ class Graph:
     t_edges: torch.Tensor
     n_nodes: int
     n_edges: int
+    win1: bool = False
 
     @property
     def device(self) -> torch.device:
@@ -55,6 +64,13 @@ class Graph:
                  for f in dataclasses.fields(self)
                  if isinstance(getattr(self, f.name), torch.Tensor)}
         return dataclasses.replace(self, **moved)
+
+    def with_window_table(self) -> "Graph":
+        """Mark the graph as carrying the aligned 64-wide window table
+        (`glnn_tpu/graph/container.py:112 with_window_table`): the window
+        sampler then folds a node's offsets onto its first 64 in-edges,
+        and is equal to Floyd for degrees <= 64."""
+        return dataclasses.replace(self, win1=True)
 
 
 def _csr(keys: np.ndarray, n_rows: int) -> tuple[np.ndarray, np.ndarray]:

@@ -79,5 +79,8 @@ class HostGraph:
         g.ndata = {k: v[idx] for k, v in self.ndata.items()}
         return g
 
-    def to_device(self, device) -> Graph:
-        return build_graph(self.src, self.dst, self.n_nodes).to(device)
+    def to_device(self, device, window_table: bool = False) -> Graph:
+        """The device graph; `window_table` marks it as carrying the aligned
+        window table (--sampler_tier window on a sampled SAGE teacher)."""
+        g = build_graph(self.src, self.dst, self.n_nodes).to(device)
+        return g.with_window_table() if window_table else g

@@ -2,6 +2,8 @@
 
 * SAGEConvGCN: SAGEConv(aggregator_type="gcn"): for dst v,
   h~_v = (sum_{u in N_in(v)} h_u + h_v) / (deg_in(v) + 1); out = W h~ + b.
+  With a compute `dtype` (bfloat16) the input, the neighbour sum and the
+  dense product run in it while the parameters stay f32 (`linear`).
 * BatchNorm1d: torch.nn.BatchNorm1d semantics plus a row mask, which
   torch's module does not take (ghost rows of sampled frontiers must not
   enter the statistics).
@@ -15,6 +17,7 @@
   + alpha h0, with per-edge dropout (zero, or 1 / (1 - p)) in training.
 * LayerNorm1d: torch.nn.LayerNorm over the feature axis.
 * dropout: inverted dropout whose mask comes from an explicit generator.
+* linear: an nn.Linear in a compute dtype, as flax's Dense(dtype=...).
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from glnn_tpu_torch import ops
@@ -38,32 +42,57 @@ def dropout(h: torch.Tensor, p: float, training: bool,
     return h * keep.to(h.dtype) / (1.0 - p)
 
 
+def linear(fc: nn.Linear, h: torch.Tensor,
+           dtype: torch.dtype | None = None) -> torch.Tensor:
+    """fc(h), or with a compute dtype the input, weight and bias cast to it
+    (the parameters stay f32, and their gradients come back in f32), as
+    flax's Dense(dtype=...) casts all three. The bias is added to the
+    product rounded to the dtype, as flax adds it, not inside the matmul."""
+    if dtype is None:
+        return fc(h)
+    out = F.linear(h.to(dtype), fc.weight.to(dtype))
+    return out if fc.bias is None else out + fc.bias.to(dtype)
+
+
 class SAGEConvGCN(nn.Module):
-    """`data` is a full Graph, or a concat-mode sampled block
-    {"valid": bool[n_out, K]} whose input rows are [outputs, neighbours]
-    (glnn_tpu_torch.sampling): the neighbours of output i are rows
-    n_out + i*K .. n_out + (i+1)*K, so the block needs only static slices.
-    On blocks the divisor is (#sampled real neighbours + 1)."""
+    """`data` is a full Graph, or a sampled block {"nbr_local", "valid",
+    "self_local", "concat"} (glnn_tpu_torch.sampling). A concat block's
+    input rows are [outputs, neighbours]: the neighbours of output i are
+    rows n_out + i*K .. n_out + (i+1)*K, so it needs only static slices; a
+    dedup block gathers rows nbr_local and self_local. On blocks the
+    divisor is (#sampled real neighbours + 1), in x's dtype; on the full
+    graph it is in_degrees + 1 in f32, which promotes a bf16 sum to f32 as
+    in JAX."""
 
     def __init__(self, in_dim: int, out_dim: int,
-                 gen: torch.Generator | None = None):
+                 gen: torch.Generator | None = None,
+                 dtype: torch.dtype | None = None):
         super().__init__()
+        self.dtype = dtype
         self.fc = gi.xavier_linear_(nn.Linear(in_dim, out_dim), math.sqrt(2.0),
                                     gen)
 
     def forward(self, data, x: torch.Tensor) -> torch.Tensor:
+        if self.dtype is not None:
+            x = x.to(self.dtype)
         if isinstance(data, Graph):
             neigh = ops.copy_u_sum(data, x)
             h = (neigh + x) / (data.in_degrees[:, None] + 1.0)
         else:
             valid = data["valid"]
             n_out, k = valid.shape
-            gathered = x[n_out:n_out + n_out * k].reshape(n_out, k, x.shape[-1])
+            if data["concat"]:
+                gathered = x[n_out:n_out + n_out * k].reshape(n_out, k,
+                                                              x.shape[-1])
+                h_self = x[:n_out]
+            else:
+                gathered = x[data["nbr_local"].long()]          # [V, K, F]
+                h_self = x[data["self_local"].long()]
             mask = valid[..., None].to(x.dtype)
             neigh = (gathered * mask).sum(dim=1)
             deg = valid.sum(dim=1).to(x.dtype)
-            h = (neigh + x[:n_out]) / (deg[:, None] + 1.0)
-        return self.fc(h)
+            h = (neigh + h_self) / (deg[:, None] + 1.0)
+        return linear(self.fc, h, self.dtype)
 
 
 class GraphConv(nn.Module):

@@ -10,6 +10,12 @@ bare (GAT: mean over its heads; a 1-layer GCN keeps its relu); APPNP runs
 its MLP, then k = 10 propagation hops with alpha 0.1 and edge drop 0.5;
 the wrapper dispatches on a SUBSTRING of model_name, MLP first, so
 "MLP3w4" and "GA1MLP" are MLPs.
+
+conf["compute_dtype"] "bfloat16" sets the activation dtype of the MLP and
+SAGE (`glnn_tpu/nn/models.py:38-118`): every layer casts its input to
+bf16 and runs its dense product in bf16 with f32 parameters, the batch norm keeps f32
+statistics and returns bf16, and the logits come out bf16 (the losses cast
+them to f32). GCN, GAT and APPNP ignore it, as in JAX.
 """
 
 from __future__ import annotations
@@ -24,8 +30,20 @@ from glnn_tpu_torch.nn.layers import (
     SAGEConvGCN,
     appnp_propagate,
     dropout,
+    linear,
     make_norm,
 )
+
+# conf compute_dtype -> the activation dtype (None: f32 throughout)
+COMPUTE_DTYPES = {"float32": None, "f32": None, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(conf: dict) -> torch.dtype | None:
+    name = conf.get("compute_dtype") or "float32"
+    if name not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype {name!r} is not one of "
+                         f"{sorted(COMPUTE_DTYPES)}")
+    return COMPUTE_DTYPES[name]
 
 
 def _dims(num_layers, input_dim, hidden_dim, output_dim):
@@ -35,9 +53,10 @@ def _dims(num_layers, input_dim, hidden_dim, output_dim):
 
 class MLP(nn.Module):
     def __init__(self, num_layers, input_dim, hidden_dim, output_dim,
-                 dropout_ratio, norm_type="none", gen=None):
+                 dropout_ratio, norm_type="none", gen=None, dtype=None):
         super().__init__()
         self.dropout_ratio = dropout_ratio
+        self.dtype = dtype
         self.layers = nn.ModuleList(
             gi.torch_linear_(nn.Linear(i, o), gen)
             for i, o in _dims(num_layers, input_dim, hidden_dim, output_dim))
@@ -49,7 +68,7 @@ class MLP(nn.Module):
         h, h_list = x, []
         last = len(self.layers) - 1
         for l, layer in enumerate(self.layers):
-            h = layer(h)
+            h = linear(layer, h, self.dtype)
             if l != last:
                 h_list.append(h)
                 if self.norms is not None:
@@ -64,11 +83,12 @@ class SAGE(nn.Module):
     (fanout-sampled minibatch forward); both share the parameters."""
 
     def __init__(self, num_layers, input_dim, hidden_dim, output_dim,
-                 dropout_ratio, norm_type="none", gen=None):
+                 dropout_ratio, norm_type="none", gen=None, dtype=None):
         super().__init__()
         self.dropout_ratio = dropout_ratio
+        self.dtype = dtype
         self.convs = nn.ModuleList(
-            SAGEConvGCN(i, o, gen)
+            SAGEConvGCN(i, o, gen, dtype)
             for i, o in _dims(num_layers, input_dim, hidden_dim, output_dim))
         self.norms = nn.ModuleList(
             make_norm(norm_type, hidden_dim) for _ in range(num_layers - 1)
@@ -82,7 +102,11 @@ class SAGE(nn.Module):
         last = len(self.convs) - 1
         for l, conv in enumerate(self.convs):
             if blocks:
-                data, mask = {"valid": g.valid[l]}, g.out_real[l]
+                data = {"valid": g.valid[l], "concat": g.concat}
+                if not g.concat:
+                    data.update(nbr_local=g.nbr_local[l],
+                                self_local=g.self_local[l])
+                mask = g.out_real[l]
             else:
                 data, mask = g, None
             h = conv(data, h)
@@ -180,18 +204,15 @@ class Model(nn.Module):
         super().__init__()
         self.model_name = name = conf["model_name"]
         self.conf = conf
-        if (conf.get("compute_dtype") or "float32") not in ("float32", "f32"):
-            raise NotImplementedError(
-                "compute_dtype bfloat16 is not ported to glnn_tpu_torch yet "
-                "(ROADMAP queue A item 4)")
+        cdtype = compute_dtype(conf)
         kw = dict(num_layers=conf["num_layers"], input_dim=conf["feat_dim"],
                   hidden_dim=conf["hidden_dim"], output_dim=conf["label_dim"],
                   dropout_ratio=conf["dropout_ratio"],
                   norm_type=conf.get("norm_type", "none"), gen=gen)
         if "MLP" in name:
-            self.module = MLP(**kw)
+            self.module = MLP(dtype=cdtype, **kw)
         elif "SAGE" in name:
-            self.module = SAGE(**kw)
+            self.module = SAGE(dtype=cdtype, **kw)
         elif "GCN" in name:
             self.module = GCN(**kw)
         elif "GAT" in name:

@@ -7,10 +7,14 @@ H[v] = sum over in-edges e of v of x[src(e)], in two tiers.
 * exact: x is cast to bf16 before the kernel (as spmm_pallas.py:244-250
   casts before its gather), the kernel sums the bf16 rows in f32, and the
   result is cast back to x's dtype (:258).
-* int8: x is quantised per column (absmax / 127, round half to even; plain
-  torch, since the quantisation lies outside the Pallas kernel too,
-  :401-405), the kernel sums int8 rows in int32 (exact) and multiplies each
-  column by its scale (:408-414).
+* int8: x is quantised per column (absmax / 127, round half to even, in
+  x's dtype; plain torch, since the quantisation lies outside the Pallas
+  kernel too, :401-405), the kernel sums int8 rows in int32 (exact) and
+  multiplies each column by its f32 scale (:408-414).
+
+Under the bf16 compute tier x arrives in bf16: the exact tier gathers it
+as it is, and both tiers cast their f32 sums back to bf16; the backward
+walks the transposed CSR with the bf16 cotangent.
 
 The kernel (`csrc/spmm_csr.cu`) walks the dst-sorted CSC directly: a warp
 owns a dst row and sums the gathered rows in registers, so there is no
@@ -247,12 +251,18 @@ def to_message(x: torch.Tensor) -> torch.Tensor:
 
 
 def quantize_cols(x: torch.Tensor):
-    """Per-column int8 quantisation (spmm_pallas.py:401-405): scale =
-    absmax / 127 (1 where a column is all zero), q = round(x / scale)."""
-    s = x.float().abs().amax(dim=0) / 127.0
+    """Per-column int8 quantisation (spmm_pallas.py:401-405), in x's own
+    dtype with the same order of operations: scale = absmax / 127 (1 where
+    a column is all zero), q = round(x / scale) half to even; the scale is
+    returned in f32. For bf16 x the scale and each quotient are rounded to
+    bf16 as JAX rounds them, so q and s equal `_quantize_cols` bit for
+    bit."""
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"copy_u_sum takes f32 or bf16 features, got {x.dtype}")
+    s = x.abs().amax(dim=0) / 127.0
     s = torch.where(s > 0, s, torch.ones_like(s))
-    q = torch.clamp(torch.round(x.float() / s[None, :]), -127, 127)
-    return q.to(torch.int8), s
+    q = torch.clamp(torch.round(x / s[None, :]), -127, 127)
+    return q.to(torch.int8), s.float()
 
 
 class _CopyUSum(torch.autograd.Function):

@@ -231,7 +231,8 @@ def _teacher_epoch_fn(conf, model, optimizer, logger, g, feats, labels,
         return lambda epoch: epoch_fn(feats_train, labels_train, gen)
     if _use_sampled_sage(conf, model):
         epoch_fn = make_sage_sampled_epoch_fn(
-            model, optimizer, conf["batch_size"], _fanouts(conf))
+            model, optimizer, conf["batch_size"], _fanouts(conf),
+            sampler_tier=conf.get("sampler_tier", "floyd") or "floyd")
 
         def sampled(epoch):
             loss, overflow = epoch_fn(g, feats, labels, idx_train, gen)

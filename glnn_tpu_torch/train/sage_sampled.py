@@ -3,8 +3,12 @@
 
 Shuffle the train ids, cut them into batches (the last one ghost-padded,
 with its loss masked, as NodeDataLoader(drop_last=False)), and per batch:
-sample blocks, gather the input features, forward with dropout, NLL on the
-batch, Adam step. Returns the mean per-batch loss.
+sample concat-mode blocks on the `sampler_tier` ("floyd" or "window"),
+gather the input features, forward with dropout, NLL on the batch, Adam
+step. Returns the mean per-batch loss. Under a bf16 compute dtype the
+features are cast once per epoch, before the per-batch gather, so the
+gathered frontier rows are bf16 (`glnn_tpu/train/sage_sampled.py:46-53`);
+parameters, the Adam state and the loss stay f32.
 """
 
 from __future__ import annotations
@@ -28,7 +32,8 @@ def sage_sampled_step(model, optimizer, blocks, x_in, y, mask,
     return loss.detach()
 
 
-def make_sage_sampled_epoch_fn(model, optimizer, batch_size: int, fanouts):
+def make_sage_sampled_epoch_fn(model, optimizer, batch_size: int, fanouts,
+                               sampler_tier: str = "floyd"):
     fanouts = tuple(int(f) for f in fanouts)
 
     def epoch(g, feats, labels, idx_train, gen):
@@ -43,11 +48,15 @@ def make_sage_sampled_epoch_fn(model, optimizer, batch_size: int, fanouts):
                                 device=feats.device)
         seeds_flat[:n_train] = idx_train[perm].to(torch.int32)
         x_ext = torch.cat([feats, feats.new_zeros((1, feats.shape[1]))])
+        mdtype = getattr(model.module, "dtype", None)
+        if mdtype is not None:
+            x_ext = x_ext.to(mdtype)
         labels_ext = torch.cat([labels, labels.new_zeros((1,))])
 
         losses, overflow = [], False
         for seeds in seeds_flat.view(num_batches, b):
-            blocks = sample_blocks(g, seeds, fanouts, gen)
+            blocks = sample_blocks(g, seeds, fanouts, gen,
+                                   method=sampler_tier)
             x_in = x_ext[blocks.input_nodes.long()]
             y = labels_ext[seeds.long()]
             mask = (seeds < n).float()

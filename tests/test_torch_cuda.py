@@ -447,3 +447,102 @@ def test_gat_layer_seed_mode_runs_no_mask(cuda):
     der, msg, dal = gat_cuda.plain_gat_bwd(*args, smax, denom, dout, al_b)
     _close(leaves[1].grad, dal)
     _close(leaves[2].grad, torch.einsum("nh,nhd->hd", der, feat))
+
+
+# -- the window sampler, dedup blocks and the bf16 compute tier ------------
+
+# (method, window table, caps): Floyd, the window tier with and without the
+# table, dedup with worst-case caps, and dedup with tight caps on the window
+SAMPLER_CASES = [("floyd", False, None), ("window", True, None),
+                 ("window", False, None), ("floyd", False, "worst"),
+                 ("window", True, "tight"), ("window", False, "tight")]
+
+
+@pytest.mark.parametrize("method,table,caps", SAMPLER_CASES)
+def test_sampler_on_cuda_equals_cpu(cuda, method, table, caps):
+    """The same uniforms through the sampler on the card and on the CPU,
+    on the hub graph (rows of 65, 1,000 and 20,000 in-edges fold): every
+    field of the blocks bit-equal."""
+    from glnn_tpu_torch.sampling import frontier_caps, sample_blocks
+
+    g = _hub_graph(HUB_NODES, 6000, 1, cuda)
+    g = g.with_window_table() if table else g
+    fanouts = [5, 10]
+    seeds = torch.cat([torch.arange(len(HUB_DEGREES)),
+                       torch.randint(0, HUB_NODES, (50,),
+                                     generator=torch.Generator().manual_seed(4)),
+                       torch.full((3,), HUB_NODES)]).to(torch.int32)
+    cap_list = None
+    sizes = [len(seeds) * (fanouts[1] + 1), len(seeds)]
+    if caps is not None:
+        cap_list = frontier_caps(len(seeds), fanouts, HUB_NODES)
+        if caps == "tight":
+            cap_list = [80, 40, len(seeds)]
+        sizes = [cap_list[1] + 1, len(seeds)]
+    gen = torch.Generator().manual_seed(5)
+    uniforms = [torch.rand((c, f), generator=gen)
+                for c, f in zip(sizes, fanouts)]
+    got = sample_blocks(g, seeds.to(cuda), fanouts, uniforms=uniforms,
+                        caps=cap_list, method=method)
+    want = sample_blocks(g.to("cpu"), seeds, fanouts, uniforms=uniforms,
+                         caps=cap_list, method=method)
+    assert torch.equal(got.input_nodes.cpu(), want.input_nodes)
+    for field in ("nbr_local", "valid", "self_local", "out_real"):
+        for a, b in zip(getattr(got, field), getattr(want, field)):
+            assert torch.equal(a.cpu(), b), field
+    assert bool(got.overflowed) == bool(want.overflowed) == (caps == "tight")
+
+
+@pytest.mark.parametrize("f", [128, 256])
+def test_bf16_spmm_runs_both_kernels(cuda, f):
+    """bf16 x on both tiers: the kernels launch, no plain version runs,
+    the exact tier's bf16 output within one bf16 ulp of the plain version's
+    f32 sum, the int8 tier's bit for bit (q and s from the same
+    quantize_cols), and the backward in bf16 on the transposed walk."""
+    g = _graph(500, 6000, f, cuda)
+    x = torch.randn((g.n_nodes, f), device=cuda).bfloat16()
+    dh = torch.randn((g.n_nodes, f), device=cuda).bfloat16()
+    want = spmm_cuda.plain_csr_sum_bf16(g.indptr, g.senders, x, g.n_nodes)
+    q, s = spmm_cuda.quantize_cols(x)
+    want_q = spmm_cuda.plain_csr_sum_int8(g.indptr, g.senders, q, s,
+                                          g.n_nodes).bfloat16()
+    want_dx = spmm_cuda.plain_csr_sum_bf16(g.t_indptr, g.t_receivers, dh,
+                                           g.n_nodes)
+    spmm_cuda.reset_counts()
+    cuda_build.reset_counts()
+    xg = x.clone().requires_grad_(True)
+    out = spmm_cuda.copy_u_sum(g, xg)
+    (dx,) = torch.autograd.grad(out, xg, dh)
+    out_q = spmm_cuda.copy_u_sum_int8(g, x)
+    assert spmm_cuda.counts == {"spmm_csr_bf16": 2, "spmm_csr_int8": 1,
+                                "spmm_csr_weighted": 0, "spmm_csr_f32": 0}
+    assert cuda_build.counts == {"plain_on_cuda": 0}
+    assert out.dtype == out_q.dtype == dx.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), want, rtol=2.0 ** -8, atol=1e-4)
+    torch.testing.assert_close(dx.float(), want_dx, rtol=2.0 ** -8, atol=1e-4)
+    assert torch.equal(out_q, want_q)
+
+
+def test_bf16_sage_full_graph_eval_on_cuda_close_to_cpu(cuda):
+    """A bf16 SAGE's exact eval on the card (the bf16 kernel, f32 sums)
+    against the CPU plain tier (bf16 sums): log-probs within 3e-2 x max and
+    argmax equal on 99% of rows."""
+    from glnn_tpu_torch.nn import Model
+    from glnn_tpu_torch.train import make_eval_fn
+
+    conf = dict(model_name="SAGE", num_layers=3, hidden_dim=64, feat_dim=32,
+                label_dim=5, dropout_ratio=0.0, norm_type="batch",
+                compute_dtype="bfloat16")
+    model = Model(conf, torch.Generator().manual_seed(0))
+    g = _graph(500, 6000, 7, "cpu")
+    x = torch.randn((g.n_nodes, 32), generator=torch.Generator().manual_seed(1))
+    want = make_eval_fn(model, exact=True)(g, x)
+    spmm_cuda.reset_counts()
+    cuda_build.reset_counts()
+    got = make_eval_fn(model.to(cuda), exact=True)(g.to(cuda), x.to(cuda))
+    assert spmm_cuda.counts["spmm_csr_bf16"] == 3
+    assert cuda_build.counts == {"plain_on_cuda": 0}
+    assert got.dtype == torch.float32
+    got = got.cpu()
+    assert (got - want).abs().max() <= 3e-2 * want.abs().max()
+    assert (got.argmax(1) == want.argmax(1)).float().mean() >= 0.99

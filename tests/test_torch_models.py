@@ -138,8 +138,14 @@ def test_model_dispatch():
     assert (appnp.k, appnp.alpha, appnp.edge_drop) == (10, 0.1, 0.5)
     with pytest.raises(ValueError):
         Model(_conf("Transformer"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(dict(_conf("MLP"), compute_dtype="bfloat16"))
+    # compute_dtype reaches the MLP and SAGE only, as in JAX
+    for name in ("MLP", "SAGE"):
+        module = Model(dict(_conf(name), compute_dtype="bfloat16")).module
+        assert module.dtype == torch.bfloat16
+    assert not hasattr(Model(dict(_conf("GCN"), compute_dtype="bfloat16"))
+                       .module, "dtype")
+    with pytest.raises(ValueError, match="compute_dtype"):
+        Model(dict(_conf("MLP"), compute_dtype="float16"))
 
 
 def test_sampled_forward_equals_full_forward_with_full_fanout():
