@@ -9,7 +9,9 @@ Phases, each fatal on failure:
      kernel's ptxas register and spill counts;
   2. hold each kernel against its plain PyTorch version on the card, on the
      synth-n169343-c40-f128-d7 graph at the paths' shapes:
-     - SpMM at the SAGE, GCN and APPNP widths (F = 40, 64, 128, 256):
+     - SpMM at the SAGE, GCN and APPNP widths (F = 40, 64, 128, 256) and
+       at the dataset paths' widths (F = 100, 7, 2, each with its own lane
+       layout; the max |error| per width in the kernels line):
        exact tier rtol 1e-5 / atol 1e-4 (only the summation order
        differs), int8 tier bit for bit (int32 sums are exact), and the
        gradient through the autograd.Function (the exact kernel's
@@ -118,6 +120,34 @@ Phases, each fatal on failure:
      every other kernel exactly 0 on the GCN, APPNP, SAGE ind, feature
      aug and window bf16 paths; no plain version may run on a CUDA tensor, and each out.npz
      must hold finite [169343, 40] log-probs;
+  4b. the datasets phase, in a temporary directory with 6 GB free (under
+     TMPDIR, else beside this script): a file set per family at its
+     published shape, synthetic contents from DATA_SEED (cora in the CPF
+     npz schema, 2,708 nodes of which a core of 2,485 survives
+     `standardize`, 1,433 binary CSR features, 7 classes; ogbn-arxiv in
+     the OGB npz form, one direction of each non-loop edge of the smoke
+     graph, so that the loader's reverse / remove / add self-loop rebuilds
+     its 2,537,353 edges exactly; ogbn-products, built on the card:
+     2,449,029 nodes, 100 features, 47 classes, 123,718,280 int32 edges of
+     a planted partition, OGB's split sizes; penn94 .mat with 5 fixed
+     splits of its labelled nodes: 41,554 nodes, about 1.36M edges, 4,801
+     one-hot feature columns, gender 0/1/2; a small pokec .mat and a small
+     BGNN house_class CSV set with int, float-with-NaN and categorical
+     columns), each loaded through load_data and held against the arrays
+     written, with no pandas, sklearn or ogb module imported; the host
+     seconds of every write, load_data, build_graph and .to(device); the
+     exact SpMM on the products graph at F = 100 against torch.sparse.mm
+     (rtol 1e-5 / atol 1e-4; a plain gather would need a 49 GB message) and
+     both timed beside the bytes bound; one sampled products epoch (49
+     batches of 4096) and one all-node exact eval timed apart, with the
+     peak device memory; then four paths through the CLIs with the
+     package's own configs/train.conf.yaml, teacher then MLP student, the
+     counts set to 0 before and read after each: OGB arxiv SAGE (3
+     epochs; spmm_csr_int8 9, spmm_csr_bf16 3), CPF cora GCN and NonHom
+     penn94 GCN (3 epochs; 14 exact, 6 int8; penn94's splits hold only
+     labelled nodes, so no -1 label reaches the loss or a score) and OGB
+     products SAGE (1 epoch; 3 and 3), each out.npz finite log-probs of
+     the loaded graph's nodes and classes, no plain version on CUDA;
   5. time each kernel and its plain version with CUDA events (a kernel's
      `ms` from 20 calls back to back, which holds the wrapper's Python and
      launch overhead where that is the slower side; its device time from
@@ -151,6 +181,7 @@ import io
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -188,6 +219,25 @@ TIMED_EPOCHS = 3             # per sampler tier and dtype, after one warmup
 # in-degrees (and out-degrees) of the hub graph's first rows: empty, one
 # edge, either side of one and two 32-edge chunks, and two long rows
 HUB_DEGREES = (0, 1, 31, 32, 33, 64, 65, 1000, 20000)
+# the datasets phase: a file set per family at its published shape, the
+# contents synthetic, from DATA_SEED
+DATA_SEED = 31
+CORA_NODES, CORA_FEATS, CORA_CLASSES = 2708, 1433, 7
+CORA_LCC, CORA_EDGES = 2485, 5278    # nodes of the core; edges written
+ARXIV_SPLIT = (90941, 29799, 48603)  # OGB's train / valid / test sizes
+PRODUCTS_NODES, PRODUCTS_FEATS, PRODUCTS_CLASSES = 2449029, 100, 47
+PRODUCTS_PAIRS = 61859140            # both directions: 123,718,280 edges
+PRODUCTS_SPLIT = (196615, 39323, 2213091)
+PRODUCTS_BATCH = 4096                # the ogbn-products SAGE row's batch
+PENN94_NODES, PENN94_PAIRS = 41554, 681200
+# values of local_info's 7 columns (status, gender, major, minor, dorm, a
+# two-valued column, high school): 4,801 one-hot columns without gender
+PENN94_RANGES = (6, 3, 201, 201, 61, 2, 4331)
+POKEC_NODES, POKEC_EDGES = 5000, 30000
+HOUSE_NODES, HOUSE_EDGES = 2000, 12000
+DATASET_WIDTHS = (100, 7, 2)   # SAGE layer 1 on products, GCN layer 2 on
+                               # cora and on penn94
+MIN_FREE_DISK = 6e9            # bytes the dataset files need (products ~2 GB)
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3 peak rate
 FP32_OPS_PER_S = 67e12       # H100 SXM, outside the tensor cores
 SOURCES = {"spmm_csr_bf16": "glnn_tpu_torch/csrc/spmm_csr.cu",
@@ -300,12 +350,14 @@ def hub_graph(n, e, seed):
     return build_graph(src, dst, n)
 
 
-def phase_check(spmm_cuda, g) -> dict:
-    """SpMM kernels vs plain versions on the card; max |error| per kernel."""
+def phase_check(spmm_cuda, g, per_width: dict) -> dict:
+    """SpMM kernels vs plain versions on the card; max |error| per kernel,
+    and per F of DATASET_WIDTHS into `per_width`."""
     gen = torch.Generator(device=g.device).manual_seed(0)
     n = g.n_nodes
     errs = {name: 0.0 for name in spmm_cuda.KERNELS}
-    for f in sorted(set(WIDTHS + GCN_WIDTHS)):
+    for f in sorted(set(WIDTHS + GCN_WIDTHS + DATASET_WIDTHS)):
+        width = {}
         x = torch.randn((n, f), generator=gen, device=g.device)
         xb = spmm_cuda.to_message(x)
         got = spmm_cuda.csr_sum_bf16(g.indptr, g.senders, xb, n)
@@ -314,6 +366,7 @@ def phase_check(spmm_cuda, g) -> dict:
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
         err = (got - want).abs().max().item()
         errs["spmm_csr_bf16"] = max(errs["spmm_csr_bf16"], err)
+        width["exact"] = err
         log(f"check F={f}: exact kernel vs plain max|err| {err:.3e}")
 
         q, s = spmm_cuda.quantize_cols(x)
@@ -324,6 +377,7 @@ def phase_check(spmm_cuda, g) -> dict:
             raise AssertionError(f"int8 kernel differs from plain at F={f}: "
                                  f"{err}")
         errs["spmm_csr_int8"] = max(errs["spmm_csr_int8"], err)
+        width["int8"] = err
         log(f"check F={f}: int8 kernel vs plain bit-equal, max|err| {err}")
 
         dh = torch.randn((n, f), generator=gen, device=g.device)
@@ -337,8 +391,11 @@ def phase_check(spmm_cuda, g) -> dict:
             torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
             err = (got - want).abs().max().item()
             errs["spmm_csr_bf16"] = max(errs["spmm_csr_bf16"], err)
+            width[f"{tier} gradient"] = err
             log(f"check F={f}: {tier} tier gradient vs plain max|err| "
                 f"{err:.3e}")
+        if f in DATASET_WIDTHS:
+            per_width[f] = width
     return errs
 
 
@@ -893,16 +950,16 @@ def _config_yaml(path: str) -> None:
     log(f"main path config: {rows}, defaults {table['defaults']}")
 
 
-def run_dir(workdir: str, sub: str, model: str) -> str:
+def run_dir(workdir: str, sub: str, model: str, dataset=DATASET) -> str:
     """A CLI run's directory under workdir/outputs."""
-    return os.path.join(workdir, "outputs", sub, DATASET, model, "seed_0")
+    return os.path.join(workdir, "outputs", sub, dataset, model, "seed_0")
 
 
-def check_out(path: str, tag: str) -> np.ndarray:
-    """out.npz at `path`: finite [N_NODES, N_CLASSES] log-probs."""
+def check_out(path: str, tag: str, shape=(N_NODES, N_CLASSES)) -> np.ndarray:
+    """out.npz at `path`: finite log-probs of `shape` ([nodes, classes])."""
     out = np.load(path)["arr_0"]
     lse = np.log(np.exp(out.astype(np.float64)).sum(axis=1))
-    if out.shape != (N_NODES, N_CLASSES) or not np.isfinite(out).all():
+    if out.shape != tuple(shape) or not np.isfinite(out).all():
         raise AssertionError(f"{tag} out.npz: shape {out.shape}, finite "
                              f"{np.isfinite(out).all()}")
     if np.abs(lse).max() > 1e-4:
@@ -914,23 +971,26 @@ def check_out(path: str, tag: str) -> np.ndarray:
 
 
 def drive_path(teacher: str, workdir: str, common: list, modules,
-               extra=(), sub="transductive", names=None) -> dict:
-    """Teacher then MLP student through the CLIs with the options `extra`,
-    the counts of `modules` set to 0 just before and read just after;
-    checks both score lines (two scores each in ind) and both out.npz
-    under outputs/<sub>, the runs' directories `names` (teacher, student;
-    by default the option-free names)."""
+               extra=(), sub="transductive", names=None, dataset=DATASET,
+               shape=(N_NODES, N_CLASSES), epochs=TEACHER_EPOCHS) -> dict:
+    """Teacher (`epochs` epochs) then MLP student through the CLIs with the
+    options `extra`, the counts of `modules` set to 0 just before and read
+    just after; checks both score lines (two scores each in ind) and both
+    out.npz ([nodes, classes] = `shape`) under outputs/<sub>/<dataset>, the
+    runs' directories `names` (teacher, student; by default the option-free
+    names)."""
     from glnn_tpu_torch.cli import train_student, train_teacher
 
     names = names or (teacher, f"{teacher}_MLP")
-    tag = " ".join([teacher, *extra])
+    tag = " ".join(([dataset] if dataset != DATASET else [])
+                   + [teacher, *extra])
     printed = [io.StringIO(), io.StringIO()]
     for module in modules:
         module.reset_counts()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(printed[0]):
         train_teacher.main(common + ["--teacher", teacher, "--max_epoch",
-                                     str(TEACHER_EPOCHS), *extra])
+                                     str(epochs), *extra])
     t1 = time.perf_counter()
     with contextlib.redirect_stdout(printed[1]):
         train_student.main(
@@ -939,10 +999,11 @@ def drive_path(teacher: str, workdir: str, common: list, modules,
                       os.path.join(workdir, "outputs"), *extra])
     t2 = time.perf_counter()
     counts = {k: v for module in modules for k, v in module.counts.items()}
-    log(f"{tag} path: teacher {t1 - t0:.2f} s ({TEACHER_EPOCHS} epochs), "
+    log(f"{tag} path: teacher {t1 - t0:.2f} s ({epochs} epochs), "
         f"student {t2 - t1:.2f} s ({STUDENT_EPOCHS} epochs); counts {counts}")
     for model in names:
-        with open(os.path.join(run_dir(workdir, sub, model), "log")) as f:
+        with open(os.path.join(run_dir(workdir, sub, model, dataset),
+                               "log")) as f:
             for line in f:
                 if any(k in line for k in ("mean epoch time", "Best valid",
                                            "Observed graph")):
@@ -956,8 +1017,8 @@ def drive_path(teacher: str, workdir: str, common: list, modules,
                 or not all(math.isfinite(float(s)) for s in score.split())):
             raise AssertionError(f"{model} printed no line of {n_scores} "
                                  f"finite scores: {score!r}")
-        check_out(os.path.join(run_dir(workdir, sub, model), "out.npz"),
-                  model)
+        check_out(os.path.join(run_dir(workdir, sub, model, dataset),
+                               "out.npz"), model, shape)
     if counts["plain_on_cuda"]:
         raise AssertionError(f"{counts['plain_on_cuda']} plain-version calls "
                              f"on CUDA tensors on the {tag} path")
@@ -1139,6 +1200,502 @@ def phase_main_path(cuda_build, spmm_cuda, gat_cuda, workdir: str, host,
         "spmm_csr_bf16": len(WIDTHS)})
     check_window_bf16(wdir)
     return paths
+
+
+# ---------------------------------------------------------------------------
+# Phase 4b: the dataset files. One file set per family at its published
+# shape, with synthetic contents from DATA_SEED, in a temporary directory;
+# each loaded through load_data and held against what was written; four
+# paths driven through the CLIs with the package's own train.conf.yaml.
+# ---------------------------------------------------------------------------
+
+def write_cora(path: str, rs) -> dict:
+    """cora in the CPF npz schema at its published shape: 2,708 nodes,
+    1,433 binary bag-of-words features (a CSR attr, about 18 words a node,
+    half of them from a block of the node's class), 7 classes; a connected
+    core of CORA_LCC nodes (a random tree plus in-class edges, CORA_EDGES
+    undirected edges in all) and the other nodes in paths of 2 and 3,
+    which `standardize` drops. Edges stored one way, as the loader
+    symmetrises them."""
+    import scipy.sparse as sp
+
+    from glnn_tpu_torch.graph import sparse as gsp
+
+    n, f, c, core = CORA_NODES, CORA_FEATS, CORA_CLASSES, CORA_LCC
+    labels = rs.randint(0, c, n)
+    perm = rs.permutation(core)
+    src = [perm[1:]]
+    dst = [perm[(rs.rand(core - 1) * np.arange(1, core)).astype(np.int64)]]
+    sizes, left = [], n - core
+    while left:
+        sizes.append(3 if left >= 5 or left == 3 else 2)
+        left -= sizes[-1]
+    start = core
+    for size in sizes:
+        src.append(np.arange(start, start + size - 1))
+        dst.append(np.arange(start + 1, start + size))
+        start += size
+    extra = CORA_EDGES - sum(len(a) for a in src)
+    es = rs.randint(0, core, extra)
+    by_class = np.argsort(labels[:core], kind="stable")
+    counts = np.bincount(labels[:core], minlength=c)
+    first = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    mate = by_class[first[labels[es]]
+                    + (rs.rand(extra) * counts[labels[es]]).astype(np.int64)]
+    src.append(es)
+    dst.append(np.where(rs.rand(extra) < 0.8, mate,
+                        rs.randint(0, core, extra)))
+    src, dst = np.concatenate(src), np.concatenate(dst)
+    adj = sp.csr_matrix((np.ones(len(src)), (src, dst)), shape=(n, n))
+    words = np.where(rs.rand(n * 18) < 0.5,
+                     np.repeat(labels, 18) * 200 + rs.randint(0, 200, n * 18),
+                     rs.randint(0, f, n * 18))
+    attr = sp.csr_matrix((np.ones(n * 18, np.float32),
+                          (np.repeat(np.arange(n), 18), words)), shape=(n, f))
+    attr.data[:] = 1.0                       # repeated words sum; binary
+    gsp.save_npz_sparse_graph(os.path.join(path, "cora.npz"), adj, attr,
+                              labels)
+    return {"labels": labels, "attr": attr}
+
+
+def check_cora(loaded, written) -> None:
+    g, labels, itr, iva, ite = loaded
+    core = CORA_LCC
+    want = np.asarray(written["attr"][:core].todense(), np.float32)
+    if (g.n_nodes != core or int((g.src == g.dst).sum()) != core
+            or not np.array_equal(g.ndata["feat"], want)
+            or not np.array_equal(labels, written["labels"][:core])
+            or len(itr) != 20 * CORA_CLASSES or len(iva) != 30 * CORA_CLASSES
+            or len(itr) + len(iva) + len(ite) != core):
+        raise AssertionError("cora: the loader's output differs from the "
+                             "file's core component")
+
+
+def write_arxiv(path: str, rs, host, labels) -> dict:
+    """ogbn-arxiv in the OGB npz form: one direction (src < dst) of each
+    non-loop edge of the smoke graph, its 128 features and 40 classes, and
+    OGB's split sizes over a permutation."""
+    n = host.n_nodes
+    one_way = host.src < host.dst
+    perm = rs.permutation(n)
+    a, b = ARXIV_SPLIT[0], ARXIV_SPLIT[0] + ARXIV_SPLIT[1]
+    arrays = dict(src=host.src[one_way], dst=host.dst[one_way],
+                  n_nodes=np.int64(n), feat=host.ndata["feat"],
+                  labels=np.asarray(labels, np.int64), idx_train=perm[:a],
+                  idx_val=perm[a:b], idx_test=perm[b:])
+    np.savez(os.path.join(path, "ogbn-arxiv.graph.npz"), **arrays)
+    return arrays
+
+
+def check_arxiv(loaded, written, host) -> None:
+    """The loader's reverse / remove / add self-loop rebuilds the smoke
+    graph's edge multiset exactly."""
+    g, labels, *idx = loaded
+    n = host.n_nodes
+    keys = np.sort(g.src * n + g.dst)
+    if (g.num_edges() != host.num_edges()
+            or not np.array_equal(keys, np.sort(host.src * n + host.dst))
+            or not np.array_equal(g.ndata["feat"], written["feat"])
+            or not np.array_equal(labels, written["labels"])
+            or not all(np.array_equal(a, written[k]) for a, k in zip(
+                idx, ("idx_train", "idx_val", "idx_test")))):
+        raise AssertionError("ogbn-arxiv: the loader's output differs from "
+                             "the smoke graph")
+    log(f"ogbn-arxiv: the loader rebuilt the smoke graph's edge multiset, "
+        f"{g.num_edges():,} edges")
+
+
+def write_products(path: str, dev) -> dict:
+    """ogbn-products in the OGB npz form at its published shape, built on
+    the card: 2,449,029 nodes, 100 features (class centroid + noise), 47
+    round-robin classes, PRODUCTS_PAIRS undirected planted-partition pairs
+    (80% within the class, no self-loop) stored in both directions as
+    int32 (123,718,280 edges; pairs may repeat), and OGB's split sizes over
+    a permutation."""
+    n, f, c = PRODUCTS_NODES, PRODUCTS_FEATS, PRODUCTS_CLASSES
+    pairs = PRODUCTS_PAIRS
+    gen = torch.Generator(device=dev).manual_seed(DATA_SEED)
+    size = torch.full((c,), n // c, device=dev)
+    size[: n % c] += 1
+    src = torch.randint(0, n, (pairs,), generator=gen, device=dev)
+    cls = src % c
+    member = (torch.rand(pairs, generator=gen, device=dev, dtype=torch.float64)
+              * size[cls]).long()
+    dst = torch.where(torch.rand(pairs, generator=gen, device=dev) < 0.8,
+                      member * c + cls,
+                      torch.randint(0, n, (pairs,), generator=gen, device=dev))
+    dst = torch.where(dst == src, (src + 1) % n, dst)
+    labels = torch.arange(n, device=dev) % c
+    feat = (0.5 * torch.randn((c, f), generator=gen, device=dev)[labels]
+            + torch.randn((n, f), generator=gen, device=dev))
+    perm = torch.randperm(n, generator=gen, device=dev).cpu().numpy()
+    a, b = PRODUCTS_SPLIT[0], PRODUCTS_SPLIT[0] + PRODUCTS_SPLIT[1]
+    arrays = dict(src=torch.cat([src, dst]).int().cpu().numpy(),
+                  dst=torch.cat([dst, src]).int().cpu().numpy(),
+                  n_nodes=np.int64(n), feat=feat.cpu().numpy(),
+                  labels=labels.cpu().numpy(), idx_train=perm[:a],
+                  idx_val=perm[a:b], idx_test=perm[b:])
+    del src, dst, cls, member, feat, labels
+    np.savez(os.path.join(path, "ogbn-products.graph.npz"), **arrays)
+    return arrays
+
+
+def check_products(loaded, written) -> None:
+    g, labels, *idx = loaded
+    if (g.n_nodes != PRODUCTS_NODES or g.num_edges() != 2 * PRODUCTS_PAIRS
+            or not np.array_equal(g.src, written["src"])
+            or not np.array_equal(g.dst, written["dst"])
+            or not np.array_equal(g.ndata["feat"], written["feat"])
+            or not np.array_equal(labels, written["labels"])
+            or not all(np.array_equal(a, written[k]) for a, k in zip(
+                idx, ("idx_train", "idx_val", "idx_test")))):
+        raise AssertionError("ogbn-products: the loader's output differs "
+                             "from the arrays written")
+
+
+def _write_splits(path: str, name: str, labelled, rs) -> list:
+    """LINKX-style fixed splits: 5 permutations of the labelled nodes, 50 /
+    25 / 25 into train, valid and test."""
+    splits = []
+    for _ in range(5):
+        p = rs.permutation(labelled)
+        a, b = len(p) // 2, 3 * len(p) // 4
+        splits.append({"train": p[:a], "valid": p[a:b], "test": p[b:]})
+    os.makedirs(os.path.join(path, "splits"), exist_ok=True)
+    np.save(os.path.join(path, "splits", f"{name}-splits.npy"),
+            np.array(splits, dtype=object), allow_pickle=True)
+    return splits
+
+
+def write_penn94(path: str, rs) -> dict:
+    """penn94 (facebook100) in .mat with a splits file at its published
+    shape: 41,554 nodes, PENN94_PAIRS random undirected pairs stored
+    symmetric (about 1.36M edges), and a local_info of 7 columns with
+    PENN94_RANGES values each: gender (col 1) 0/1/2, 0 (unlabelled) for 8%;
+    col 5 has two values (one 0/1 column); the others give one-hot
+    columns, about 4,800 in all. The splits hold labelled nodes only."""
+    import scipy.io
+    import scipy.sparse as sp
+
+    n, pairs = PENN94_NODES, PENN94_PAIRS
+    info = np.stack([rs.randint(0, r, n) for r in PENN94_RANGES], axis=1)
+    info[:, 1] = rs.choice(3, n, p=[0.08, 0.46, 0.46])
+    s, d = rs.randint(0, n, pairs), rs.randint(0, n, pairs)
+    adj = sp.csr_matrix((np.ones(pairs), (s, d)), shape=(n, n))
+    adj = adj + adj.T
+    adj.data[:] = 1.0
+    scipy.io.savemat(os.path.join(path, "penn94.mat"),
+                     {"A": adj, "local_info": info})
+    splits = _write_splits(path, "penn94", np.where(info[:, 1] > 0)[0], rs)
+    return {"adj": adj, "info": info, "splits": splits}
+
+
+def check_penn94(loaded, written) -> None:
+    """Edges: the symmetric pattern with one self-loop a node; features:
+    one 0/1 column for the two-valued column and k one-hot columns for a
+    k-valued one; labels gender - 1, and -1 on no node of the split."""
+    g, labels, itr, iva, ite = loaded
+    adj, info = written["adj"], written["info"]
+    cols = [info[:, 0]] + [info[:, j] for j in range(2, info.shape[1])]
+    widths = [1 if len(np.unique(col)) == 2 else len(np.unique(col))
+              for col in cols]
+    feat = g.ndata["feat"]
+    two = [col for col in cols if len(np.unique(col)) == 2]
+    row_sums = np.full(len(labels), len(cols) - len(two), np.float32) + sum(
+        (col == col.max()).astype(np.float32) for col in two)
+    split = written["splits"][0]
+    if (g.n_nodes != PENN94_NODES
+            or g.num_edges() != adj.nnz - int((adj.diagonal() != 0).sum())
+            + PENN94_NODES
+            or feat.shape != (PENN94_NODES, sum(widths))
+            or not np.array_equal(feat.sum(1), row_sums)
+            or not np.array_equal(labels, info[:, 1] - 1)
+            or not all(np.array_equal(a, split[k]) for a, k in zip(
+                (itr, iva, ite), ("train", "valid", "test")))
+            or (labels[np.concatenate([itr, iva, ite])] < 0).any()):
+        raise AssertionError("penn94: the loader's output differs from the "
+                             "file")
+    log(f"penn94: {feat.shape[1]:,} feature columns ({widths}), "
+        f"{int((labels < 0).sum()):,} unlabelled nodes (-1), none in a split")
+
+
+def write_pokec(path: str, rs) -> dict:
+    """pokec in .mat with a splits file, at a small size (POKEC_NODES
+    nodes, 65 features as the published file has); label -1 for 10% of the
+    nodes, the splits holding labelled nodes only."""
+    import scipy.io
+
+    n = POKEC_NODES
+    arrays = {"edge_index": rs.randint(0, n, (2, POKEC_EDGES)),
+              "node_feat": rs.randn(n, 65).astype(np.float32),
+              "label": np.where(rs.rand(n) < 0.1, -1,
+                                rs.randint(0, 2, n))[None]}
+    scipy.io.savemat(os.path.join(path, "pokec.mat"), arrays)
+    arrays["splits"] = _write_splits(path, "pokec",
+                                     np.where(arrays["label"][0] >= 0)[0], rs)
+    return arrays
+
+
+def check_pokec(loaded, written) -> None:
+    g, labels, itr, iva, ite = loaded
+    split = written["splits"][0]
+    if (not np.array_equal(g.ndata["feat"], written["node_feat"])
+            or not np.array_equal(labels, written["label"][0])
+            or int((g.src == g.dst).sum()) != POKEC_NODES
+            or not all(np.array_equal(a, split[k]) for a, k in zip(
+                (itr, iva, ite), ("train", "valid", "test")))):
+        raise AssertionError("pokec: the loader's output differs from the "
+                             "file")
+
+
+def write_house(path: str, rs) -> dict:
+    """house_class in the BGNN CSV form, small (HOUSE_NODES rows): an int
+    column, a float column with empty fields, a categorical string column
+    with empty fields, an int categorical column and a constant column;
+    5 classes; one split; random edges."""
+    n = HOUSE_NODES
+    d = os.path.join(path, "house_class")
+    os.makedirs(d)
+    cols = {"year": rs.randint(1900, 2020, n).astype(str),
+            "area": np.array([repr(float(v)) for v in rs.rand(n) * 300]),
+            "district": rs.choice(["north", "south", "east", "west"], n),
+            "rooms": rs.randint(1, 8, n).astype(str),
+            "flag": np.full(n, "1")}
+    cols["area"][rs.rand(n) < 0.1] = ""
+    cols["district"][rs.rand(n) < 0.1] = ""
+    with open(os.path.join(d, "X.csv"), "w") as f:
+        f.write(",".join(cols) + "\n")
+        for i in range(n):
+            f.write(",".join(col[i] for col in cols.values()) + "\n")
+    y = rs.randint(0, 5, n)
+    with open(os.path.join(d, "y.csv"), "w") as f:
+        f.write("class\n" + "".join(f"{v}\n" for v in y))
+    perm = rs.permutation(n)
+    masks = {"0": {"train": perm[: n // 2].tolist(),
+                   "val": perm[n // 2: 3 * n // 4].tolist(),
+                   "test": perm[3 * n // 4:].tolist()}}
+    with open(os.path.join(d, "masks.json"), "w") as f:
+        json.dump(masks, f)
+    with open(os.path.join(d, "cat_features.txt"), "w") as f:
+        f.write("district\nrooms\n")
+    np.savez(os.path.join(d, "graph.npz"), src=rs.randint(0, n, HOUSE_EDGES),
+             dst=rs.randint(0, n, HOUSE_EDGES))
+    return {"y": y, "masks": masks["0"]}
+
+
+def check_house(loaded, written) -> None:
+    g, labels, itr, iva, ite = loaded
+    feat = g.ndata["feat"]
+    if (feat.shape != (HOUSE_NODES, 5) or not np.isfinite(feat).all()
+            or not np.array_equal(labels, written["y"])
+            or not all(np.array_equal(a, written["masks"][k]) for a, k in zip(
+                (itr, iva, ite), ("train", "val", "test")))):
+        raise AssertionError("house_class: the loader's output differs from "
+                             "the files")
+
+
+def _load(name: str, data: str):
+    from glnn_tpu_torch.graph.datasets import load_data
+
+    return load_data(name, data, seed=0, labelrate_train=20,
+                     labelrate_val=30, split_idx=0)
+
+
+def _to_device(host, dev) -> tuple:
+    """HostGraph.to_device split in its two stages: (graph, build_graph
+    seconds, .to(device) seconds)."""
+    from glnn_tpu_torch.graph.container import build_graph
+
+    t0 = time.perf_counter()
+    cpu = build_graph(host.src, host.dst, host.n_nodes)
+    t1 = time.perf_counter()
+    g = cpu.to(dev)
+    torch.cuda.synchronize()
+    return g, t1 - t0, time.perf_counter() - t1
+
+
+def phase_dataset_files(data: str, dev, host, labels, card: str) -> dict:
+    """Write every family's file set, load each through load_data and hold
+    it against what was written, and build each device graph: host seconds
+    of each write, load_data, build_graph and .to(device), each beside the
+    card. Returns the ingest record and the products arrays (host graph,
+    labels, train ids) for the later timings."""
+    log(f"datasets: {shutil.disk_usage(data).free / 1e9:.1f} GB free under "
+        f"{data}")
+    rs = np.random.RandomState(DATA_SEED)
+    writers = {
+        "cora": (lambda: write_cora(data, rs), check_cora),
+        "ogbn-arxiv": (lambda: write_arxiv(data, rs, host, labels),
+                       lambda got, w: check_arxiv(got, w, host)),
+        "ogbn-products": (lambda: write_products(data, dev), check_products),
+        "penn94": (lambda: write_penn94(data, rs), check_penn94),
+        "pokec": (lambda: write_pokec(data, rs), check_pokec),
+        "house_class": (lambda: write_house(data, rs), check_house),
+    }
+    ingest, products = {}, None
+    for name, (write, check) in writers.items():
+        t0 = time.perf_counter()
+        written = write()
+        t1 = time.perf_counter()
+        loaded = _load(name, data)
+        t2 = time.perf_counter()
+        check(loaded, written)
+        del written
+        g, build_s, move_s = _to_device(loaded[0], dev)
+        rec = dict(write_s=t1 - t0, load_data_s=t2 - t1, build_graph_s=build_s,
+                   to_device_s=move_s, nodes=g.n_nodes, edges=g.n_edges,
+                   feats=int(loaded[0].ndata["feat"].shape[1]))
+        ingest[name] = rec
+        log(f"ingest {name}: N={g.n_nodes:,}, E={g.n_edges:,}, F="
+            f"{rec['feats']}: write {rec['write_s']:.2f} s, load_data "
+            f"{rec['load_data_s']:.2f} s, build_graph {build_s:.2f} s, "
+            f".to(device) {move_s:.2f} s (host seconds); {card}")
+        if name == "ogbn-products":
+            products = (loaded[0], loaded[1], loaded[2], g)
+        del g, loaded
+    bad = [m for m in sys.modules
+           if m.split(".")[0] in ("pandas", "sklearn", "ogb")]
+    if bad:
+        raise AssertionError(f"a loader imported {bad}")
+    log("datasets: every family loaded and held against its files, with no "
+        "pandas, sklearn or ogb module imported")
+    return ingest, products
+
+
+def check_products_spmm(spmm_cuda, g) -> dict:
+    """The exact tier at F = 100 on the products graph against
+    torch.sparse.mm of the bf16-rounded rows in f32 (the graph's repeated
+    pairs coalesced into counts) at rtol 1e-5 / atol 1e-4, and the times of
+    both beside the kernel's bytes bound. A plain gather would build a
+    49 GB [E, F] message here, so the library call holds the kernel."""
+    from glnn_tpu_torch.ops.cuda_build import row_ids
+
+    n, e, f = g.n_nodes, g.n_edges, PRODUCTS_FEATS
+    gen = torch.Generator(device=g.device).manual_seed(15)
+    xb = spmm_cuda.to_message(torch.randn((n, f), generator=gen,
+                                          device=g.device))
+    keys, _ = torch.sort(row_ids(g.indptr, n) * n + g.senders.long())
+    keys, mult = torch.unique_consecutive(keys, return_counts=True)
+    crow = torch.zeros(n + 1, dtype=torch.int64, device=g.device)
+    crow[1:] = torch.cumsum(torch.bincount(keys // n, minlength=n), 0)
+    adj = torch.sparse_csr_tensor(crow, keys % n, mult.float(), (n, n))
+    del keys, mult
+    lib_x = xb.float()
+    got = spmm_cuda.csr_sum_bf16(g.indptr, g.senders, xb, n)
+    want = torch.sparse.mm(adj, lib_x)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    err = (got - want).abs().max().item()
+    del got, want
+    kernel_ms = time_ms(lambda: spmm_cuda.csr_sum_bf16(g.indptr, g.senders,
+                                                       xb, n), iters=10)
+    lib_ms = time_ms(lambda: torch.sparse.mm(adj, lib_x), iters=10)
+    nbytes = n * f * 2 + 4 * (e + n + 1) + n * f * 4
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"check ogbn-products F={f}: exact kernel vs torch.sparse.mm max|err| "
+        f"{err:.3e} ({adj.values().numel():,} distinct pairs of {e:,} "
+        f"edges); time kernel {kernel_ms:.4f} ms, torch.sparse.mm "
+        f"{lib_ms:.4f} ms, bytes bound {bound:.4f} ms")
+    return dict(max_abs_err=err, ms=kernel_ms, library_ms=lib_ms,
+                bound_ms=bound, edges=e)
+
+
+def time_products(products, card: str) -> dict:
+    """One sampled SAGE epoch at the ogbn-products row (3 x 256, batch
+    norm, dropout 0.5, fan_out 5,10,15, batch 4096: 49 batches, the last
+    of 7 seeds) and one all-node exact eval of the same model, host clock
+    around each (ending in a synchronize), and the peak device memory."""
+    from glnn_tpu_torch.nn import Model
+    from glnn_tpu_torch.train import make_adam, make_eval_fn
+    from glnn_tpu_torch.train.sage_sampled import make_sage_sampled_epoch_fn
+
+    host, labels, idx_train, g = products
+    dev = g.device
+    feats = torch.as_tensor(host.ndata["feat"], device=dev)
+    labels = torch.as_tensor(labels, device=dev)
+    idx_train = torch.as_tensor(idx_train, device=dev)
+    model = Model(dict(model_name="SAGE", num_layers=3, hidden_dim=256,
+                       feat_dim=PRODUCTS_FEATS, label_dim=PRODUCTS_CLASSES,
+                       dropout_ratio=0.5, norm_type="batch"),
+                  torch.Generator().manual_seed(0)).to(dev)
+    epoch = make_sage_sampled_epoch_fn(
+        model, make_adam(model.parameters(), 0.003, 0.0), PRODUCTS_BATCH,
+        FANOUTS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss, _ = epoch(g, feats, labels, idx_train,
+                    torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = make_eval_fn(model, exact=True)(g, feats)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated()
+    if not math.isfinite(loss) or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"ogbn-products epoch loss {loss} or eval not "
+                             f"finite")
+    rec = dict(epoch_s=t1 - t0, exact_eval_s=t2 - t1, peak_bytes=peak,
+               batches=-(-idx_train.numel() // PRODUCTS_BATCH))
+    log(f"time ogbn-products: sampled SAGE epoch ({rec['batches']} batches "
+        f"of {PRODUCTS_BATCH}) {rec['epoch_s']:.3f} s, all-node exact eval "
+        f"{rec['exact_eval_s']:.3f} s, peak device memory "
+        f"{peak / 2 ** 30:.2f} GiB; {card}")
+    return rec
+
+
+def phase_datasets(cuda_build, spmm_cuda, gat_cuda, workdir: str, host,
+                   labels, dev, card: str) -> tuple:
+    """The datasets phase: files, loads and ingest times; the products
+    SpMM check and timings; then four paths through the CLIs with the
+    package's own train.conf.yaml: OGB arxiv SAGE, CPF cora GCN, NonHom
+    penn94 GCN (3 teacher epochs each) and OGB products SAGE (1 epoch),
+    each teacher then an MLP student, counts set to 0 before and read
+    after each path."""
+    data = os.path.join(workdir, "data")
+    os.makedirs(data)
+    ingest, products = phase_dataset_files(data, dev, host, labels, card)
+    ingest["ogbn-products"]["spmm_f100"] = check_products_spmm(
+        spmm_cuda, products[3])
+    ingest["ogbn-products"].update(time_products(products, card))
+    del products
+    torch.cuda.empty_cache()
+
+    modules = (cuda_build, spmm_cuda, gat_cuda)
+    out = os.path.join(workdir, "outputs")
+    sage = len(WIDTHS)      # the SAGE rows' three aggregations
+    gcn = 2                 # two GCN layers, each aggregating after W
+    paths = {}
+    for tag, name, teacher, epochs, shape, want in (
+            ("OGB arxiv SAGE", "ogbn-arxiv", "SAGE", TEACHER_EPOCHS,
+             (N_NODES, N_CLASSES),
+             {"spmm_csr_int8": sage * TEACHER_EPOCHS, "spmm_csr_bf16": sage}),
+            ("CPF cora GCN", "cora", "GCN", TEACHER_EPOCHS,
+             (CORA_LCC, CORA_CLASSES),
+             {"spmm_csr_bf16": gcn * (2 * TEACHER_EPOCHS + 1),
+              "spmm_csr_int8": gcn * TEACHER_EPOCHS}),
+            ("NonHom penn94 GCN", "penn94", "GCN", TEACHER_EPOCHS,
+             (PENN94_NODES, 2),
+             {"spmm_csr_bf16": gcn * (2 * TEACHER_EPOCHS + 1),
+              "spmm_csr_int8": gcn * TEACHER_EPOCHS}),
+            ("OGB products SAGE", "ogbn-products", "SAGE", 1,
+             (PRODUCTS_NODES, PRODUCTS_CLASSES),
+             {"spmm_csr_int8": sage, "spmm_csr_bf16": sage})):
+        common = ["--device", "0", "--dataset", name, "--data_path", data,
+                  "--eval_interval", "1", "--output_path", out]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        paths[tag] = drive_path(teacher, workdir, common, modules,
+                                dataset=name, shape=shape, epochs=epochs)
+        check_counts(tag, paths[tag], want)
+        peak = torch.cuda.max_memory_allocated()
+        log(f"{tag} path: {time.perf_counter() - t0:.2f} s, peak device "
+            f"memory {peak / 2 ** 30:.2f} GiB; {card}")
+        if name == "ogbn-products":
+            ingest[name]["cli_peak_bytes"] = peak
+        torch.cuda.empty_cache()
+    return paths, ingest
 
 
 def _row(name, ms, plain_ms, nbytes, ops, library_ms, launches, errs,
@@ -1675,6 +2232,20 @@ def phase_times_hub(spmm_cuda, gat_cuda, hub, kernels: list) -> None:
             row["hub_graph_ms"] = detail[row["name"]]
 
 
+@contextlib.contextmanager
+def data_workdir():
+    """A temporary directory with MIN_FREE_DISK bytes free for the dataset
+    files: under TMPDIR, else beside this script."""
+    for parent in (None, os.path.dirname(os.path.abspath(__file__))):
+        with tempfile.TemporaryDirectory(dir=parent) as workdir:
+            if shutil.disk_usage(workdir).free >= MIN_FREE_DISK:
+                yield workdir
+                return
+    raise AssertionError(f"no temporary directory has "
+                         f"{MIN_FREE_DISK / 1e9:.0f} GB free for the dataset "
+                         f"files")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1706,10 +2277,10 @@ def main() -> int:
         f"0-{len(HUB_DEGREES) - 1} "
         f"{hub.in_degrees[:len(HUB_DEGREES)].int().tolist()}, out-degrees "
         f"{hub.out_degrees[:len(HUB_DEGREES)].int().tolist()}")
-    errs, hub_errs = {}, {}
+    errs, hub_errs, width_errs = {}, {}, {"smoke": {}, "hub": {}}
     for tag, gr, into in (("smoke", g, errs), ("hub", hub, hub_errs)):
         log(f"checks on the {tag} graph")
-        into.update(phase_check(spmm_cuda, gr))
+        into.update(phase_check(spmm_cuda, gr, width_errs[tag]))
         into["spmm_csr_f32"] = phase_check_f32(spmm_cuda, refops, gr)
         into.update(phase_check_gat(gat_cuda, gr))
         phase_check_gat_layer(gat_cuda, gr)
@@ -1733,6 +2304,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as workdir:
         launches = phase_main_path(cuda_build, spmm_cuda, gat_cuda, workdir,
                                    host, g)
+    with data_workdir() as workdir:
+        dataset_paths, ingest = phase_datasets(
+            cuda_build, spmm_cuda, gat_cuda, workdir, host, labels, dev, smi)
+    launches.update(dataset_paths)
     launches["op_surface"] = op_surface
 
     kernels = (phase_times(spmm_cuda, g, launches, errs)
@@ -1745,6 +2320,11 @@ def main() -> int:
         row["hub_graph_max_abs_err"] = hub_errs[row["name"]]
         if row["name"] in bf16_errs:
             row["bf16_x_max_abs_err"] = bf16_errs[row["name"]]
+        if row["name"] in ("spmm_csr_bf16", "spmm_csr_int8"):
+            row["dataset_widths_max_abs_err"] = width_errs
+        if row["name"] == "spmm_csr_bf16":
+            row["ogbn_products_f100"] = ingest["ogbn-products"]["spmm_f100"]
+    log(f"ingest {json.dumps(ingest)}")
     tiers = phase_times_tiers(host, labels, idx_train, g, smi)
     log(f"tier times {json.dumps(tiers)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -5,6 +5,12 @@ soft labels (`glnn_tpu/cli/train_teacher.py`).
         --dataset synth-n512-c5-f32-d8-noise3.0 [--device -1]
     python -m glnn_tpu_torch.cli.train_teacher --teacher APPNP \
         --dataset synth-n512-c5-f32-d8-noise3.0 [--device -1]
+    python -m glnn_tpu_torch.cli.train_teacher --teacher SAGE \
+        --dataset ogbn-arxiv --data_path data [--device -1]
+
+Every dataset of `graph/datasets.py` loads from its files under
+--data_path: CPF npz (cora, ...), OGB `<name>.graph.npz`, NonHom `.mat`
+with fixed splits (--split_idx), BGNN CSVs; `synth-*` needs no file.
 
 SAGE trains on fanout-sampled minibatches (full-batch with
 --sage_sampling full; --sampler_tier window reads each node's aligned

@@ -1,19 +1,20 @@
 """Host-side graph: COO edges, node features and the edge surgery that
-ingest needs.
+ingest needs (`glnn_tpu/graph/host.py`).
 
-Counterpart of `glnn_tpu/graph/host.py`, reduced to what the ported
-datasets and the inductive split use. `to_bidirected` and
-`induced_subgraph` are local numpy copies of the fallbacks in
-`glnn_tpu/native/__init__.py` (:105-118, :147-150), which give the same
-edge order as the native library (to_bidirected sorts by the key
-src * n + dst; induced_subgraph keeps the edges' order).
+`to_bidirected`, `induced_subgraph`, `coo_to_csr` and
+`connected_components` are local numpy and scipy copies of the fallbacks
+in `glnn_tpu/native/__init__.py`, which give the same arrays as the native
+library there (to_bidirected sorts by the key src * n + dst;
+induced_subgraph keeps the edges' order; coo_to_csr is a stable sort by
+row). The port has no binding to that library.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import scipy.sparse as sp
 
-from glnn_tpu_torch.graph.container import Graph, build_graph
+from glnn_tpu_torch.graph.container import Graph, _csr, build_graph
 
 
 def to_bidirected(src, dst, n: int):
@@ -38,6 +39,24 @@ def induced_subgraph(src, dst, n: int, idx):
     return new_id[src[keep]], new_id[dst[keep]]
 
 
+def coo_to_csr(src, dst, n: int):
+    """(indptr, indices) of the rows `src`, each row's entries in edge
+    order."""
+    order, indptr = _csr(np.asarray(src, np.int64), n)
+    return indptr, np.asarray(dst, np.int64)[order]
+
+
+def connected_components(src, dst, n: int):
+    """(count, int64 component label per node) of the weakly connected
+    components."""
+    src = np.asarray(src, np.int64)
+    dst = np.asarray(dst, np.int64)
+    adj = sp.csr_matrix((np.ones(len(src), np.int8), (src, dst)),
+                        shape=(n, n))
+    k, comp = sp.csgraph.connected_components(adj, directed=False)
+    return int(k), comp.astype(np.int64)
+
+
 class HostGraph:
     """COO edges plus `ndata` node features (the reference's `g`)."""
 
@@ -46,6 +65,9 @@ class HostGraph:
         self.dst = np.asarray(dst, np.int64)
         self.n_nodes = int(n_nodes)
         self.ndata: dict[str, np.ndarray] = {}
+
+    def num_nodes(self) -> int:
+        return self.n_nodes
 
     def number_of_nodes(self) -> int:
         return self.n_nodes
@@ -56,14 +78,30 @@ class HostGraph:
     def number_of_edges(self) -> int:
         return self.num_edges()
 
+    def in_degrees(self) -> np.ndarray:
+        return np.bincount(self.dst, minlength=self.n_nodes)
+
+    def out_degrees(self) -> np.ndarray:
+        return np.bincount(self.src, minlength=self.n_nodes)
+
     def _with_edges(self, src, dst) -> "HostGraph":
         g = HostGraph(src, dst, self.n_nodes)
         g.ndata = dict(self.ndata)
         return g
 
+    def add_reverse_edges(self) -> "HostGraph":
+        """Append a reversed copy of every edge, duplicates kept (ogbn-arxiv's
+        `g.add_edges(dsts, srcs)`)."""
+        return self._with_edges(np.concatenate([self.src, self.dst]),
+                                np.concatenate([self.dst, self.src]))
+
     def to_bidirected(self) -> "HostGraph":
         return self._with_edges(*to_bidirected(self.src, self.dst,
                                                self.n_nodes))
+
+    def remove_self_loop(self) -> "HostGraph":
+        keep = self.src != self.dst
+        return self._with_edges(self.src[keep], self.dst[keep])
 
     def add_self_loop(self) -> "HostGraph":
         loops = np.arange(self.n_nodes, dtype=np.int64)
@@ -79,8 +117,49 @@ class HostGraph:
         g.ndata = {k: v[idx] for k, v in self.ndata.items()}
         return g
 
+    def csr(self) -> tuple[np.ndarray, np.ndarray]:
+        """Out-adjacency (indptr, indices): the nodes reachable from v."""
+        return coo_to_csr(self.src, self.dst, self.n_nodes)
+
+    def csc(self) -> tuple[np.ndarray, np.ndarray]:
+        """In-adjacency (indptr, indices): the in-neighbours of v."""
+        return coo_to_csr(self.dst, self.src, self.n_nodes)
+
+    def adj_scipy(self) -> sp.csr_matrix:
+        return sp.csr_matrix(
+            (np.ones(self.num_edges(), np.float32), (self.src, self.dst)),
+            shape=(self.n_nodes, self.n_nodes),
+        )
+
     def to_device(self, device, window_table: bool = False) -> Graph:
         """The device graph; `window_table` marks it as carrying the aligned
         window table (--sampler_tier window on a sampled SAGE teacher)."""
         g = build_graph(self.src, self.dst, self.n_nodes).to(device)
         return g.with_window_table() if window_table else g
+
+
+def largest_connected_component(g: HostGraph) -> np.ndarray:
+    """Node ids of the largest weakly connected component."""
+    n_comp, labels = connected_components(g.src, g.dst, g.n_nodes)
+    if n_comp == 1:
+        return np.arange(g.n_nodes)
+    return np.where(labels == np.bincount(labels).argmax())[0]
+
+
+def rcm_ordering(g: HostGraph) -> np.ndarray:
+    """Reverse Cuthill-McKee node permutation (scipy's), a relabelling that
+    gathers the edges near the diagonal."""
+    perm = sp.csgraph.reverse_cuthill_mckee(g.adj_scipy(),
+                                            symmetric_mode=False)
+    return np.asarray(perm, np.int64)
+
+
+def reorder_nodes(g: HostGraph, order) -> HostGraph:
+    """Relabel the nodes so that new id i is old id order[i]; `ndata`
+    follows."""
+    order = np.asarray(order, np.int64)
+    new_id = np.empty(g.n_nodes, np.int64)
+    new_id[order] = np.arange(g.n_nodes)
+    out = HostGraph(new_id[g.src], new_id[g.dst], g.n_nodes)
+    out.ndata = {k: v[order] for k, v in g.ndata.items()}
+    return out

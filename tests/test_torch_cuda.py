@@ -119,6 +119,27 @@ def test_gradient_matches_plain_backward(cuda):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
 
 
+@pytest.mark.parametrize("hub", [False, True])
+@pytest.mark.parametrize("f", [100, 7, 2])
+def test_dataset_widths_match_plain(cuda, f, hub):
+    """The widths the dataset paths give the SpMM (SAGE layer 1 on
+    ogbn-products, GCN layer 2 on cora and on penn94), each with its own
+    lane layout: both tiers' forward, and the backward through both
+    autograd.Functions, on a random and on a hub graph."""
+    if hub:
+        g, zero_rows = _hub_graph(HUB_NODES, 6000, f, cuda), slice(0, 1)
+    else:
+        g, zero_rows = _graph(500, 6000, f, cuda, hub_free=20), slice(0, 20)
+    _spmm_matches_plain(g, f, zero_rows)
+    x = torch.randn((g.n_nodes, f), device=cuda, requires_grad=True)
+    dh = torch.randn((g.n_nodes, f), device=cuda)
+    want = spmm_cuda.plain_csr_sum_bf16(
+        g.t_indptr, g.t_receivers, spmm_cuda.to_message(dh), g.n_nodes)
+    for op in (spmm_cuda.copy_u_sum, spmm_cuda.copy_u_sum_int8):
+        (got,) = torch.autograd.grad(op(g, x), x, dh)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
 def test_launch_counters_and_no_plain_calls(cuda):
     g = _graph(300, 2000, 4, cuda)
     x = torch.randn((g.n_nodes, 32), device=cuda)

@@ -92,10 +92,18 @@ def test_graph_to_keeps_fields():
 
 @pytest.mark.parametrize("name", ["cora", "ogbn-arxiv", "penn94",
                                   "vk_class"])
-def test_unported_loaders_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_data(name, "./data", seed=0, labelrate_train=20,
-                  labelrate_val=30, split_idx=0)
+def test_unported_loaders_raise(name, tmp_path, monkeypatch):
+    """Every family is ported: without its files, each loader raises what
+    glnn_tpu's raises (ValueError for CPF and OGB, FileNotFoundError for
+    NonHom and BGNN), naming the missing file."""
+    from glnn_tpu.graph.datasets import load_data as jax_load_data
+
+    monkeypatch.chdir(tmp_path)
+    kw = dict(seed=0, labelrate_train=20, labelrate_val=30, split_idx=0)
+    with pytest.raises((ValueError, FileNotFoundError)) as want:
+        jax_load_data(name, "./data", **kw)
+    with pytest.raises(want.type, match=name):
+        load_data(name, "./data", **kw)
 
 
 def test_config_precedence_and_synth_fallback(tmp_path):
