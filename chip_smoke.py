@@ -120,6 +120,26 @@ Phases, each fatal on failure:
      every other kernel exactly 0 on the GCN, APPNP, SAGE ind, feature
      aug and window bf16 paths; no plain version may run on a CUDA tensor, and each out.npz
      must hold finite [169343, 40] log-probs;
+  4c. the distributed phase (--n_shards): N_SHARDS = 4 ranks share the
+     card over gloo (GLNN_SHARE_DEVICE=1), each asserted to run on cuda:0.
+     The smoke graph, relabelled by label-propagation communities as the
+     teacher CLI relabels it, in 4 halo shards: on every rank the exact
+     kernel's local and halo partials and both transposes against the plain
+     version at F = 128 and 256 (rtol 1e-5 / atol 1e-4), each part and the
+     halo exchange timed per rank, and the gathered halo_copy_u_sum
+     against the single-device kernel sum; a rectangular hub case (42,336
+     rows over a 60,000-row buffer, rows of up to 20,000 edges) at F = 40.
+     Then through the CLIs with --n_shards 4: SAGE (sampled,
+     data-parallel; its evals on the halo graph) with --save_results and
+     its data-parallel MLP student, GCN tran and GCN ind; each out.npz
+     checked, the launches summed over the ranks (the `launches` line of
+     the run's log; each rank is a fresh process, its counts 0 at the
+     start) exactly 4 ranks x 2 partials x layers x (2 x steps + graphs x
+     (evals + 1)) spmm_csr_bf16 (SAGE 96, GCN 160, GCN ind 224; the
+     student and the int8 tier 0), no plain version on CUDA; the SAGE
+     teacher's out.npz against the single-device kernel eval of its saved
+     weights (rtol 1e-4 / atol 1e-4); the data-parallel epoch's seconds
+     beside phase 6's single-process epoch;
   4b. the datasets phase, in a temporary directory with 6 GB free (under
      TMPDIR, else beside this script): a file set per family at its
      published shape, synthetic contents from DATA_SEED (cora in the CPF
@@ -179,6 +199,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import logging
 import math
 import os
 import shutil
@@ -1200,6 +1221,275 @@ def phase_main_path(cuda_build, spmm_cuda, gat_cuda, workdir: str, host,
         "spmm_csr_bf16": len(WIDTHS)})
     check_window_bf16(wdir)
     return paths
+
+
+# ---------------------------------------------------------------------------
+# Phase 4c: --n_shards 4, four ranks sharing the card over gloo. The
+# per-shard kernel checks and times, then the sharded paths through the
+# CLIs; each path's launches are summed over its ranks (fresh processes,
+# every count 0 at their start) in the run's log.
+# ---------------------------------------------------------------------------
+
+N_SHARDS = 4
+DIST_WIDTHS = (128, 256)     # F of the per-shard checks (SAGE's layers)
+HALO_HUB = (0, 1, 33, 1000, 20000)   # in-degrees of the hub case's rows
+
+
+def dist_rank_checks(mesh, payload) -> dict | None:
+    """On each rank: the exact kernel's local and halo partials and both
+    transposes against the plain version at DIST_WIDTHS, each part timed
+    (the exchange with every rank in step); the gathered halo_copy_u_sum
+    against the single-device kernel sum on rank 0. Rank 0 returns every
+    rank's numbers."""
+    from glnn_tpu_torch.distributed import mesh as dmesh
+    from glnn_tpu_torch.distributed.halo import halo_copy_u_sum
+    from glnn_tpu_torch.ops import spmm_cuda
+
+    started = time.time()
+    dev = mesh.device
+    hg = payload["shard"].to(dev)
+    mine = {"rank": mesh.rank, "backend": mesh.backend, "device": str(dev),
+            "started": started,
+            "rows": hg.rows, "local_edges": int(hg.indices.shape[0]),
+            "halo_edges": int(hg.halo_indices.shape[0]),
+            "halo_rows": hg.n_recv, "max_abs_err": 0.0, "ms": {}}
+    for f in DIST_WIDTHS:
+        gen = torch.Generator(device=dev).manual_seed(f)
+        x_all = torch.randn((hg.n_pad, f), generator=gen, device=dev)
+        x = x_all[mesh.rank * hg.rows:(mesh.rank + 1) * hg.rows].contiguous()
+        dout = spmm_cuda.to_message(torch.randn((hg.rows, f), generator=gen,
+                                                device=dev))
+        send = x.index_select(0, hg.send_idx)
+
+        def exchange():
+            return dmesh.all_to_all(send, hg.send_splits, hg.recv_splits)
+
+        recv = spmm_cuda.to_message(exchange())
+        xb = spmm_cuda.to_message(x)
+        parts = {"local": (hg.indptr, hg.indices, xb, hg.rows),
+                 "halo": (hg.halo_indptr, hg.halo_indices, recv, hg.rows),
+                 "local transpose": (hg.t_indptr, hg.t_indices, dout,
+                                     hg.rows),
+                 "halo transpose": (hg.halo_t_indptr, hg.halo_t_indices,
+                                    dout, hg.n_recv)}
+        for part, args in parts.items():
+            got = spmm_cuda.csr_sum_bf16(*args)
+            want = spmm_cuda.plain_csr_sum_bf16(*args)
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+            err = (got - want).abs().max().item() if got.numel() else 0.0
+            mine["max_abs_err"] = max(mine["max_abs_err"], err)
+            mine["ms"][f"{part} F={f}"] = time_ms(
+                lambda a=args: spmm_cuda.csr_sum_bf16(*a))
+        torch.distributed.barrier()
+        mine["ms"][f"exchange F={f}"] = time_ms(exchange)
+        out = dmesh.all_gather_rows(halo_copy_u_sum(hg, x))[:hg.n_nodes]
+        if mesh.rank == 0:
+            g = payload["graph"].to(dev)
+            want = spmm_cuda.copy_u_sum(g, x_all[:hg.n_nodes])
+            torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-4)
+            mine[f"gathered vs single-device F={f}"] = (
+                out - want).abs().max().item()
+        del x_all, out
+    places = [None] * mesh.size
+    torch.distributed.all_gather_object(places, mine)
+    return places if mesh.rank == 0 else None
+
+
+def check_rect_hub(spmm_cuda, dev) -> float:
+    """A halo-shaped CSR: 42,336 dst rows (a shard) over a receive buffer of
+    60,000 rows, the first rows with HALO_HUB in-edges, at F = 40."""
+    rs = np.random.RandomState(DATA_SEED)
+    n_rows, n_src, k = 42336, 60000, len(HALO_HUB)
+    rows = np.concatenate([np.repeat(np.arange(k), HALO_HUB),
+                           rs.randint(k, n_rows, 600000)])
+    rows.sort(kind="stable")
+    indptr = np.zeros(n_rows + 1, np.int64)
+    np.cumsum(np.bincount(rows, minlength=n_rows), out=indptr[1:])
+    indptr = torch.as_tensor(indptr.astype(np.int32), device=dev)
+    cols = torch.as_tensor(rs.randint(0, n_src, rows.shape[0]).astype(
+        np.int32), device=dev)
+    xb = spmm_cuda.to_message(torch.randn((n_src, 40), device=dev))
+    got = spmm_cuda.csr_sum_bf16(indptr, cols, xb, n_rows)
+    want = spmm_cuda.plain_csr_sum_bf16(indptr, cols, xb, n_rows)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    err = (got - want).abs().max().item()
+    log(f"check rectangular hub CSR ({n_rows} rows over {n_src}, rows of "
+        f"{HALO_HUB} edges) F=40: exact kernel vs plain max|err| {err:.3e}")
+    return err
+
+
+def phase_dist_checks(spmm_cuda, host, dev, card: str,
+                      device: str = "cuda:0") -> dict:
+    """The relabelled smoke graph in N_SHARDS shards, the checks on 4 ranks
+    sharing the card (each rank on `device`), and the rectangular hub
+    case."""
+    from glnn_tpu_torch.cli.sharded import locality_relabel
+    from glnn_tpu_torch.distributed import mesh as dmesh
+    from glnn_tpu_torch.distributed.halo import build_halo_graph
+
+    t0 = time.perf_counter()
+    quiet = logging.getLogger("chip_smoke.relabel")
+    relabelled = locality_relabel(host, np.zeros((host.num_nodes(), 1)),
+                                  np.zeros(host.num_nodes()), (), N_SHARDS,
+                                  quiet)[0]
+    shards = build_halo_graph(relabelled.src, relabelled.dst,
+                              relabelled.num_nodes(), N_SHARDS)
+    frac = sum(s.halo_indices.shape[0] for s in shards) / host.num_edges()
+    log(f"distributed: relabel and halo sets {time.perf_counter() - t0:.2f} "
+        f"host s; halo edge fraction {frac:.4f} at P={N_SHARDS}")
+    graph = relabelled.to_device("cpu")
+    payloads = [{"shard": s, "graph": graph if r == 0 else None}
+                for r, s in enumerate(shards)]
+    launched = time.time()
+    ranks = dmesh.launch(dist_rank_checks, payloads, 0, timeout=600)
+    log(f"distributed: {N_SHARDS} ranks reached their function "
+        + ", ".join(f"{r['started'] - launched:.2f}" for r in ranks)
+        + f" s after the launch (host clock); {card}")
+    for r in ranks:
+        if (r["backend"], r["device"]) != ("gloo", device):
+            raise AssertionError(f"rank {r['rank']} ran on {r['backend']} "
+                                 f"{r['device']}")
+        log(f"rank {r['rank']}: {r['backend']} on {r['device']}; "
+            f"{r['rows']} rows, {r['local_edges']} local and "
+            f"{r['halo_edges']} halo edges, {r['halo_rows']} halo rows "
+            f"({r['halo_rows'] * 4 * WIDTHS[0] / 1e6:.2f} MB at F = 128 f32 "
+            f"a layer); max|err| {r['max_abs_err']:.3e}; ms "
+            + ", ".join(f"{k} {v:.4f}" for k, v in r["ms"].items())
+            + f"; {card}")
+    for f in DIST_WIDTHS:
+        log(f"gathered halo_copy_u_sum vs single-device kernel F={f}: "
+            f"max|err| {ranks[0][f'gathered vs single-device F={f}']:.3e}")
+    return {"halo_edge_fraction": frac, "ranks": ranks,
+            "rect_hub_f40": check_rect_hub(spmm_cuda, dev), "card": card}
+
+
+def sharded_counts(tag: str, log_path: str, device: str) -> dict:
+    """The run's log: every rank on `device` over gloo, and its launches
+    line (summed over the ranks)."""
+    with open(log_path) as f:
+        text = f.read()
+    for r in range(N_SHARDS):
+        want = f"rank {r} of {N_SHARDS}: backend gloo, device {device}"
+        if want not in text:
+            raise AssertionError(f"the {tag} log lacks {want!r}")
+    lines = [line for line in text.splitlines() if ": launches {" in line]
+    if len(lines) != 1:
+        raise AssertionError(f"the {tag} log has {len(lines)} launches lines")
+    for line in text.splitlines():
+        if any(k in line for k in ("halo graph", "halo observed",
+                                   "relabel", "mean epoch time")):
+            log(f"  {tag} log: {line.split(': ', 1)[1].strip()}")
+    return json.loads(lines[0].split("launches ", 1)[1])
+
+
+def drive_sharded(tag, workdir, common, model, extra=(), sub="transductive",
+                  student=False, device="cuda:0") -> tuple:
+    """One CLI run with --n_shards N_SHARDS (the teacher, or with `student`
+    an MLP student of the teacher `model`): its score line, out.npz and the
+    summed launches from its log; returns (counts, seconds)."""
+    from glnn_tpu_torch.cli import train_student, train_teacher
+
+    name = f"{model}_MLP" if student else model
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        if student:
+            train_student.main(common + [
+                "--teacher", model, "--student", "MLP", "--max_epoch",
+                str(STUDENT_EPOCHS), "--n_shards", str(N_SHARDS),
+                "--out_t_path", os.path.join(workdir, "outputs"), *extra])
+        else:
+            train_teacher.main(common + [
+                "--teacher", model, "--max_epoch", str(TEACHER_EPOCHS),
+                "--n_shards", str(N_SHARDS), *extra])
+    seconds = time.perf_counter() - t0
+    score = printed.getvalue().strip()
+    print(score)
+    n_scores = 2 if "ind" in extra else 1
+    if (len(score.split()) != n_scores
+            or not all(math.isfinite(float(s)) for s in score.split())):
+        raise AssertionError(f"{tag} printed no line of {n_scores} finite "
+                             f"scores: {score!r}")
+    path = run_dir(workdir, sub, name, DATASET)
+    check_out(os.path.join(path, "out.npz"), tag, (N_NODES, N_CLASSES))
+    counts = sharded_counts(tag, os.path.join(path, "log"), device)
+    log(f"{tag} path: {seconds:.2f} s; launches summed over the ranks "
+        f"{counts}")
+    if counts["plain_on_cuda"]:
+        raise AssertionError(f"{counts['plain_on_cuda']} plain-version calls "
+                             f"on CUDA tensors on the {tag} path")
+    return counts, seconds
+
+
+def check_sharded_eval(workdir: str, cfg: str, host, g) -> float:
+    """The sharded SAGE teacher's out.npz (its halo all-node exact eval, in
+    the original node order) against the single-device kernel eval of its
+    saved weights on the original graph: the same bf16 messages, summed in
+    another order and through three layers (rtol 1e-4 / atol 1e-4)."""
+    from glnn_tpu_torch.cli import train_teacher
+    from glnn_tpu_torch.nn import Model
+    from glnn_tpu_torch.train import make_eval_fn
+    from glnn_tpu_torch.utils import get_training_config, load_model
+    from glnn_tpu_torch.utils.config import merge_args_with_config
+
+    path = run_dir(workdir, "transductive", "SAGE", DATASET)
+    conf = merge_args_with_config(
+        dict(vars(train_teacher.get_args([])), feat_dim=WIDTHS[0],
+             label_dim=N_CLASSES),
+        get_training_config(cfg, "SAGE", DATASET))
+    model = Model(conf).to(g.device)
+    model.load_state_dict(load_model(os.path.join(path, "model.ckpt")))
+    feats = torch.as_tensor(host.ndata["feat"], device=g.device)
+    got = make_eval_fn(model, exact=True)(g, feats).cpu().numpy()
+    want = np.load(os.path.join(path, "out.npz"))["arr_0"]
+    np.testing.assert_allclose(want, got, rtol=1e-4, atol=1e-4,
+                               err_msg="sharded SAGE eval vs single-device")
+    err = float(np.abs(want - got).max())
+    log(f"sharded SAGE teacher: its halo eval (out.npz) vs the single-device "
+        f"kernel eval of model.ckpt max|err| {err:.3e}, argmax equal on "
+        f"{(want.argmax(1) == got.argmax(1)).mean():.4%} of rows")
+    return err
+
+
+def sharded_launches(evals: int, graphs: int, steps: int, layers: int) -> int:
+    """spmm_csr_bf16 launches summed over the ranks of a halo path: two
+    partials a layer on every rank, forward in each training step and eval
+    (`evals` intermediate evals and the final one, on `graphs` graphs), the
+    two transposes in each step's backward."""
+    return N_SHARDS * 2 * layers * (2 * steps + graphs * (evals + 1))
+
+
+def phase_dist_paths(workdir: str, cfg: str, host, g, common: list,
+                     on_card: bool = True) -> dict:
+    """SAGE (sampled, data-parallel; its evals on the halo graph) with
+    --save_results then the data-parallel MLP student, tran; GCN (halo)
+    tran and ind. The launches summed over the ranks exactly as worked out
+    from the code (all 0 off the card, where the plain versions run)."""
+    device = "cuda:0" if on_card else "cpu"
+    ind = ["--exp_setting", "ind", "--split_rate", str(SPLIT_RATE)]
+    sub = f"inductive/split_rate_{SPLIT_RATE}"
+    runs = {}
+    for tag, model, extra, sub_, student, want in (
+            ("SAGE n_shards 4", "SAGE", ["--save_results"], "transductive",
+             False, sharded_launches(TEACHER_EPOCHS, 1, 0, len(WIDTHS))),
+            ("SAGE MLP n_shards 4", "SAGE", [], "transductive", True, 0),
+            ("GCN n_shards 4", "GCN", [], "transductive", False,
+             sharded_launches(TEACHER_EPOCHS, 1, TEACHER_EPOCHS,
+                              len(GCN_WIDTHS))),
+            ("GCN ind n_shards 4", "GCN", ind, sub, False,
+             sharded_launches(TEACHER_EPOCHS, 2, TEACHER_EPOCHS,
+                              len(GCN_WIDTHS)))):
+        counts, seconds = drive_sharded(tag, workdir, common, model, extra,
+                                        sub_, student, device)
+        check_counts(tag, counts, {"spmm_csr_bf16": want if on_card else 0})
+        runs[tag] = {"counts": counts, "seconds": seconds}
+    runs["sharded_eval_max_abs_err"] = check_sharded_eval(workdir, cfg, host,
+                                                          g)
+    with open(os.path.join(run_dir(workdir, "transductive", "SAGE", DATASET),
+                           "log")) as f:
+        epoch = [line for line in f if "mean epoch time" in line]
+    runs["sage_epoch"] = epoch[0].split(": ", 1)[1].strip()
+    return runs
 
 
 # ---------------------------------------------------------------------------
@@ -2304,6 +2594,22 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as workdir:
         launches = phase_main_path(cuda_build, spmm_cuda, gat_cuda, workdir,
                                    host, g)
+    # the sharded paths: N_SHARDS ranks on this one card, over gloo
+    from glnn_tpu_torch.distributed import mesh as dmesh
+
+    os.environ[dmesh.SHARE_DEVICE_ENV] = "1"
+    dist = phase_dist_checks(spmm_cuda, host, dev, smi)
+    errs["spmm_csr_bf16"] = max(errs["spmm_csr_bf16"], dist["rect_hub_f40"],
+                                *(r["max_abs_err"] for r in dist["ranks"]))
+    with tempfile.TemporaryDirectory() as workdir:
+        cfg = os.path.join(workdir, "arxiv.conf.yaml")
+        _config_yaml(cfg)
+        dist["paths"] = phase_dist_paths(workdir, cfg, host, g,
+                                         common_args(cfg, workdir))
+    for tag, run in dist["paths"].items():
+        if isinstance(run, dict):
+            launches[tag] = run["counts"]
+    torch.cuda.empty_cache()
     with data_workdir() as workdir:
         dataset_paths, ingest = phase_datasets(
             cuda_build, spmm_cuda, gat_cuda, workdir, host, labels, dev, smi)
@@ -2327,6 +2633,11 @@ def main() -> int:
     log(f"ingest {json.dumps(ingest)}")
     tiers = phase_times_tiers(host, labels, idx_train, g, smi)
     log(f"tier times {json.dumps(tiers)}")
+    log(f"sampled SAGE epoch: data-parallel on {N_SHARDS} ranks "
+        f"{dist['paths']['sage_epoch']} (3 epochs of the CLI run); single "
+        f"process floyd/float32 {tiers['sage_epoch_s']['floyd/float32']} s; "
+        f"{smi}")
+    log(f"distributed {json.dumps(dist)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -8,6 +8,8 @@ Layering mirrors glnn_tpu (bottom-up):
   sampling/  fanout neighbour sampling (Floyd tier, concat blocks)
   train/     sampled-SAGE and MLP epochs, eval, transductive runners
   utils/     seeding, config, splits, logging
+  distributed/ --n_shards: partitioners, the process group and its
+             collectives, the halo-sharded graph, data-parallel sampling
   cli/       train_teacher / train_student entry points
 It imports neither jax nor glnn_tpu.
 """

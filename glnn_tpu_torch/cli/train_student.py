@@ -10,7 +10,8 @@ distill_run_transductive, or distill_run_inductive with the soft labels of
 the observed nodes only (--exp_setting ind, --split_rate). Default --lamb 0
 is pure distillation (the hard-label pass still runs, scaled to zero). The
 student is graph-free: the graph is built on the device only for
---feature_aug_k and --compute_min_cut (tran).
+--feature_aug_k and --compute_min_cut (tran). --n_shards N > 1 trains it
+data-parallel on N ranks (cli/sharded.py).
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import copy
 import numpy as np
 import torch
 
+from glnn_tpu_torch.cli import sharded
 from glnn_tpu_torch.cli.common import (
     add_common_args,
     add_feature_noise,
@@ -129,29 +131,32 @@ def run(args):
              else None)
     if args.exp_setting == "tran":
         idx_t = np.concatenate([idx_train, idx_val, idx_test])
+        indices = (idx_train, idx_t, idx_val, idx_test)
         if args.feature_aug_k > 0:
             feats = propagate_features(feats, args.feature_aug_k, graph)
-        out, score_val, score_test = distill_run_transductive(
-            conf, model, feats, labels, out_t,
-            (idx_train, idx_t, idx_val, idx_test), optimizer, logger,
-            loss_and_score, device, state_out)
-        score_lst = [score_test]
+        runner = distill_run_transductive
     else:   # "ind" (teacher_output_dir rejected any other setting)
         obs_idx_train, obs_idx_val, obs_idx_test, idx_obs, idx_test_ind = (
             graph_split(idx_train, idx_val, idx_test, args.split_rate,
                         args.seed))
         obs_idx_t = np.concatenate([obs_idx_train, obs_idx_val, obs_idx_test])
+        indices = (obs_idx_train, obs_idx_t, obs_idx_val, obs_idx_test,
+                   idx_obs, idx_test_ind)
         if args.feature_aug_k > 0:
             feats = propagate_features(
                 feats, args.feature_aug_k, graph,
                 g.subgraph(idx_obs).to_device(device), idx_obs)
-        out, score_val, score_test_tran, score_test_ind = (
-            distill_run_inductive(
-                conf, model, feats, labels, out_t,
-                (obs_idx_train, obs_idx_t, obs_idx_val, obs_idx_test, idx_obs,
-                 idx_test_ind), optimizer, logger, loss_and_score, device,
-                state_out))
-        score_lst = [score_test_tran, score_test_ind]
+        runner = distill_run_inductive
+    if int(conf.get("n_shards") or 1) > 1:
+        score_lst, out = sharded.run_student(args, conf, model, feats, labels,
+                                             out_t, indices, logger,
+                                             output_dir)
+        if min_cut:
+            append_min_cut(output_dir, graph, out)
+        return score_lst
+    out, _, *score_lst = runner(conf, model, feats, labels, out_t, indices,
+                                optimizer, logger, loss_and_score, device,
+                                state_out)
 
     logger.info(
         f"num_layers: {conf['num_layers']}. hidden_dim: "

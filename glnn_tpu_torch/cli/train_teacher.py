@@ -23,7 +23,9 @@ propagation (--feature_aug_k) -> run_transductive, or run_inductive on the
 observed subgraph (--exp_setting ind, --split_rate) -> `out.npz` all-node
 log-probs (+ --save_results curves and checkpoint, + --compute_min_cut in
 tran); `--num_exp` aggregates mean/std into `exp_results`. Runs on
-cuda:<--device>, or on the CPU with --device -1.
+cuda:<--device>, or on the CPU with --device -1. --n_shards N > 1 runs N
+ranks (cli/sharded.py): GCN and full-batch SAGE halo-sharded, sampled SAGE
+and MLP data-parallel.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ import argparse
 import numpy as np
 import torch
 
+from glnn_tpu_torch.cli import sharded
 from glnn_tpu_torch.cli.common import (
     add_common_args,
     add_feature_noise,
@@ -109,6 +112,10 @@ def run(args):
     logger.info(f"conf: { {k: v for k, v in conf.items() if k != 'output_dir'} }")
 
     model = Model(conf, gen=torch.Generator().manual_seed(args.seed)).to(device)
+    if int(conf.get("n_shards") or 1) > 1:
+        return sharded.run_teacher(args, conf, model, g, feats, labels,
+                                   (idx_train, idx_val, idx_test), logger,
+                                   output_dir, device)
     optimizer = make_adam(model.parameters(), conf["learning_rate"],
                           conf["weight_decay"])
     # an MLP teacher needs the graph only to propagate features or for the

@@ -6,7 +6,8 @@
   dense product run in it while the parameters stay f32 (`linear`).
 * BatchNorm1d: torch.nn.BatchNorm1d semantics plus a row mask, which
   torch's module does not take (ghost rows of sampled frontiers must not
-  enter the statistics).
+  enter the statistics); with `group_sum` set (the sharded paths), the
+  batch statistics are taken over the rows of every rank.
 * GraphConv: norm='both', D^-1/2 A D^-1/2 X W + b with degrees clamped
   >= 1, optional activation; W is applied before the aggregation when
   in_dim > out_dim, after it otherwise (the same math, fewer flops).
@@ -16,12 +17,17 @@
 * appnp_propagate: k hops of h <- (1 - alpha) D^-1/2 A_drop D^-1/2 h
   + alpha h0, with per-edge dropout (zero, or 1 / (1 - p)) in training.
 * LayerNorm1d: torch.nn.LayerNorm over the feature axis.
-* dropout: inverted dropout whose mask comes from an explicit generator.
+* dropout: inverted dropout whose mask comes from an explicit generator;
+  inside `global_rows(total, lo)` (a sharded forward over rows lo.. of a
+  batch of `total` rows) it draws the whole batch's mask and keeps this
+  rank's rows, so every rank draws alike and the ranks' masks together
+  are the single-device mask.
 * linear: an nn.Linear in a compute dtype, as flax's Dense(dtype=...).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
@@ -34,11 +40,30 @@ from glnn_tpu_torch.graph.container import Graph
 from glnn_tpu_torch.nn import initializers as gi
 
 
+_GLOBAL_ROWS = None     # (total, lo) inside `global_rows`
+
+
+@contextlib.contextmanager
+def global_rows(total: int, lo: int):
+    """Forwards inside run on rows lo.. of a batch of `total` rows."""
+    global _GLOBAL_ROWS
+    old, _GLOBAL_ROWS = _GLOBAL_ROWS, (int(total), int(lo))
+    try:
+        yield
+    finally:
+        _GLOBAL_ROWS = old
+
+
 def dropout(h: torch.Tensor, p: float, training: bool,
             gen: torch.Generator | None = None) -> torch.Tensor:
     if not training or p == 0.0:
         return h
-    keep = torch.rand(h.shape, generator=gen, device=h.device) >= p
+    if _GLOBAL_ROWS is None:
+        keep = torch.rand(h.shape, generator=gen, device=h.device) >= p
+    else:
+        total, lo = _GLOBAL_ROWS
+        keep = (torch.rand((total,) + tuple(h.shape[1:]), generator=gen,
+                           device=h.device) >= p)[lo:lo + h.shape[0]]
     return h * keep.to(h.dtype) / (1.0 - p)
 
 
@@ -75,7 +100,7 @@ class SAGEConvGCN(nn.Module):
     def forward(self, data, x: torch.Tensor) -> torch.Tensor:
         if self.dtype is not None:
             x = x.to(self.dtype)
-        if isinstance(data, Graph):
+        if not isinstance(data, dict):          # a Graph or a HaloGraph
             neigh = ops.copy_u_sum(data, x)
             h = (neigh + x) / (data.in_degrees[:, None] + 1.0)
         else:
@@ -171,7 +196,14 @@ class GATConv(nn.Module):
 class BatchNorm1d(nn.Module):
     """Biased batch variance to normalise, UNBIASED variance into the
     running average, momentum 0.1, eps 1e-5; statistics in f32. With `mask`,
-    only the rows where it is true enter the statistics."""
+    only the rows where it is true enter the statistics. `group_sum`, when
+    set, is a differentiable sum over the ranks (`mesh.all_reduce_sum`):
+    the count, the mean and the variance are then those of every rank's
+    rows together (the halo path's n_pad rows, the data-parallel MLP's
+    global batch), as the single-device forward takes them, up to
+    rounding."""
+
+    group_sum = None
 
     def __init__(self, dim: int, momentum: float = 0.1, eps: float = 1e-5):
         super().__init__()
@@ -188,7 +220,9 @@ class BatchNorm1d(nn.Module):
         if not self.training:
             mean, var = self.running_mean, self.running_var
         else:
-            if mask is None:
+            if self.group_sum is not None:
+                n, mean, var = self._group_stats(xs, mask)
+            elif mask is None:
                 n = torch.tensor(float(x.shape[0]), device=x.device)
                 mean = xs.mean(dim=0)
                 var = (xs - mean).square().mean(dim=0)
@@ -204,6 +238,23 @@ class BatchNorm1d(nn.Module):
                 self.running_var.mul_(1 - m).add_(m * unbiased)
         out = (xs - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
         return out.to(x.dtype)
+
+    def _group_stats(self, xs, mask):
+        """(count, mean, biased variance) over the rows of every rank, from
+        one sum over the ranks of each rank's row count, sums and sums of
+        squares, in f64: E[x^2] - E[x]^2 keeps f32's precision there, and
+        the forward and the backward each take one collective."""
+        f = xs.shape[1]
+        w = (torch.ones_like(xs[:, :1]) if mask is None
+             else mask.float()[:, None]).double()
+        xd = xs.double() * w
+        tot = self.group_sum(torch.cat([xd.sum(dim=0),
+                                        (xd * xs.double()).sum(dim=0),
+                                        w.sum(dim=0)]))
+        n = tot[-1].clamp(min=1.0)
+        mean = tot[:f] / n
+        var = (tot[f:2 * f] / n - mean.square()).clamp(min=0.0)
+        return n.float(), mean.float(), var.float()
 
 
 class LayerNorm1d(nn.Module):

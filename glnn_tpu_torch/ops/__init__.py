@@ -16,6 +16,12 @@ Tiers, by the names `set_backend` keeps for flag parity with the JAX CLI:
 On a CPU tensor the kernel tiers run their plain versions; on a CUDA
 tensor they launch the kernel or raise, also for shapes outside a
 kernel's contract.
+
+On a HaloGraph (one shard of a halo-sharded graph, distributed/halo.py)
+`copy_u_sum` runs `halo_copy_u_sum`: the exact kernel tier wherever the
+kernel tier applies, also inside `inference_mode()` (JAX's halo path never
+takes int8), else the f32 plain sums. The weighted sum, the edge ops and
+the GAT attention have no halo form yet and raise.
 """
 
 from __future__ import annotations
@@ -87,7 +93,23 @@ def _unweighted_tier() -> str:
     return "bf16"
 
 
+def _halo(g, op: str) -> bool:
+    """Is g a HaloGraph? Raises for an op that has no halo form yet."""
+    if not getattr(g, "is_halo", False):
+        return False
+    if op != "copy_u_sum":
+        raise NotImplementedError(
+            f"{op} on a halo-sharded graph is not ported to glnn_tpu_torch "
+            f"yet (ROADMAP queue A item 6, its next slice: the halo weighted "
+            f"sum, edge softmax and GAT attention)")
+    return True
+
+
 def copy_u_sum(g, x: torch.Tensor) -> torch.Tensor:
+    if _halo(g, "copy_u_sum"):
+        from glnn_tpu_torch.distributed.halo import halo_copy_u_sum
+
+        return halo_copy_u_sum(g, x, kernel=_tier_selected(x.device))
     if x.dim() == 2 and _tier_selected(x.device):
         if _unweighted_tier() == "int8":
             return spmm_cuda.copy_u_sum_int8(g, x)
@@ -102,11 +124,13 @@ def copy_u_mean(g, x: torch.Tensor) -> torch.Tensor:
 
 def u_add_v(g, a_u: torch.Tensor, a_v: torch.Tensor) -> torch.Tensor:
     """Per-edge a_u[src] + a_v[dst]; plain torch on every tier, as in JAX."""
+    _halo(g, "u_add_v")
     return _ref.u_add_v(g, a_u, a_v)
 
 
 def edge_softmax(g, scores: torch.Tensor) -> torch.Tensor:
     """Softmax over each dst's in-edges of scores [E] or [E, H]."""
+    _halo(g, "edge_softmax")
     if scores.dim() in (1, 2) and _tier_selected(scores.device):
         return gat_cuda.edge_softmax(g, scores)
     if _kernel_only(scores):
@@ -120,6 +144,7 @@ def u_mul_e_sum(g, x: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
     """h_v = sum_u e_uv x_u: x [N, F] with e [E], or x [N, H, D] with
     per-head e [E, H]. The kernel tier rounds each message to bf16 under
     both kernel backends, as JAX keeps the weighted sum on its bf16 tier."""
+    _halo(g, "u_mul_e_sum")
     if ((x.dim() == 2 and e.dim() == 1) or (x.dim() == 3 and e.dim() == 2)) \
             and _tier_selected(x.device):
         return spmm_cuda.u_mul_e_sum(g, x, e)
@@ -150,6 +175,7 @@ def gat_attention(g, feat: torch.Tensor, attn_l: torch.Tensor,
     kernel tier this is the fused attention (bf16 features, f32 softmax and
     sums), whose kernels generate the bits themselves; otherwise the f32
     composition of the plain ops."""
+    _halo(g, "gat_attention")
     seed = None
     inv_keep = 1.0 / (1.0 - drop_rate)
     if drop_rate > 0.0:

@@ -24,6 +24,9 @@
   taken by `idx_obs`. The returned all-node log-probs merge the two:
   `out = out_all; out[idx_obs] = obs_out`. Rows of `loss_and_score` have 9
   fields (7 transductive).
+* Sharded: called inside a rank of `distributed.mesh.launch` (--n_shards),
+  each runner hands over to its counterpart in `distributed/runners.py`,
+  which every rank runs on its shard.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ import numpy as np
 import torch
 
 from glnn_tpu_torch import ops
+from glnn_tpu_torch.distributed import mesh as _mesh
 from glnn_tpu_torch.train.losses import (
     accuracy,
     kl_div_batchmean_log_target,
@@ -245,12 +249,29 @@ def _teacher_epoch_fn(conf, model, optimizer, logger, g, feats, labels,
     return lambda epoch: float(step_fn(g, feats, labels, idx_train, gen))
 
 
+def _runners():
+    """The sharded runners, inside a rank; None outside every rank."""
+    if _mesh.current() is None:
+        return None
+    from glnn_tpu_torch.distributed import runners
+
+    return runners
+
+
 def run_transductive(conf, model, g, feats, labels, indices, optimizer,
-                     logger, loss_and_score, device, state_out=None):
+                     logger, loss_and_score, device, state_out=None,
+                     g_struct=None):
     """Teacher training, transductive: an MLP, a sampled-SAGE or a
     full-batch GNN (GCN, GAT, APPNP, full SAGE) teacher on `device`. Returns
     (out, score_val, score_test) with `out` the all-node log-probs (numpy)
-    from the best checkpoint."""
+    from the best checkpoint. Inside a rank: g is the rank's HaloGraph,
+    feats its row block, and g_struct the structure Graph of a sampled
+    SAGE teacher."""
+    sharded = _runners()
+    if sharded:
+        return sharded.run_transductive(
+            conf, model, g, feats, labels, indices, optimizer, logger,
+            loss_and_score, device, state_out, g_struct)
     feats, labels = _tensors(device, np.asarray(feats, np.float32), labels)
     idx_train, idx_val, idx_test = _tensors(device, *indices)
     gen = torch.Generator(device=device).manual_seed(int(conf["seed"]))
@@ -283,13 +304,21 @@ def run_transductive(conf, model, g, feats, labels, indices, optimizer,
 
 
 def run_inductive(conf, model, g, obs_g, feats, labels, indices, optimizer,
-                  logger, loss_and_score, device, state_out=None):
+                  logger, loss_and_score, device, state_out=None,
+                  g_struct=None, obs_feats=None):
     """Teacher training, inductive: trains on the observed subgraph `obs_g`
     (node i is global node idx_obs[i]) and evaluates on it and on the full
     `g`. `indices` = (obs_idx_train, obs_idx_val, obs_idx_test, idx_obs,
     idx_test_ind), as `graph_split` gives them. Returns (out, score_val,
     score_test_tran, score_test_ind) with `out` the merged all-node
-    log-probs (numpy)."""
+    log-probs (numpy). Inside a rank: g and obs_g are the rank's HaloGraphs,
+    feats and obs_feats its row blocks of the full and observed features,
+    g_struct the observed structure Graph of a sampled SAGE teacher."""
+    sharded = _runners()
+    if sharded:
+        return sharded.run_inductive(
+            conf, model, g, obs_g, feats, labels, indices, optimizer, logger,
+            loss_and_score, device, state_out, g_struct, obs_feats)
     feats, labels = _tensors(device, np.asarray(feats, np.float32), labels)
     (obs_idx_train, obs_idx_val, obs_idx_test, idx_obs,
      idx_test_ind) = _tensors(device, *indices)
@@ -354,7 +383,13 @@ def distill_run_transductive(conf, model, feats, labels, out_t_all,
                              loss_and_score, device, state_out=None):
     """GLNN distillation, transductive: per epoch a hard-label pass on idx_l
     scaled by lamb, then a teacher log-prob pass on idx_t scaled by
-    1 - lamb. Returns (out, score_val, score_test)."""
+    1 - lamb. Returns (out, score_val, score_test). Inside a rank, feats and
+    out_t_all are the rank's row blocks."""
+    sharded = _runners()
+    if sharded:
+        return sharded.distill_run_transductive(
+            conf, model, feats, labels, out_t_all, distill_indices, optimizer,
+            logger, loss_and_score, device, state_out)
     feats, labels, out_t_all = _tensors(
         device, np.asarray(feats, np.float32), labels,
         np.asarray(out_t_all, np.float32))
@@ -388,7 +423,13 @@ def distill_run_inductive(conf, model, feats, labels, out_t_all,
     train + val + test only. `distill_indices` = (obs_idx_l, obs_idx_t,
     obs_idx_val, obs_idx_test, idx_obs, idx_test_ind). One eval on all
     features; the obs rows are taken by idx_obs. Returns (out, score_val,
-    score_test_tran, score_test_ind)."""
+    score_test_tran, score_test_ind). Inside a rank, feats and out_t_all
+    are the rank's row blocks."""
+    sharded = _runners()
+    if sharded:
+        return sharded.distill_run_inductive(
+            conf, model, feats, labels, out_t_all, distill_indices, optimizer,
+            logger, loss_and_score, device, state_out)
     feats, labels, out_t_all = _tensors(
         device, np.asarray(feats, np.float32), labels,
         np.asarray(out_t_all, np.float32))

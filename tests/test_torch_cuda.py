@@ -567,3 +567,69 @@ def test_bf16_sage_full_graph_eval_on_cuda_close_to_cpu(cuda):
     got = got.cpu()
     assert (got - want).abs().max() <= 3e-2 * want.abs().max()
     assert (got.argmax(1) == want.argmax(1)).float().mean() >= 0.99
+
+
+def _rect_csr(n_rows, n_src, e, degrees, seed, device):
+    """int32 CSR of n_rows rows over a source table of n_src rows: the first
+    rows have in-degrees `degrees`, the other e edges fall on the rest."""
+    rs = np.random.RandomState(seed)
+    k = len(degrees)
+    rows = np.concatenate([np.repeat(np.arange(k), degrees),
+                           rs.randint(k, n_rows, e)])
+    rows.sort(kind="stable")
+    cols = rs.randint(0, n_src, rows.shape[0])
+    indptr = np.zeros(n_rows + 1, np.int64)
+    np.cumsum(np.bincount(rows, minlength=n_rows), out=indptr[1:])
+    return (torch.from_numpy(indptr.astype(np.int32)).to(device),
+            torch.from_numpy(cols.astype(np.int32)).to(device))
+
+
+@pytest.mark.parametrize("f", [40, 128, 256])
+@pytest.mark.parametrize("n_rows,n_src", [(3000, 50000), (25000, 700)])
+def test_exact_kernel_on_rectangular_csr(cuda, f, n_rows, n_src):
+    """A halo partial: n_rows dst rows over a source table of another height
+    (a receive buffer), with rows of 1,000 and 20,000 edges."""
+    indptr, cols = _rect_csr(n_rows, n_src, 8000, (0, 1, 33, 1000, 20000),
+                             f, cuda)
+    xb = torch.randn((n_src, f), device=cuda).to(torch.bfloat16)
+    got = spmm_cuda.csr_sum_bf16(indptr, cols, xb, n_rows)
+    want = spmm_cuda.plain_csr_sum_bf16(indptr, cols, xb, n_rows)
+    assert got.shape == (n_rows, f)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+def test_halo_copy_u_sum_one_shard_runs_the_kernel(cuda, tmp_path):
+    """P = 1 (a process group of one): the halo sum and its gradient on the
+    exact kernel equal the single-device exact tier's, with no plain
+    version on CUDA."""
+    import torch.distributed as dist
+
+    from glnn_tpu_torch.distributed.halo import (build_halo_graph,
+                                                 halo_copy_u_sum)
+
+    rs = np.random.RandomState(4)
+    n, e, f = 3000, 40000, 128
+    src, dst = rs.randint(0, n, e), rs.randint(0, n, e)
+    hg = build_halo_graph(src, dst, n, 1)[0].to(cuda)
+    g = build_graph(src, dst, n).to(cuda)
+    x = torch.randn((n, f), device=cuda, requires_grad=True)
+    co = torch.randn((n, f), device=cuda)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rdv",
+                            world_size=1, rank=0)
+    try:
+        cuda_build.reset_counts()
+        spmm_cuda.reset_counts()
+        out = halo_copy_u_sum(hg, x)
+        (out * co).sum().backward()
+        # the local and the (edge-free) halo partial, and the local
+        # transpose: a receive buffer of no rows takes no call
+        assert spmm_cuda.counts["spmm_csr_bf16"] == 3
+        assert cuda_build.counts["plain_on_cuda"] == 0
+    finally:
+        dist.destroy_process_group()
+    grad = x.grad.clone()
+    x.grad = None
+    want = spmm_cuda.copy_u_sum(g, x)
+    (want * co).sum().backward()
+    torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(grad, x.grad, rtol=1e-5, atol=1e-4)
