@@ -127,19 +127,37 @@ Phases, each fatal on failure:
      kernel's local and halo partials and both transposes against the plain
      version at F = 128 and 256 (rtol 1e-5 / atol 1e-4), each part and the
      halo exchange timed per rank, and the gathered halo_copy_u_sum
-     against the single-device kernel sum; a rectangular hub case (42,336
+     against the single-device kernel sum; per rank, the per-edge halo ops
+     over the shard's combined CSR against their plain versions: the fused
+     halo GAT layer at both GAT shapes in seed mode (attention dropout
+     0.3, the shard's edge_base), forward at rtol 1e-4 / atol 1e-4 x max,
+     one backward (dfeat at 1e-2 x max, dattn_l / dattn_r at 1e-4), the
+     halo softmax on [E_p, 8] and [E_p, 1] (phase 2's bounds), the halo
+     weighted sum scalar at F = 40 with APPNP's {0, 2} weights and per
+     head at (8, 16) (forward, dX, dW at rtol 1e-5 / atol 1e-4 x max), the
+     per-op halo GAT layer against the fused one at phase 3's bound with
+     its launches summed over the ranks (2 x 4 edge_softmax_fwd and _bwd,
+     4 x 4 spmm_csr_weighted), the gathered fused layer against the
+     single-device gat_cuda.gat_attention with the same seed (rtol 1e-4 /
+     atol 1e-4 x max), and the exchanges against the kernels of one halo
+     GAT layer and one APPNP hop, timed; a rectangular hub case (42,336
      rows over a 60,000-row buffer, rows of up to 20,000 edges) at F = 40.
      Then through the CLIs with --n_shards 4: SAGE (sampled,
      data-parallel; its evals on the halo graph) with --save_results and
-     its data-parallel MLP student, GCN tran and GCN ind; each out.npz
-     checked, the launches summed over the ranks (the `launches` line of
-     the run's log; each rank is a fresh process, its counts 0 at the
-     start) exactly 4 ranks x 2 partials x layers x (2 x steps + graphs x
-     (evals + 1)) spmm_csr_bf16 (SAGE 96, GCN 160, GCN ind 224; the
-     student and the int8 tier 0), no plain version on CUDA; the SAGE
-     teacher's out.npz against the single-device kernel eval of its saved
-     weights (rtol 1e-4 / atol 1e-4); the data-parallel epoch's seconds
-     beside phase 6's single-process epoch;
+     its data-parallel MLP student, GCN tran and GCN ind, GAT tran (the
+     published row) with --save_results, APPNP tran and ind (the synth
+     row); each out.npz checked, the launches summed over the ranks (the
+     `launches` line of the run's log; each rank is a fresh process, its
+     counts 0 at the start) exactly as predicted: 4 ranks x 2 partials x
+     layers x (2 x steps + graphs x (evals + 1)) spmm_csr_bf16 (SAGE 96,
+     GCN 160, GCN ind 224; the student and the int8 tier 0); GAT
+     gat_prep and gat_fwd 4 x 2 x (3 + 4) = 56, gat_bwd, its source
+     reduce (spmm_csr_bf16) and the seed-mode counts 4 x 2 x 3 = 24;
+     APPNP spmm_csr_weighted 4 x 10 hops x 2 x 3 = 240 and spmm_csr_bf16
+     4 x 2 x 10 x 4 = 320 (ind: 640); no plain version on CUDA; the SAGE
+     and GAT teachers' out.npz against the single-device kernel eval of
+     their saved weights (rtol 1e-4 / atol 1e-4); the data-parallel and
+     halo epochs' seconds beside the single-process ones;
   4b. the datasets phase, in a temporary directory with 6 GB free (under
      TMPDIR, else beside this script): a file set per family at its
      published shape, synthetic contents from DATA_SEED (cora in the CPF
@@ -991,6 +1009,9 @@ def check_out(path: str, tag: str, shape=(N_NODES, N_CLASSES)) -> np.ndarray:
     return out
 
 
+EPOCH_LINES = {}    # path tag -> its teacher's "mean epoch time" line
+
+
 def drive_path(teacher: str, workdir: str, common: list, modules,
                extra=(), sub="transductive", names=None, dataset=DATASET,
                shape=(N_NODES, N_CLASSES), epochs=TEACHER_EPOCHS) -> dict:
@@ -1029,6 +1050,8 @@ def drive_path(teacher: str, workdir: str, common: list, modules,
                 if any(k in line for k in ("mean epoch time", "Best valid",
                                            "Observed graph")):
                     log(f"  {model} log: {line.split(': ', 1)[1].strip()}")
+                if model == names[0] and "mean epoch time" in line:
+                    EPOCH_LINES[tag] = line.split(": ", 1)[1].strip()
 
     n_scores = 2 if "ind" in extra else 1
     for model, text in zip(names, printed):
@@ -1290,9 +1313,270 @@ def dist_rank_checks(mesh, payload) -> dict | None:
             mine[f"gathered vs single-device F={f}"] = (
                 out - want).abs().max().item()
         del x_all, out
+    halo_attention_checks(mesh, hg, payload, mine)
     places = [None] * mesh.size
     torch.distributed.all_gather_object(places, mine)
     return places if mesh.rank == 0 else None
+
+
+def _exchange_back(hg, dsrc):
+    """dsrc [rows + n_recv, ...] -> [rows, ...]: the receive rows' part sent
+    home and added at the send rows (the halo ops' reverse exchange)."""
+    from glnn_tpu_torch.distributed import mesh as dmesh
+
+    rows = hg.rows
+    back = dmesh.all_to_all(dsrc[rows:].contiguous(), hg.recv_splits,
+                            hg.send_splits)
+    return dsrc[:rows].clone().index_add_(0, hg.send_idx, back)
+
+
+def halo_plain_wsum(hg, x, w, dout):
+    """(out, dX, dW) of the halo weighted sum through the plain versions:
+    the exchange, plain_csr_wsum_bf16 over the combined CSR and over its
+    transpose, the reverse exchange, dW = <src, dH[dst]> in f32."""
+    from glnn_tpu_torch.distributed.halo import source_table
+    from glnn_tpu_torch.ops import spmm_cuda
+
+    rows, n_src = hg.rows, hg.rows + hg.n_recv
+    heads = 1 if w.dim() == 1 else w.shape[1]
+    src = source_table(hg, x).reshape(n_src, -1)
+    d2 = dout.reshape(rows, -1)
+    out = spmm_cuda.plain_csr_wsum_bf16(hg.c_indptr, hg.c_indices, None,
+                                        src, w, rows)
+    dsrc = spmm_cuda.plain_csr_wsum_bf16(hg.c_t_indptr, hg.c_t_dst,
+                                         hg.c_t_edges, d2, w, n_src)
+    e = hg.n_edges
+    dw = (src[hg.c_indices.long()].view(e, heads, -1)
+          * d2[hg.c_dst.long()].view(e, heads, -1)).sum(-1)
+    return (out.view(x.shape), _exchange_back(hg, dsrc).view(x.shape),
+            dw.view(w.shape))
+
+
+def halo_plain_gat(hg, feat, al, ar, seed, dout):
+    """(out, dfeat, dattn_l, dattn_r) of the fused halo GAT layer through
+    the plain versions of gat_fwd, gat_bwd and the source reduce, from the
+    same gat_prep outputs as the layer (phase 2 holds gat_prep itself; a
+    plain prep's er may round to the neighbouring bf16 value and move a
+    score): the exchange of the bf16 features and el, plain_gat_fwd /
+    plain_gat_bwd with philox_keep's mask at the shard's edge_base, the
+    message summed over the sources, the reverse exchange."""
+    from glnn_tpu_torch.distributed.halo import source_table
+    from glnn_tpu_torch.ops import gat_cuda
+
+    rows, (_, h, d) = hg.rows, feat.shape
+    inv_keep = 1.0 / (1.0 - ATTN_DROP)
+    feat_b, el, er_b, al_b = gat_cuda.prep(feat, al, ar)
+    src_b = source_table(hg, feat_b.view(rows, -1)).view(-1, h, d)
+    keep = gat_cuda.philox_keep(seed, hg.n_edges, h, 1.0 - ATTN_DROP,
+                                hg.edge_base)
+    args = (hg.c_indptr, hg.c_indices, src_b, source_table(hg, el), er_b,
+            keep, inv_keep, 0.2)
+    out, smax, denom = gat_cuda.plain_gat_fwd(*args)
+    der, msg, dal = gat_cuda.plain_gat_bwd(*args, smax, denom, dout, al_b)
+    dsrc = torch.zeros((src_b.shape[0], h, d), device=feat.device).index_add_(
+        0, hg.c_indices, msg.float())
+    dfeat = _exchange_back(hg, dsrc) + der[:, :, None] * ar[None]
+    return out, dfeat, dal, torch.einsum("nh,nhd->hd", der, feat)
+
+
+def halo_attention_checks(mesh, hg, payload, mine) -> None:
+    """On each rank, the per-edge halo ops against their plain versions on
+    the card: the fused halo GAT layer at both GAT shapes in seed mode
+    (forward and one backward), the halo softmax on [E_p, 8] and [E_p, 1],
+    the halo weighted sum scalar at F = 40 with APPNP's {0, 2} weights and
+    per head at (8, 16) (forward, dX, dW); the per-op halo GAT layer
+    against the fused one, its launches counted; the gathered fused layer
+    against the single-device layer with the same seed on rank 0; and the
+    exchange against the kernels of one halo GAT layer and one APPNP hop,
+    timed."""
+    from glnn_tpu_torch import ops
+    from glnn_tpu_torch.distributed import mesh as dmesh
+    from glnn_tpu_torch.distributed.halo import (halo_edge_softmax,
+                                                 halo_gat_attention,
+                                                 halo_u_mul_e_sum)
+    from glnn_tpu_torch.ops import cuda_build, gat_cuda, spmm_cuda
+
+    dev, rows, r = mesh.device, hg.rows, mesh.rank
+    e_p = hg.n_edges
+    inv_keep = 1.0 / (1.0 - ATTN_DROP)
+    errs = mine.setdefault("halo_errs", {})
+
+    def note(name, err):
+        errs[name] = max(errs.get(name, 0.0), err)
+
+    def mine_of(t):
+        return t[r * rows:(r + 1) * rows].contiguous()
+
+    mine["edges"] = e_p
+    # the fused halo GAT layer, seed mode, against the plain chain
+    layers = {}
+    for h, d in GAT_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(300 + h * d)
+        feat_all = torch.randn((hg.n_pad, h, d), generator=gen, device=dev)
+        al, ar = (0.3 * torch.randn((h, d), generator=gen, device=dev)
+                  for _ in range(2))
+        seed = torch.randint(2 ** 63 - 1, (1,), dtype=torch.int64,
+                             generator=gen, device=dev)
+        dout = mine_of(torch.randn((hg.n_pad, h, d), generator=gen,
+                                   device=dev))
+        feat = mine_of(feat_all)
+        leaves = [t.clone().requires_grad_(True) for t in (feat, al, ar)]
+        out = halo_gat_attention(hg, *leaves, 0.2, seed, inv_keep)
+        out.backward(dout)
+        want = halo_plain_gat(hg, feat, al, ar, seed, dout)
+        torch.cuda.synchronize()
+        tag = f"halo GAT ({h}, {d})"
+        note("gat_fwd", _held(f"{tag} out", out, want[0], 1e-4, 1e-4))
+        note("gat_bwd dfeat", _held(f"{tag} dfeat", leaves[0].grad, want[1],
+                                    1e-2, 1e-2))
+        note("gat_bwd dattn", max(
+            _held(f"{tag} dattn_l", leaves[1].grad, want[2], 1e-4, 1e-4),
+            _held(f"{tag} dattn_r", leaves[2].grad, want[3], 1e-4, 1e-4)))
+        layers[(h, d)] = (feat, al, ar, seed, dout, out.detach())
+        # the gathered layer against the single-device layer, same seed
+        got = dmesh.all_gather_rows(out.detach())[:hg.n_nodes]
+        if r == 0:
+            g = payload["graph"].to(dev)
+            single = gat_cuda.gat_attention(g, feat_all[:hg.n_nodes], al, ar,
+                                            0.2, seed, inv_keep)
+            torch.cuda.synchronize()
+            mine[f"gathered GAT ({h}, {d}) vs single-device"] = _held(
+                f"{tag} gathered vs single-device", got, single, 1e-4, 1e-4)
+            del g, single
+        del leaves, want, got, feat_all
+    # the segment softmax over the shard's rows
+    for h in (8, 1):
+        gen = torch.Generator(device=dev).manual_seed(400 + h + r)
+        s = (3 * torch.randn((e_p, h), generator=gen, device=dev)
+             ).requires_grad_(True)
+        da = torch.randn((e_p, h), generator=gen, device=dev)
+        alpha = halo_edge_softmax(hg, s, kernel=True)
+        alpha.backward(da)
+        w_alpha = gat_cuda.plain_edge_softmax_fwd(hg.c_indptr, s.detach(),
+                                                  rows)
+        w_ds = gat_cuda.plain_edge_softmax_bwd(hg.c_indptr, w_alpha, da, rows)
+        torch.cuda.synchronize()
+        note("edge_softmax_fwd", _held(f"halo softmax [E_p, {h}]", alpha,
+                                       w_alpha, 1e-5, 1e-6))
+        note("edge_softmax_bwd", _held(f"halo softmax grad [E_p, {h}]",
+                                       s.grad, w_ds, 1e-4, 1e-6))
+    # the weighted sum: APPNP's hop and the per-head GAT shape
+    gen = torch.Generator(device=dev).manual_seed(500)
+    wcases = (("F=40 keep weights {0, 2}",
+               torch.randn((hg.n_pad, APPNP_F), generator=gen, device=dev),
+               None),
+              ("(8, 16) softmax-like weights",
+               torch.randn((hg.n_pad, 8, 16), generator=gen, device=dev), 8))
+    for tag, x_all, heads in wcases:
+        wgen = torch.Generator(device=dev).manual_seed(600 + r)
+        if heads is None:
+            w = (torch.rand(e_p, generator=wgen, device=dev)
+                 >= EDGE_DROP).float() / (1.0 - EDGE_DROP)
+        else:
+            w = torch.rand((e_p, heads), generator=wgen, device=dev) / 8
+        x = mine_of(x_all)
+        dout = torch.randn_like(x)
+        leaves = [t.clone().requires_grad_(True) for t in (x, w)]
+        out = halo_u_mul_e_sum(hg, *leaves, kernel=True)
+        out.backward(dout)
+        want = halo_plain_wsum(hg, x, w, dout)
+        torch.cuda.synchronize()
+        note("spmm_csr_weighted", max(
+            _held(f"halo wsum {tag} out", out, want[0], 1e-5, 1e-4),
+            _held(f"halo wsum {tag} dX", leaves[0].grad, want[1], 1e-5, 1e-4),
+            _held(f"halo wsum {tag} dW", leaves[1].grad, want[2], 1e-5,
+                  1e-4)))
+        del leaves, want, x_all
+    # the per-op halo GAT layer (the only caller of the softmax kernels on
+    # a shard), counts set to 0 before and read after, against the fused
+    modules = (cuda_build, spmm_cuda, gat_cuda)
+    inputs = [(feat, al, ar, gat_cuda.philox_keep(
+        seed, e_p, h, 1.0 - ATTN_DROP, hg.edge_base), dout, fused)
+        for (h, _), (feat, al, ar, seed, dout, fused) in layers.items()]
+    torch.distributed.barrier()
+    for module in modules:
+        module.reset_counts()
+    outs = []
+    for feat, al, ar, keep, dout, _ in inputs:
+        leaves = [t.clone().requires_grad_(True) for t in (feat, al, ar)]
+        out = per_op_layer(ops, hg, *leaves, keep, ops.edge_softmax,
+                           ops.u_mul_e_sum)
+        out.backward(dout)
+        outs.append(out.detach())
+    torch.cuda.synchronize()
+    mine["per_op_counts"] = {k: v for m in modules
+                             for k, v in m.counts.items()}
+    for (feat, *_, fused), out in zip(inputs, outs):
+        note("per-op vs fused", _held(
+            f"halo per-op layer {tuple(feat.shape[1:])} vs fused", out,
+            fused, 2e-2, 1e-2))
+    del inputs, outs, layers
+    mine["ms"].update(halo_layer_times(hg, mesh))
+
+
+def halo_layer_times(hg, mesh) -> dict:
+    """Per rank: the exchange against the kernels of one halo GAT layer at
+    (8, 16) (forward and backward) and of one APPNP hop at F = 40 (forward
+    and dX), each timed alone with every rank in step."""
+    from glnn_tpu_torch.distributed import mesh as dmesh
+    from glnn_tpu_torch.distributed.halo import source_table
+    from glnn_tpu_torch.ops import gat_cuda, spmm_cuda
+
+    dev, rows, n_src = mesh.device, hg.rows, hg.rows + hg.n_recv
+    gen = torch.Generator(device=dev).manual_seed(700)
+    h, d = GAT_SHAPES[0]
+    feat = torch.randn((rows, h, d), generator=gen, device=dev)
+    al, ar = (0.3 * torch.randn((h, d), generator=gen, device=dev)
+              for _ in range(2))
+    seed = torch.randint(2 ** 63 - 1, (1,), dtype=torch.int64, generator=gen,
+                         device=dev)
+    inv_keep = 1.0 / (1.0 - ATTN_DROP)
+    feat_b, el, er_b, al_b = gat_cuda.prep(feat, al, ar)
+    packed = torch.cat([feat_b.view(rows, -1), el.view(torch.bfloat16)], 1)
+    send = packed.index_select(0, hg.send_idx)
+    fwd = (hg.c_indptr, hg.c_indices,
+           source_table(hg, feat_b.view(rows, -1)).view(-1, h, d),
+           source_table(hg, el), er_b, seed, inv_keep, 0.2)
+    _, smax, denom = gat_cuda.gat_fwd(*fwd, edge_base=hg.edge_base)
+    dout = torch.randn((rows, h, d), generator=gen, device=dev)
+    _, msg, _ = gat_cuda.gat_bwd(*fwd, smax, denom, dout, al_b,
+                                 hg.edge_base)
+    dsrc = spmm_cuda.csr_sum_bf16(hg.c_t_indptr, hg.c_t_edges,
+                                  msg.view(-1, h * d), n_src)
+    x = torch.randn((rows, APPNP_F), generator=gen, device=dev)
+    w = (torch.rand(hg.n_edges, generator=gen, device=dev) >= EDGE_DROP
+         ).float() * 2
+    xsrc = source_table(hg, x)
+    dh = torch.randn((rows, APPNP_F), generator=gen, device=dev)
+    kernels = {
+        "GAT (8, 16) gat_prep": lambda: gat_cuda.prep(feat, al, ar),
+        "GAT (8, 16) gat_fwd": lambda: gat_cuda.gat_fwd(
+            *fwd, edge_base=hg.edge_base),
+        "GAT (8, 16) gat_bwd": lambda: gat_cuda.gat_bwd(
+            *fwd, smax, denom, dout, al_b, hg.edge_base),
+        "GAT (8, 16) source reduce": lambda: spmm_cuda.csr_sum_bf16(
+            hg.c_t_indptr, hg.c_t_edges, msg.view(-1, h * d), n_src),
+        "APPNP hop F=40 forward": lambda: spmm_cuda.csr_wsum_bf16(
+            hg.c_indptr, hg.c_indices, None, xsrc, w, rows),
+        "APPNP hop F=40 dX": lambda: spmm_cuda.csr_wsum_bf16(
+            hg.c_t_indptr, hg.c_t_dst, hg.c_t_edges, dh, w, n_src)}
+    exchanges = {
+        "GAT (8, 16) exchange (bf16 features and el)":
+            lambda: dmesh.all_to_all(send, hg.send_splits, hg.recv_splits),
+        "GAT (8, 16) reverse exchange (f32 dfeat)":
+            lambda: dmesh.all_to_all(dsrc[rows:], hg.recv_splits,
+                                     hg.send_splits),
+        "APPNP hop F=40 exchange (f32)":
+            lambda: dmesh.all_to_all(x.index_select(0, hg.send_idx),
+                                     hg.send_splits, hg.recv_splits),
+        "APPNP hop F=40 reverse exchange (f32)":
+            lambda: dmesh.all_to_all(xsrc[rows:], hg.recv_splits,
+                                     hg.send_splits)}
+    ms = {k: time_ms(fn) for k, fn in kernels.items()}
+    for k, fn in exchanges.items():
+        torch.distributed.barrier()
+        ms[k] = time_ms(fn)
+    return ms
 
 
 def check_rect_hub(spmm_cuda, dev) -> float:
@@ -1333,7 +1617,7 @@ def phase_dist_checks(spmm_cuda, host, dev, card: str,
                                   np.zeros(host.num_nodes()), (), N_SHARDS,
                                   quiet)[0]
     shards = build_halo_graph(relabelled.src, relabelled.dst,
-                              relabelled.num_nodes(), N_SHARDS)
+                              relabelled.num_nodes(), N_SHARDS, combined=True)
     frac = sum(s.halo_indices.shape[0] for s in shards) / host.num_edges()
     log(f"distributed: relabel and halo sets {time.perf_counter() - t0:.2f} "
         f"host s; halo edge fraction {frac:.4f} at P={N_SHARDS}")
@@ -1359,7 +1643,27 @@ def phase_dist_checks(spmm_cuda, host, dev, card: str,
     for f in DIST_WIDTHS:
         log(f"gathered halo_copy_u_sum vs single-device kernel F={f}: "
             f"max|err| {ranks[0][f'gathered vs single-device F={f}']:.3e}")
+    halo_errs = {k: max(r["halo_errs"][k] for r in ranks)
+                 for k in ranks[0]["halo_errs"]}
+    log(f"per-edge halo ops vs their plain versions on {N_SHARDS} ranks "
+        f"({', '.join(str(r['edges']) for r in ranks)} edges a shard): "
+        f"max|err| {halo_errs}")
+    for h, d in GAT_SHAPES:
+        key = f"gathered GAT ({h}, {d}) vs single-device"
+        log(f"gathered halo GAT layer ({h}, {d}), seed mode, vs the "
+            f"single-device layer with the same seed: max|err| "
+            f"{ranks[0][key]:.3e}")
+    per_op = {k: sum(r["per_op_counts"][k] for r in ranks)
+              for k in ranks[0]["per_op_counts"]}
+    layers = len(GAT_SHAPES)
+    check_counts("per-op halo GAT layer", per_op, {
+        "edge_softmax_fwd": N_SHARDS * layers,
+        "edge_softmax_bwd": N_SHARDS * layers,
+        "spmm_csr_weighted": 2 * N_SHARDS * layers}
+        if device.startswith("cuda") else {})
+    log(f"per-op halo GAT layer: launches summed over the ranks {per_op}")
     return {"halo_edge_fraction": frac, "ranks": ranks,
+            "halo_errs": halo_errs, "per_op_counts": per_op,
             "rect_hub_f40": check_rect_hub(spmm_cuda, dev), "card": card}
 
 
@@ -1421,33 +1725,37 @@ def drive_sharded(tag, workdir, common, model, extra=(), sub="transductive",
     return counts, seconds
 
 
-def check_sharded_eval(workdir: str, cfg: str, host, g) -> float:
-    """The sharded SAGE teacher's out.npz (its halo all-node exact eval, in
-    the original node order) against the single-device kernel eval of its
-    saved weights on the original graph: the same bf16 messages, summed in
-    another order and through three layers (rtol 1e-4 / atol 1e-4)."""
+def check_sharded_eval(workdir: str, cfg: str, host, g,
+                       teacher: str = "SAGE") -> float:
+    """A sharded teacher's out.npz (its halo all-node exact eval, in the
+    original node order) against the single-device kernel eval of its
+    saved weights on the original graph: the same bf16 messages (SAGE),
+    or the same bf16 features and f32 softmax (GAT; the same keep bits do
+    not enter an eval), summed in another order and through every layer
+    (rtol 1e-4 / atol 1e-4)."""
     from glnn_tpu_torch.cli import train_teacher
     from glnn_tpu_torch.nn import Model
     from glnn_tpu_torch.train import make_eval_fn
     from glnn_tpu_torch.utils import get_training_config, load_model
     from glnn_tpu_torch.utils.config import merge_args_with_config
 
-    path = run_dir(workdir, "transductive", "SAGE", DATASET)
+    path = run_dir(workdir, "transductive", teacher, DATASET)
     conf = merge_args_with_config(
         dict(vars(train_teacher.get_args([])), feat_dim=WIDTHS[0],
              label_dim=N_CLASSES),
-        get_training_config(cfg, "SAGE", DATASET))
+        get_training_config(cfg, teacher, DATASET))
     model = Model(conf).to(g.device)
     model.load_state_dict(load_model(os.path.join(path, "model.ckpt")))
     feats = torch.as_tensor(host.ndata["feat"], device=g.device)
     got = make_eval_fn(model, exact=True)(g, feats).cpu().numpy()
     want = np.load(os.path.join(path, "out.npz"))["arr_0"]
     np.testing.assert_allclose(want, got, rtol=1e-4, atol=1e-4,
-                               err_msg="sharded SAGE eval vs single-device")
+                               err_msg=f"sharded {teacher} eval vs "
+                                       f"single-device")
     err = float(np.abs(want - got).max())
-    log(f"sharded SAGE teacher: its halo eval (out.npz) vs the single-device "
-        f"kernel eval of model.ckpt max|err| {err:.3e}, argmax equal on "
-        f"{(want.argmax(1) == got.argmax(1)).mean():.4%} of rows")
+    log(f"sharded {teacher} teacher: its halo eval (out.npz) vs the "
+        f"single-device kernel eval of model.ckpt max|err| {err:.3e}, argmax "
+        f"equal on {(want.argmax(1) == got.argmax(1)).mean():.4%} of rows")
     return err
 
 
@@ -1459,36 +1767,70 @@ def sharded_launches(evals: int, graphs: int, steps: int, layers: int) -> int:
     return N_SHARDS * 2 * layers * (2 * steps + graphs * (evals + 1))
 
 
+def sharded_gat_launches(evals: int, graphs: int) -> dict:
+    """A halo GAT path's launches summed over the ranks: gat_prep and
+    gat_fwd per layer in each training step and eval (`evals` and the
+    final one, on `graphs` graphs), gat_bwd and its SpMM source reduce per
+    layer in each step, every training launch in seed mode."""
+    layers, steps = len(GAT_SHAPES), TEACHER_EPOCHS
+    forwards = N_SHARDS * layers * (steps + graphs * (evals + 1))
+    backwards = N_SHARDS * layers * steps
+    return {"gat_prep": forwards, "gat_fwd": forwards, "gat_bwd": backwards,
+            "gat_fwd_seed": backwards, "gat_bwd_seed": backwards,
+            "spmm_csr_bf16": backwards}
+
+
+def sharded_appnp_launches(evals: int, graphs: int) -> dict:
+    """A halo APPNP path's launches summed over the ranks: the weighted
+    sum's forward and dX per hop in each training step (edge drop), and
+    halo_copy_u_sum's two exact partials per hop in each eval."""
+    return {"spmm_csr_weighted": N_SHARDS * 2 * APPNP_HOPS * TEACHER_EPOCHS,
+            "spmm_csr_bf16": sharded_launches(evals, graphs, 0, APPNP_HOPS)}
+
+
 def phase_dist_paths(workdir: str, cfg: str, host, g, common: list,
                      on_card: bool = True) -> dict:
     """SAGE (sampled, data-parallel; its evals on the halo graph) with
     --save_results then the data-parallel MLP student, tran; GCN (halo)
-    tran and ind. The launches summed over the ranks exactly as worked out
-    from the code (all 0 off the card, where the plain versions run)."""
+    tran and ind; GAT (halo, the published row) tran with --save_results;
+    APPNP (halo, the synth row) tran and ind. The launches summed over the
+    ranks exactly as worked out from the code (all 0 off the card, where
+    the plain versions run)."""
     device = "cuda:0" if on_card else "cpu"
     ind = ["--exp_setting", "ind", "--split_rate", str(SPLIT_RATE)]
     sub = f"inductive/split_rate_{SPLIT_RATE}"
     runs = {}
     for tag, model, extra, sub_, student, want in (
             ("SAGE n_shards 4", "SAGE", ["--save_results"], "transductive",
-             False, sharded_launches(TEACHER_EPOCHS, 1, 0, len(WIDTHS))),
-            ("SAGE MLP n_shards 4", "SAGE", [], "transductive", True, 0),
+             False, {"spmm_csr_bf16": sharded_launches(TEACHER_EPOCHS, 1, 0,
+                                                       len(WIDTHS))}),
+            ("SAGE MLP n_shards 4", "SAGE", [], "transductive", True, {}),
             ("GCN n_shards 4", "GCN", [], "transductive", False,
-             sharded_launches(TEACHER_EPOCHS, 1, TEACHER_EPOCHS,
-                              len(GCN_WIDTHS))),
+             {"spmm_csr_bf16": sharded_launches(
+                 TEACHER_EPOCHS, 1, TEACHER_EPOCHS, len(GCN_WIDTHS))}),
             ("GCN ind n_shards 4", "GCN", ind, sub, False,
-             sharded_launches(TEACHER_EPOCHS, 2, TEACHER_EPOCHS,
-                              len(GCN_WIDTHS)))):
+             {"spmm_csr_bf16": sharded_launches(
+                 TEACHER_EPOCHS, 2, TEACHER_EPOCHS, len(GCN_WIDTHS))}),
+            ("GAT n_shards 4", "GAT", ["--save_results"], "transductive",
+             False, sharded_gat_launches(TEACHER_EPOCHS, 1)),
+            ("APPNP n_shards 4", "APPNP", [], "transductive", False,
+             sharded_appnp_launches(TEACHER_EPOCHS, 1)),
+            ("APPNP ind n_shards 4", "APPNP", ind, sub, False,
+             sharded_appnp_launches(TEACHER_EPOCHS, 2))):
         counts, seconds = drive_sharded(tag, workdir, common, model, extra,
                                         sub_, student, device)
-        check_counts(tag, counts, {"spmm_csr_bf16": want if on_card else 0})
+        log(f"{tag}: launches predicted {want}")
+        check_counts(tag, counts, want if on_card else {})
         runs[tag] = {"counts": counts, "seconds": seconds}
     runs["sharded_eval_max_abs_err"] = check_sharded_eval(workdir, cfg, host,
                                                           g)
-    with open(os.path.join(run_dir(workdir, "transductive", "SAGE", DATASET),
-                           "log")) as f:
-        epoch = [line for line in f if "mean epoch time" in line]
-    runs["sage_epoch"] = epoch[0].split(": ", 1)[1].strip()
+    runs["sharded_gat_eval_max_abs_err"] = check_sharded_eval(
+        workdir, cfg, host, g, "GAT")
+    for model in ("SAGE", "GAT", "APPNP"):
+        with open(os.path.join(run_dir(workdir, "transductive", model,
+                                       DATASET), "log")) as f:
+            epoch = [line for line in f if "mean epoch time" in line]
+        runs[f"{model.lower()}_epoch"] = epoch[0].split(": ", 1)[1].strip()
     return runs
 
 
@@ -2601,6 +2943,11 @@ def main() -> int:
     dist = phase_dist_checks(spmm_cuda, host, dev, smi)
     errs["spmm_csr_bf16"] = max(errs["spmm_csr_bf16"], dist["rect_hub_f40"],
                                 *(r["max_abs_err"] for r in dist["ranks"]))
+    # the per-edge halo ops against the plain versions of the same kernels
+    for name in ("gat_fwd", "edge_softmax_fwd", "edge_softmax_bwd",
+                 "spmm_csr_weighted"):
+        errs[name] = max(errs[name], dist["halo_errs"][name])
+    launches["op_surface halo"] = dist["per_op_counts"]
     with tempfile.TemporaryDirectory() as workdir:
         cfg = os.path.join(workdir, "arxiv.conf.yaml")
         _config_yaml(cfg)
@@ -2637,6 +2984,10 @@ def main() -> int:
         f"{dist['paths']['sage_epoch']} (3 epochs of the CLI run); single "
         f"process floyd/float32 {tiers['sage_epoch_s']['floyd/float32']} s; "
         f"{smi}")
+    for model in ("GAT", "APPNP"):
+        log(f"{model} epoch: halo-sharded on {N_SHARDS} ranks "
+            f"{dist['paths'][f'{model.lower()}_epoch']} (3 epochs of the CLI "
+            f"run); single process {EPOCH_LINES[model]}; {smi}")
     log(f"distributed {json.dumps(dist)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -39,11 +39,11 @@ def add_common_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--save_results", action="store_true",
                         help="Also save loss curves and model checkpoint")
     parser.add_argument("--n_shards", type=int, default=1,
-                        help="Ranks to shard over, one process each: the GCN "
-                             "and full-batch SAGE teachers halo-sharded, the "
-                             "sampled SAGE teacher and the MLPs "
-                             "data-parallel; rank r runs on cuda:<device + "
-                             "r> (all on cuda:<device> with "
+                        help="Ranks to shard over, one process each: the "
+                             "GCN, full-batch SAGE, GAT and APPNP teachers "
+                             "halo-sharded, the sampled SAGE teacher and the "
+                             "MLPs data-parallel; rank r runs on "
+                             "cuda:<device + r> (all on cuda:<device> with "
                              "GLNN_SHARE_DEVICE=1) or on the CPU")
     parser.add_argument("--debug_checks", action="store_true",
                         help="Raise on a non-finite epoch loss")
@@ -123,38 +123,6 @@ def add_common_args(parser: argparse.ArgumentParser) -> None:
                              "(transductive only)")
     parser.add_argument("--feature_aug_k", type=int, default=0,
                         help="GA-MLP: propagate features k hops first")
-
-
-def _model_name(options: dict) -> str:
-    """The model a run trains: the config's, else the CLI's student or
-    teacher."""
-    return str(options.get("model_name") or options.get("student")
-               or options.get("teacher") or "")
-
-
-def _sharded_ported(options: dict) -> bool:
-    """--n_shards > 1 is ported for the MLP, SAGE and GCN (the model
-    wrapper's substring dispatch, MLP first)."""
-    name = _model_name(options)
-    return (int(options.get("n_shards") or 1) <= 1
-            or any(k in name for k in ("MLP", "SAGE", "GCN")))
-
-
-# option -> (is the options' value ported, ROADMAP item that ports the rest)
-_UNPORTED = (
-    ("n_shards", _sharded_ported,
-     "queue A item 6 (distributed), its next slice: GAT and APPNP"),
-)
-
-
-def reject_unported(options: dict) -> None:
-    """Raise NotImplementedError for an option value the port lacks."""
-    for key, ok, item in _UNPORTED:
-        if key in options and not ok(options):
-            raise NotImplementedError(
-                f"--{key} {options[key]} for {_model_name(options)} is not "
-                f"ported to glnn_tpu_torch yet (ROADMAP {item}); run it with "
-                f"the glnn_tpu package")
 
 
 def resolve_device(ordinal: int) -> torch.device:

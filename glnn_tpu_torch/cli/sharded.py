@@ -11,8 +11,10 @@ parent, which prints the score line.
 
 Paths: an MLP teacher and the MLP student train data-parallel; a sampled
 SAGE teacher trains data-parallel on the structure graph and evaluates on
-the halo graph; GCN and full-batch SAGE train and evaluate on the halo
-graph. GAT and APPNP raise (`common.reject_unported`).
+the halo graph; GCN, full-batch SAGE, GAT and APPNP train and evaluate on
+the halo graph. The GAT and APPNP shards carry their combined CSR (the
+per-edge ops' edge order), as JAX builds attention plans for GAT only
+(`glnn_tpu/cli/train_teacher.py:156,181`).
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ from glnn_tpu_torch.distributed.partition import (
     label_propagation_labels,
 )
 from glnn_tpu_torch.graph.host import reorder_nodes
+from glnn_tpu_torch.nn.models import APPNP, GAT
 from glnn_tpu_torch.utils import graph_split
 
 LOCALITY_MAX_EDGES = 20_000_000   # the numpy label propagation's budget
@@ -68,9 +71,10 @@ def locality_relabel(g, feats, labels, idxs, n_shards: int, logger):
             tuple(new_id[np.asarray(i)] for i in idxs), new_id)
 
 
-def _halo_shards(host_g, n_shards: int, logger, name: str) -> list:
+def _halo_shards(host_g, n_shards: int, logger, name: str,
+                 combined: bool) -> list:
     n = host_g.num_nodes()
-    shards = build_halo_graph(host_g.src, host_g.dst, n, n_shards)
+    shards = build_halo_graph(host_g.src, host_g.dst, n, n_shards, combined)
     frac = halo_fraction(host_g.src, host_g.dst, n, n_shards)
     logger.info(
         f"halo {name}: {n} nodes, rows {shards[0].rows} per shard, edge "
@@ -200,6 +204,7 @@ def run_teacher(args, conf, model, g, feats, labels, idxs, logger,
             g, feats, labels, idxs, n_shards, logger)
     sampled = _use_sampled_sage(conf, model)
     window = conf.get("sampler_tier") == "window" and sampled
+    per_edge = isinstance(model.module, (GAT, APPNP))
     graph = (g.to_device(device) if args.feature_aug_k > 0
              or (args.compute_min_cut and args.exp_setting == "tran")
              else None)
@@ -211,7 +216,8 @@ def run_teacher(args, conf, model, g, feats, labels, idxs, logger,
         if args.feature_aug_k > 0:
             feats = propagate_features(feats, args.feature_aug_k, graph)
         if not model.is_mlp:
-            for r, s in enumerate(_halo_shards(g, n_shards, logger, "graph")):
+            for r, s in enumerate(_halo_shards(g, n_shards, logger, "graph",
+                                               per_edge)):
                 per_rank[r]["g"] = s
         struct = g.to_device("cpu", window_table=window) if sampled else None
         indices = tuple(idxs)
@@ -232,8 +238,9 @@ def run_teacher(args, conf, model, g, feats, labels, idxs, logger,
         if not model.is_mlp:
             logger.info(f"Observed graph: {obs_host.num_nodes()} nodes, "
                         f"{obs_host.num_edges()} edges.")
-            full = _halo_shards(g, n_shards, logger, "graph")
-            obs = _halo_shards(obs_host, n_shards, logger, "observed graph")
+            full = _halo_shards(g, n_shards, logger, "graph", per_edge)
+            obs = _halo_shards(obs_host, n_shards, logger, "observed graph",
+                               per_edge)
             obs_feats = feats[indices[3]]
             for r in range(n_shards):
                 per_rank[r].update(

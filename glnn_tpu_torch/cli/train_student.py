@@ -30,7 +30,6 @@ from glnn_tpu_torch.cli.common import (
     apply_output_path_reroutes,
     configure_numerics,
     propagate_features,
-    reject_unported,
     resolve_device,
     save_results,
     score_line,
@@ -71,7 +70,6 @@ def get_args(argv=None):
 
 
 def run(args):
-    reject_unported(vars(args))
     set_seed(args.seed)
     device = resolve_device(args.device)
     configure_numerics()
@@ -110,7 +108,6 @@ def run(args):
         conf = get_training_config(args.model_config_path, args.student,
                                    args.dataset)
     conf = merge_args_with_config(dict(args.__dict__), conf, logger)
-    reject_unported(conf)
     logger.info(f"conf: { {k: v for k, v in conf.items() if k != 'output_dir'} }")
 
     model = Model(conf, gen=torch.Generator().manual_seed(args.seed)).to(device)

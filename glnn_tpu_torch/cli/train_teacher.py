@@ -24,8 +24,8 @@ observed subgraph (--exp_setting ind, --split_rate) -> `out.npz` all-node
 log-probs (+ --save_results curves and checkpoint, + --compute_min_cut in
 tran); `--num_exp` aggregates mean/std into `exp_results`. Runs on
 cuda:<--device>, or on the CPU with --device -1. --n_shards N > 1 runs N
-ranks (cli/sharded.py): GCN and full-batch SAGE halo-sharded, sampled SAGE
-and MLP data-parallel.
+ranks (cli/sharded.py): GCN, full-batch SAGE, GAT and APPNP halo-sharded,
+sampled SAGE and MLP data-parallel.
 """
 
 from __future__ import annotations
@@ -43,7 +43,6 @@ from glnn_tpu_torch.cli.common import (
     apply_output_path_reroutes,
     configure_numerics,
     propagate_features,
-    reject_unported,
     resolve_device,
     save_results,
     score_line,
@@ -75,7 +74,6 @@ def get_args(argv=None):
 def run(args):
     """Train one teacher; returns the score list ([score_test] in tran,
     [score_test_tran, score_test_ind] in ind)."""
-    reject_unported(vars(args))
     set_seed(args.seed)
     device = resolve_device(args.device)
     configure_numerics()
@@ -108,7 +106,6 @@ def run(args):
         conf = get_training_config(args.model_config_path, args.teacher,
                                    args.dataset)
     conf = merge_args_with_config(dict(args.__dict__), conf, logger)
-    reject_unported(conf)
     logger.info(f"conf: { {k: v for k, v in conf.items() if k != 'output_dir'} }")
 
     model = Model(conf, gen=torch.Generator().manual_seed(args.seed)).to(device)

@@ -28,8 +28,11 @@
 // either from a uint8 [E, H] mask (the JAX "mask" mode, gat_pallas.py:149),
 // or generated in the kernel from a 64-bit seed read through a device
 // pointer with Philox4x32-10 (Random123's constants): key (seed lo, seed
-// hi), counter (e, h >> 2, 0, 0), word h & 3, kept iff word < thresh, with
-// thresh = min(keep * 2^32, 2^32 - 1) as _drop_spec_arg (:312) forms it. The
+// hi), counter (edge_base + e, h >> 2, 0, 0) (uint32, wrapping), word h & 3,
+// kept iff word < thresh, with thresh = min(keep * 2^32, 2^32 - 1) as
+// _drop_spec_arg (:312) forms it. edge_base is 0 on one device; a shard of
+// a halo-sharded graph passes the global id of its first edge, so that its
+// keep bits are the single-device bits of the same global edges. The
 // TPU kernel draws from its hardware PRNG (:152), which no other machine
 // reproduces; the seed mode is its counterpart and makes no [E, H] tensor.
 // The keep bits of an edge for the heads of a pass are one word (bit i for
@@ -238,6 +241,7 @@ struct DropArgs {
   const uint8_t* mask;                // uint8 [E, H], or null
   const unsigned long long* seed;     // one 64-bit seed on the device, or null
   unsigned thresh;                    // seed mode: keep iff word < thresh
+  unsigned edge_base;                 // seed mode: counter of edge e is edge_base + e
   float inv_keep;                     // a kept edge's weight
 };
 
@@ -245,13 +249,13 @@ struct DropArgs {
 struct Drop {
   const uint8_t* mask;
   bool seeded;
-  uint32_t k0, k1, thresh;
+  uint32_t k0, k1, thresh, base;
   float inv_keep;
 };
 
 __device__ __forceinline__ Drop make_drop(const DropArgs& a) {
   // without dropout every weight is 1, whatever inv_keep says
-  Drop d{a.mask, a.seed != nullptr, 0u, 0u, a.thresh,
+  Drop d{a.mask, a.seed != nullptr, 0u, 0u, a.thresh, a.edge_base,
          a.mask != nullptr || a.seed != nullptr ? a.inv_keep : 1.f};
   if (d.seeded) {
     const unsigned long long s = *a.seed;
@@ -277,7 +281,8 @@ __device__ __forceinline__ unsigned keep_bits(const Drop& d, int64_t e, int H, i
   for (int i = 0; i < hn; ++i) {
     const int h = h0 + i;
     if (i == 0 || (h & 3) == 0)
-      w = philox(make_uint4(static_cast<uint32_t>(e), static_cast<uint32_t>(h >> 2), 0u, 0u),
+      w = philox(make_uint4(d.base + static_cast<uint32_t>(e), static_cast<uint32_t>(h >> 2),
+                            0u, 0u),
                  d.k0, d.k1);
     const int k = h & 3;
     const uint32_t word = k == 0 ? w.x : k == 1 ? w.y : k == 2 ? w.z : w.w;
@@ -309,7 +314,8 @@ __device__ __forceinline__ void chunk_keep_bits(const Drop& d, int64_t e0, int n
     if (j0 < per && j < n) {
       const int blk = b0 + c;
       const uint4 w =
-          philox(make_uint4(static_cast<uint32_t>(e0 + j), static_cast<uint32_t>(blk), 0u, 0u),
+          philox(make_uint4(d.base + static_cast<uint32_t>(e0 + j), static_cast<uint32_t>(blk),
+                            0u, 0u),
                  d.k0, d.k1);
       const uint32_t words[4] = {w.x, w.y, w.z, w.w};
 #pragma unroll
@@ -1028,11 +1034,12 @@ int gat_prep(const void* feat, const void* attn_l, const void* attn_r, void* fea
 
 // feat bf16 [n_src, H, D]; el f32 [n_src, H]; er bf16 [n_rows, H];
 // keep uint8 [E, H] or null; seed one uint64 on the device or null (not
-// both); out f32 [n_rows, H, D]; smax, denom f32 [n_rows, H];
+// both); edge_base the seed mode's counter of edge 0; out f32
+// [n_rows, H, D]; smax, denom f32 [n_rows, H];
 // (vec, reps, lh, hp, slots) as ops/gat_cuda.py `fwd_geometry` gives them
 int gat_fwd(const void* indptr, const void* src_of, const void* feat, const void* el,
-            const void* er, const void* keep, const void* seed, unsigned thresh, float inv_keep,
-            float slope, void* out, void* smax, void* denom, int n_rows, int H, int D,
+            const void* er, const void* keep, const void* seed, unsigned thresh,
+            unsigned edge_base, float inv_keep, float slope, void* out, void* smax, void* denom, int n_rows, int H, int D,
             int n_blocks, int vec, int reps, int lh, int hp, int slots, void* stream) {
   if (n_rows <= 0 || H <= 0 || D <= 0 || n_blocks <= 0)
     return static_cast<int>(cudaGetLastError());
@@ -1040,7 +1047,8 @@ int gat_fwd(const void* indptr, const void* src_of, const void* feat, const void
   if (!fwd_geometry_ok(geo, H, D, reinterpret_cast<uintptr_t>(feat)) || !drop_ok(keep, seed))
     return static_cast<int>(cudaErrorInvalidValue);
   const DropArgs drop{static_cast<const uint8_t*>(keep),
-                      static_cast<const unsigned long long*>(seed), thresh, inv_keep};
+                      static_cast<const unsigned long long*>(seed), thresh, edge_base,
+                      inv_keep};
   const dim3 grid(n_blocks), block(kWarps * 32);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define FWD_LAUNCH(V, R, NH)                                                                 \
@@ -1072,7 +1080,8 @@ int gat_fwd(const void* indptr, const void* src_of, const void* feat, const void
 // (vec, reps, lh, hp, slots, kcache) as ops/gat_cuda.py `bwd_geometry`
 // gives them
 int gat_bwd(const void* indptr, const void* src_of, const void* feat, const void* el,
-            const void* er, const void* keep, const void* seed, unsigned thresh, float inv_keep,
+            const void* er, const void* keep, const void* seed, unsigned thresh,
+            unsigned edge_base, float inv_keep,
             float slope, const void* smax, const void* denom, const void* dout,
             const void* attn_l, void* der, void* msg, void* dal_part, int n_rows, int H, int D,
             int n_blocks, int vec, int reps, int lh, int hp, int slots, int kcache,
@@ -1084,7 +1093,8 @@ int gat_bwd(const void* indptr, const void* src_of, const void* feat, const void
   if (!bwd_geometry_ok(geo, H, D, align) || !drop_ok(keep, seed))
     return static_cast<int>(cudaErrorInvalidValue);
   const DropArgs drop{static_cast<const uint8_t*>(keep),
-                      static_cast<const unsigned long long*>(seed), thresh, inv_keep};
+                      static_cast<const unsigned long long*>(seed), thresh, edge_base,
+                      inv_keep};
   const dim3 grid(n_blocks), block(kWarps * 32);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define BWD_CASE(V, R)                                                                      \

@@ -15,7 +15,9 @@
   softmax over v's in-edges, h'_v = sum alpha Wh_u; feat dropout on the
   input, attention dropout on alpha; no bias, no residual.
 * appnp_propagate: k hops of h <- (1 - alpha) D^-1/2 A_drop D^-1/2 h
-  + alpha h0, with per-edge dropout (zero, or 1 / (1 - p)) in training.
+  + alpha h0, with per-edge dropout (zero, or 1 / (1 - p)) in training;
+  on a halo shard each hop draws the whole graph's [E] mask and keeps the
+  shard's slice, so the ranks' masks together are the single-device mask.
 * LayerNorm1d: torch.nn.LayerNorm over the feature axis.
 * dropout: inverted dropout whose mask comes from an explicit generator;
   inside `global_rows(total, lo)` (a sharded forward over rows lo.. of a
@@ -146,15 +148,20 @@ def appnp_propagate(g: Graph, h: torch.Tensor, k: int, alpha: float,
                     masks=None) -> torch.Tensor:
     """APPNPConv(k, alpha, edge_drop) after the MLP head. In training each
     hop keeps an edge with probability 1 - edge_drop: the [E] mask is
-    drawn from `gen` in dst-sorted edge order, or is masks[i] when given
-    (bool [E] per hop)."""
+    drawn from `gen` in dst-sorted edge order (on a halo shard the whole
+    graph's, of which it keeps its edges' slice), or is masks[i] when
+    given (bool [E] per hop, the graph's or the shard's edges)."""
     h0 = h
     use_drop = training and edge_drop > 0.0
+    if getattr(g, "is_halo", False):
+        total, lo = g.n_edges_global, g.edge_base
+    else:
+        total, lo = g.n_edges, 0
     for i in range(k):
         if use_drop:
             keep = (masks[i] if masks is not None else
-                    torch.rand((g.n_edges,), generator=gen,
-                               device=h.device) >= edge_drop)
+                    (torch.rand((total,), generator=gen, device=h.device)
+                     >= edge_drop)[lo:lo + g.n_edges])
             w = keep.to(h.dtype) / (1.0 - edge_drop)
             prop = ops.gcn_norm_both(g, h, edge_weight=w)
         else:

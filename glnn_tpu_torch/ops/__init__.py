@@ -18,10 +18,13 @@ tensor they launch the kernel or raise, also for shapes outside a
 kernel's contract.
 
 On a HaloGraph (one shard of a halo-sharded graph, distributed/halo.py)
-`copy_u_sum` runs `halo_copy_u_sum`: the exact kernel tier wherever the
-kernel tier applies, also inside `inference_mode()` (JAX's halo path never
-takes int8), else the f32 plain sums. The weighted sum, the edge ops and
-the GAT attention have no halo form yet and raise.
+every op runs its halo form: `copy_u_sum` `halo_copy_u_sum`, `u_add_v`
+`halo_u_add_v`, `edge_softmax` `halo_edge_softmax`, `u_mul_e_sum`
+`halo_u_mul_e_sum` (so also `gcn_norm_both` with edge weights) and
+`gat_attention` `halo_gat_attention`: the kernels wherever the kernel tier
+applies, the exact ones also inside `inference_mode()` (JAX's halo path
+never takes int8), else the f32 plain ops. Per-edge tensors on a shard are
+in its combined CSR's order (the global dst-sorted order, sliced).
 """
 
 from __future__ import annotations
@@ -93,20 +96,13 @@ def _unweighted_tier() -> str:
     return "bf16"
 
 
-def _halo(g, op: str) -> bool:
-    """Is g a HaloGraph? Raises for an op that has no halo form yet."""
-    if not getattr(g, "is_halo", False):
-        return False
-    if op != "copy_u_sum":
-        raise NotImplementedError(
-            f"{op} on a halo-sharded graph is not ported to glnn_tpu_torch "
-            f"yet (ROADMAP queue A item 6, its next slice: the halo weighted "
-            f"sum, edge softmax and GAT attention)")
-    return True
+def _halo(g) -> bool:
+    """Is g a HaloGraph (one shard of a halo-sharded graph)?"""
+    return getattr(g, "is_halo", False)
 
 
 def copy_u_sum(g, x: torch.Tensor) -> torch.Tensor:
-    if _halo(g, "copy_u_sum"):
+    if _halo(g):
         from glnn_tpu_torch.distributed.halo import halo_copy_u_sum
 
         return halo_copy_u_sum(g, x, kernel=_tier_selected(x.device))
@@ -124,18 +120,25 @@ def copy_u_mean(g, x: torch.Tensor) -> torch.Tensor:
 
 def u_add_v(g, a_u: torch.Tensor, a_v: torch.Tensor) -> torch.Tensor:
     """Per-edge a_u[src] + a_v[dst]; plain torch on every tier, as in JAX."""
-    _halo(g, "u_add_v")
+    if _halo(g):
+        from glnn_tpu_torch.distributed.halo import halo_u_add_v
+
+        return halo_u_add_v(g, a_u, a_v)
     return _ref.u_add_v(g, a_u, a_v)
 
 
 def edge_softmax(g, scores: torch.Tensor) -> torch.Tensor:
     """Softmax over each dst's in-edges of scores [E] or [E, H]."""
-    _halo(g, "edge_softmax")
-    if scores.dim() in (1, 2) and _tier_selected(scores.device):
-        return gat_cuda.edge_softmax(g, scores)
-    if _kernel_only(scores):
+    kernel = scores.dim() in (1, 2) and _tier_selected(scores.device)
+    if not kernel and _kernel_only(scores):
         raise ValueError(f"the edge_softmax kernel takes scores [E] or "
                          f"[E, H], got {tuple(scores.shape)}")
+    if _halo(g):
+        from glnn_tpu_torch.distributed.halo import halo_edge_softmax
+
+        return halo_edge_softmax(g, scores, kernel=kernel)
+    if kernel:
+        return gat_cuda.edge_softmax(g, scores)
     cuda_build.note_plain(scores)
     return _ref.edge_softmax(g, scores)
 
@@ -144,14 +147,19 @@ def u_mul_e_sum(g, x: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
     """h_v = sum_u e_uv x_u: x [N, F] with e [E], or x [N, H, D] with
     per-head e [E, H]. The kernel tier rounds each message to bf16 under
     both kernel backends, as JAX keeps the weighted sum on its bf16 tier."""
-    _halo(g, "u_mul_e_sum")
-    if ((x.dim() == 2 and e.dim() == 1) or (x.dim() == 3 and e.dim() == 2)) \
-            and _tier_selected(x.device):
-        return spmm_cuda.u_mul_e_sum(g, x, e)
-    if _kernel_only(x):
+    kernel = (((x.dim() == 2 and e.dim() == 1)
+               or (x.dim() == 3 and e.dim() == 2))
+              and _tier_selected(x.device))
+    if not kernel and _kernel_only(x):
         raise ValueError(f"the weighted SpMM kernel takes x [N, F] with e "
                          f"[E], or x [N, H, D] with e [E, H]; got "
                          f"{tuple(x.shape)} and {tuple(e.shape)}")
+    if _halo(g):
+        from glnn_tpu_torch.distributed.halo import halo_u_mul_e_sum
+
+        return halo_u_mul_e_sum(g, x, e, kernel=kernel)
+    if kernel:
+        return spmm_cuda.u_mul_e_sum(g, x, e)
     cuda_build.note_plain(x)
     return _ref.u_mul_e_sum(g, x, e)
 
@@ -171,29 +179,36 @@ def gat_attention(g, feat: torch.Tensor, attn_l: torch.Tensor,
     (= Wh), attn_l / attn_r [H, D]; returns [N, H, D]. Dropout draws one
     Philox seed from `gen` (an int64 tensor on feat's device, so no host
     sync); the keep bits of (dst-sorted edge, head) follow from it
-    (`gat_cuda.philox_keep`), the same on every tier and device. Under a
-    kernel tier this is the fused attention (bf16 features, f32 softmax and
-    sums), whose kernels generate the bits themselves; otherwise the f32
+    (`gat_cuda.philox_keep`), the same on every tier and device, and on a
+    halo shard the single-device bits of its global edges (every rank
+    draws the same seed from its generator, seeded alike). Under a kernel
+    tier this is the fused attention (bf16 features, f32 softmax and sums),
+    whose kernels generate the bits themselves; otherwise the f32
     composition of the plain ops."""
-    _halo(g, "gat_attention")
+    from glnn_tpu_torch.distributed import halo as _h
+
+    halo = _halo(g)
     seed = None
     inv_keep = 1.0 / (1.0 - drop_rate)
     if drop_rate > 0.0:
         seed = torch.randint(2 ** 63 - 1, (1,), dtype=torch.int64,
                              generator=gen, device=feat.device)
     if feat.dim() == 3 and _tier_selected(feat.device):
-        return gat_cuda.gat_attention(g, feat, attn_l, attn_r, slope, seed,
-                                      inv_keep)
+        fused = _h.halo_gat_attention if halo else gat_cuda.gat_attention
+        return fused(g, feat, attn_l, attn_r, slope, seed, inv_keep)
     cuda_build.note_plain(feat)
     el = (feat * attn_l[None]).sum(-1)                 # [N, H]
     er = (feat * attn_r[None]).sum(-1)
-    e = _ref.u_add_v(g, el, er)                        # [E, H]
+    e = u_add_v(g, el, er)                             # [E, H]
     e = torch.where(e >= 0, e, slope * e)
-    alpha = _ref.edge_softmax(g, e)
+    alpha = (_h.halo_edge_softmax(g, e, kernel=False) if halo
+             else _ref.edge_softmax(g, e))
     if seed is not None:
         keep = gat_cuda.philox_keep(seed, g.n_edges, feat.shape[1],
-                                    1.0 / inv_keep)
+                                    1.0 / inv_keep, getattr(g, "edge_base", 0))
         alpha = alpha * keep.to(alpha.dtype) / (1.0 - drop_rate)
+    if halo:
+        return _h.halo_u_mul_e_sum(g, feat, alpha, kernel=False)
     return _ref.u_mul_e_sum(g, feat, alpha)
 
 

@@ -43,9 +43,13 @@ Dropout (`keep`, dst-sorted edge order) is one of:
   (`philox_keep` is the same in plain torch), as the TPU kernels generate
   theirs from the hardware PRNG (:141-155), so no [E, H] tensor exists;
   the kernels read the seed through a pointer, so drawing it needs no
-  host sync. Edge e keeps head h iff word h & 3 of Philox(counter (e, h >> 2,
-  0, 0), key (seed lo, seed hi)) < keep_threshold(keep), the JAX rule
-  (:312). The seed is saved for the backward in place of a mask.
+  host sync. Edge e keeps head h iff word h & 3 of Philox(counter
+  (edge_base + e, h >> 2, 0, 0), key (seed lo, seed hi)) <
+  keep_threshold(keep), the JAX rule (:312). edge_base (uint32, default
+  0) is the global id of the CSR's first edge: a shard of a halo-sharded
+  graph, whose edges are a contiguous slice of the global dst-sorted
+  order, passes its own and so draws the single-device bits of the same
+  edges. The seed is saved for the backward in place of a mask.
 A kept edge's weight is inv_keep (keep = 1 / inv_keep).
 
 The standalone segment softmax behind `ops.edge_softmax` replaces
@@ -96,8 +100,10 @@ _vp, _ci, _cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 _cf = ctypes.c_float
 _SIGNATURES = {
     "gat_prep": [_vp] * 6 + [_ci] * 3 + [_vp],
-    "gat_fwd": [_vp] * 7 + [_cu, _cf, _cf] + [_vp] * 3 + [_ci] * 9 + [_vp],
-    "gat_bwd": [_vp] * 7 + [_cu, _cf, _cf] + [_vp] * 7 + [_ci] * 10 + [_vp],
+    "gat_fwd": [_vp] * 7 + [_cu, _cu, _cf, _cf] + [_vp] * 3 + [_ci] * 9
+    + [_vp],
+    "gat_bwd": [_vp] * 7 + [_cu, _cu, _cf, _cf] + [_vp] * 7 + [_ci] * 10
+    + [_vp],
     "gat_fwd_blocks_per_sm": [_ci] * 3,
     "gat_bwd_blocks_per_sm": [_ci] * 4,
     "edge_softmax_fwd": [_vp] * 3 + [_ci] * 3 + [_vp],
@@ -148,14 +154,16 @@ def philox4x32(ctr, key):
 
 
 def philox_keep(seed: torch.Tensor, n_edges: int, heads: int,
-                keep: float) -> torch.Tensor:
+                keep: float, edge_base: int = 0) -> torch.Tensor:
     """The keep mask [E, H] (bool, dst-sorted edge order) that the kernels
     generate from `seed` (int64, one element): edge e keeps head h iff word
-    h & 3 of Philox4x32-10 at counter (e, h >> 2, 0, 0) under key (seed lo,
-    seed hi) is below keep_threshold(keep)."""
+    h & 3 of Philox4x32-10 at counter (edge_base + e mod 2**32, h >> 2, 0,
+    0) under key (seed lo, seed hi) is below keep_threshold(keep). Rows
+    b.. of the mask at edge_base 0 are the mask at edge_base b."""
     s = seed.reshape(-1)[:1].long()
     key = (s & _U32, (s >> 32) & _U32)
-    e = torch.arange(n_edges, dtype=torch.int64, device=seed.device)
+    e = (torch.arange(n_edges, dtype=torch.int64, device=seed.device)
+         + int(edge_base)) & _U32
     zero = torch.zeros_like(e)
     words = [torch.stack(philox4x32((e, torch.full_like(e, c), zero, zero),
                                     key), 1)
@@ -232,7 +240,7 @@ def supported_width(d: int) -> bool:
     return d // vec <= _MAX_GROUPS
 
 
-def _check(indptr, senders, feat_b, el, er_b, keep):
+def _check(indptr, senders, feat_b, el, er_b, keep, edge_base):
     if feat_b.dtype != torch.bfloat16 or feat_b.dim() != 3:
         raise TypeError(f"feat must be bf16 [N, H, D], got {feat_b.dtype} "
                         f"{tuple(feat_b.shape)}")
@@ -251,6 +259,8 @@ def _check(indptr, senders, feat_b, el, er_b, keep):
     if indptr.numel() < er_b.shape[0] + 1:
         raise ValueError(f"indptr has {indptr.numel()} entries for "
                          f"{er_b.shape[0]} rows")
+    if not 0 <= edge_base < 2 ** 32:
+        raise ValueError(f"edge_base must be a uint32, got {edge_base}")
     if keep is None:
         return
     if _is_seed(keep):
@@ -269,17 +279,18 @@ def _check(indptr, senders, feat_b, el, er_b, keep):
                          f"of two <= 8 dividing D); got D = {d}")
 
 
-def _plain_mask(keep, n_edges, heads, inv_keep):
+def _plain_mask(keep, n_edges, heads, inv_keep, edge_base):
     """The keep mask a plain version applies: the seed's Philox mask, or the
     mask as given."""
     if _is_seed(keep):
-        return philox_keep(keep, n_edges, heads, 1.0 / inv_keep)
+        return philox_keep(keep, n_edges, heads, 1.0 / inv_keep, edge_base)
     return keep
 
 
 def _drop_args(keep, inv_keep):
     """(mask pointer, seed pointer, threshold, the counter of the mode) for
-    a launch; the mask is kept alive by the caller."""
+    a launch; the mask is kept alive by the caller (the edge base goes
+    beside them)."""
     if keep is None:
         return None, None, 0, None
     if _is_seed(keep):
@@ -288,25 +299,27 @@ def _drop_args(keep, inv_keep):
     return keep.data_ptr(), None, 0, "mask"
 
 
-def _scores(indptr, senders, el, er_b, keep, inv_keep, slope, n_rows):
+def _scores(indptr, senders, el, er_b, keep, inv_keep, slope, n_rows,
+            edge_base):
     """Per-edge (src, dst, s_pre, s, w) in dst-sorted order, f32 [E, H]."""
     src = senders.long()
     dst = row_ids(indptr, n_rows)
     s_pre = el.index_select(0, src) + er_b.float().index_select(0, dst)
     s = torch.where(s_pre >= 0, s_pre, slope * s_pre)
-    keep = _plain_mask(keep, senders.numel(), el.shape[1], inv_keep)
+    keep = _plain_mask(keep, senders.numel(), el.shape[1], inv_keep,
+                       edge_base)
     w = keep.float() * inv_keep if keep is not None else torch.ones_like(s)
     return src, dst, s_pre, s, w
 
 
 def plain_gat_fwd(indptr, senders, feat_b, el, er_b, keep=None,
-                  inv_keep=1.0, slope=0.2):
+                  inv_keep=1.0, slope=0.2, edge_base=0):
     """Plain version of `gat_fwd`: (out f32 [N, H, D], max, denom f32
     [N, H]); rows without in-edges give zeros."""
     note_plain(feat_b)
     n_rows, h = er_b.shape
     src, dst, _, s, w = _scores(indptr, senders, el, er_b, keep, inv_keep,
-                                slope, n_rows)
+                                slope, n_rows, edge_base)
     smax = s.new_zeros((n_rows, h)).scatter_reduce_(
         0, dst[:, None].expand(-1, h), s, "amax", include_self=False)
     ex = torch.exp(s - smax.index_select(0, dst))
@@ -318,13 +331,13 @@ def plain_gat_fwd(indptr, senders, feat_b, el, er_b, keep=None,
 
 
 def plain_gat_bwd(indptr, senders, feat_b, el, er_b, keep, inv_keep, slope,
-                  smax, denom, dout, al_b):
+                  smax, denom, dout, al_b, edge_base=0):
     """Plain version of `gat_bwd`: (der f32 [N, H], msg bf16 [E, H, D],
     dattn_l f32 [H, D]); the softmax-VJP chain in f32."""
     note_plain(feat_b)
     n_rows, h = er_b.shape
     src, dst, s_pre, s, w = _scores(indptr, senders, el, er_b, keep, inv_keep,
-                                    slope, n_rows)
+                                    slope, n_rows, edge_base)
     alpha = torch.exp(s - smax.index_select(0, dst)) / denom.index_select(0,
                                                                           dst)
     fb = feat_b.index_select(0, src).float()                    # [E, H, D]
@@ -370,7 +383,8 @@ def _keep_arg(keep):
     return keep.contiguous().view(torch.uint8)
 
 
-def _launch_fwd(indptr, senders, feat_b, el, er_b, keep, inv_keep, slope):
+def _launch_fwd(indptr, senders, feat_b, el, er_b, keep, inv_keep, slope,
+                edge_base):
     n_rows, (_, h, d) = er_b.shape[0], feat_b.shape
     dev = feat_b.device
     f32 = dict(dtype=torch.float32, device=dev)
@@ -384,7 +398,8 @@ def _launch_fwd(indptr, senders, feat_b, el, er_b, keep, inv_keep, slope):
     cuda_build.launch(
         "gat_fwd", lib.gat_fwd, dev, indptr.data_ptr(), senders.data_ptr(),
         feat_b.data_ptr(), el.data_ptr(), er_b.data_ptr(), mask_ptr,
-        seed_ptr, thresh, inv_keep, slope, out.data_ptr(), smax.data_ptr(),
+        seed_ptr, thresh, edge_base, inv_keep, slope, out.data_ptr(),
+        smax.data_ptr(),
         denom.data_ptr(), n_rows, h, d, _grid(lib, geo, dev, n_rows), *geo)
     counts["gat_fwd"] += 1
     if mode:
@@ -393,7 +408,7 @@ def _launch_fwd(indptr, senders, feat_b, el, er_b, keep, inv_keep, slope):
 
 
 def _launch_bwd(indptr, senders, feat_b, el, er_b, keep, inv_keep, slope,
-                smax, denom, dout, al_b):
+                smax, denom, dout, al_b, edge_base):
     n_rows, (_, h, d) = er_b.shape[0], feat_b.shape
     n_edges = senders.numel()
     dev = feat_b.device
@@ -411,7 +426,8 @@ def _launch_bwd(indptr, senders, feat_b, el, er_b, keep, inv_keep, slope,
     cuda_build.launch(
         "gat_bwd", lib.gat_bwd, dev, indptr.data_ptr(), senders.data_ptr(),
         feat_b.data_ptr(), el.data_ptr(), er_b.data_ptr(), mask_ptr,
-        seed_ptr, thresh, inv_keep, slope, smax.data_ptr(), denom.data_ptr(),
+        seed_ptr, thresh, edge_base, inv_keep, slope, smax.data_ptr(),
+        denom.data_ptr(),
         dout.data_ptr(), al_b.data_ptr(), der.data_ptr(), msg.data_ptr(),
         part.data_ptr(), n_rows, h, d, n_blocks, *geo)
     counts["gat_bwd"] += 1
@@ -421,32 +437,34 @@ def _launch_bwd(indptr, senders, feat_b, el, er_b, keep, inv_keep, slope,
 
 
 def gat_fwd(indptr, senders, feat_b, el, er_b, keep=None, inv_keep=1.0,
-            slope=0.2):
+            slope=0.2, edge_base=0):
     """Fused attention forward over the CSC (indptr, senders), whose
     `senders` holds exactly its indptr[-1] edges: feat_b bf16
-    [N, H, D], el f32 [N, H], er_b bf16 [N, H], keep a mask [E, H], a seed
-    or None (see the module note). Returns (out f32 [N, H, D], max f32
-    [N, H], denom f32 [N, H])."""
-    _check(indptr, senders, feat_b, el, er_b, keep)
+    [N_src, H, D], el f32 [N_src, H], er_b bf16 [rows, H] (the dst rows),
+    keep a mask [E, H], a seed or None, edge_base the seed mode's Philox
+    counter of edge 0 (see the module note). Returns (out f32
+    [rows, H, D], max f32 [rows, H], denom f32 [rows, H])."""
+    _check(indptr, senders, feat_b, el, er_b, keep, edge_base)
     if feat_b.is_cuda:
         return _launch_fwd(indptr, senders, feat_b.contiguous(), el, er_b,
-                           keep, float(inv_keep), float(slope))
+                           keep, float(inv_keep), float(slope), edge_base)
     return plain_gat_fwd(indptr, senders, feat_b, el, er_b, keep, inv_keep,
-                         slope)
+                         slope, edge_base)
 
 
 def gat_bwd(indptr, senders, feat_b, el, er_b, keep, inv_keep, slope, smax,
-            denom, dout, al_b):
+            denom, dout, al_b, edge_base=0):
     """Fused attention backward: the forward's inputs, its max and denom,
-    dout f32 [N, H, D] and bf16 attn_l [H, D]. Returns (der f32 [N, H],
-    msg bf16 [E, H, D] in dst-sorted edge order, dattn_l f32 [H, D])."""
-    _check(indptr, senders, feat_b, el, er_b, keep)
+    dout f32 [rows, H, D] and bf16 attn_l [H, D]. Returns (der f32
+    [rows, H], msg bf16 [E, H, D] in dst-sorted edge order, dattn_l f32
+    [H, D])."""
+    _check(indptr, senders, feat_b, el, er_b, keep, edge_base)
     if feat_b.is_cuda:
         return _launch_bwd(indptr, senders, feat_b.contiguous(), el, er_b,
                            keep, float(inv_keep), float(slope), smax, denom,
-                           dout, al_b)
+                           dout, al_b, edge_base)
     return plain_gat_bwd(indptr, senders, feat_b, el, er_b, keep, inv_keep,
-                         slope, smax, denom, dout.float(), al_b)
+                         slope, smax, denom, dout.float(), al_b, edge_base)
 
 
 def plain_prep(feat, attn_l, attn_r):
@@ -629,17 +647,29 @@ def edge_softmax_bwd(indptr, alpha, dalpha, n_rows):
 class _EdgeSoftmax(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, scores, g):
-        alpha = edge_softmax_fwd(g.indptr, scores, g.n_nodes)
-        ctx.save_for_backward(alpha)
-        ctx.g = g
+    def forward(ctx, scores, indptr, n_rows):
+        alpha = edge_softmax_fwd(indptr, scores, n_rows)
+        ctx.save_for_backward(alpha, indptr)
+        ctx.n_rows = n_rows
         return alpha
 
     @staticmethod
     def backward(ctx, dalpha):
-        (alpha,) = ctx.saved_tensors
-        return edge_softmax_bwd(ctx.g.indptr, alpha, dalpha.float(),
-                                ctx.g.n_nodes), None
+        alpha, indptr = ctx.saved_tensors
+        return edge_softmax_bwd(indptr, alpha, dalpha.float(),
+                                ctx.n_rows), None, None
+
+
+def csr_softmax(indptr, scores, n_rows):
+    """Softmax of scores [E] or [E, H] over the segments of the CSR
+    indptr's n_rows rows (E = indptr[n_rows]), in the same shape and
+    dtype; the kernels run in f32."""
+    if scores.dim() not in (1, 2):
+        raise ValueError(f"the softmax takes scores [E] or [E, H], got "
+                         f"{tuple(scores.shape)}")
+    s2 = scores[:, None] if scores.dim() == 1 else scores
+    alpha = _EdgeSoftmax.apply(s2.float(), indptr, n_rows).to(scores.dtype)
+    return alpha[:, 0] if scores.dim() == 1 else alpha
 
 
 def edge_softmax(g, scores):
@@ -648,6 +678,4 @@ def edge_softmax(g, scores):
     if scores.dim() not in (1, 2) or scores.shape[0] != g.n_edges:
         raise ValueError(f"edge_softmax takes scores [{g.n_edges}] or "
                          f"[{g.n_edges}, H], got {tuple(scores.shape)}")
-    s2 = scores[:, None] if scores.dim() == 1 else scores
-    alpha = _EdgeSoftmax.apply(s2.float(), g).to(scores.dtype)
-    return alpha[:, 0] if scores.dim() == 1 else alpha
+    return csr_softmax(g.indptr, scores, g.n_nodes)

@@ -62,10 +62,18 @@ def u_add_v(g: Graph, a_u: torch.Tensor, a_v: torch.Tensor) -> torch.Tensor:
 
 def edge_softmax(g: Graph, scores: torch.Tensor) -> torch.Tensor:
     """Softmax over each destination's in-edge segment; scores [E] or
-    [E, H]. The per-dst max is subtracted (a constant per segment, so it
-    carries no gradient); nodes without in-edges are never gathered back."""
-    dst = g.receivers.long()
-    shape = (g.n_nodes,) + tuple(scores.shape[1:])
+    [E, H]."""
+    return segment_softmax(g.receivers, g.n_nodes, scores)
+
+
+def segment_softmax(dst: torch.Tensor, n_rows: int,
+                    scores: torch.Tensor) -> torch.Tensor:
+    """Softmax of scores [E] or [E, H] over the edges of each of n_rows
+    rows, dst each edge's row. The per-row max is subtracted (a constant
+    per segment, so it carries no gradient); rows without edges are never
+    gathered back."""
+    dst = dst.long()
+    shape = (n_rows,) + tuple(scores.shape[1:])
     idx = dst.view((-1,) + (1,) * (scores.dim() - 1)).expand_as(scores)
     with torch.no_grad():
         seg_max = scores.new_zeros(shape).scatter_reduce_(

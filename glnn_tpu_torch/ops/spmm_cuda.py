@@ -62,6 +62,7 @@ first use and loaded with ctypes (`ops/cuda_build.py`).
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -297,34 +298,68 @@ def copy_u_sum_int8(g, x: torch.Tensor) -> torch.Tensor:
     return _CopyUSum.apply(x, g, "int8")
 
 
+class WeightedCSR(NamedTuple):
+    """What the weighted sum walks: the dst-sorted CSR (indptr; indices,
+    each edge's source row; dst, its dst row) of n_rows rows over n_src
+    source rows, and its transpose (t_indptr over the sources; t_dst, each
+    slot's dst row; t_edges, its edge)."""
+    indptr: torch.Tensor
+    indices: torch.Tensor
+    dst: torch.Tensor
+    t_indptr: torch.Tensor
+    t_dst: torch.Tensor
+    t_edges: torch.Tensor
+    n_rows: int
+    n_src: int
+
+
 class _UMulESum(torch.autograd.Function):
-    """H = A_w x with A the dst-sorted CSC; dX = A_w^T dH on the kernel,
+    """H = A_w x with A a dst-sorted CSR; dX = A_w^T dH on the kernel,
     dW = <x[src], dH[dst]> in plain f32 torch when asked for."""
 
     @staticmethod
-    def forward(ctx, x, w, g):
-        ctx.g = g
+    def forward(ctx, x, w, csr):
+        ctx.csr = csr
         ctx.save_for_backward(x, w)
-        out = csr_wsum_bf16(g.indptr, g.senders, None,
+        out = csr_wsum_bf16(csr.indptr, csr.indices, None,
                             x.reshape(x.shape[0], -1).float(), w.float(),
-                            g.n_nodes)
-        return out.view((g.n_nodes,) + tuple(x.shape[1:])).to(x.dtype)
+                            csr.n_rows)
+        return out.view((csr.n_rows,) + tuple(x.shape[1:])).to(x.dtype)
 
     @staticmethod
     def backward(ctx, dh):
         x, w = ctx.saved_tensors
-        g = ctx.g
+        csr = ctx.csr
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = csr_wsum_bf16(g.t_indptr, g.t_receivers, g.t_edges,
-                               dh.reshape(g.n_nodes, -1).float(), w.float(),
-                               g.n_nodes)
+            dx = csr_wsum_bf16(csr.t_indptr, csr.t_dst, csr.t_edges,
+                               dh.reshape(csr.n_rows, -1).float(), w.float(),
+                               csr.n_src)
             dx = dx.view(x.shape).to(x.dtype)
         if ctx.needs_input_grad[1]:
-            xs = x.float().index_select(0, g.senders)
-            ds = dh.float().index_select(0, g.receivers)
+            xs = x.float().index_select(0, csr.indices)
+            ds = dh.float().index_select(0, csr.dst)
             dw = (xs * ds).sum(-1).to(w.dtype)
         return dx, dw, None
+
+
+def _check_weighted(x: torch.Tensor, w: torch.Tensor, n_src: int,
+                    n_edges: int) -> None:
+    if not ((x.dim() == 2 and w.dim() == 1)
+            or (x.dim() == 3 and w.dim() == 2 and w.shape[1] == x.shape[1])):
+        raise ValueError(f"u_mul_e_sum takes x [N, F] with w [E], or x "
+                         f"[N, H, D] with w [E, H]; got {tuple(x.shape)} and "
+                         f"{tuple(w.shape)}")
+    if x.shape[0] != n_src or w.shape[0] != n_edges:
+        raise ValueError(f"x must have {n_src} rows and w {n_edges}")
+
+
+def csr_u_mul_e_sum(csr: WeightedCSR, x: torch.Tensor,
+                    w: torch.Tensor) -> torch.Tensor:
+    """u_mul_e_sum over the CSR `csr`: x [n_src, ...] source rows, w in
+    its edge order; returns [n_rows, ...] (a halo shard's combined CSR)."""
+    _check_weighted(x, w, csr.n_src, csr.indices.shape[0])
+    return _UMulESum.apply(x, w, csr)
 
 
 def u_mul_e_sum(g, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -332,11 +367,7 @@ def u_mul_e_sum(g, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     x [N, F] with w [E], or x [N, H, D] with w [E, H] (per-head weights);
     differentiable in x and w. w follows the graph's dst-sorted edge
     order."""
-    if not ((x.dim() == 2 and w.dim() == 1)
-            or (x.dim() == 3 and w.dim() == 2 and w.shape[1] == x.shape[1])):
-        raise ValueError(f"u_mul_e_sum takes x [N, F] with w [E], or x "
-                         f"[N, H, D] with w [E, H]; got {tuple(x.shape)} and "
-                         f"{tuple(w.shape)}")
-    if x.shape[0] != g.n_nodes or w.shape[0] != g.n_edges:
-        raise ValueError(f"x must have {g.n_nodes} rows and w {g.n_edges}")
-    return _UMulESum.apply(x, w, g)
+    _check_weighted(x, w, g.n_nodes, g.n_edges)
+    return _UMulESum.apply(x, w, WeightedCSR(
+        g.indptr, g.senders, g.receivers, g.t_indptr, g.t_receivers,
+        g.t_edges, g.n_nodes, g.n_nodes))

@@ -236,18 +236,15 @@ def test_compute_min_cut_writes_in_tran_only(workdir, setting):
         assert 0.0 < value <= 1.0
 
 
-@pytest.mark.parametrize("flag", [["--n_shards", "2"], ["--dataset", "cora"]])
+@pytest.mark.parametrize("flag", [["--dataset", "cora"]])
 def test_unported_flags_raise(workdir, flag):
     from glnn_tpu_torch.cli import train_teacher
 
-    # --n_shards is not ported for GAT (test_torch_dist_cli.py runs it for
-    # SAGE, GCN and the MLPs); the CPF loader is, and without cora.npz it
-    # raises the JAX package's ValueError
-    exc, match, teacher = ((ValueError, "cora.npz", "SAGE")
-                           if flag[0] == "--dataset"
-                           else (NotImplementedError, "ROADMAP", "GAT"))
-    with pytest.raises(exc, match=match):
-        train_teacher.main(_args("--teacher", teacher, *flag))
+    # every option is ported (test_torch_dist_cli.py runs --n_shards for
+    # every teacher); the CPF loader without cora.npz raises the JAX
+    # package's ValueError
+    with pytest.raises(ValueError, match="cora.npz"):
+        train_teacher.main(_args("--teacher", "SAGE", *flag))
 
 
 def test_gpu_ordinal_without_gpu_raises(workdir, monkeypatch):

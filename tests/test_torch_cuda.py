@@ -282,6 +282,88 @@ def test_gat_seed_mode_bit_equal_to_mask_mode(cuda, h, d):
     assert 0.69 < mask.float().mean().item() < 0.71
 
 
+@pytest.mark.parametrize("base", [1, 123457, 2 ** 32 - 100])
+@pytest.mark.parametrize("h,d", [(8, 16), (1, 40), (3, 5)])
+def test_gat_edge_base_bit_equal_to_based_mask(cuda, h, d, base):
+    """Seed mode at an edge base (a shard's first global edge) against mask
+    mode fed philox_keep's mask at that base, bit for bit, through both
+    kernels; the base moves the bits (the counter wraps at 2**32)."""
+    g = _hub_graph(HUB_NODES, 7000, h + d + 1, cuda)
+    feat, al, ar, _ = _gat_inputs(g, h, d, 0.0, 5)
+    seed = torch.tensor([0x0BA5E5EED], dtype=torch.int64, device=cuda)
+    mask = gat_cuda.philox_keep(seed, g.n_edges, h, 0.7, base)
+    assert not torch.equal(mask, gat_cuda.philox_keep(seed, g.n_edges, h,
+                                                      0.7))
+    feat_b, el, er_b, al_b = gat_cuda.prep(feat, al, ar)
+    dout = torch.randn_like(feat)
+    got = []
+    for keep, edge_base in ((seed, base), (mask, 0)):
+        args = (g.indptr, g.senders, feat_b, el, er_b, keep, 1 / 0.7, 0.2)
+        out, smax, denom = gat_cuda.gat_fwd(*args, edge_base=edge_base)
+        got.append((out, smax, denom) + gat_cuda.gat_bwd(
+            *args, smax, denom, dout, al_b, edge_base))
+    assert all(torch.equal(a, b) for a, b in zip(*got))
+
+
+def _halo_gat_rank(m, payload):
+    """On each of 2 ranks sharing the card: the fused halo GAT layer in
+    seed mode, forward and one backward, on CUDA tensors (the kernels)
+    and on CPU tensors (their plain versions); returns this rank's launch
+    counts of the CUDA run."""
+    from glnn_tpu_torch.distributed.halo import halo_gat_attention
+
+    got = {}
+    for dev in (m.device, torch.device("cpu")):
+        hg = payload["hg"].to(dev)
+        gen = torch.Generator().manual_seed(8)
+        h, d, rows = 8, 16, hg.rows
+        feat = torch.randn((hg.n_pad, h, d), generator=gen)
+        al, ar = (0.3 * torch.randn((h, d), generator=gen) for _ in range(2))
+        dout = torch.randn((hg.n_pad, h, d), generator=gen)
+        mine = slice(m.rank * rows, (m.rank + 1) * rows)
+        leaves = [t.to(dev).requires_grad_(True)
+                  for t in (feat[mine], al, ar)]
+        seed = torch.tensor([0x5EED], dtype=torch.int64, device=dev)
+        gat_cuda.reset_counts()
+        spmm_cuda.reset_counts()
+        cuda_build.reset_counts()
+        out = halo_gat_attention(hg, *leaves, 0.2, seed, 1 / 0.7)
+        out.backward(dout[mine].to(dev))
+        got[dev.type] = [t.detach().cpu() for t in
+                         [out] + [leaf.grad for leaf in leaves]]
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            counts = {**gat_cuda.counts, **spmm_cuda.counts,
+                      **cuda_build.counts}
+    (out, dfeat, dal, dar), want = got["cuda"], got["cpu"]
+    _close(out, want[0])
+    _close(dfeat, want[1], rtol=1e-2, scale=1e-2)
+    _close(dal, want[2])
+    _close(dar, want[3])
+    return counts
+
+
+def test_halo_gat_attention_two_shards_match_plain(cuda, monkeypatch):
+    """Two ranks sharing the card over gloo: the fused halo GAT layer on the
+    kernels (gat_prep, gat_fwd and gat_bwd in seed mode, the source
+    reduce) against the same layer on CPU tensors, which runs the plain
+    versions, at the GAT layer's bounds; no plain version on CUDA."""
+    from glnn_tpu_torch.distributed import mesh
+    from glnn_tpu_torch.distributed.halo import build_halo_graph
+
+    monkeypatch.setenv(mesh.SHARE_DEVICE_ENV, "1")
+    rs = np.random.RandomState(12)
+    n, e = 3001, 40000
+    shards = build_halo_graph(rs.randint(0, n, e), rs.randint(0, n, e), n, 2,
+                              combined=True)
+    counts = mesh.launch(_halo_gat_rank, [{"hg": s} for s in shards], 0,
+                         timeout=300)
+    want = dict.fromkeys(counts, 0)
+    want.update(gat_prep=1, gat_fwd=1, gat_bwd=1, gat_fwd_seed=1,
+                gat_bwd_seed=1, spmm_csr_bf16=1)
+    assert counts == want
+
+
 @pytest.mark.parametrize("h,d", GAT_SHAPES + [(4, 1024), (2, 100)])
 def test_gat_prep_matches_plain(cuda, h, d):
     feat, al, ar, _ = _gat_inputs(_graph(3000, 10, h, cuda), h, d, 0.0, 4)

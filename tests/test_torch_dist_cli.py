@@ -1,13 +1,24 @@
 """`--n_shards 4` through the port's CLIs on 4 gloo ranks (CPU): each
 out.npz against `glnn_tpu`'s `--n_shards 4` run and the port's
 single-process run (argmax agreement on >= 0.99 of the nodes, the bar of
-tests/test_dist_runner.py), the run's log (every rank's backend and
-device, the launches line), and GAT and APPNP raising."""
+tests/test_dist_runner.py), and the run's log (every rank's backend and
+device, the launches line).
+
+GAT and APPNP run on the less noisy synth graph (noise 0.5), where every
+run converges within 8 epochs: on the noise-3.0 graph GAT reaches 0.84-0.87
+test accuracy, and two runs from different initial weights (the port's
+and JAX's single-process teachers) agree there on about 0.80 of the
+nodes, so agreement says nothing of the sharded path. The halo steps
+themselves are held to JAX's from its initial weights, and to the port's
+single-process steps with dropout on, in
+tests/test_torch_halo_attention.py."""
 
 import numpy as np
 import pytest
+import torch
 
 DATASET = "synth-n512-c5-f32-d8-noise3.0"
+EASY = ["--dataset", "synth-n512-c5-f32-d8-noise0.5", "--max_epoch", "8"]
 EPOCHS = ["--max_epoch", "15", "--patience", "10"]
 
 
@@ -38,6 +49,9 @@ def _check_log(log):
 @pytest.mark.parametrize("teacher,extra,setting", [
     ("SAGE", ["--sage_sampling", "full"], "transductive"),
     ("GCN", ["--exp_setting", "ind"], "inductive"),
+    ("GAT", EASY + ["--save_results"], "transductive"),
+    ("APPNP", EASY, "transductive"),
+    ("APPNP", EASY + ["--exp_setting", "ind"], "inductive"),
 ])
 def test_teacher_n_shards_matches_jax_and_single_process(
         tmp_path, monkeypatch, capsys, teacher, extra, setting):
@@ -58,6 +72,33 @@ def test_teacher_n_shards_matches_jax_and_single_process(
     for name in ("port1", "jax4"):
         agree = _agree(out4, _out(tmp_path / name, teacher, setting)[0])
         assert agree >= 0.99, f"{teacher} --n_shards 4 vs {name}: {agree}"
+    if "--save_results" in extra:
+        _check_saved_eval(log.parent, out4, extra)
+
+
+def _check_saved_eval(run_dir, out4, extra):
+    """The sharded run's out.npz (its halo exact eval, unrelabelled) is the
+    single-device exact eval of its saved best weights on the original
+    graph, up to summation order."""
+    from glnn_tpu_torch.cli import train_teacher
+    from glnn_tpu_torch.graph.datasets import load_synth_data
+    from glnn_tpu_torch.nn.models import Model
+    from glnn_tpu_torch.train import make_eval_fn
+    from glnn_tpu_torch.utils import get_training_config, load_model
+    from glnn_tpu_torch.utils.config import merge_args_with_config
+
+    dataset = extra[extra.index("--dataset") + 1]
+    g, labels, *_ = load_synth_data(dataset, 0, 20, 30)
+    args = train_teacher.get_args(["--teacher", "GAT"])
+    conf = merge_args_with_config(
+        dict(vars(args), feat_dim=g.ndata["feat"].shape[1],
+             label_dim=int(labels.max()) + 1),
+        get_training_config(args.model_config_path, "GAT", dataset))
+    model = Model(conf)
+    model.load_state_dict(load_model(run_dir / "model.ckpt"))
+    got = make_eval_fn(model, exact=True)(
+        g.to_device("cpu"), torch.as_tensor(g.ndata["feat"])).numpy()
+    np.testing.assert_allclose(out4, got, rtol=1e-4, atol=1e-4)
 
 
 def test_student_n_shards_matches_jax_and_single_process(tmp_path,
@@ -84,6 +125,26 @@ def test_student_n_shards_matches_jax_and_single_process(tmp_path,
         assert agree >= 0.99, f"student --n_shards 4 vs {name}: {agree}"
 
 
+def test_student_from_sharded_gat_teacher(tmp_path, monkeypatch):
+    """A data-parallel MLP student distilled from the sharded GAT teacher's
+    out.npz agrees with the single-process student from the same out.npz."""
+    from glnn_tpu_torch.cli import train_student, train_teacher
+
+    monkeypatch.chdir(tmp_path)
+    teacher = tmp_path / "teacher"
+    train_teacher.main(_args(teacher, "--teacher", "GAT", "--n_shards", "4",
+                             *EASY))
+    outs = {}
+    for name, shards in (("port4", ["--n_shards", "4"]), ("port1", [])):
+        train_student.main(_args(tmp_path / name, "--teacher", "GAT",
+                                 "--student", "MLP", "--out_t_path",
+                                 str(teacher / "outputs"), *shards, *EASY))
+        outs[name] = _out(tmp_path / name, "GAT_MLP")
+    _check_log(outs["port4"][1])
+    agree = _agree(outs["port4"][0], outs["port1"][0])
+    assert agree >= 0.99, f"student --n_shards 4 vs port1: {agree}"
+
+
 def test_sampled_sage_teacher_n_shards_finishes(tmp_path, monkeypatch,
                                                 capsys):
     from glnn_tpu_torch.cli import train_teacher
@@ -97,13 +158,3 @@ def test_sampled_sage_teacher_n_shards_finishes(tmp_path, monkeypatch,
     np.testing.assert_allclose(np.exp(out).sum(1), 1.0, rtol=1e-4)
     _check_log(log)
     assert "halo graph: 512 nodes, rows 128 per shard" in log.read_text()
-
-
-@pytest.mark.parametrize("teacher", ["GAT", "APPNP"])
-def test_gat_and_appnp_n_shards_raise(tmp_path, monkeypatch, teacher):
-    from glnn_tpu_torch.cli import train_teacher
-
-    monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 6"):
-        train_teacher.main(_args(tmp_path, "--teacher", teacher, "--n_shards",
-                                 "2"))

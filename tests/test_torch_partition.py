@@ -1,7 +1,8 @@
 """The port's host-side partitioners and halo index sets against
 `glnn_tpu` (exact arrays, no processes), and the sharded paths' rules:
-the rank -> device and backend rule, the ops that have no halo form yet,
-and a failing rank ending a launch."""
+the rank -> device and backend rule, and a failing rank ending a launch.
+The combined CSR of the per-edge halo ops is held to `build_graph` in
+tests/test_torch_halo_attention.py."""
 
 import numpy as np
 import pytest
@@ -140,21 +141,6 @@ def test_device_and_backend_rule(monkeypatch):
         mesh.plan_devices(1, 4)
     monkeypatch.setenv(mesh.SHARE_DEVICE_ENV, "1")
     assert mesh.plan_devices(1, 4) == ([torch.device("cuda:1")] * 4, "gloo")
-
-
-@pytest.mark.parametrize("op", ["u_add_v", "edge_softmax", "u_mul_e_sum",
-                                "gat_attention"])
-def test_halo_ops_without_a_halo_form_raise(op):
-    from glnn_tpu_torch import ops
-
-    hg = build_halo_graph(np.array([0, 1]), np.array([1, 0]), 2, 1)[0]
-    x = torch.ones(2, 4)
-    args = {"u_add_v": (x, x), "edge_softmax": (torch.ones(2),),
-            "u_mul_e_sum": (x, torch.ones(2)),
-            "gat_attention": (x.view(2, 1, 4), torch.ones(1, 4),
-                              torch.ones(1, 4))}[op]
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 6"):
-        getattr(ops, op)(hg, *args)
 
 
 def _fail_on_rank_one(m, payload):
