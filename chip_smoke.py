@@ -6,7 +6,9 @@
 Phases, each fatal on failure:
   1. build the CUDA kernels of every path from glnn_tpu_torch/csrc with
      nvcc for sm_90a (one nvcc per source, started together) and log each
-     kernel's ptxas register and spill counts;
+     kernel's ptxas register and spill counts; beside them, g++ builds the
+     host-graph library from glnn_tpu_torch/csrc/graphops.cpp (its seconds
+     logged), which must load: every path below runs the native tier;
   2. hold each kernel against its plain PyTorch version on the card, on the
      synth-n169343-c40-f128-d7 graph at the paths' shapes:
      - SpMM at the SAGE, GCN and APPNP widths (F = 40, 64, 128, 256) and
@@ -119,10 +121,14 @@ Phases, each fatal on failure:
        bf16 x; every floating tensor of both model.ckpt files f32;
      every other kernel exactly 0 on the GCN, APPNP, SAGE ind, feature
      aug and window bf16 paths; no plain version may run on a CUDA tensor, and each out.npz
-     must hold finite [169343, 40] log-probs;
+     must hold finite [169343, 40] log-probs; on every path both runs'
+     logs name the native host-graph tier and build_graph sorted natively
+     (`native.counts`);
   4c. the distributed phase (--n_shards): N_SHARDS = 4 ranks share the
      card over gloo (GLNN_SHARE_DEVICE=1), each asserted to run on cuda:0.
-     The smoke graph, relabelled by label-propagation communities as the
+     label_propagation_labels on the smoke graph, the native sweep bit for
+     bit against the numpy tier, both timed. The smoke graph, relabelled
+     by label-propagation communities as the
      teacher CLI relabels it, in 4 halo shards: on every rank the exact
      kernel's local and halo partials and both transposes against the plain
      version at F = 128 and 256 (rtol 1e-5 / atol 1e-4), each part and the
@@ -154,7 +160,11 @@ Phases, each fatal on failure:
      gat_prep and gat_fwd 4 x 2 x (3 + 4) = 56, gat_bwd, its source
      reduce (spmm_csr_bf16) and the seed-mode counts 4 x 2 x 3 = 24;
      APPNP spmm_csr_weighted 4 x 10 hops x 2 x 3 = 240 and spmm_csr_bf16
-     4 x 2 x 10 x 4 = 320 (ind: 640); no plain version on CUDA; the SAGE
+     4 x 2 x 10 x 4 = 320 (ind: 640); no plain version on CUDA; every
+     run's log names the native host-graph tier, each teacher relabels
+     once on the native tier (its log's relabel line, with its seconds)
+     and sorts natively, the student sorts nothing (it builds no CSR); the
+     SAGE
      and GAT teachers' out.npz against the single-device kernel eval of
      their saved weights (rtol 1e-4 / atol 1e-4); the data-parallel and
      halo epochs' seconds beside the single-process ones;
@@ -173,7 +183,10 @@ Phases, each fatal on failure:
      BGNN house_class CSV set with int, float-with-NaN and categorical
      columns), each loaded through load_data and held against the arrays
      written, with no pandas, sklearn or ogb module imported; the host
-     seconds of every write, load_data, build_graph and .to(device); the
+     seconds of every write, load_data, build_graph (its native sorts by
+     dst and by src apart from the rest) and .to(device); products'
+     native dst permutation bit for bit against one
+     np.argsort(kind="stable") of the same keys, both timed; the
      exact SpMM on the products graph at F = 100 against torch.sparse.mm
      (rtol 1e-5 / atol 1e-4; a plain gather would need a 49 GB message) and
      both timed beside the bytes bound; one sampled products epoch (49
@@ -225,6 +238,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -356,12 +370,25 @@ def kernel_times(fn, iters: int = 20, replays: int = 5) -> tuple:
     return eager, start.elapsed_time(stop) / (replays * iters)
 
 
-def phase_build(cuda_build) -> None:
+def phase_build(cuda_build, native) -> None:
+    """One nvcc per CUDA source and g++ for the host-graph library, all
+    started together; the library must load (the native tier)."""
     t0 = time.perf_counter()
-    messages = cuda_build.build(force=True)
+    with ThreadPoolExecutor(1) as pool:
+        host = pool.submit(lambda: (native.build(force=True),
+                                    time.perf_counter() - t0))
+        messages = cuda_build.build(force=True)
+        cuda_s = time.perf_counter() - t0
+        lib, host_s = host.result()
+    if lib is None or not native.available():
+        raise AssertionError(f"the host-graph library did not build: "
+                             f"{native.describe()}")
     log(f"build: nvcc {' '.join(cuda_build.NVCC_FLAGS)}, one per source, "
-        f"{sorted(cuda_build.SOURCES.values())} in "
-        f"{time.perf_counter() - t0:.2f} s")
+        f"{sorted(cuda_build.SOURCES.values())} in {cuda_s:.2f} s")
+    log(f"build: g++ {' '.join(native.CXX_FLAGS)} "
+        f"{os.path.relpath(native.SOURCE, os.path.dirname(__file__))}, "
+        f"beside nvcc, in {host_s:.2f} s; host graph ops: "
+        f"{native.describe()}")
     for name, text in sorted(messages.items()):
         for line in text.splitlines():
             if ("Compiling entry function" in line or "registers" in line
@@ -1021,6 +1048,7 @@ def drive_path(teacher: str, workdir: str, common: list, modules,
     out.npz ([nodes, classes] = `shape`) under outputs/<sub>/<dataset>, the
     runs' directories `names` (teacher, student; by default the option-free
     names)."""
+    from glnn_tpu_torch import native
     from glnn_tpu_torch.cli import train_student, train_teacher
 
     names = names or (teacher, f"{teacher}_MLP")
@@ -1029,6 +1057,7 @@ def drive_path(teacher: str, workdir: str, common: list, modules,
     printed = [io.StringIO(), io.StringIO()]
     for module in modules:
         module.reset_counts()
+    native.reset_counts()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(printed[0]):
         train_teacher.main(common + ["--teacher", teacher, "--max_epoch",
@@ -1042,10 +1071,15 @@ def drive_path(teacher: str, workdir: str, common: list, modules,
     t2 = time.perf_counter()
     counts = {k: v for module in modules for k, v in module.counts.items()}
     log(f"{tag} path: teacher {t1 - t0:.2f} s ({epochs} epochs), "
-        f"student {t2 - t1:.2f} s ({STUDENT_EPOCHS} epochs); counts {counts}")
+        f"student {t2 - t1:.2f} s ({STUDENT_EPOCHS} epochs); counts {counts}; "
+        f"host graph ops {native.counts}")
+    if not native.counts["sort_edges"]:
+        raise AssertionError(f"the {tag} path sorted no edges natively: "
+                             f"{native.counts}")
     for model in names:
-        with open(os.path.join(run_dir(workdir, sub, model, dataset),
-                               "log")) as f:
+        log_path = os.path.join(run_dir(workdir, sub, model, dataset), "log")
+        check_native_tier(f"{tag} {model}", log_path)
+        with open(log_path) as f:
             for line in f:
                 if any(k in line for k in ("mean epoch time", "Best valid",
                                            "Observed graph")):
@@ -1067,6 +1101,14 @@ def drive_path(teacher: str, workdir: str, common: list, modules,
         raise AssertionError(f"{counts['plain_on_cuda']} plain-version calls "
                              f"on CUDA tensors on the {tag} path")
     return counts
+
+
+def check_native_tier(tag: str, log_path: str) -> None:
+    """The run's log names the native tier of the host-graph library."""
+    with open(log_path) as f:
+        if "host graph ops: native (" not in f.read():
+            raise AssertionError(f"the {tag} log does not name the native "
+                                 f"host-graph tier")
 
 
 def check_counts(tag: str, got: dict, launched: dict) -> None:
@@ -1602,6 +1644,39 @@ def check_rect_hub(spmm_cuda, dev) -> float:
     return err
 
 
+def check_label_propagation(host, card: str) -> dict:
+    """label_propagation_labels on the smoke graph on the native tier, bit
+    for bit against the numpy tier, both timed."""
+    from glnn_tpu_torch import native
+    from glnn_tpu_torch.distributed.partition import label_propagation_labels
+
+    n = host.num_nodes()
+    native.reset_counts()
+    t0 = time.perf_counter()
+    got = label_propagation_labels(host.src, host.dst, n)
+    t1 = time.perf_counter()
+    available = native.available
+    native.available = lambda: False
+    try:
+        want = label_propagation_labels(host.src, host.dst, n)
+    finally:
+        native.available = available
+    t2 = time.perf_counter()
+    if native.counts["label_propagation"] != 1:
+        raise AssertionError(f"the native sweep ran "
+                             f"{native.counts['label_propagation']} times")
+    if not np.array_equal(got, want):
+        raise AssertionError("native label propagation differs from the "
+                             "numpy tier on the smoke graph")
+    rec = dict(native_s=t1 - t0, numpy_s=t2 - t1,
+               communities=int(np.unique(got).size))
+    log(f"check label propagation on the smoke graph ({host.num_edges():,} "
+        f"edges): native equal to the numpy tier, {rec['communities']:,} "
+        f"communities; native {rec['native_s']:.2f} s, numpy "
+        f"{rec['numpy_s']:.2f} s (host seconds); {card}")
+    return rec
+
+
 def phase_dist_checks(spmm_cuda, host, dev, card: str,
                       device: str = "cuda:0") -> dict:
     """The relabelled smoke graph in N_SHARDS shards, the checks on 4 ranks
@@ -1611,6 +1686,7 @@ def phase_dist_checks(spmm_cuda, host, dev, card: str,
     from glnn_tpu_torch.distributed import mesh as dmesh
     from glnn_tpu_torch.distributed.halo import build_halo_graph
 
+    label_prop = check_label_propagation(host, card)
     t0 = time.perf_counter()
     quiet = logging.getLogger("chip_smoke.relabel")
     relabelled = locality_relabel(host, np.zeros((host.num_nodes(), 1)),
@@ -1662,7 +1738,8 @@ def phase_dist_checks(spmm_cuda, host, dev, card: str,
         "spmm_csr_weighted": 2 * N_SHARDS * layers}
         if device.startswith("cuda") else {})
     log(f"per-op halo GAT layer: launches summed over the ranks {per_op}")
-    return {"halo_edge_fraction": frac, "ranks": ranks,
+    return {"halo_edge_fraction": frac, "label_propagation": label_prop,
+            "ranks": ranks,
             "halo_errs": halo_errs, "per_op_counts": per_op,
             "rect_hub_f40": check_rect_hub(spmm_cuda, dev), "card": card}
 
@@ -1691,10 +1768,12 @@ def drive_sharded(tag, workdir, common, model, extra=(), sub="transductive",
     """One CLI run with --n_shards N_SHARDS (the teacher, or with `student`
     an MLP student of the teacher `model`): its score line, out.npz and the
     summed launches from its log; returns (counts, seconds)."""
+    from glnn_tpu_torch import native
     from glnn_tpu_torch.cli import train_student, train_teacher
 
     name = f"{model}_MLP" if student else model
     printed = io.StringIO()
+    native.reset_counts()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(printed):
         if student:
@@ -1718,7 +1797,21 @@ def drive_sharded(tag, workdir, common, model, extra=(), sub="transductive",
     check_out(os.path.join(path, "out.npz"), tag, (N_NODES, N_CLASSES))
     counts = sharded_counts(tag, os.path.join(path, "log"), device)
     log(f"{tag} path: {seconds:.2f} s; launches summed over the ranks "
-        f"{counts}")
+        f"{counts}; host graph ops {native.counts}")
+    check_native_tier(tag, os.path.join(path, "log"))
+    # a GNN teacher relabels its graph once and sorts its shards' CSRs; the
+    # MLP student builds no CSR
+    want = ({"label_propagation": 1} if not student
+            else {"sort_edges": 0, "label_propagation": 0})
+    if (any(native.counts[k] != v for k, v in want.items())
+            or (not student and not native.counts["sort_edges"])):
+        raise AssertionError(f"{tag}: host graph ops {native.counts}, "
+                             f"predicted {want} (and a sort for a teacher)")
+    if not student:
+        with open(os.path.join(path, "log")) as f:
+            if "locality relabel: native label propagation" not in f.read():
+                raise AssertionError(f"{tag}: the relabel did not run on the "
+                                     f"native tier")
     if counts["plain_on_cuda"]:
         raise AssertionError(f"{counts['plain_on_cuda']} plain-version calls "
                              f"on CUDA tensors on the {tag} path")
@@ -2133,17 +2226,60 @@ def _load(name: str, data: str):
                      labelrate_val=30, split_idx=0)
 
 
+@contextlib.contextmanager
+def timed_sorts():
+    """native.sort_edges wrapped to record each call's (rows, host seconds,
+    permutation) in the list it yields."""
+    from glnn_tpu_torch import native
+
+    calls, sort = [], native.sort_edges
+
+    def timed(key, n):
+        t0 = time.perf_counter()
+        order = sort(key, n)
+        calls.append((n, time.perf_counter() - t0, order))
+        return order
+
+    native.sort_edges = timed
+    try:
+        yield calls
+    finally:
+        native.sort_edges = sort
+
+
 def _to_device(host, dev) -> tuple:
-    """HostGraph.to_device split in its two stages: (graph, build_graph
-    seconds, .to(device) seconds)."""
+    """HostGraph.to_device split in its two stages, build_graph's two sorts
+    apart: (graph, build_graph seconds, .to(device) seconds, [(rows,
+    seconds, permutation) of the sort by dst, then by src])."""
+    from glnn_tpu_torch import native
     from glnn_tpu_torch.graph.container import build_graph
 
-    t0 = time.perf_counter()
-    cpu = build_graph(host.src, host.dst, host.n_nodes)
-    t1 = time.perf_counter()
+    native.reset_counts()
+    with timed_sorts() as sorts:
+        t0 = time.perf_counter()
+        cpu = build_graph(host.src, host.dst, host.n_nodes)
+        t1 = time.perf_counter()
+    if native.counts["sort_edges"] != 2 or len(sorts) != 2:
+        raise AssertionError(f"build_graph sorted {len(sorts)} times, "
+                             f"{native.counts['sort_edges']} natively")
     g = cpu.to(dev)
     torch.cuda.synchronize()
-    return g, t1 - t0, time.perf_counter() - t1
+    return g, t1 - t0, time.perf_counter() - t1, sorts
+
+
+def check_products_sort(host, order, native_s: float, card: str) -> dict:
+    """build_graph's native sort by dst on products against one
+    np.argsort(kind="stable") of the same keys, bit for bit, both timed."""
+    t0 = time.perf_counter()
+    want = np.argsort(host.dst, kind="stable")
+    numpy_s = time.perf_counter() - t0
+    if not np.array_equal(order, want):
+        raise AssertionError("the native dst permutation of ogbn-products "
+                             "differs from np.argsort(kind='stable')")
+    log(f"check ogbn-products: build_graph's native sort by dst ({order.size:,}"
+        f" edges) equal to np.argsort(kind='stable'); native {native_s:.2f} "
+        f"s, np.argsort {numpy_s:.2f} s (host seconds); {card}")
+    return dict(numpy_argsort_dst_s=numpy_s)
 
 
 def phase_dataset_files(data: str, dev, host, labels, card: str) -> dict:
@@ -2173,18 +2309,24 @@ def phase_dataset_files(data: str, dev, host, labels, card: str) -> dict:
         t2 = time.perf_counter()
         check(loaded, written)
         del written
-        g, build_s, move_s = _to_device(loaded[0], dev)
+        g, build_s, move_s, sorts = _to_device(loaded[0], dev)
         rec = dict(write_s=t1 - t0, load_data_s=t2 - t1, build_graph_s=build_s,
+                   sort_dst_s=sorts[0][1], sort_src_s=sorts[1][1],
+                   build_rest_s=build_s - sorts[0][1] - sorts[1][1],
                    to_device_s=move_s, nodes=g.n_nodes, edges=g.n_edges,
                    feats=int(loaded[0].ndata["feat"].shape[1]))
         ingest[name] = rec
         log(f"ingest {name}: N={g.n_nodes:,}, E={g.n_edges:,}, F="
             f"{rec['feats']}: write {rec['write_s']:.2f} s, load_data "
-            f"{rec['load_data_s']:.2f} s, build_graph {build_s:.2f} s, "
-            f".to(device) {move_s:.2f} s (host seconds); {card}")
+            f"{rec['load_data_s']:.2f} s, build_graph {build_s:.2f} s (native "
+            f"sort by dst {rec['sort_dst_s']:.2f} s, by src "
+            f"{rec['sort_src_s']:.2f} s, the rest {rec['build_rest_s']:.2f} "
+            f"s), .to(device) {move_s:.2f} s (host seconds); {card}")
         if name == "ogbn-products":
             products = (loaded[0], loaded[1], loaded[2], g)
-        del g, loaded
+            rec.update(check_products_sort(loaded[0], sorts[0][2],
+                                           sorts[0][1], card))
+        del g, loaded, sorts
     bad = [m for m in sys.modules
            if m.split(".")[0] in ("pandas", "sklearn", "ogb")]
     if bad:
@@ -2882,7 +3024,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
-    from glnn_tpu_torch import ops
+    from glnn_tpu_torch import native, ops
     from glnn_tpu_torch.graph.datasets import load_synth_data
     from glnn_tpu_torch.ops import cuda_build, gat_cuda, refops, spmm_cuda
 
@@ -2891,7 +3033,7 @@ def main() -> int:
     t_start = time.perf_counter()
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
-    phase_build(cuda_build)
+    phase_build(cuda_build, native)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

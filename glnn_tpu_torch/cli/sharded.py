@@ -21,10 +21,12 @@ from __future__ import annotations
 
 import json
 import logging
+import time
 
 import numpy as np
 import torch
 
+from glnn_tpu_torch import native
 from glnn_tpu_torch.cli.common import (
     append_min_cut,
     configure_numerics,
@@ -46,25 +48,34 @@ from glnn_tpu_torch.graph.host import reorder_nodes
 from glnn_tpu_torch.nn.models import APPNP, GAT
 from glnn_tpu_torch.utils import graph_split
 
-LOCALITY_MAX_EDGES = 20_000_000   # the numpy label propagation's budget
+# the label propagation's edge budget per tier of the host-graph library
+# (glnn_tpu/cli/train_teacher.py:44-45): ogbn-products fits the native one
+LOCALITY_MAX_EDGES = {"numpy": 20_000_000, "native": 300_000_000}
 
 
 def locality_relabel(g, feats, labels, idxs, n_shards: int, logger):
     """Community-locality relabeling ahead of the contiguous halo partition:
     label-propagation communities, LPT-assigned whole to equal node blocks.
     Returns (g, feats, labels, idxs, new_id), new_id None when skipped
-    (graphs above LOCALITY_MAX_EDGES); out[new_id] undoes it."""
+    (graphs above the tier's LOCALITY_MAX_EDGES); out[new_id] undoes it.
+    Logs the tier and its seconds."""
     n = g.num_nodes()
-    if g.num_edges() > LOCALITY_MAX_EDGES:
-        logger.info("locality relabel skipped: graph above the "
-                    "label-propagation tier's edge budget")
+    tier = "native" if native.available() else "numpy"
+    if g.num_edges() > LOCALITY_MAX_EDGES[tier]:
+        logger.info(f"locality relabel skipped: graph above the {tier} "
+                    f"label-propagation tier's budget of "
+                    f"{LOCALITY_MAX_EDGES[tier]:,} edges")
         return g, feats, labels, idxs, None
+    t0 = time.perf_counter()
     lab = label_propagation_labels(g.src, g.dst, n)
+    t1 = time.perf_counter()
     order = community_balanced_order(lab, np.bincount(g.dst, minlength=n),
                                      n_shards)
     new_id = inverse_permutation(order)
     g2 = reorder_nodes(g, order)
-    logger.info(f"locality relabel: halo edge fraction "
+    logger.info(f"locality relabel: {tier} label propagation {t1 - t0:.2f} "
+                f"s, relabel {time.perf_counter() - t0:.2f} s (host); halo "
+                f"edge fraction "
                 f"{halo_fraction(g2.src, g2.dst, n, n_shards):.3f} at "
                 f"n_shards={n_shards}")
     return (g2, feats[order], labels[order],

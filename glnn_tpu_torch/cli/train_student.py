@@ -22,6 +22,7 @@ import copy
 import numpy as np
 import torch
 
+from glnn_tpu_torch import native
 from glnn_tpu_torch.cli import sharded
 from glnn_tpu_torch.cli.common import (
     add_common_args,
@@ -89,6 +90,7 @@ def run(args):
     logger.info(f"output_dir: {output_dir}")
     logger.info(f"out_t_dir: {out_t_dir}")
     logger.info(f"device: {device}")
+    logger.info(f"host graph ops: {native.describe()}")
 
     g, labels, idx_train, idx_val, idx_test = load_data(
         args.dataset, args.data_path, split_idx=args.split_idx,

@@ -71,6 +71,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from glnn_tpu_torch import native
 from glnn_tpu_torch.distributed import mesh as _mesh
 from glnn_tpu_torch.ops import cuda_build, gat_cuda, refops, spmm_cuda
 
@@ -164,7 +165,7 @@ def _combined(hg: HaloGraph) -> HaloGraph:
 def _csr(rows_of_edge: np.ndarray, cols: np.ndarray, n_rows: int):
     """(indptr, indices) int32 of edges (rows_of_edge, cols), stable by
     row."""
-    order = np.argsort(rows_of_edge, kind="stable")
+    order = native.sort_edges(rows_of_edge, n_rows)
     indptr = np.zeros(n_rows + 1, np.int64)
     np.cumsum(np.bincount(rows_of_edge, minlength=n_rows), out=indptr[1:])
     return (torch.from_numpy(indptr.astype(np.int32)),
@@ -209,7 +210,7 @@ def build_halo_graph(src: np.ndarray, dst: np.ndarray, n_nodes: int,
         # shard, in the global dst-sorted (stable) order
         csrc = src - shard_dst * rows
         csrc[hidx] = rows + halo_pos
-        order = np.argsort(dst, kind="stable")
+        order = native.sort_edges(dst, n)
         csrc, cdst = csrc[order], dst[order]
         g_indptr = np.zeros(n_pad + 1, np.int64)
         np.cumsum(ind.astype(np.int64), out=g_indptr[1:])
@@ -232,7 +233,7 @@ def build_halo_graph(src: np.ndarray, dst: np.ndarray, n_nodes: int,
             lo = int(g_indptr[base])
             c_src = csrc[lo:int(g_indptr[base + rows])]
             c_dst = cdst[lo:lo + c_src.shape[0]] - base
-            t_order = np.argsort(c_src, kind="stable")
+            t_order = native.sort_edges(c_src, rows + n_recv)
             t_indptr_c = np.zeros(rows + n_recv + 1, np.int64)
             np.cumsum(np.bincount(c_src, minlength=rows + n_recv),
                       out=t_indptr_c[1:])

@@ -7,13 +7,16 @@ aggregation of its rows and only the source rows of other shards cross
 (distributed/halo.py). The relabelings below permute node ids so that
 the equal blocks keep communities together (label propagation, then
 whole communities LPT-assigned to shards) or balance the in-edge load.
-The label propagation here is the numpy tier; the JAX package also has a
-native C++ sweep with the same result, which the port does not bind.
+The label propagation runs the native C++ sweep of the port's host-graph
+library (`glnn_tpu_torch.native`) where it is built, else the numpy sweep
+here; both give the same labels, as JAX's two tiers do.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from glnn_tpu_torch import native
 
 
 def contiguous_partition(n_nodes: int, n_shards: int) -> np.ndarray:
@@ -128,10 +131,14 @@ def label_propagation_labels(src: np.ndarray, dst: np.ndarray,
     (bandwidth reduction) recovers almost none of a planted-partition
     graph's structure once ids are shuffled (measured halo fraction
     0.80 at P=8 vs 0.10 for LP on the same graph — bench/scaling.py).
-    The numpy sweep (sort + run-length per sweep, O(E log E)); the JAX
-    package's native sweep gives the same labels (tests/test_native.py).
-    Returns int64[n] labels.
+    The native sweep (`native.label_propagation`, O(E log deg) a sweep)
+    where the host-graph library is built, which ogbn-products needs; else
+    the numpy sweep below (sort + run-length per sweep, O(E log E)), which
+    gives the same labels. Returns int64[n] labels.
     """
+    lab = native.label_propagation(src, dst, n_nodes, iters)
+    if lab is not None:
+        return lab
     src = np.asarray(src, np.int64)
     dst = np.asarray(dst, np.int64)
     ss = np.concatenate([src, dst])

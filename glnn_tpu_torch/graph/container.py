@@ -22,6 +22,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from glnn_tpu_torch import native
+
 
 @dataclasses.dataclass(frozen=True)
 class Graph:
@@ -74,8 +76,9 @@ class Graph:
 
 
 def _csr(keys: np.ndarray, n_rows: int) -> tuple[np.ndarray, np.ndarray]:
-    """Stable sort order by `keys` and the row pointer it implies."""
-    order = np.argsort(keys, kind="stable")
+    """Stable sort order by `keys` (`native.sort_edges`, the counting sort
+    that JAX's `_sort_by_dst` calls) and the row pointer it implies."""
+    order = native.sort_edges(keys, n_rows)
     indptr = np.zeros(n_rows + 1, np.int64)
     np.cumsum(np.bincount(keys, minlength=n_rows), out=indptr[1:])
     return order, indptr

@@ -2,11 +2,13 @@
 ingest needs (`glnn_tpu/graph/host.py`).
 
 `to_bidirected`, `induced_subgraph`, `coo_to_csr` and
-`connected_components` are local numpy and scipy copies of the fallbacks
-in `glnn_tpu/native/__init__.py`, which give the same arrays as the native
-library there (to_bidirected sorts by the key src * n + dst;
-induced_subgraph keeps the edges' order; coo_to_csr is a stable sort by
-row). The port has no binding to that library.
+`connected_components` are the port's host-graph library
+(`glnn_tpu_torch.native`: the C++ of `csrc/graphops.cpp`, or its numpy and
+scipy tier where no g++ is found), as `glnn_tpu`'s HostGraph routes them
+through `glnn_tpu.native`; both tiers give JAX's arrays (to_bidirected
+sorts by the key src * n + dst; induced_subgraph keeps the edges' order;
+coo_to_csr is a stable sort by row; components are numbered by their first
+node).
 """
 
 from __future__ import annotations
@@ -14,47 +16,13 @@ from __future__ import annotations
 import numpy as np
 import scipy.sparse as sp
 
-from glnn_tpu_torch.graph.container import Graph, _csr, build_graph
-
-
-def to_bidirected(src, dst, n: int):
-    """Symmetrise and deduplicate, sorted by (src, dst)."""
-    src = np.asarray(src, np.int64)
-    dst = np.asarray(dst, np.int64)
-    s2 = np.concatenate([src, dst])
-    d2 = np.concatenate([dst, src])
-    _, keep = np.unique(s2 * n + d2, return_index=True)
-    return s2[keep], d2[keep]
-
-
-def induced_subgraph(src, dst, n: int, idx):
-    """The edges with both ends in idx, relabelled so that new id i is
-    idx[i], in their original order (self-loops on idx survive)."""
-    src = np.asarray(src, np.int64)
-    dst = np.asarray(dst, np.int64)
-    idx = np.asarray(idx, np.int64)
-    new_id = np.full(n, -1, np.int64)
-    new_id[idx] = np.arange(idx.shape[0])
-    keep = (new_id[src] >= 0) & (new_id[dst] >= 0)
-    return new_id[src[keep]], new_id[dst[keep]]
-
-
-def coo_to_csr(src, dst, n: int):
-    """(indptr, indices) of the rows `src`, each row's entries in edge
-    order."""
-    order, indptr = _csr(np.asarray(src, np.int64), n)
-    return indptr, np.asarray(dst, np.int64)[order]
-
-
-def connected_components(src, dst, n: int):
-    """(count, int64 component label per node) of the weakly connected
-    components."""
-    src = np.asarray(src, np.int64)
-    dst = np.asarray(dst, np.int64)
-    adj = sp.csr_matrix((np.ones(len(src), np.int8), (src, dst)),
-                        shape=(n, n))
-    k, comp = sp.csgraph.connected_components(adj, directed=False)
-    return int(k), comp.astype(np.int64)
+from glnn_tpu_torch.graph.container import Graph, build_graph
+from glnn_tpu_torch.native import (
+    connected_components,
+    coo_to_csr,
+    induced_subgraph,
+    to_bidirected,
+)
 
 
 class HostGraph:

@@ -27,6 +27,7 @@ from glnn_tpu.graph import sparse as jsp
 from glnn_tpu_torch.graph import datasets as tds
 from glnn_tpu_torch.graph import host as thost
 from glnn_tpu_torch.graph import sparse as tsp
+from native_tiers import tier  # noqa: F401  (fixture: native, numpy)
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -411,12 +412,12 @@ def _same_graph(jg, tg):
 
 @pytest.mark.parametrize("op", ["add_reverse_edges", "remove_self_loop",
                                 "add_self_loop", "to_bidirected"])
-def test_host_edge_surgery_same_as_jax(op):
+def test_host_edge_surgery_same_as_jax(op, tier):
     jg, tg = _host_pair(np.random.RandomState(12))
     _same_graph(getattr(jg, op)(), getattr(tg, op)())
 
 
-def test_host_queries_same_as_jax():
+def test_host_queries_same_as_jax(tier):
     jg, tg = _host_pair(np.random.RandomState(13))
     assert tg.num_nodes() == jg.num_nodes() == 60
     for name in ("in_degrees", "out_degrees"):
@@ -428,7 +429,7 @@ def test_host_queries_same_as_jax():
     assert (tg.adj_scipy() != jg.adj_scipy()).nnz == 0
 
 
-def test_largest_connected_component_same_as_jax():
+def test_largest_connected_component_same_as_jax(tier):
     rs = np.random.RandomState(14)
     adj = _cpf_graph(rs, 90, comps=(5, 3, 3)).tocoo()
     jg = jhost.HostGraph(adj.row, adj.col, 90)

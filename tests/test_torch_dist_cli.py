@@ -11,11 +11,14 @@ and JAX's single-process teachers) agree there on about 0.80 of the
 nodes, so agreement says nothing of the sharded path. The halo steps
 themselves are held to JAX's from its initial weights, and to the port's
 single-process steps with dropout on, in
-tests/test_torch_halo_attention.py."""
+tests/test_torch_halo_attention.py. The locality relabel's per-tier edge
+budget is held to JAX's without processes."""
 
 import numpy as np
 import pytest
 import torch
+
+from native_tiers import tier  # noqa: F401  (fixture: native, numpy)
 
 DATASET = "synth-n512-c5-f32-d8-noise3.0"
 EASY = ["--dataset", "synth-n512-c5-f32-d8-noise0.5", "--max_epoch", "8"]
@@ -158,3 +161,43 @@ def test_sampled_sage_teacher_n_shards_finishes(tmp_path, monkeypatch,
     np.testing.assert_allclose(np.exp(out).sum(1), 1.0, rtol=1e-4)
     _check_log(log)
     assert "halo graph: 512 nodes, rows 128 per shard" in log.read_text()
+
+
+def test_locality_relabel_budget_follows_the_tier(tier, monkeypatch):
+    """The relabel of a graph above the numpy tier's edge budget (patched
+    down to 1,000 edges in both packages; the synth graph has more): the
+    native tier relabels it to the arrays of JAX's `_locality_relabel`
+    with its library, the numpy tier skips it as JAX's does without its
+    library. Each logs its tier."""
+    import logging
+
+    from glnn_tpu import native as jnative
+    from glnn_tpu.cli import train_teacher as jax_teacher
+    from glnn_tpu.graph.datasets import load_synth_data as jax_load
+    from glnn_tpu_torch.cli import sharded
+    from glnn_tpu_torch.graph.datasets import load_synth_data
+
+    monkeypatch.setitem(sharded.LOCALITY_MAX_EDGES, "numpy", 1000)
+    monkeypatch.setattr(jax_teacher, "_LOCALITY_MAX_EDGES", 1000)
+    if tier == "numpy":
+        monkeypatch.setattr(jnative, "available", lambda: False)
+    g, labels, *idxs = load_synth_data(DATASET, 0, 20, 30)
+    gj, labels_j, *idxs_j = jax_load(DATASET, 0, 20, 30)
+    assert g.num_edges() > 1000
+    feats = np.asarray(g.ndata["feat"])
+    lines = []
+    logger = logging.getLogger("test_torch_dist_cli.relabel")
+    monkeypatch.setattr(logger, "info", lines.append)
+    got = sharded.locality_relabel(g, feats, labels, tuple(idxs), 4, logger)
+    want = jax_teacher._locality_relabel(gj, np.asarray(gj.ndata["feat"]),
+                                         labels_j, tuple(idxs_j), 4, logger)
+    if tier == "numpy":
+        assert got[4] is None and want[4] is None and got[0] is g
+        assert "the numpy label-propagation tier's budget" in lines[0]
+        return
+    assert "locality relabel: native label propagation" in lines[0]
+    np.testing.assert_array_equal(got[4], want[4])
+    np.testing.assert_array_equal(got[0].src, want[0].src)
+    np.testing.assert_array_equal(got[0].dst, want[0].dst)
+    for a, b in zip(got[1:3] + got[3], want[1:3] + want[3]):
+        np.testing.assert_array_equal(a, b)

@@ -1,4 +1,5 @@
-"""glnn_tpu_torch host ingest and graph container against glnn_tpu."""
+"""glnn_tpu_torch host ingest and graph container against glnn_tpu, the
+container's tests on both tiers of the host-graph library (`tier`)."""
 
 import numpy as np
 import pytest
@@ -8,6 +9,7 @@ from glnn_tpu.graph.container import build_graph as jax_build_graph
 from glnn_tpu.graph.datasets import load_synth_data as jax_load_synth
 from glnn_tpu_torch.graph.container import build_graph
 from glnn_tpu_torch.graph.datasets import load_data, load_synth_data
+from native_tiers import tier  # noqa: F401  (fixture: native, numpy)
 
 SYNTH = "synth-n512-c5-f32-d8-noise3.0"
 
@@ -22,7 +24,7 @@ def _assert_same_graph(gt, gj):
 
 
 @pytest.mark.parametrize("seed", [0, 3])
-def test_synth_data_identical_to_jax(seed):
+def test_synth_data_identical_to_jax(seed, tier):
     gt, lt, *it = load_synth_data(SYNTH, seed, 20, 30)
     gj, lj, *ij = jax_load_synth(SYNTH, seed, 20, 30)
     np.testing.assert_array_equal(gt.ndata["feat"], gj.ndata["feat"])
@@ -35,14 +37,14 @@ def test_synth_data_identical_to_jax(seed):
                        jax_build_graph(gj.src, gj.dst, gj.n_nodes))
 
 
-def test_tiny_graph_csc_identical_to_jax(tiny_graph):
+def test_tiny_graph_csc_identical_to_jax(tiny_graph, tier):
     g = build_graph(tiny_graph.src, tiny_graph.dst, tiny_graph.n_nodes)
     _assert_same_graph(g, jax_build_graph(tiny_graph.src, tiny_graph.dst,
                                           tiny_graph.n_nodes))
     assert g.indptr.shape == (tiny_graph.n_nodes + 2,)
 
 
-def test_transposed_csr_is_the_src_sorted_edge_set(tiny_graph):
+def test_transposed_csr_is_the_src_sorted_edge_set(tiny_graph, tier):
     from conftest import dense_adj
 
     g = build_graph(tiny_graph.src, tiny_graph.dst, tiny_graph.n_nodes)
@@ -56,7 +58,7 @@ def test_transposed_csr_is_the_src_sorted_edge_set(tiny_graph):
 
 
 @pytest.mark.parametrize("seed", [0, 1])
-def test_t_edges_point_each_src_slot_at_its_dst_sorted_edge(seed):
+def test_t_edges_point_each_src_slot_at_its_dst_sorted_edge(seed, tier):
     """t_edges is a permutation of the dst-sorted edge ids; slot k of the
     transposed CSR names an edge whose source owns the slot and whose
     destination is t_receivers[k]; within a source the edges keep their
@@ -76,7 +78,7 @@ def test_t_edges_point_each_src_slot_at_its_dst_sorted_edge(seed):
 
 
 @pytest.mark.parametrize("src,dst", [([0, 3], [1, 2]), ([0, 1], [-1, 2])])
-def test_build_graph_rejects_out_of_range_endpoints(src, dst):
+def test_build_graph_rejects_out_of_range_endpoints(src, dst, tier):
     with pytest.raises(ValueError, match="endpoints"):
         build_graph(np.array(src), np.array(dst), 3)
 

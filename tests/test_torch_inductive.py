@@ -3,7 +3,8 @@ pieces against glnn_tpu, on the same numpy inputs
 (synth-n512-c5-f32-d8-noise3.0 and seeded numpy arrays).
 
 Tolerances:
-* split and subgraph arrays: exactly equal (the same numpy calls);
+* split and subgraph arrays: exactly equal (the same numpy calls; the
+  subgraph on both tiers of the host-graph library, `tier`);
 * feature_prop: rtol 1e-5 / atol 1e-6 (f32 segment sums on both sides, in
   another order);
 * the min-cut loss: rtol 1e-5 (f32 sums of the same products);
@@ -40,6 +41,7 @@ from glnn_tpu_torch.ops import graph_utils, refops, spmm_cuda
 from glnn_tpu_torch.train import (distill_run_inductive, make_adam,
                                   make_eval_fn, run_inductive)
 from glnn_tpu_torch.utils import splits
+from native_tiers import tier  # noqa: F401  (fixture: native, numpy)
 
 DATASET = "synth-n512-c5-f32-d8-noise3.0"
 LOGGER = logging.getLogger("test_torch_inductive")
@@ -82,7 +84,7 @@ def test_split_arrays_equal_jax(seed, rate):
 
 
 @pytest.mark.parametrize("which", ["idx_obs", "random"])
-def test_subgraph_equal_jax(which):
+def test_subgraph_equal_jax(which, tier):
     g, gj, _, (idx_train, idx_val, idx_test) = _data()
     if which == "idx_obs":
         idx = splits.graph_split(idx_train, idx_val, idx_test, 0.2, 0)[3]

@@ -11,6 +11,7 @@ import torch
 from glnn_tpu_torch.distributed import mesh
 from glnn_tpu_torch.distributed import partition as tp
 from glnn_tpu_torch.distributed.halo import build_halo_graph
+from native_tiers import tier  # noqa: F401  (fixture: native, numpy)
 
 
 def _planted(seed, n=600, k=6, e=5000, p_in=0.9):
@@ -51,8 +52,9 @@ def test_partitioners_equal_jax(seed, n_shards):
 
 
 @pytest.mark.parametrize("seed", [0, 1])
-def test_label_propagation_and_community_order_equal_jax(seed):
-    """JAX's label propagation goes native where the library is built
+def test_label_propagation_and_community_order_equal_jax(seed, tier):
+    """On both tiers of the port's library, against JAX's label
+    propagation, which goes native where its library is built
     (tests/test_native.py holds it equal to its numpy sweep)."""
     from glnn_tpu.distributed import partition as jp
 
@@ -66,7 +68,7 @@ def test_label_propagation_and_community_order_equal_jax(seed):
 
 
 @pytest.mark.parametrize("seed", [0, 3])
-def test_build_halo_graph_equals_jax(seed):
+def test_build_halo_graph_equals_jax(seed, tier):
     """P = 8: per shard, the global (src, dst) multisets of the local and of
     the halo edges (JAX's ghost slots dropped), the send lists in order and
     the degrees equal JAX's."""
