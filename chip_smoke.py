@@ -199,6 +199,28 @@ Phases, each fatal on failure:
      labelled nodes, so no -1 label reaches the loss or a score) and OGB
      products SAGE (1 epoch; 3 and 3), each out.npz finite log-probs of
      the loaded graph's nodes and classes, no plain version on CUDA;
+  4d. the experiment harness and the profiler traces: `python -m
+     glnn_tpu_torch.experiments.run_experiments glnn_synth` with no
+     --device (cuda:0) in a temporary work directory, four CLI children
+     (SAGE and GLNN, tran and ind, on synth-n2048-c7-f128-d10-noise3.0,
+     num_exp 2, max_epoch 50, patience 20): glnn_synth.txt's four labelled
+     rows (2 scores and stds in tran, 4 in ind, each in [0, 1]), every
+     child's log naming cuda:0 and the native host-graph tier, its
+     launches line with no plain version on CUDA (the SAGE teachers on both
+     SpMM tiers), exp_results and every seed's out.npz (finite, each row's
+     logsumexp within 1e-4 of 0), no library under build/glnn_tpu_torch
+     rebuilt by a child, and the aggregator over the tree exiting 0; each
+     child's seconds and row logged beside the JAX package's record; the
+     dry run of every experiment and of reproduce_all in process with
+     subprocess.run failing (no child, nothing written). Then
+     trace_and_report on cuda:0 at the smoke configuration of one GAT
+     training step (the published synth GAT row, 3 traced calls), one
+     exact all-node SAGE eval (3) and one sampled SAGE epoch (Floyd, f32;
+     1), the counts set to 0 before each: every port kernel in the report
+     counted as often as its counter moved over the traced calls, no plain
+     version on CUDA, then one call untraced (what tracing costs); one
+     `trace {...}` line each with the top 10 device ops, busy ms, window
+     ms and the device idle share;
   5. time each kernel and its plain version with CUDA events (a kernel's
      `ms` from 20 calls back to back, which holds the wrapper's Python and
      launch overhead where that is the slower side; its device time from
@@ -2472,6 +2494,304 @@ def phase_datasets(cuda_build, spmm_cuda, gat_cuda, workdir: str, host,
     return paths, ingest
 
 
+# ---------------------------------------------------------------------------
+# Phase 4d: the experiment harness on the card (glnn_synth through python -m
+# glnn_tpu_torch.experiments.run_experiments, with no --device; the dry run
+# of every experiment and of reproduce_all), then the profiler traces of a
+# GAT training step, an exact all-node SAGE eval and a sampled SAGE epoch,
+# each with its device-op report.
+# ---------------------------------------------------------------------------
+
+EXP_DATASET = "synth-n2048-c7-f128-d10-noise3.0"   # glnn_synth's graph
+EXP_SHAPE = (2048, 7)
+# the JAX package's record of the same experiment
+# (experiments/glnn_synth_r4.txt); logged beside the port's rows, not gated
+JAX_GLNN_SYNTH = {
+    f"tran/{EXP_DATASET}/SAGE": "1.0000 0.0000",
+    f"tran/{EXP_DATASET}/GLNN": "1.0000 0.0000",
+    f"ind/{EXP_DATASET}/SAGE": "1.0000 1.0000 0.0000 0.0000",
+    f"ind/{EXP_DATASET}/GLNN": "1.0000 0.6342 0.0000 0.0029",
+}
+# glnn_synth's children in order: label, numbers in its row, setting
+# directory, run directory
+EXP_CHILDREN = tuple(
+    (f"{e}/{EXP_DATASET}/{model}", n, sub, run)
+    for e, n, sub in (("tran", 2, "transductive"),
+                      ("ind", 4, "inductive/split_rate_0.2"))
+    for model, run in (("SAGE", "SAGE"), ("GLNN", "SAGE_MLP")))
+TRACE_ITERS = 3              # traced calls of a GAT step or a SAGE eval
+LIBRARIES = ("libgat.so", "libgraphops.so", "libspmm.so")
+
+
+def _built(native) -> dict:
+    """Each library under build/glnn_tpu_torch: (mtime ns, inode). A
+    rebuild replaces the file, which changes both."""
+    got = {p.name: (p.stat().st_mtime_ns, p.stat().st_ino)
+           for p in native.BUILD_DIR.glob("lib*.so")}
+    if sorted(got) != list(LIBRARIES):
+        raise AssertionError(f"built libraries {sorted(got)}, expected "
+                             f"{LIBRARIES}")
+    return got
+
+
+def _log_span_s(first_log: str, last_log: str) -> float:
+    """Seconds from the first line of one CLI log to the last line of
+    another (the logs' timestamps have 1 s resolution)."""
+    import datetime
+
+    def stamp(path, index):
+        with open(path) as f:
+            line = f.read().splitlines()[index]
+        return datetime.datetime.strptime(line.split(": ", 1)[0],
+                                          "%b%d %H-%M-%S")
+
+    return (stamp(last_log, -1) - stamp(first_log, 0)).total_seconds()
+
+
+def _launches_line(log_path: str) -> dict:
+    """The last `launches {...}` line of a CLI run's log."""
+    with open(log_path) as f:
+        lines = [ln for ln in f if ": launches {" in ln]
+    if not lines:
+        raise AssertionError(f"{log_path} has no launches line")
+    return json.loads(lines[-1].split("launches ", 1)[1])
+
+
+def check_dry_runs() -> dict:
+    """The dry run of every experiment and of reproduce_all, in process,
+    with subprocess.run replaced by a failure: each prints its commands,
+    starts no child and writes nothing."""
+    from unittest import mock
+
+    from glnn_tpu_torch.experiments import reproduce_all, run_experiments
+
+    plans = {}
+    runs = [(exp, run_experiments.main, [exp, "--dry_run"])
+            for exp in sorted(run_experiments.EXPERIMENTS)]
+    runs.append(("reproduce_all", reproduce_all.main, ["--dry_run"]))
+    with tempfile.TemporaryDirectory() as wd, contextlib.chdir(wd):
+        with mock.patch.object(subprocess, "run", side_effect=AssertionError(
+                "a dry run started a child")):
+            for name, main_fn, argv in runs:
+                printed = io.StringIO()
+                with contextlib.redirect_stdout(printed):
+                    main_fn(argv)
+                plans[name] = sum(line.startswith("+ ")
+                                  for line in printed.getvalue().splitlines())
+        if os.listdir(wd):
+            raise AssertionError(f"the dry runs wrote {os.listdir(wd)}")
+    if not all(plans.values()):
+        raise AssertionError(f"a dry run printed no command: {plans}")
+    log(f"dry runs: commands printed {plans}; no child started, nothing "
+        f"written")
+    return plans
+
+
+def phase_experiments(native, card: str, device: str = "cuda:0") -> tuple:
+    """glnn_synth through the harness in a temporary work directory, with
+    no --device (cuda:0; a CPU rehearsal passes device "cpu", which forwards
+    --device -1): its four rows, every child's log (the device, the native
+    tier, launches with no plain version on CUDA; on the card the SAGE
+    teachers on both SpMM tiers), every seed's out.npz and each run's
+    exp_results; then the aggregator over that tree, and the dry runs. No
+    child may rebuild a library. Returns (per child: label, seconds, row,
+    launches; the dry runs' command counts)."""
+    from glnn_tpu_torch.experiments import run_experiments
+
+    on_card = device != "cpu"
+    extra = [] if on_card else ["--device", "-1"]
+    built = _built(native)
+    children = []
+    with tempfile.TemporaryDirectory() as wd:
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m",
+             "glnn_tpu_torch.experiments.run_experiments", "glnn_synth",
+             *extra], cwd=wd, env=run_experiments.child_env(),
+            capture_output=True, text=True, timeout=900)
+        harness_s = time.perf_counter() - t0
+        if res.returncode != 0:
+            raise AssertionError(f"glnn_synth exited {res.returncode}:\n"
+                                 f"{res.stdout[-3000:]}\n{res.stderr[-6000:]}")
+        printed = res.stdout.splitlines()
+        cmds = [ln[2:] for ln in printed if ln.startswith("+ ")]
+        seconds = [float(ln[2:].split()[0]) for ln in printed
+                   if ln.startswith("= ")]
+        with open(os.path.join(wd, "glnn_synth.txt")) as f:
+            rows = [ln.rstrip("\n") for ln in f if ln.strip()]
+        if not (len(cmds) == len(seconds) == len(rows) == len(EXP_CHILDREN)):
+            raise AssertionError(f"glnn_synth ran {cmds}, wrote {rows}")
+        for cmd, line, secs, (label, n, sub, name) in zip(
+                cmds, rows, seconds, EXP_CHILDREN):
+            got, row = (s.strip() for s in line.split("\t", 1))
+            values = [float(v) for v in row.split()]
+            if (got != label or len(values) != n
+                    or ("--device" in cmd) != bool(extra)
+                    or not all(0.0 <= v <= 1.0 for v in values)):
+                raise AssertionError(f"glnn_synth row {line!r} of {cmd!r}")
+            run = os.path.join(wd, "outputs", sub, EXP_DATASET, name)
+            if not os.path.isfile(os.path.join(run, "exp_results")):
+                raise AssertionError(f"{run} has no exp_results")
+            for seed in (0, 1):
+                path = os.path.join(run, f"seed_{seed}")
+                check_out(os.path.join(path, "out.npz"),
+                          f"glnn_synth {label} seed {seed}", EXP_SHAPE)
+                with open(os.path.join(path, "log")) as f:
+                    if f"device: {device}" not in f.read():
+                        raise AssertionError(f"{path}/log names no {device}")
+                check_native_tier(f"glnn_synth {label}",
+                                  os.path.join(path, "log"))
+            # the process's launches, both seeds, from its last seed's log
+            launched = _launches_line(os.path.join(run, "seed_1", "log"))
+            tiers = launched["spmm_csr_int8"] and launched["spmm_csr_bf16"]
+            if launched["plain_on_cuda"] or (on_card and name == "SAGE"
+                                             and not tiers):
+                raise AssertionError(f"glnn_synth {label} launched "
+                                     f"{launched}")
+            # from the first seed's first log line to the last seed's
+            # launches line: the child's work after its imports and set-up
+            logged = _log_span_s(os.path.join(run, "seed_0", "log"),
+                                 os.path.join(run, "seed_1", "log"))
+            children.append({"label": label, "s": secs, "logged_s": logged,
+                             "row": row, "launches": launched})
+            log(f"glnn_synth {label}: {secs:.2f} s ({logged:.0f} s between "
+                f"its first and last log line), row {row} (JAX's record "
+                f"{JAX_GLNN_SYNTH[label]}); launches "
+                f"{ {k: v for k, v in launched.items() if v} }")
+        agg = subprocess.run(
+            [sys.executable, "-m",
+             "glnn_tpu_torch.experiments.aggregate_table3"], cwd=wd,
+            env=run_experiments.child_env(), capture_output=True, text=True,
+            timeout=300)
+        if agg.returncode != 0 or not os.path.isfile(
+                os.path.join(wd, "table3.txt")):
+            raise AssertionError(f"the aggregator exited {agg.returncode}:\n"
+                                 f"{agg.stderr[-3000:]}")
+    if _built(native) != built:
+        raise AssertionError("a glnn_synth child rebuilt a library under "
+                             "build/glnn_tpu_torch")
+    log(f"glnn_synth: harness {harness_s:.2f} s for {len(children)} children "
+        f"on {device}, no library rebuilt; the aggregator over its tree "
+        f"exited 0 ({len(agg.stdout.splitlines())} table lines); {card}")
+    return children, check_dry_runs()
+
+
+def _counts(modules) -> dict:
+    return {k: v for module in modules for k, v in module.counts.items()}
+
+
+def traced_path(tag: str, fn, iters: int, want, modules, out_dir: str,
+                dev, card: str) -> tuple:
+    """trace_and_report of `fn` on `dev` (one warm call, then `iters`
+    traced ones), the counts set to 0 just before: every port kernel in the
+    report counted as often as its counter moved over the traced calls, on
+    the card the kernels `want` among them, no plain version on CUDA; then
+    one more call without the trace, the yardstick of what tracing costs.
+    Logs one `trace {...}` line; returns (that line, the counts over all
+    the calls)."""
+    from glnn_tpu_torch.utils.trace_report import trace_and_report
+
+    marks, calls_ms = [], []
+
+    def call():
+        marks.append(_counts(modules))
+        t0 = time.perf_counter()
+        fn()
+        calls_ms.append((time.perf_counter() - t0) * 1e3)
+
+    for module in modules:
+        module.reset_counts()
+    t0 = time.perf_counter()
+    res = trace_and_report(call, dev, iters=iters, out_dir=out_dir,
+                           quiet=True)
+    trace_s = time.perf_counter() - t0
+    after = _counts(modules)
+    call()
+    total = _counts(modules)
+    rows = {r.name: r for r in res["rows"]}
+    traced = {k: after[k] - marks[1][k] for k in after}
+    for name in SOURCES:
+        seen = rows[name].count if name in rows else 0
+        if seen != traced[name] or (dev.type == "cuda" and name in want
+                                    and not seen):
+            raise AssertionError(f"{tag} trace: {name} {seen} times, its "
+                                 f"counter {traced[name]}")
+    if total["plain_on_cuda"] or res["device"] != dev.type:
+        raise AssertionError(f"{tag}: {total['plain_on_cuda']} plain calls "
+                             f"on CUDA; a {res['device']} trace")
+    device_ms = sum(r.total_ms for r in res["rows"])
+    line = {
+        "path": tag, "card": card, "iters": iters,
+        "busy_ms": res["busy_ms"], "window_ms": res["window_ms"],
+        "idle_share": res["idle_share"],
+        "device_ms_per_iter": res["total_ms_per_iter"],
+        "untraced_calls_ms": [calls_ms[0], calls_ms[-1]],
+        "traced_calls_ms": calls_ms[1:-1], "trace_s": trace_s,
+        "kernel_share": {n: rows[n].total_ms / device_ms for n in SOURCES
+                         if n in rows},
+        "launches": {n: traced[n] for n in SOURCES if traced[n]},
+        "top": [[r.name[:100], r.count, r.ms_per_iter]
+                for r in res["rows"][:10]]}
+    log(f"trace {json.dumps(line)}")
+    return line, total
+
+
+def phase_traces(cuda_build, spmm_cuda, gat_cuda, host, labels, idx_train,
+                 g, card: str) -> tuple:
+    """One full-batch GAT training step (the published synth GAT row,
+    dropout from a device generator: seed mode), one exact all-node SAGE
+    eval and one sampled SAGE epoch (Floyd, f32; the ogbn-arxiv SAGE row) on
+    the smoke graph, each under traced_path. Returns (the trace lines, the
+    counts of each path)."""
+    from glnn_tpu_torch.cli import train_teacher
+    from glnn_tpu_torch.nn import Model
+    from glnn_tpu_torch.train import (make_adam, make_eval_fn,
+                                      make_gnn_train_step)
+    from glnn_tpu_torch.train.sage_sampled import make_sage_sampled_epoch_fn
+    from glnn_tpu_torch.utils import get_training_config
+    from glnn_tpu_torch.utils.config import merge_args_with_config
+
+    dev = g.device
+    feats = torch.as_tensor(host.ndata["feat"], device=dev)
+    y = torch.as_tensor(labels, device=dev)
+    idx = torch.as_tensor(idx_train, device=dev)
+    defaults = vars(train_teacher.get_args([]))
+    modules = (cuda_build, spmm_cuda, gat_cuda)
+    lines, launched = {}, {}
+    with tempfile.TemporaryDirectory() as wd:
+        cfg = os.path.join(wd, "arxiv.conf.yaml")
+        _config_yaml(cfg)
+
+        def model_of(name):
+            conf = merge_args_with_config(
+                dict(defaults, feat_dim=feats.shape[1], label_dim=N_CLASSES),
+                get_training_config(cfg, name, DATASET))
+            model = Model(conf, torch.Generator().manual_seed(0)).to(dev)
+            return model, make_adam(model.parameters(), conf["learning_rate"],
+                                    conf["weight_decay"])
+
+        gat, gat_adam = model_of("GAT")
+        step = make_gnn_train_step(gat, gat_adam)
+        sage, sage_adam = model_of("SAGE")
+        evaluate = make_eval_fn(sage, exact=True)
+        epoch = make_sage_sampled_epoch_fn(sage, sage_adam, BATCH, FANOUTS)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        for tag, fn, iters, want in (
+                ("GAT step", lambda: float(step(g, feats, y, idx, gen)),
+                 TRACE_ITERS, ("gat_prep", "gat_fwd", "gat_bwd",
+                               "spmm_csr_bf16")),
+                ("SAGE eval", lambda: float(evaluate(g, feats)[0, 0]),
+                 TRACE_ITERS, ("spmm_csr_bf16",)),
+                # sampled training runs no kernel of the port
+                ("SAGE epoch", lambda: epoch(g, feats, y, idx, gen)[0], 1,
+                 ())):
+            lines[tag], launched[f"trace {tag}"] = traced_path(
+                tag, fn, iters, want, modules, os.path.join(wd, "traces"),
+                dev, card)
+    torch.cuda.empty_cache()
+    return lines, launched
+
+
 def _row(name, ms, plain_ms, nbytes, ops, library_ms, launches, errs,
          work, detail):
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -3104,6 +3424,15 @@ def main() -> int:
             cuda_build, spmm_cuda, gat_cuda, workdir, host, labels, dev, smi)
     launches.update(dataset_paths)
     launches["op_surface"] = op_surface
+    t_phase = time.perf_counter()
+    children, dry_runs = phase_experiments(native, smi)
+    for child in children:
+        launches[f"glnn_synth {child['label']}"] = child["launches"]
+    traces, traced = phase_traces(cuda_build, spmm_cuda, gat_cuda, host,
+                                  labels, idx_train, g, smi)
+    launches.update(traced)
+    log(f"phase 4d (experiments and traces): "
+        f"{time.perf_counter() - t_phase:.1f} s")
 
     kernels = (phase_times(spmm_cuda, g, launches, errs)
                + phase_times_weighted(spmm_cuda, g, launches, errs)

@@ -10,6 +10,7 @@ level up.
 from __future__ import annotations
 
 import argparse
+import json
 import os
 from pathlib import Path
 
@@ -202,6 +203,17 @@ def propagate_features(feats, k: int, g, obs_g=None, idx_obs=None):
     if obs_g is not None:
         out[idx_obs] = prop(feats[idx_obs], obs_g)
     return out
+
+
+def log_launches(logger) -> None:
+    """One `launches {...}` line: this process's kernel launches and
+    plain-version calls on CUDA tensors so far (the counters are never
+    reset here, so with --num_exp a later seed's line counts the earlier
+    seeds too)."""
+    from glnn_tpu_torch.ops import cuda_build, gat_cuda, spmm_cuda
+
+    logger.info("launches " + json.dumps(
+        {**spmm_cuda.counts, **gat_cuda.counts, **cuda_build.counts}))
 
 
 def save_results(output_dir: Path, loss_and_score, state_out) -> None:

@@ -30,6 +30,7 @@ from glnn_tpu_torch.cli.common import (
     append_min_cut,
     apply_output_path_reroutes,
     configure_numerics,
+    log_launches,
     propagate_features,
     resolve_device,
     save_results,
@@ -161,6 +162,7 @@ def run(args):
         f"num_layers: {conf['num_layers']}. hidden_dim: "
         f"{conf['hidden_dim']}. dropout_ratio: {conf['dropout_ratio']}"
     )
+    log_launches(logger)
     np.savez(output_dir.joinpath("out"), out)
     if args.save_results:
         save_results(output_dir, loss_and_score, state_out)

@@ -118,3 +118,14 @@ def build_graph(src: np.ndarray, dst: np.ndarray, n_nodes: int) -> Graph:
         n_nodes=int(n_nodes),
         n_edges=n_edges,
     )
+
+
+def graph_from_csr(indptr: np.ndarray, indices: np.ndarray,
+                   n_nodes: int) -> Graph:
+    """A `Graph` from host CSR (row = src, indices = its dst neighbours),
+    as `glnn_tpu/graph/container.py:260 graph_from_csr` builds it. JAX's
+    `**kw` (its attention and SpMM plans) has no counterpart: the port
+    builds no plans."""
+    indptr = np.asarray(indptr, np.int64)
+    src = np.repeat(np.arange(n_nodes, dtype=np.int64), np.diff(indptr))
+    return build_graph(src, np.asarray(indices, np.int64), n_nodes)

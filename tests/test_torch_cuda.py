@@ -715,3 +715,54 @@ def test_halo_copy_u_sum_one_shard_runs_the_kernel(cuda, tmp_path):
     (want * co).sum().backward()
     torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-4)
     torch.testing.assert_close(grad, x.grad, rtol=1e-5, atol=1e-4)
+
+
+PORT_KERNELS = ("spmm_csr_bf16", "spmm_csr_int8", "spmm_csr_weighted",
+                "spmm_csr_f32", "gat_prep", "gat_fwd", "gat_bwd",
+                "edge_softmax_fwd", "edge_softmax_bwd")
+
+
+def test_trace_report_names_each_kernel_once(cuda, tmp_path):
+    """One launch of each of the nine kernels under trace_and_report: each
+    is reported under the port's name with count 1, and no kernel of the
+    trace is dropped."""
+    import json
+
+    from glnn_tpu_torch.utils.trace_report import trace_and_report
+
+    g = _graph(500, 6000, 5, cuda)
+    x = torch.randn((g.n_nodes, 32), device=cuda)
+    xb = spmm_cuda.to_message(x)
+    q, s = spmm_cuda.quantize_cols(x)
+    w = torch.rand(g.n_edges, device=cuda)
+    feat, al, ar, _ = _gat_inputs(g, 8, 16, 0.0, 2)
+    dout = torch.randn_like(feat)
+    scores = torch.randn((g.n_edges, 8), device=cuda)
+
+    def run():
+        spmm_cuda.csr_sum_bf16(g.indptr, g.senders, xb, g.n_nodes)
+        spmm_cuda.csr_sum_int8(g.indptr, g.senders, q, s, g.n_nodes)
+        spmm_cuda.csr_wsum_bf16(g.indptr, g.senders, None, x, w, g.n_nodes)
+        spmm_cuda.csr_sum_f32(g.indptr, g.senders, x, g.n_nodes)
+        feat_b, el, er_b, al_b = gat_cuda.prep(feat, al, ar)
+        args = (g.indptr, g.senders, feat_b, el, er_b, None, 1.0, 0.2)
+        _, smax, denom = gat_cuda.gat_fwd(*args)
+        gat_cuda.gat_bwd(*args, smax, denom, dout, al_b)
+        alpha = gat_cuda.edge_softmax_fwd(g.indptr, scores, g.n_nodes)
+        gat_cuda.edge_softmax_bwd(g.indptr, alpha, scores, g.n_nodes)
+        torch.cuda.synchronize()
+
+    spmm_cuda.reset_counts()
+    gat_cuda.reset_counts()
+    res = trace_and_report(run, cuda, iters=1, out_dir=tmp_path, quiet=True)
+    with open(res["path"]) as f:
+        raw = sorted({e["name"] for e in json.load(f)["traceEvents"]
+                      if e.get("cat", "").lower() == "kernel"})
+    got = {r.name: r.count for r in res["rows"]}
+    # the warm call outside the trace, then the traced one
+    launched = {**spmm_cuda.counts, **gat_cuda.counts}
+    assert all(got.get(k) == 1 and launched[k] == 2
+               for k in PORT_KERNELS), (got, raw)
+    assert sum(r.count for r in res["rows"]) >= len(raw)
+    assert res["device"] == "cuda" and 0.0 <= res["idle_share"] < 1.0
+    assert 0.0 < res["busy_ms"] <= res["window_ms"]

@@ -5,8 +5,10 @@ import numpy as np
 import pytest
 import torch
 
+from glnn_tpu.graph import graph_from_csr as jax_graph_from_csr
 from glnn_tpu.graph.container import build_graph as jax_build_graph
 from glnn_tpu.graph.datasets import load_synth_data as jax_load_synth
+from glnn_tpu_torch.graph import graph_from_csr
 from glnn_tpu_torch.graph.container import build_graph
 from glnn_tpu_torch.graph.datasets import load_data, load_synth_data
 from native_tiers import tier  # noqa: F401  (fixture: native, numpy)
@@ -82,6 +84,34 @@ def test_build_graph_rejects_out_of_range_endpoints(src, dst, tier):
     with pytest.raises(ValueError, match="endpoints"):
         build_graph(np.array(src), np.array(dst), 3)
 
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_graph_from_csr_identical_to_jax(seed, tier):
+    """A random CSR multigraph (repeated edges, self-loops, nodes with no
+    edge at all) gives glnn_tpu's arrays: indptr, the dst-sorted edge order,
+    degrees; and the transposed CSR of `build_graph` over the same COO."""
+    rs = np.random.RandomState(seed)
+    n = 60
+    isolated = rs.choice(n, 6, replace=False)
+    out_deg = rs.randint(0, 9, n)
+    out_deg[isolated] = 0
+    indptr = np.concatenate([[0], np.cumsum(out_deg)])
+    live = np.setdiff1d(np.arange(n), isolated)
+    indices = rs.choice(live, indptr[-1])
+    src = np.repeat(np.arange(n), out_deg)
+    indices[::7] = src[::7]                       # self-loops
+    assert (np.bincount(indices, minlength=n)[isolated] == 0).all()
+    assert len(np.unique(src * n + indices)) < len(src)    # multi-edges
+
+    g = graph_from_csr(indptr, indices, n)
+    _assert_same_graph(g, jax_graph_from_csr(indptr, indices, n))
+    want = build_graph(src, indices, n)
+    for name in ("t_indptr", "t_receivers", "t_edges"):
+        np.testing.assert_array_equal(getattr(g, name).numpy(),
+                                      getattr(want, name).numpy(),
+                                      err_msg=name)
+    assert g.in_degrees[isolated].sum() == g.out_degrees[isolated].sum() == 0
 
 def test_graph_to_keeps_fields():
     g = build_graph(np.array([0, 1, 2]), np.array([1, 2, 0]), 3)
