@@ -5,7 +5,8 @@
 
 Phases, each fatal on failure:
   1. build the CUDA kernels of every path from glnn_tpu_torch/csrc with
-     nvcc for sm_90a (one nvcc per source, started together) and log each
+     nvcc for sm_90a (one nvcc per source, started together: spmm_csr.cu,
+     spmm_f32.cu, gat_csr.cu) and log each
      kernel's ptxas register and spill counts; beside them, g++ builds the
      host-graph library from glnn_tpu_torch/csrc/graphops.cpp (its seconds
      logged), which must load: every path below runs the native tier;
@@ -46,11 +47,12 @@ Phases, each fatal on failure:
      - the segment softmax on [E], [E, 8] and [E, 1] scores (randn x 3),
        forward at rtol 1e-5 and gradient at rtol 1e-4
        (tests/test_pallas.py:368,421), atol 1e-6 x max|want|;
-     - the f32 SpMM (feature_prop's hops) at F = 128 on the forward and the
-       transposed walk: each element within 1e-5 of its row's magnitude
-       (the sum of |x| over its edges; only the summation order differs),
-       and a 2-hop feature_prop against the plain hops at rtol 1e-5 / atol
-       1e-5 x max|want|;
+     - the f32 SpMM (feature_prop's hops) at F = 128 and 100 on the forward
+       and the transposed walk: each element within 1e-5 of its row's
+       magnitude (the sum of |x| over its edges; only the summation order
+       differs), two launches bit-equal (the hub graph's rows of more than
+       spmm_cuda.F32_CHUNK edges split across warps), and a 2-hop feature_prop
+       against the plain hops at rtol 1e-5 / atol 1e-5 x max|want|;
      - the sampler at the SAGE path's batch (512) and fanouts (5, 10, 15):
        Floyd, the window tier with and without the aligned table, dedup
        mode with worst-case caps and with tight caps, on the card bit-equal
@@ -189,7 +191,10 @@ Phases, each fatal on failure:
      np.argsort(kind="stable") of the same keys, both timed; the
      exact SpMM on the products graph at F = 100 against torch.sparse.mm
      (rtol 1e-5 / atol 1e-4; a plain gather would need a 49 GB message) and
-     both timed beside the bytes bound; one sampled products epoch (49
+     both timed beside the bytes bound, then one f32 hop (spmm_csr_f32) at
+     F = 100 the same way, two launches bit-equal, timed eager and on the
+     device beside the read-once and the all-miss bound; one sampled
+     products epoch (49
      batches of 4096) and one all-node exact eval timed apart, with the
      peak device memory; then four paths through the CLIs with the
      package's own configs/train.conf.yaml, teacher then MLP student, the
@@ -232,11 +237,13 @@ Phases, each fatal on failure:
      tier's sum; torch.sparse.mm of the f32 CSR for the f32 SpMM at
      F = 128), and compute each kernel's bound: the GAT kernels in seed
      mode, as the path runs them (no mask bytes), with the mask mode's
-     time and bound in the rows' detail; then time the SpMM kernels at
-     F = 40 (the f32 one at F = 128) and gat_fwd and gat_bwd at both GAT
-     shapes on the hub graph,
-     where one warp walks each hub row alone (in the rows' detail, outside
-     their sums);
+     time and bound in the rows' detail; the f32 SpMM also beside its
+     all-miss bound (every gathered row from device memory) and with its
+     products F = 100 hop in its row; then time the SpMM kernels at
+     F = 40 (the f32 one at F = 128, eager and on the device) and gat_fwd
+     and gat_bwd at both GAT shapes on the hub graph, where every kernel
+     but the f32 one walks each hub row with one warp (in the rows'
+     detail, outside their sums);
   6. time the sampled SAGE epoch in floyd/f32, window/f32 and window/bf16,
      and the all-node MLP student inference in f32 and bf16 (its log-probs
      within 3e-2 x max of f32's), each on a line with the card's name and
@@ -286,6 +293,7 @@ SPLIT_RATE = 0.2             # --split_rate of the inductive paths
 N_IND = 9724
 N_OBS = N_NODES - N_IND
 AUG_K, AUG_F = 2, 128        # --feature_aug_k, and the features it propagates
+F32_WIDTHS = (AUG_F, 100)    # the f32 sum's checks: smoke and products widths
 BATCH, FANOUTS = 512, (5, 10, 15)   # the SAGE row's batch and fan_out
 # the "SAGE window bf16" path's options; --save_results for its checkpoints
 WINDOW_BF16 = ("--sampler_tier", "window", "--compute_dtype", "bfloat16",
@@ -318,7 +326,7 @@ FP32_OPS_PER_S = 67e12       # H100 SXM, outside the tensor cores
 SOURCES = {"spmm_csr_bf16": "glnn_tpu_torch/csrc/spmm_csr.cu",
            "spmm_csr_int8": "glnn_tpu_torch/csrc/spmm_csr.cu",
            "spmm_csr_weighted": "glnn_tpu_torch/csrc/spmm_csr.cu",
-           "spmm_csr_f32": "glnn_tpu_torch/csrc/spmm_csr.cu",
+           "spmm_csr_f32": "glnn_tpu_torch/csrc/spmm_f32.cu",
            "gat_prep": "glnn_tpu_torch/csrc/gat_csr.cu",
            "gat_fwd": "glnn_tpu_torch/csrc/gat_csr.cu",
            "gat_bwd": "glnn_tpu_torch/csrc/gat_csr.cu",
@@ -625,32 +633,43 @@ def phase_check_bf16(spmm_cuda, g) -> dict:
 
 def phase_check_f32(spmm_cuda, refops, g) -> float:
     """spmm_csr_f32 (feature_prop's hops) vs its plain version on the card
-    at F = 128, on the forward and the transposed walk: f32 rows summed in
-    f32 in another order, so each output element within 1e-5 of its row's
-    magnitude (the sum of |x| over the row's edges, far above the rounding
-    of either order); then one feature_prop of AUG_K hops against the same
-    hops through the plain version."""
+    at F = 128 and 100 (F32_WIDTHS), on the forward and the transposed walk:
+    f32 rows summed in f32 in another order, so each output element within
+    1e-5 of its row's magnitude (the sum of |x| over the row's edges, far
+    above the rounding of either order), and a second launch bit-equal to
+    the first (rows of more than spmm_cuda.F32_CHUNK edges are split across
+    warps, their partials summed in chunk order, with no atomics); then one
+    feature_prop of AUG_K hops against the same hops through the plain
+    version."""
     from glnn_tpu_torch.ops.graph_utils import feature_prop
 
     gen = torch.Generator(device=g.device).manual_seed(13)
     n = g.n_nodes
-    x = torch.randn((n, AUG_F), generator=gen, device=g.device)
     err = 0.0
-    for walk, indptr, cols in (("forward", g.indptr, g.senders),
-                               ("transposed", g.t_indptr, g.t_receivers)):
-        got = spmm_cuda.csr_sum_f32(indptr, cols, x, n)
-        want = refops.csr_sum_f32(indptr, cols, x, n)
-        mag = refops.csr_sum_f32(indptr, cols, x.abs(), n)
-        torch.cuda.synchronize()
-        diff = (got - want).abs()
-        if not bool((diff <= 1e-5 * mag).all()):
-            raise AssertionError(f"spmm_csr_f32 {walk} walk: max |err| "
-                                 f"{diff.max().item():.3e} over 1e-5 of its "
-                                 f"row's magnitude")
-        err = max(err, diff.max().item())
-        log(f"check F={AUG_F}: spmm_csr_f32 {walk} walk vs plain max|err| "
-            f"{diff.max().item():.3e} (max row magnitude "
-            f"{mag.max().item():.3e})")
+    for f in F32_WIDTHS:
+        x = torch.randn((n, f), generator=gen, device=g.device)
+        for walk, indptr, cols in (("forward", g.indptr, g.senders),
+                                   ("transposed", g.t_indptr, g.t_receivers)):
+            plan = spmm_cuda.f32_plan(indptr, n)
+            got = spmm_cuda.csr_sum_f32(indptr, cols, x, n, plan)
+            again = spmm_cuda.csr_sum_f32(indptr, cols, x, n, plan)
+            want = refops.csr_sum_f32(indptr, cols, x, n)
+            mag = refops.csr_sum_f32(indptr, cols, x.abs(), n)
+            torch.cuda.synchronize()
+            diff = (got - want).abs()
+            if not bool((diff <= 1e-5 * mag).all()):
+                raise AssertionError(f"spmm_csr_f32 F={f} {walk} walk: max "
+                                     f"|err| {diff.max().item():.3e} over "
+                                     f"1e-5 of its row's magnitude")
+            if not torch.equal(got, again):
+                raise AssertionError(f"spmm_csr_f32 F={f} {walk} walk: two "
+                                     f"launches differ")
+            err = max(err, diff.max().item())
+            log(f"check F={f}: spmm_csr_f32 {walk} walk vs plain max|err| "
+                f"{diff.max().item():.3e} (max row magnitude "
+                f"{mag.max().item():.3e}); {plan.rows.numel()} rows split "
+                f"into {plan.n_chunks} chunks; two launches bit-equal")
+    x = torch.randn((n, AUG_F), generator=gen, device=g.device)
     got = feature_prop(x, g, AUG_K)
     norm = torch.rsqrt(g.in_degrees.clamp(min=1.0))[:, None]
     want = x
@@ -2358,24 +2377,29 @@ def phase_dataset_files(data: str, dev, host, labels, card: str) -> dict:
     return ingest, products
 
 
-def check_products_spmm(spmm_cuda, g) -> dict:
-    """The exact tier at F = 100 on the products graph against
-    torch.sparse.mm of the bf16-rounded rows in f32 (the graph's repeated
-    pairs coalesced into counts) at rtol 1e-5 / atol 1e-4, and the times of
-    both beside the kernel's bytes bound. A plain gather would build a
-    49 GB [E, F] message here, so the library call holds the kernel."""
+def products_adj(g):
+    """The products graph as an f32 CSR matrix for torch.sparse.mm, its
+    repeated pairs coalesced into counts."""
     from glnn_tpu_torch.ops.cuda_build import row_ids
 
-    n, e, f = g.n_nodes, g.n_edges, PRODUCTS_FEATS
-    gen = torch.Generator(device=g.device).manual_seed(15)
-    xb = spmm_cuda.to_message(torch.randn((n, f), generator=gen,
-                                          device=g.device))
+    n = g.n_nodes
     keys, _ = torch.sort(row_ids(g.indptr, n) * n + g.senders.long())
     keys, mult = torch.unique_consecutive(keys, return_counts=True)
     crow = torch.zeros(n + 1, dtype=torch.int64, device=g.device)
     crow[1:] = torch.cumsum(torch.bincount(keys // n, minlength=n), 0)
-    adj = torch.sparse_csr_tensor(crow, keys % n, mult.float(), (n, n))
-    del keys, mult
+    return torch.sparse_csr_tensor(crow, keys % n, mult.float(), (n, n))
+
+
+def check_products_spmm(spmm_cuda, g, adj) -> dict:
+    """The exact tier at F = 100 on the products graph against
+    torch.sparse.mm of the bf16-rounded rows in f32 (`products_adj`) at
+    rtol 1e-5 / atol 1e-4, and the times of both beside the kernel's bytes
+    bound. A plain gather would build a 49 GB [E, F] message here, so the
+    library call holds the kernel."""
+    n, e, f = g.n_nodes, g.n_edges, PRODUCTS_FEATS
+    gen = torch.Generator(device=g.device).manual_seed(15)
+    xb = spmm_cuda.to_message(torch.randn((n, f), generator=gen,
+                                          device=g.device))
     lib_x = xb.float()
     got = spmm_cuda.csr_sum_bf16(g.indptr, g.senders, xb, n)
     want = torch.sparse.mm(adj, lib_x)
@@ -2394,6 +2418,45 @@ def check_products_spmm(spmm_cuda, g) -> dict:
         f"{lib_ms:.4f} ms, bytes bound {bound:.4f} ms")
     return dict(max_abs_err=err, ms=kernel_ms, library_ms=lib_ms,
                 bound_ms=bound, edges=e)
+
+
+def check_products_f32(spmm_cuda, g, adj) -> dict:
+    """One f32 hop (spmm_csr_f32, feature_prop's kernel) at F = 100 on the
+    products graph against torch.sparse.mm of the same f32 rows
+    (`products_adj`) at rtol 1e-5 / atol 1e-4, a second launch bit-equal;
+    the kernel's eager and device times, the library call's, and both
+    bounds: each byte read once, and every E x F x 4 gathered byte from
+    device memory."""
+    n, e, f = g.n_nodes, g.n_edges, PRODUCTS_FEATS
+    gen = torch.Generator(device=g.device).manual_seed(16)
+    x = torch.randn((n, f), generator=gen, device=g.device)
+    plan = spmm_cuda.graph_f32_plan(g)
+
+    def kernel():
+        return spmm_cuda.csr_sum_f32(g.indptr, g.senders, x, n, plan)
+
+    got = kernel()
+    want = torch.sparse.mm(adj, x)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    if not torch.equal(got, kernel()):
+        raise AssertionError("spmm_csr_f32 on ogbn-products: two launches "
+                             "differ")
+    err = (got - want).abs().max().item()
+    del got, want
+    torch.cuda.empty_cache()
+    kernel_ms, device_ms = kernel_times(kernel, iters=5, replays=3)
+    lib_ms = time_ms(lambda: torch.sparse.mm(adj, x), iters=5)
+    bound = (2 * n * f * 4 + 4 * (e + n + 1)) / HBM_BYTES_PER_S * 1e3
+    miss = e * f * 4 / HBM_BYTES_PER_S * 1e3
+    log(f"check ogbn-products F={f}: spmm_csr_f32 vs torch.sparse.mm max|err| "
+        f"{err:.3e}, two launches bit-equal, {plan.rows.numel()} rows split; "
+        f"time kernel {kernel_ms:.4f} ms (device {device_ms:.4f}), "
+        f"torch.sparse.mm f32 {lib_ms:.4f} ms, read-once bound {bound:.4f} "
+        f"ms, all-miss gather bound {miss:.4f} ms")
+    return dict(max_abs_err=err, ms=kernel_ms, device_ms=device_ms,
+                library_ms=lib_ms, bound_ms=bound, all_miss_bound_ms=miss,
+                edges=e)
 
 
 def time_products(products, card: str) -> dict:
@@ -2451,8 +2514,12 @@ def phase_datasets(cuda_build, spmm_cuda, gat_cuda, workdir: str, host,
     data = os.path.join(workdir, "data")
     os.makedirs(data)
     ingest, products = phase_dataset_files(data, dev, host, labels, card)
+    adj = products_adj(products[3])
     ingest["ogbn-products"]["spmm_f100"] = check_products_spmm(
-        spmm_cuda, products[3])
+        spmm_cuda, products[3], adj)
+    ingest["ogbn-products"]["spmm_f32_f100"] = check_products_f32(
+        spmm_cuda, products[3], adj)
+    del adj
     ingest["ogbn-products"].update(time_products(products, card))
     del products
     torch.cuda.empty_cache()
@@ -2520,7 +2587,7 @@ EXP_CHILDREN = tuple(
                       ("ind", 4, "inductive/split_rate_0.2"))
     for model, run in (("SAGE", "SAGE"), ("GLNN", "SAGE_MLP")))
 TRACE_ITERS = 3              # traced calls of a GAT step or a SAGE eval
-LIBRARIES = ("libgat.so", "libgraphops.so", "libspmm.so")
+LIBRARIES = ("libgat.so", "libgraphops.so", "libspmm.so", "libspmm_f32.so")
 
 
 def _built(native) -> dict:
@@ -3095,16 +3162,19 @@ def phase_times_weighted(spmm_cuda, g, launches: dict, errs: dict) -> list:
 
 def phase_times_f32(spmm_cuda, refops, g, launches: dict, errs: dict) -> list:
     """One feature_prop hop at F = AUG_F (the smoke features' width):
-    kernel, plain version (refops.csr_sum_f32), library call
-    (torch.sparse.mm of the f32 CSR adjacency, the same function), bound.
-    Bytes: the f32 x rows read once, the indices, the f32 output."""
+    kernel (eager and device), plain version (refops.csr_sum_f32), library
+    call (torch.sparse.mm of the f32 CSR adjacency, the same function), and
+    both bounds: bytes read once (the f32 x rows, the indices, the f32
+    output; `bound_ms`), and every gathered row from device memory
+    (E x F x 4 bytes; `all_miss_bound_ms`)."""
     gen = torch.Generator(device=g.device).manual_seed(14)
     n, e, f = g.n_nodes, g.n_edges, AUG_F
     x = torch.randn((n, f), generator=gen, device=g.device)
     adj = _library_csr(g.indptr, g.senders, torch.ones(e, device=g.device), n)
+    plan = spmm_cuda.graph_f32_plan(g)
 
     def kernel():
-        return spmm_cuda.csr_sum_f32(g.indptr, g.senders, x, n)
+        return spmm_cuda.csr_sum_f32(g.indptr, g.senders, x, n, plan)
 
     torch.testing.assert_close(torch.sparse.mm(adj, x), kernel(), rtol=1e-5,
                                atol=1e-4)
@@ -3113,13 +3183,14 @@ def phase_times_f32(spmm_cuda, refops, g, launches: dict, errs: dict) -> list:
                    iters=5)
     lib_ms = time_ms(lambda: torch.sparse.mm(adj, x))
     nbytes = n * f * 4 + 4 * (e + n + 1) + n * f * 4
+    miss = e * f * 4 / HBM_BYTES_PER_S * 1e3
     log(f"time F={f} spmm_csr_f32: kernel {k_ms:.4f} ms (device {k_dev:.4f}), "
         f"plain {p_ms:.4f} ms, torch.sparse.mm f32 {lib_ms:.4f} ms, bytes "
-        f"bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms; E x F x 4 gathered "
-        f"bytes would take {e * f * 4 / HBM_BYTES_PER_S * 1e3:.4f} ms")
+        f"bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms (read once), "
+        f"{miss:.4f} ms (every gathered row from device memory)")
     return [_row("spmm_csr_f32", k_ms, p_ms, nbytes, e * f, lib_ms, launches,
                  errs, f"one feature_prop hop at F={f} over N={n}, E={e}",
-                 {"device_ms": k_dev})]
+                 {"device_ms": k_dev, "all_miss_bound_ms": miss})]
 
 
 def phase_times_softmax(gat_cuda, g, launches: dict, errs: dict) -> list:
@@ -3274,10 +3345,10 @@ def phase_times_tiers(host, labels, idx_train, g, card: str) -> dict:
 
 def phase_times_hub(spmm_cuda, gat_cuda, hub, kernels: list) -> None:
     """One timing of each SpMM entry point at F = 40 (the f32 one at
-    AUG_F) and of gat_fwd and gat_bwd at both GAT shapes (dropout in seed
-    mode) on the hub graph,
-    where one warp walks each hub row alone; added to the rows' detail as
-    `hub_graph_ms`, outside their sums."""
+    AUG_F, eager and device, its hub rows split across warps) and of
+    gat_fwd and gat_bwd at both GAT shapes (dropout in seed mode) on the
+    hub graph, where every other kernel's warp walks each hub row alone;
+    added to the rows' detail as `hub_graph_ms`, outside their sums."""
     gen = torch.Generator(device=hub.device).manual_seed(10)
     n, e = hub.n_nodes, hub.n_edges
     f = APPNP_F
@@ -3288,6 +3359,7 @@ def phase_times_hub(spmm_cuda, gat_cuda, hub, kernels: list) -> None:
          >= EDGE_DROP).float() / (1.0 - EDGE_DROP)
     idx_bytes = 4 * (e + n + 1)
     x_aug = torch.randn((n, AUG_F), generator=gen, device=hub.device)
+    plan = spmm_cuda.graph_f32_plan(hub)
     # (kernel, width, bytes)
     cases = {
         "spmm_csr_bf16": (lambda: spmm_cuda.csr_sum_bf16(
@@ -3299,15 +3371,21 @@ def phase_times_hub(spmm_cuda, gat_cuda, hub, kernels: list) -> None:
             hub.indptr, hub.senders, None, x, w, n), f,
             n * f * 8 + e * 4 + idx_bytes),
         "spmm_csr_f32": (lambda: spmm_cuda.csr_sum_f32(
-            hub.indptr, hub.senders, x_aug, n), AUG_F,
+            hub.indptr, hub.senders, x_aug, n, plan), AUG_F,
             n * AUG_F * 8 + idx_bytes),
     }
     detail = {}
     for name, (kernel, width, nbytes) in cases.items():
-        ms = time_ms(kernel)
+        if name == "spmm_csr_f32":
+            ms, dev_ms = kernel_times(kernel)
+        else:
+            ms, dev_ms = time_ms(kernel), None
         detail[name] = {f"F={width}": dict(
             ms=ms, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)}
-        log(f"time hub graph F={width} {name}: kernel {ms:.4f} ms, bytes "
+        if dev_ms is not None:
+            detail[name][f"F={width}"]["device_ms"] = dev_ms
+        log(f"time hub graph F={width} {name}: kernel {ms:.4f} ms"
+            f"{'' if dev_ms is None else f' (device {dev_ms:.4f})'}, bytes "
             f"bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
     detail["gat_fwd"], detail["gat_bwd"] = {}, {}
     for h, d in GAT_SHAPES:
@@ -3448,6 +3526,9 @@ def main() -> int:
             row["dataset_widths_max_abs_err"] = width_errs
         if row["name"] == "spmm_csr_bf16":
             row["ogbn_products_f100"] = ingest["ogbn-products"]["spmm_f100"]
+        if row["name"] == "spmm_csr_f32":
+            row["ogbn_products_f100"] = ingest["ogbn-products"][
+                "spmm_f32_f100"]
     log(f"ingest {json.dumps(ingest)}")
     tiers = phase_times_tiers(host, labels, idx_train, g, smi)
     log(f"tier times {json.dumps(tiers)}")

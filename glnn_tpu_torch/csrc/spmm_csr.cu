@@ -45,16 +45,10 @@
 // `geometry`) and checked here: an entry point returns cudaErrorInvalidValue
 // for a geometry that it does not instantiate or that would misalign a row.
 //
-// Four instantiations of one kernel body, told apart by a policy type that
-// says what a gathered element adds to the sum and how the sum is written:
+// Three instantiations of one kernel body, told apart by a policy type that
+// says what a gathered element adds to the sum and how the sum is written
+// (the f32 sum of feature_prop's hops has a body of its own, spmm_f32.cu):
 //   exact:    bf16 rows, f32 accumulation, f32 output;
-//   f32:      f32 rows, f32 accumulation, f32 output: the hops of
-//             feature_prop (--feature_aug_k), whose JAX counterpart is the
-//             f32 XLA segment sum glnn_tpu/ops/refops.py:37 copy_u_sum under
-//             glnn_tpu/ops/graph_utils.py:22, which reaches no pallas_call.
-//             Rounding each message to bf16 would compound over the k hops,
-//             so it keeps the rows in f32 (VEC 4: at F = 128 one warp of 32
-//             lanes covers a row, one edge at a time);
 //   int8:     int8 rows, int32 accumulation (exact in any order), output
 //             acc * scale[f] in f32 (the per-column dequantisation of
 //             spmm_pallas.py:408-414);
@@ -131,8 +125,8 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
-// unweighted sums: each element as it is (bf16 and f32 -> f32, int8 ->
-// int32); the int8 tier scales each column's exact sum on the way out
+// unweighted sums: each element as it is (bf16 -> f32, int8 -> int32); the
+// int8 tier scales each column's exact sum on the way out
 template <typename TIn_, typename TAcc_>
 struct Sum {
   using TIn = TIn_;
@@ -299,15 +293,6 @@ int spmm_csr_bf16(const void* indptr, const void* indices, const void* x, void* 
                   int n_rows, int f, int vec, int lanes, int groups, void* stream) {
   return launch(static_cast<const int32_t*>(indptr), static_cast<const int32_t*>(indices),
                 static_cast<const __nv_bfloat16*>(x), Sum<__nv_bfloat16, float>{nullptr},
-                static_cast<float*>(out), n_rows, f, vec, lanes, groups,
-                static_cast<cudaStream_t>(stream));
-}
-
-// f32 tier: x f32 [*, f], out f32 [n_rows, f]
-int spmm_csr_f32(const void* indptr, const void* indices, const void* x, void* out,
-                 int n_rows, int f, int vec, int lanes, int groups, void* stream) {
-  return launch(static_cast<const int32_t*>(indptr), static_cast<const int32_t*>(indices),
-                static_cast<const float*>(x), Sum<float, float>{nullptr},
                 static_cast<float*>(out), n_rows, f, vec, lanes, groups,
                 static_cast<cudaStream_t>(stream));
 }

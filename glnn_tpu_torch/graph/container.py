@@ -43,6 +43,9 @@ class Graph:
       win1:        the graph carries the aligned window table
                    (`with_window_table`). It selects the window sampler's
                    1-row fold rule.
+      cache:       what a kernel derives from the graph once and keeps
+                   (the f32 SpMM's hub-row plan); a moved or replaced
+                   Graph starts with an empty one.
     """
 
     senders: torch.Tensor
@@ -56,6 +59,8 @@ class Graph:
     n_nodes: int
     n_edges: int
     win1: bool = False
+    cache: dict = dataclasses.field(default_factory=dict, init=False,
+                                    repr=False, compare=False)
 
     @property
     def device(self) -> torch.device:

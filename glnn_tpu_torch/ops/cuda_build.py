@@ -29,7 +29,8 @@ import torch
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "glnn_tpu_torch"
 # library name -> its source in csrc/
-SOURCES = {"spmm": "spmm_csr.cu", "gat": "gat_csr.cu"}
+SOURCES = {"spmm": "spmm_csr.cu", "spmm_f32": "spmm_f32.cu",
+           "gat": "gat_csr.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -41,12 +41,19 @@ through `t_edges`, for dX; and, only when the weights need a gradient, the
 SDDMM dW[e] = <x[src(e)], dH[dst(e)]> (per head: summed over D) in plain
 f32 torch, which JAX also leaves outside its kernel.
 
-The f32 sum behind `feature_prop` (--feature_aug_k) is a fourth
-instantiation, `spmm_csr_f32`: H[v] = sum over in-edges e of x[src(e)], f32
-rows summed in f32. It has no TPU kernel: JAX takes an f32 XLA segment sum
-there (`glnn_tpu/ops/refops.py:37 copy_u_sum` under
+The f32 sum behind `feature_prop` (--feature_aug_k), `spmm_csr_f32`:
+H[v] = sum over in-edges e of x[src(e)], f32 rows summed in f32, has a body
+of its own (`csrc/spmm_f32.cu`). It has no TPU kernel: JAX takes an f32 XLA
+segment sum there (`glnn_tpu/ops/refops.py:37 copy_u_sum` under
 `glnn_tpu/ops/graph_utils.py:22`), and rounding the messages to bf16 would
-compound over the hops. Its plain version is `refops.csr_sum_f32`.
+compound over the hops. Each warp keeps several source rows in flight
+through a ring of shared-memory stages filled by cp.async; `f32_geometry`
+works out its layout. A row of more than F32_CHUNK edges is cut into
+chunks of F32_CHUNK edges, one warp each, whose f32 partials a second
+kernel sums in chunk order, so two launches are bit-equal; `f32_plan` lists
+the chunks (built once per graph and cached on it, `graph_f32_plan`), and
+a call on a graph with such rows launches both kernels (two launches in
+`counts`). Its plain version is `refops.csr_sum_f32`.
 
 Every reduction has a plain PyTorch version (`plain_csr_sum_bf16`,
 `plain_csr_sum_int8`, `plain_csr_wsum_bf16` here, `refops.csr_sum_f32`) with
@@ -55,7 +62,7 @@ takes it only for a tensor on the CPU; for a CUDA tensor it launches the
 kernel or raises. `counts` records kernel launches per instantiation;
 plain-version calls on CUDA tensors go to `cuda_build.counts`.
 
-The kernel is built with nvcc for sm_90a into `build/glnn_tpu_torch/` at
+The kernels are built with nvcc for sm_90a into `build/glnn_tpu_torch/` at
 first use and loaded with ctypes (`ops/cuda_build.py`).
 """
 
@@ -75,9 +82,16 @@ counts = {name: 0 for name in KERNELS}
 
 _vp, _ci = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"spmm_csr_bf16": [_vp] * 4 + [_ci] * 5 + [_vp],
-               "spmm_csr_f32": [_vp] * 4 + [_ci] * 5 + [_vp],
                "spmm_csr_int8": [_vp] * 5 + [_ci] * 5 + [_vp],
                "spmm_csr_weighted": [_vp] * 6 + [_ci] * 6 + [_vp]}
+_F32_SIGNATURES = {"spmm_csr_f32": [_vp] * 6 + [_ci] * 8 + [_vp],
+                   "spmm_csr_f32_combine": [_vp] * 4 + [_ci] * 2 + [_vp]}
+# csrc/spmm_f32.cu's kChunkEdges (T): rows of more edges are split into
+# chunks of T edges; the kernel refuses a plan cut with another T
+F32_CHUNK = 512
+# copies per lane per stage: a stage holds the slices of
+# 32 * F32_COPIES // Q edges (Q the pieces of a slice, at most 32)
+F32_COPIES = 4
 
 
 def reset_counts() -> None:
@@ -103,6 +117,77 @@ def geometry(f: int, itemsize: int, head_width: int | None = None,
         vec //= 2
     lanes = min(32, -(-f // vec))
     return vec, lanes, 32 // lanes
+
+
+class F32Geometry(NamedTuple):
+    """spmm_csr_f32's layout: vec floats per copy (16, 8 or 4 bytes), a
+    warp's column chunk of `width` columns (Q = width // vec pieces, at
+    most 32), `groups` = 32 // Q edge groups in the sum, and `stage_edges`
+    edges per stage."""
+    vec: int
+    width: int
+    groups: int
+    stage_edges: int
+
+
+def f32_geometry(f: int, align: int = 16) -> F32Geometry:
+    """The f32 kernel's layout for rows of f floats whose base is aligned
+    to `align` bytes: vec the widest copy of at most 4 floats that divides
+    f and keeps every row aligned; the f // vec pieces cut into
+    ceil(pieces / 32) column chunks of equal width but the last; G =
+    32 * F32_COPIES // Q edges a stage (at most 32), so that the stage's
+    G * Q copies fill the lanes' copy steps (F = 128: 4 x 32; F = 100:
+    5 x 25 of 128)."""
+    vec = 4
+    while vec > 1 and (f % vec or align % (vec * 4)):
+        vec //= 2
+    pieces = f // vec
+    chunks = -(-pieces // 32)
+    q = -(-pieces // chunks)
+    return F32Geometry(vec, q * vec, 32 // q, min(32, 32 * F32_COPIES // q))
+
+
+class F32Plan(NamedTuple):
+    """The hub rows of a CSR, cut for spmm_csr_f32: `rows` int32 [S], each
+    row of more than F32_CHUNK edges in row order; `first` int32 [S + 1],
+    row s's chunks are first[s]:first[s + 1]; `chunks` int32 [C, 2], each
+    chunk's edge range [start, end), F32_CHUNK edges but a row's last;
+    `n_chunks` = C; `chunk` the T it was cut with."""
+    rows: torch.Tensor
+    first: torch.Tensor
+    chunks: torch.Tensor
+    n_chunks: int
+    chunk: int
+
+
+def f32_plan(indptr: torch.Tensor, n_rows: int) -> F32Plan:
+    """spmm_csr_f32's work list of the CSR `indptr` (on its device; two
+    host synchronisations, so `graph_f32_plan` keeps one per graph)."""
+    dev, t = indptr.device, F32_CHUNK
+    lo = indptr[:n_rows].long()
+    hi = indptr[1:n_rows + 1].long()
+    rows = torch.nonzero(hi - lo > t).flatten()
+    lo, hi = lo[rows], hi[rows]
+    n_ck = (hi - lo + t - 1) // t
+    first = torch.zeros(rows.numel() + 1, dtype=torch.int64, device=dev)
+    first[1:] = torch.cumsum(n_ck, 0)
+    n_chunks = int(first[-1])
+    owner = torch.repeat_interleave(
+        torch.arange(rows.numel(), device=dev), n_ck, output_size=n_chunks)
+    start = lo[owner] + (torch.arange(n_chunks, device=dev)
+                         - first[owner]) * t
+    chunks = torch.stack([start, torch.minimum(start + t, hi[owner])], 1)
+    return F32Plan(rows.int(), first.int(), chunks.int().contiguous(),
+                   n_chunks, t)
+
+
+def graph_f32_plan(g) -> F32Plan:
+    """The f32 kernel's plan of g's dst-sorted CSR, built at the first call
+    and kept on g (a moved or replaced Graph builds its own)."""
+    key = ("spmm_csr_f32", F32_CHUNK)
+    if key not in g.cache:
+        g.cache[key] = f32_plan(g.indptr, g.n_nodes)
+    return g.cache[key]
 
 
 def _check(indptr, indices, x, n_rows, dtype):
@@ -164,13 +249,38 @@ def csr_sum_bf16(indptr, indices, xb, n_rows):
     return plain_csr_sum_bf16(indptr, indices, xb, n_rows)
 
 
-def csr_sum_f32(indptr, indices, x, n_rows):
+def csr_sum_f32(indptr, indices, x, n_rows, plan: F32Plan | None = None):
     """out[v] = sum_{e in indptr[v]:indptr[v+1]} x[indices[e]], f32 rows
-    summed in f32; on a CPU tensor its plain version, refops.csr_sum_f32."""
+    summed in f32; on a CPU tensor its plain version, refops.csr_sum_f32.
+    `plan` is `f32_plan(indptr, n_rows)` (made here when None)."""
     _check(indptr, indices, x, n_rows, torch.float32)
-    if x.is_cuda:
-        return _launch("spmm_csr_f32", indptr, indices, x, None, n_rows)
-    return refops.csr_sum_f32(indptr, indices, x, n_rows)
+    if not x.is_cuda:
+        return refops.csr_sum_f32(indptr, indices, x, n_rows)
+    if plan is None:
+        plan = f32_plan(indptr, n_rows)
+    if plan.chunk != F32_CHUNK or plan.chunks.device != x.device:
+        raise ValueError(f"the plan was cut with T = {plan.chunk} on "
+                         f"{plan.chunks.device}, the kernel takes T = "
+                         f"{F32_CHUNK} on {x.device}")
+    x = x.contiguous()
+    f, c = x.shape[1], plan.n_chunks
+    out = torch.empty((n_rows, f), dtype=torch.float32, device=x.device)
+    part = torch.empty((c, f), dtype=torch.float32, device=x.device)
+    lib = cuda_build.load("spmm_f32", _F32_SIGNATURES)
+    cuda_build.launch(
+        "spmm_csr_f32", lib.spmm_csr_f32, x.device, indptr.data_ptr(),
+        indices.data_ptr(), x.data_ptr(),
+        plan.chunks.data_ptr() if c else None,
+        part.data_ptr() if c else None, out.data_ptr(), n_rows, c, f,
+        *f32_geometry(f, align=x.data_ptr()), F32_CHUNK)
+    counts["spmm_csr_f32"] += 1
+    if c:
+        cuda_build.launch(
+            "spmm_csr_f32", lib.spmm_csr_f32_combine, x.device,
+            plan.rows.data_ptr(), plan.first.data_ptr(), part.data_ptr(),
+            out.data_ptr(), plan.rows.numel(), f)
+        counts["spmm_csr_f32"] += 1
+    return out
 
 
 def csr_sum_int8(indptr, indices, q, scale, n_rows):

@@ -40,17 +40,18 @@ DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 HOST_CATS = ("cpu_op",)
 
 _NS = r"(?:\(anonymous namespace\)::)?"
-# a demangled kernel name -> the port's kernel. The four SpMM kernels are
-# one template, spmm_csr_kernel<P, VEC> (csrc/spmm_csr.cu), told apart by
-# its policy P
+# a demangled kernel name -> the port's kernel. Three SpMM kernels are one
+# template, spmm_csr_kernel<P, VEC> (csrc/spmm_csr.cu), told apart by its
+# policy P; spmm_csr_f32 (csrc/spmm_f32.cu) is two kernels, the walk and
+# the second pass that sums split rows' partials, each counted as one
+# launch of spmm_csr_f32 (its wrapper counts launches, not calls)
 PORT_KERNELS = (
     (re.compile(rf"\bspmm_csr_kernel<{_NS}Sum<__nv_bfloat16, float>"),
      "spmm_csr_bf16"),
     (re.compile(rf"\bspmm_csr_kernel<{_NS}Sum<(?:signed char|int8_t|char), "
                 rf"int>"), "spmm_csr_int8"),
     (re.compile(rf"\bspmm_csr_kernel<{_NS}Weighted\b"), "spmm_csr_weighted"),
-    (re.compile(rf"\bspmm_csr_kernel<{_NS}Sum<float, float>"),
-     "spmm_csr_f32"),
+    (re.compile(r"\bspmm_f32_(?:combine_)?kernel\b"), "spmm_csr_f32"),
     (re.compile(r"\bgat_prep_kernel\b"), "gat_prep"),
     (re.compile(r"\bgat_fwd_kernel\b"), "gat_fwd"),
     (re.compile(r"\bgat_bwd_kernel\b"), "gat_bwd"),

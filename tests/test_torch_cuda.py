@@ -23,7 +23,11 @@ the gradient, as tests/test_pallas.py:368,421).
 Every kernel walks a dst row's edges in chunks of 32, so each kernel test
 also runs on a hub graph (`_hub_graph`) whose first rows have the in- and
 out-degrees HUB_DEGREES: empty, one edge, either side of one and of two
-chunks, and rows of about a thousand and twenty thousand edges.
+chunks, and rows of about a thousand and twenty thousand edges. The f32
+kernel splits rows of more than T = spmm_cuda.F32_CHUNK edges across
+warps, so its tests also take rows of T - 1, T, T + 1 and 3T + 5 edges
+(SPLIT_DEGREES), and a second launch must be bit-equal to the first (no
+atomics: its order of summation is fixed by the graph and the layout).
 """
 
 import numpy as np
@@ -61,18 +65,17 @@ def _graph(n, e, seed, device, hub_free=0):
                        n).to(device)
 
 
-def _hub_graph(n, e, seed, device):
-    """Random graph whose node i < len(HUB_DEGREES) has exactly
-    HUB_DEGREES[i] in-edges and as many out-edges (so the transposed walk
-    meets the same rows), from and to distinct other nodes as in a graph
-    without multi-edges, so n must exceed max(HUB_DEGREES); the other e
-    edges join the remaining nodes uniformly. Node 0 is the zero-degree
-    row."""
+def _hub_graph(n, e, seed, device, degrees=HUB_DEGREES):
+    """Random graph whose node i < len(degrees) has exactly degrees[i]
+    in-edges and as many out-edges (so the transposed walk meets the same
+    rows), from and to distinct other nodes as in a graph without
+    multi-edges, so n must exceed max(degrees); the other e edges join the
+    remaining nodes uniformly. Node 0 is the zero-degree row."""
     rs = np.random.RandomState(seed)
-    k = len(HUB_DEGREES)
-    hubs = np.repeat(np.arange(k), HUB_DEGREES)
+    k = len(degrees)
+    hubs = np.repeat(np.arange(k), degrees)
     ends = [np.concatenate([rs.choice(np.arange(k, n), d, replace=False)
-                            for d in HUB_DEGREES]) for _ in range(2)]
+                            for d in degrees]) for _ in range(2)]
     src = np.concatenate([ends[0], hubs, rs.randint(k, n, e)])
     dst = np.concatenate([hubs, ends[1], rs.randint(k, n, e)])
     return build_graph(src, dst, n).to(device)
@@ -154,13 +157,18 @@ def test_launch_counters_and_no_plain_calls(cuda):
     assert cuda_build.counts == {"plain_on_cuda": 0}
 
 
-def _f32_matches_plain(g, f, zero_rows):
-    x = torch.randn((g.n_nodes, f), device=g.device)
+def _f32_matches_plain(g, f, zero_rows, x=None):
+    """Both walks against the plain version, each element within 1e-5 of
+    its row's magnitude; a second launch bit-equal to the first."""
+    if x is None:
+        x = torch.randn((g.n_nodes, f), device=g.device)
     for indptr, cols in ((g.indptr, g.senders), (g.t_indptr, g.t_receivers)):
         got = spmm_cuda.csr_sum_f32(indptr, cols, x, g.n_nodes)
+        again = spmm_cuda.csr_sum_f32(indptr, cols, x, g.n_nodes)
         want = refops.csr_sum_f32(indptr, cols, x, g.n_nodes)
         magnitude = refops.csr_sum_f32(indptr, cols, x.abs(), g.n_nodes)
         assert bool(((got - want).abs() <= 1e-5 * magnitude).all())
+        assert torch.equal(got, again)
         if indptr is g.indptr:
             assert got[zero_rows].abs().max().item() == 0.0
 
@@ -175,6 +183,62 @@ def test_f32_kernel_matches_plain(cuda, f):
     _f32_matches_plain(_graph(500, 6000, f, cuda, hub_free=20), f,
                        slice(0, 20))
     _f32_matches_plain(_hub_graph(HUB_NODES, 6000, f, cuda), f, slice(0, 1))
+
+
+T = spmm_cuda.F32_CHUNK
+SPLIT_DEGREES = (0, 1, T - 1, T, T + 1, 3 * T + 5, 1000, 20000)
+
+
+@pytest.mark.parametrize("f", SPMM_WIDTHS)
+def test_f32_kernel_on_split_rows(cuda, f):
+    """Rows either side of the chunk length T, split into chunks of T
+    edges whose partials the second kernel sums in chunk order: both
+    walks against the plain version, two launches bit-equal; the plan
+    lists exactly the rows of more than T edges."""
+    g = _hub_graph(HUB_NODES, 6000, f + 1, cuda, SPLIT_DEGREES)
+    plan = spmm_cuda.f32_plan(g.indptr, g.n_nodes)
+    deg = (g.indptr[1:g.n_nodes + 1] - g.indptr[:g.n_nodes]).cpu()
+    assert plan.rows.tolist() == torch.nonzero(deg > T).flatten().tolist()
+    assert plan.n_chunks == sum(-(-d // T) for d in SPLIT_DEGREES if d > T)
+    _f32_matches_plain(g, f, slice(0, 1))
+
+
+@pytest.mark.parametrize("f", [100, 128, 7])
+def test_f32_kernel_on_misaligned_x(cuda, f):
+    """x whose base is 4 bytes past a 16-byte boundary takes the kernel's
+    4-byte copies, never the plain version."""
+    g = _hub_graph(HUB_NODES, 6000, f, cuda, SPLIT_DEGREES)
+    buf = torch.randn(g.n_nodes * f + 1, device=cuda)
+    x = buf[1:].view(g.n_nodes, f)
+    assert spmm_cuda.f32_geometry(f, align=x.data_ptr()).vec == 1
+    cuda_build.reset_counts()
+    _f32_matches_plain(g, f, slice(0, 1), x)
+    assert cuda_build.counts["plain_on_cuda"] == 4   # the checks' own
+
+
+def test_f32_counts_both_passes_and_keeps_the_plan(cuda):
+    """A graph with split rows launches both kernels per hop (two counts),
+    feature_prop builds its graph's plan once and gives the same hops, bit
+    for bit, as the wrapper that makes a plan per call; nothing runs plain.
+    (Each hop is held against the plain version by
+    test_f32_kernel_on_split_rows.)"""
+    g = _hub_graph(HUB_NODES, 6000, 8, cuda, SPLIT_DEGREES)
+    x = torch.randn((g.n_nodes, 128), device=cuda)
+    spmm_cuda.reset_counts()
+    cuda_build.reset_counts()
+    got = graph_utils.feature_prop(x, g, 2)
+    plan = spmm_cuda.graph_f32_plan(g)
+    assert spmm_cuda.graph_f32_plan(g) is plan and plan.n_chunks > 0
+    assert spmm_cuda.counts["spmm_csr_f32"] == 4
+    assert cuda_build.counts == {"plain_on_cuda": 0}
+    # the same hops through the wrapper without the kept plan: bit-equal
+    norm = torch.rsqrt(g.in_degrees.clamp(min=1.0))[:, None]
+    want = x
+    for _ in range(2):
+        want = spmm_cuda.csr_sum_f32(g.indptr, g.senders, want * norm,
+                                     g.n_nodes) * norm
+    assert torch.equal(got, want)
+    assert g.to(cuda).cache == {}                  # a moved graph's own
 
 
 def test_feature_prop_on_cuda_matches_cpu(cuda):
@@ -715,6 +779,26 @@ def test_halo_copy_u_sum_one_shard_runs_the_kernel(cuda, tmp_path):
     (want * co).sum().backward()
     torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-4)
     torch.testing.assert_close(grad, x.grad, rtol=1e-5, atol=1e-4)
+
+
+def test_trace_counts_both_f32_passes(cuda, tmp_path):
+    """On a graph with split rows both f32 kernels are reported as
+    spmm_csr_f32, as often as the counter moved over the traced call."""
+    from glnn_tpu_torch.utils.trace_report import trace_and_report
+
+    g = _hub_graph(HUB_NODES, 6000, 9, cuda, SPLIT_DEGREES)
+    x = torch.randn((g.n_nodes, 100), device=cuda)
+    plan = spmm_cuda.graph_f32_plan(g)
+
+    def run():
+        spmm_cuda.csr_sum_f32(g.indptr, g.senders, x, g.n_nodes, plan)
+        torch.cuda.synchronize()
+
+    spmm_cuda.reset_counts()
+    res = trace_and_report(run, cuda, iters=2, out_dir=tmp_path, quiet=True)
+    got = {r.name: r.count for r in res["rows"]}
+    assert spmm_cuda.counts["spmm_csr_f32"] == 6      # 3 calls, 2 passes
+    assert got["spmm_csr_f32"] == 4
 
 
 PORT_KERNELS = ("spmm_csr_bf16", "spmm_csr_int8", "spmm_csr_weighted",

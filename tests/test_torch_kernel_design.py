@@ -7,6 +7,16 @@ walks in the kernels' order of operations.
   taking every groups-th edge, column chunks of lanes * vec, and the fold
   of the groups' partial sums onto group 0. On integer rows it must equal
   the plain version exactly, on rows of 0 to 200 edges.
+* The f32 SpMM mirror follows csrc/spmm_f32.cu: rows of more than
+  T = spmm_cuda.F32_CHUNK edges cut into T-edge chunks (the plan), each
+  item walked in stages of G edges, lane group g summing edges g, g +
+  groups, ... of each stage per column chunk, the groups folded, and each
+  split row's partials summed in chunk order. On integer rows it must
+  equal the plain version exactly on rows of 0, 1, T - 1, T, T + 1,
+  3T + 5, 1,000 and 20,000 edges; on f32 rows it must lie within 1e-5 of
+  each row's magnitude (the sum of |x| over its edges; only the order of
+  the f32 sums differs) of refops.csr_sum_f32 and of JAX's
+  glnn_tpu.ops.refops.copy_u_sum on the same numpy inputs.
 * The gat_bwd mirror follows csrc/gat_csr.cu in f32: one reciprocal of den
   per (row, head), per-slot sums of t and der folded as the kernel folds
   them, ds_pre = c (w g - t) per edge (c = alpha leaky_relu'), and the bf16
@@ -41,8 +51,9 @@ import torch
 
 from glnn_tpu.graph.container import build_graph as jax_build_graph
 from glnn_tpu.ops import gat_pallas
+from glnn_tpu.ops import refops as jax_refops
 from glnn_tpu_torch.graph.container import build_graph
-from glnn_tpu_torch.ops import gat_cuda, spmm_cuda
+from glnn_tpu_torch.ops import gat_cuda, refops, spmm_cuda
 
 N = 300
 HUB = 150          # in-degree of row 1: several 32-edge chunks, past K
@@ -190,6 +201,139 @@ def test_spmm_walk_covers_each_edge_once(f, itemsize):
     want = torch.zeros((N, f), dtype=torch.int64).index_add_(
         0, g.receivers.long(), torch.from_numpy(x)[g.senders.long()])
     np.testing.assert_array_equal(got, want.numpy())
+
+
+# ---- the f32 SpMM: geometry, plan and walk --------------------------------
+
+T = spmm_cuda.F32_CHUNK
+SPLIT_DEGREES = (0, 1, T - 1, T, T + 1, 3 * T + 5, 1000, 20000)
+
+
+@pytest.mark.parametrize("f,align,want", [
+    (128, 16, (4, 128, 1, 4)), (100, 16, (4, 100, 1, 5)),
+    (40, 16, (4, 40, 3, 12)), (64, 16, (4, 64, 2, 8)),
+    (256, 16, (4, 128, 1, 4)), (300, 16, (4, 100, 1, 5)),
+    (7, 16, (1, 7, 4, 18)), (1, 16, (1, 1, 32, 32)), (2, 16, (2, 2, 32, 32)),
+    (128, 8, (2, 64, 1, 4)), (100, 4, (1, 25, 1, 5)),
+])
+def test_f32_geometry(f, align, want):
+    """The widest copy of at most 16 bytes that divides F and keeps rows
+    aligned; column chunks of at most 32 pieces, equal but for the last;
+    G edges a stage such that the stage's copies fill the copy steps: at
+    F = 128 and 100 no more than 3 of a stage's 128 lane copies are
+    idle, where the template body's layout left 7 of 32 lanes idle on
+    every step at F = 100."""
+    geo = spmm_cuda.f32_geometry(f, align)
+    assert tuple(geo) == want
+    q = geo.width // geo.vec
+    assert f % geo.vec == 0 and align % (4 * geo.vec) == 0 and q <= 32
+    assert -(-f // geo.width) == -(-(f // geo.vec) // 32)   # fewest chunks
+    assert geo.groups * q <= 32 < (geo.groups + 1) * q
+    copies = geo.stage_edges * q
+    assert geo.stage_edges <= 32 and -(-copies // 32) <= spmm_cuda.F32_COPIES
+    if f in (100, 128) and align == 16:
+        assert 32 * -(-copies // 32) - copies <= 3
+
+
+def _split_graph(seed, f_rows=20, n=300, n_random=2500):
+    """n_random random edges into rows len(SPLIT_DEGREES).. of n, and rows
+    0, 1, ... with SPLIT_DEGREES in-edges from random sources (repeats
+    allowed: a 20,000-edge row over 300 nodes)."""
+    rs = np.random.RandomState(seed)
+    k = len(SPLIT_DEGREES)
+    src = [rs.randint(0, n, n_random)] + [rs.randint(0, n, d)
+                                          for d in SPLIT_DEGREES]
+    dst = [rs.randint(k, n, n_random)] + [np.full(d, row) for row, d
+                                          in enumerate(SPLIT_DEGREES)]
+    return np.concatenate(src), np.concatenate(dst), n
+
+
+def _f32_walk(indptr, indices, x, geo, chunk):
+    """csrc/spmm_f32.cu's walk of each row (and each split row's chunks,
+    then their partials in chunk order), in numpy."""
+    n_rows, f = len(indptr) - 1, x.shape[1]
+    _, width, groups, stage = geo
+
+    def item(begin, end):
+        res = np.zeros(f, x.dtype)
+        for c0 in range(0, f, width):
+            cols = slice(c0, min(f, c0 + width))
+            part = np.zeros((groups, cols.stop - c0), x.dtype)
+            for s0 in range(begin, end, stage):
+                n = min(stage, end - s0)
+                for grp in range(groups):
+                    for j in range(grp, n, groups):
+                        part[grp] += x[indices[s0 + j], cols]
+            res[cols] = _fold(part)
+        return res
+
+    out = np.zeros((n_rows, f), x.dtype)
+    for row in range(n_rows):
+        begin, end = int(indptr[row]), int(indptr[row + 1])
+        if end - begin <= chunk:
+            out[row] = item(begin, end)
+            continue
+        acc = np.zeros(f, x.dtype)
+        for c in range(begin, end, chunk):
+            acc = acc + item(c, min(end, c + chunk))
+        out[row] = acc
+    return out
+
+
+def test_f32_plan_cuts_each_split_row():
+    """The plan lists exactly the rows of more than T edges, in order, and
+    tiles each with chunks of T edges but the last."""
+    src, dst, n = _split_graph(0)
+    g = build_graph(src, dst, n)
+    plan = spmm_cuda.f32_plan(g.indptr, n)
+    assert plan.rows.tolist() == [i for i, d in enumerate(SPLIT_DEGREES)
+                                  if d > T]
+    assert plan.chunk == T and plan.n_chunks == plan.chunks.shape[0]
+    ip = g.indptr.tolist()
+    for s, row in enumerate(plan.rows.tolist()):
+        ranges = plan.chunks[plan.first[s]:plan.first[s + 1]].tolist()
+        assert ranges[0][0] == ip[row] and ranges[-1][1] == ip[row + 1]
+        assert all(b - a == T for a, b in ranges[:-1])
+        assert all(r[1] == q[0] for r, q in zip(ranges, ranges[1:]))
+        assert 0 < ranges[-1][1] - ranges[-1][0] <= T
+    assert spmm_cuda.graph_f32_plan(g) is spmm_cuda.graph_f32_plan(g)
+
+
+@pytest.mark.parametrize("f", [128, 100, 40, 7, 1, 300])
+def test_f32_walk_covers_each_edge_once(f):
+    """Integer rows make the sum exact whatever the order: the walk must
+    equal the plain version on rows of 0 to 20,000 edges, on the forward
+    and the transposed walk."""
+    src, dst, n = _split_graph(f)
+    g = build_graph(src, dst, n)
+    x = np.random.RandomState(1).randint(-100, 100, (n, f)).astype(np.int64)
+    geo = spmm_cuda.f32_geometry(f)
+    for indptr, cols in ((g.indptr, g.senders), (g.t_indptr, g.t_receivers)):
+        got = _f32_walk(indptr[:n + 1].numpy(), cols.numpy(), x, geo, T)
+        want = torch.zeros((n, f), dtype=torch.int64).index_add_(
+            0, torch.from_numpy(np.repeat(np.arange(n), np.diff(
+                indptr[:n + 1].numpy()))), torch.from_numpy(x)[cols.long()])
+        np.testing.assert_array_equal(got, want.numpy())
+
+
+@pytest.mark.parametrize("f", [128, 100, 7])
+def test_f32_walk_matches_plain_and_jax(f):
+    """On f32 rows the walk lies within 1e-5 of each row's magnitude of
+    refops.csr_sum_f32 and of glnn_tpu.ops.refops.copy_u_sum (JAX on the
+    CPU), all three from the same numpy inputs."""
+    src, dst, n = _split_graph(f + 3)
+    g = build_graph(src, dst, n)
+    x = np.random.RandomState(2).randn(n, f).astype(np.float32)
+    got = _f32_walk(g.indptr[:n + 1].numpy(), g.senders.numpy(), x,
+                    spmm_cuda.f32_geometry(f), T)
+    xt = torch.from_numpy(x)
+    magnitude = refops.csr_sum_f32(g.indptr, g.senders, xt.abs(), n).numpy()
+    plain = refops.csr_sum_f32(g.indptr, g.senders, xt, n).numpy()
+    jax_sum = np.asarray(jax_refops.copy_u_sum(jax_build_graph(src, dst, n),
+                                               jnp.asarray(x)))
+    for want in (plain, jax_sum):
+        assert np.all(np.abs(got - want) <= 1e-5 * magnitude)
+    assert np.abs(got[len(SPLIT_DEGREES) - 1]).max() > 0   # the 20,000 row
 
 
 # ---- the GAT attention backward ----------------------------------------

@@ -23,7 +23,9 @@ DEMANGLED = {
     "spmm_csr_bf16": _SPMM.format(p="Sum<__nv_bfloat16, float>", v=8),
     "spmm_csr_int8": _SPMM.format(p="Sum<signed char, int>", v=8),
     "spmm_csr_weighted": _SPMM.format(p="Weighted", v=4),
-    "spmm_csr_f32": _SPMM.format(p="Sum<float, float>", v=4),
+    "spmm_csr_f32": "void (anonymous namespace)::spmm_f32_kernel<4>(int "
+                    "const*, int const*, float const*, int2 const*, float*, "
+                    "float*, int, int, int, int, int, int)",
     "gat_prep": "void (anonymous namespace)::gat_prep_kernel<4, 1>(float "
                 "const*, float const*, float const*, __nv_bfloat16*, float*, "
                 "__nv_bfloat16*, long, int, int, int)",
@@ -49,6 +51,15 @@ TORCH_KERNEL = ("void at::native::vectorized_elementwise_kernel<8, "
 @pytest.mark.parametrize("port", sorted(DEMANGLED))
 def test_port_name_of_each_kernel(port):
     assert port_name(DEMANGLED[port]) == port
+
+
+# the f32 sum's second pass, counted as a launch of spmm_csr_f32 as well
+F32_COMBINE = ("(anonymous namespace)::spmm_f32_combine_kernel(int const*, "
+               "int const*, float const*, float*, int, int)")
+
+
+def test_port_name_of_the_f32_second_pass():
+    assert port_name(F32_COMBINE) == "spmm_csr_f32"
 
 
 @pytest.mark.parametrize("name", [TORCH_KERNEL, "Memcpy HtoD (Pageable -> "

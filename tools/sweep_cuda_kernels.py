@@ -7,11 +7,17 @@ Each variant is the source in glnn_tpu_torch/csrc with one thing changed
 in a copy: the minimum resident blocks per SM asked of ptxas
 (__launch_bounds__) for the CSR SpMM body (spmm_csr.cu), for gat_fwd or
 for gat_bwd (gat_csr.cu), which caps the registers a thread may use; the
-scores per lane R of edge_softmax_fwd (kSoftmaxRegs); or gat_fwd with one
+scores per lane R of edge_softmax_fwd (kSoftmaxRegs); gat_fwd with one
 stage cut out, to split its time (`gat_fwd_parts`: "scores only" reads no
 feature row, "features only" loads no el, takes no max, forms every term
 as 1 and draws the keep bits from a multiplicative hash at the same keep
-rate, with no Philox). Every variant is built with the port's nvcc flags
+rate, with no Philox); or the f32 sum (spmm_f32.cu, `f32`) with another
+ring depth S (kStages), chunk length T (kChunkEdges) or set of L2 hints H
+(kCacheHints), and "template":
+spmm_csr.cu with an entry point that instantiates its body for f32 rows
+(Sum<float, float>, the f32 sum's earlier form) at `spmm_cuda.geometry`'s
+layout, timed beside the others in the same run. Every variant is built
+with the port's nvcc flags
 into a temporary directory, loaded in place of the port's library,
 checked against the plain version (the cut gat_fwd variants are only
 timed), and timed with CUDA events on the synth-n169343-c40-f128-d7
@@ -25,7 +31,12 @@ graph at the main paths' widths:
 - gat_fwd's cut variants at both shapes in seed mode, the port's layout;
 - gat_bwd at both shapes in seed mode; gat_prep at both shapes;
 - edge_softmax_fwd at [E, 1] and [E, 8] with R = 1, 2, 4, 8 scores per
-  lane (and the edge slots per row that R implies).
+  lane (and the edge slots per row that R implies);
+- the f32 sum at F = 100 and 128, on the synth graph and on chip_smoke's
+  hub graph (rows of up to 20,000 edges), each S, T and H variant under
+  F32_COPIES = 1, 2, 4, 8 copies per lane per stage (the edges a stage
+  holds), checked against the plain version (1e-5 of each row's
+  magnitude) and for two launches bit-equal, eager and device time.
 The lane layouts and grids are launch arguments, so they need no
 rebuild. Prints each variant's ptxas registers, stack frame and spill
 stores per instantiation of the swept kernel and its times, and writes
@@ -52,7 +63,8 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402
 from glnn_tpu_torch.graph.datasets import load_synth_data  # noqa: E402
-from glnn_tpu_torch.ops import cuda_build, gat_cuda, spmm_cuda  # noqa: E402
+from glnn_tpu_torch.ops import (cuda_build, gat_cuda, refops,  # noqa: E402
+                                spmm_cuda)
 
 _port_geometry = spmm_cuda.geometry
 _port_fwd_geometry = gat_cuda.fwd_geometry
@@ -63,12 +75,28 @@ _port_blocks = gat_cuda._blocks
 # gat_fwd_parts: the stage left in (None: the whole kernel, timed alike)
 VARIANTS = {"spmm": [None, 6, 0], "gat_fwd": [None, 0, 6], "gat_bwd": [None],
             "softmax": [None, 1, 2, 4],
-            "gat_fwd_parts": [None, "scores only", "features only"]}
+            "gat_fwd_parts": [None, "scores only", "features only"],
+            "f32": [None, "S=1", "S=3", "S=4", "T=128", "T=256", "T=1024",
+                    "H=0", "template"]}
 KERNEL = {"spmm": "spmm_csr_kernel", "gat_fwd": "gat_fwd_kernel",
           "gat_bwd": "gat_bwd_kernel", "softmax": "edge_softmax_fwd_kernel",
-          "gat_fwd_parts": "gat_fwd_kernel"}
+          "gat_fwd_parts": "gat_fwd_kernel", "f32": "spmm_f32_kernel"}
 LIBRARY = {"spmm": "spmm", "gat_fwd": "gat", "gat_bwd": "gat",
-           "softmax": "gat", "gat_fwd_parts": "gat"}
+           "softmax": "gat", "gat_fwd_parts": "gat", "f32": "spmm_f32"}
+F32_WIDTHS = (100, 128)
+F32_COPIES = (1, 2, 4, 8)
+# the template body's entry point for f32 rows, appended to spmm_csr.cu
+_TEMPLATE_F32 = """
+extern "C" int spmm_csr_template_f32(const void* indptr, const void* indices,
+    const void* x, void* out, int n_rows, int f, int vec, int lanes,
+    int groups, void* stream) {
+  return launch(static_cast<const int32_t*>(indptr),
+                static_cast<const int32_t*>(indices),
+                static_cast<const float*>(x), Sum<float, float>{nullptr},
+                static_cast<float*>(out), n_rows, f, vec, lanes, groups,
+                static_cast<cudaStream_t>(stream));
+}
+"""
 WIDTHS = (40, 64, 128, 256)
 # gat_fwd's keep bits in "features only": 8 heads' bits of edge e from
 # (e + 1) * 2654435761 * (2 i + 1) < thresh, about the seed mode's share
@@ -107,9 +135,17 @@ def _cut_gat_fwd(src: str, left: str) -> str:
 
 
 def _variant_source(name: str, variant) -> str:
+    if variant == "template":
+        return (cuda_build._CSRC / cuda_build.SOURCES["spmm"]).read_text() \
+            + _TEMPLATE_F32
     src = (cuda_build._CSRC / cuda_build.SOURCES[LIBRARY[name]]).read_text()
     if variant is None:
         return src
+    if name == "f32":
+        key, value = variant.split("=")
+        const = {"S": "kStages", "T": "kChunkEdges", "H": "kCacheHints"}[key]
+        return _replace(src, rf"constexpr int {const} = \d+;",
+                        f"constexpr int {const} = {value};")
     if name == "softmax":
         return _replace(src, r"constexpr int kSoftmaxRegs = \d+;",
                         f"constexpr int kSoftmaxRegs = {variant};")
@@ -154,7 +190,8 @@ def _build(job) -> tuple:
                           str(lib), str(cu)], capture_output=True, text=True)
     if res.returncode:
         raise RuntimeError(res.stderr)
-    return job, lib, ptxas_table(res.stderr, KERNEL[name])
+    kernel = "spmm_csr_kernel" if variant == "template" else KERNEL[name]
+    return job, lib, ptxas_table(res.stderr, kernel)
 
 
 def _load(name: str, lib: Path, signatures: dict) -> None:
@@ -346,6 +383,74 @@ def _time_softmax(g, regs: int) -> dict:
     return out
 
 
+def _f32_inputs(graphs) -> list:
+    """(graph tag, F, graph, x, plan, plain sum, row magnitudes) of each f32
+    case, x from a fixed seed."""
+    out = []
+    for tag, g in graphs.items():
+        gen = torch.Generator(device=g.device).manual_seed(14)
+        for f in F32_WIDTHS:
+            x = torch.randn((g.n_nodes, f), generator=gen, device=g.device)
+            want = refops.csr_sum_f32(g.indptr, g.senders, x, g.n_nodes)
+            mag = refops.csr_sum_f32(g.indptr, g.senders, x.abs(), g.n_nodes)
+            out.append((tag, f, g, x, want, mag))
+    return out
+
+
+def _held_f32(got, again, want, mag, what) -> None:
+    if not bool(((got - want).abs() <= 1e-5 * mag).all()):
+        raise AssertionError(f"{what}: over 1e-5 of a row's magnitude")
+    if not torch.equal(got, again):
+        raise AssertionError(f"{what}: two launches differ")
+
+
+def _time_f32(cases, variant, lib) -> dict:
+    """The f32 sum under each F32_COPIES (or, for "template", the template
+    body at spmm_cuda.geometry's layout): {case: (eager ms, device ms)}."""
+    out = {}
+    if variant == "template":
+        fn = lib.spmm_csr_template_f32
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        for tag, f, g, x, want, mag in cases:
+            def call(g=g, x=x, f=f):
+                o = torch.empty((g.n_nodes, f), device=g.device)
+                cuda_build.launch("template f32", fn, g.device,
+                                  g.indptr.data_ptr(), g.senders.data_ptr(),
+                                  x.data_ptr(), o.data_ptr(), g.n_nodes, f,
+                                  *spmm_cuda.geometry(f, 4,
+                                                      align=x.data_ptr()))
+                return o
+            _held_f32(call(), call(), want, mag, f"template {tag} F={f}")
+            out[f"{tag} F={f} {spmm_cuda.geometry(f, 4)}"] = \
+                chip_smoke.kernel_times(call)
+    else:
+        chunk = spmm_cuda.F32_CHUNK
+        if variant and variant.startswith("T="):
+            spmm_cuda.F32_CHUNK = int(variant[2:])
+        copies = spmm_cuda.F32_COPIES
+        try:
+            plans = {tag: spmm_cuda.f32_plan(g.indptr, g.n_nodes)
+                     for tag, _, g, *_ in cases}
+            for spmm_cuda.F32_COPIES in F32_COPIES:
+                for tag, f, g, x, want, mag in cases:
+                    def call(g=g, x=x, plan=plans[tag]):
+                        return spmm_cuda.csr_sum_f32(g.indptr, g.senders, x,
+                                                     g.n_nodes, plan)
+                    geo = tuple(spmm_cuda.f32_geometry(f))
+                    _held_f32(call(), call(), want, mag,
+                              f"{variant} {tag} F={f} {geo}")
+                    mark = "*" if copies == spmm_cuda.F32_COPIES else ""
+                    out[f"{tag} F={f} {geo}{mark}"] = \
+                        chip_smoke.kernel_times(call)
+        finally:
+            spmm_cuda.F32_CHUNK, spmm_cuda.F32_COPIES = chunk, copies
+    print("  f32 " + ", ".join(f"{k} {e:.4f} [{d:.4f}]"
+                               for k, (e, d) in out.items()), flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path,
@@ -364,6 +469,8 @@ def main() -> int:
     print(smi)
     host, *_ = load_synth_data(chip_smoke.DATASET, 0, 20, 30)
     g = host.to_device(torch.device("cuda:0"))
+    f32_cases = (_f32_inputs({"synth": g, "hub": chip_smoke.hub_graph(
+        g.n_nodes, g.n_edges, 9).to(g.device)}) if "f32" in kernels else [])
     rows = []
     with tempfile.TemporaryDirectory() as tmp:
         jobs = [(name, b, tmp) for name, bs in VARIANTS.items()
@@ -372,11 +479,19 @@ def main() -> int:
             built = list(pool.map(_build, jobs))
         for (name, variant, _), lib, ptxas in built:
             library = LIBRARY[name]
-            sigs = (spmm_cuda._SIGNATURES if library == "spmm"
-                    else gat_cuda._SIGNATURES)
+            sigs = {"spmm": spmm_cuda._SIGNATURES, "gat": gat_cuda._SIGNATURES,
+                    "spmm_f32": spmm_cuda._F32_SIGNATURES}[library]
+            if variant == "template":     # beside the port's library
+                times = _time_f32(f32_cases, variant, ctypes.CDLL(str(lib)))
+                rows.append(dict(kernel=name, variant=variant, ptxas=ptxas,
+                                 ms=times))
+                print(f"{name} variant {variant}: ptxas {ptxas}", flush=True)
+                continue
             _load(library, lib, sigs)
             gat_cuda._blocks_per_sm.clear()
-            if name == "spmm":
+            if name == "f32":
+                times = _time_f32(f32_cases, variant, None)
+            elif name == "spmm":
                 times = _time_spmm(g)
             elif name == "gat_fwd":
                 times = _time_gat_fwd(g)
