@@ -650,7 +650,7 @@ def phase_check_f32(spmm_cuda, refops, g) -> float:
         x = torch.randn((n, f), generator=gen, device=g.device)
         for walk, indptr, cols in (("forward", g.indptr, g.senders),
                                    ("transposed", g.t_indptr, g.t_receivers)):
-            plan = spmm_cuda.f32_plan(indptr, n)
+            plan = spmm_cuda.hub_plan(indptr, n, spmm_cuda.F32_CHUNK)
             got = spmm_cuda.csr_sum_f32(indptr, cols, x, n, plan)
             again = spmm_cuda.csr_sum_f32(indptr, cols, x, n, plan)
             want = refops.csr_sum_f32(indptr, cols, x, n)
@@ -1078,6 +1078,7 @@ def check_out(path: str, tag: str, shape=(N_NODES, N_CLASSES)) -> np.ndarray:
 
 
 EPOCH_LINES = {}    # path tag -> its teacher's "mean epoch time" line
+PLAN_BUILDS = {}    # path tag -> the hub plans it built (spmm_cuda.builds)
 
 
 def drive_path(teacher: str, workdir: str, common: list, modules,
@@ -1111,9 +1112,11 @@ def drive_path(teacher: str, workdir: str, common: list, modules,
                       os.path.join(workdir, "outputs"), *extra])
     t2 = time.perf_counter()
     counts = {k: v for module in modules for k, v in module.counts.items()}
+    PLAN_BUILDS[tag] = sum(getattr(module, "builds", {}).get("hub_plan", 0)
+                           for module in modules)
     log(f"{tag} path: teacher {t1 - t0:.2f} s ({epochs} epochs), "
         f"student {t2 - t1:.2f} s ({STUDENT_EPOCHS} epochs); counts {counts}; "
-        f"host graph ops {native.counts}")
+        f"hub plans built {PLAN_BUILDS[tag]}; host graph ops {native.counts}")
     if not native.counts["sort_edges"]:
         raise AssertionError(f"the {tag} path sorted no edges natively: "
                              f"{native.counts}")
@@ -1326,6 +1329,23 @@ def phase_main_path(cuda_build, spmm_cuda, gat_cuda, workdir: str, host,
         "spmm_csr_int8": len(WIDTHS) * TEACHER_EPOCHS,
         "spmm_csr_bf16": len(WIDTHS)})
     check_window_bf16(wdir)
+    # one hub plan per CSR a path walks on the card, however many calls
+    # walk it: the forward CSR of each graph an eval or a forward runs on,
+    # and the transposed CSR of the graph a backward runs on (the sampled
+    # SAGE training walks neither; a student CLI builds its own graph only
+    # for feature_prop)
+    plans = {"SAGE": 1, "GAT": 2, "GCN": 2, "APPNP": 2, "SAGE ind": 2,
+             "GAT ind": 3, "GCN aug": 3, "SAGE window bf16": 1}
+    built = {tag: PLAN_BUILDS[" ".join([teacher, *extra])] for tag, (
+        teacher, extra) in {"SAGE": ("SAGE", ()), "GAT": ("GAT", ()),
+                            "GCN": ("GCN", ()), "APPNP": ("APPNP", ()),
+                            "SAGE ind": ("SAGE", ind), "GAT ind": ("GAT", ind),
+                            "GCN aug": ("GCN", aug),
+                            "SAGE window bf16": ("SAGE", WINDOW_BF16)}.items()}
+    if built != plans:
+        raise AssertionError(f"hub plans built per path {built}, expected one "
+                             f"per CSR walked: {plans}")
+    log(f"hub plans built per path: {built} (one per CSR walked)")
     return paths
 
 
@@ -1372,20 +1392,22 @@ def dist_rank_checks(mesh, payload) -> dict | None:
 
         recv = spmm_cuda.to_message(exchange())
         xb = spmm_cuda.to_message(x)
-        parts = {"local": (hg.indptr, hg.indices, xb, hg.rows),
-                 "halo": (hg.halo_indptr, hg.halo_indices, recv, hg.rows),
-                 "local transpose": (hg.t_indptr, hg.t_indices, dout,
-                                     hg.rows),
-                 "halo transpose": (hg.halo_t_indptr, hg.halo_t_indices,
-                                    dout, hg.n_recv)}
-        for part, args in parts.items():
-            got = spmm_cuda.csr_sum_bf16(*args)
+        parts = {"local": ("indptr", xb, hg.rows),
+                 "halo": ("halo_indptr", recv, hg.rows),
+                 "local transpose": ("t_indptr", dout, hg.rows),
+                 "halo transpose": ("halo_t_indptr", dout, hg.n_recv)}
+        for part, (csr, xin, n_rows) in parts.items():
+            args = (getattr(hg, csr),
+                    getattr(hg, csr.replace("indptr", "indices")), xin,
+                    n_rows)
+            plan = spmm_cuda.plan_of(hg, csr, n_rows)    # kept on the shard
+            got = spmm_cuda.csr_sum_bf16(*args, plan)
             want = spmm_cuda.plain_csr_sum_bf16(*args)
             torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
             err = (got - want).abs().max().item() if got.numel() else 0.0
             mine["max_abs_err"] = max(mine["max_abs_err"], err)
             mine["ms"][f"{part} F={f}"] = time_ms(
-                lambda a=args: spmm_cuda.csr_sum_bf16(*a))
+                lambda a=args, p=plan: spmm_cuda.csr_sum_bf16(*a, p))
         torch.distributed.barrier()
         mine["ms"][f"exchange F={f}"] = time_ms(exchange)
         out = dmesh.all_gather_rows(halo_copy_u_sum(hg, x))[:hg.n_nodes]
@@ -1620,12 +1642,16 @@ def halo_layer_times(hg, mesh) -> dict:
     fwd = (hg.c_indptr, hg.c_indices,
            source_table(hg, feat_b.view(rows, -1)).view(-1, h, d),
            source_table(hg, el), er_b, seed, inv_keep, 0.2)
-    _, smax, denom = gat_cuda.gat_fwd(*fwd, edge_base=hg.edge_base)
+    # the shard's kept hub plans of its combined CSR and transpose
+    plan = spmm_cuda.plan_of(hg, "c_indptr", rows)
+    t_plan = spmm_cuda.plan_of(hg, "c_t_indptr", n_src)
+    _, smax, denom = gat_cuda.gat_fwd(*fwd, edge_base=hg.edge_base,
+                                      plan=plan)
     dout = torch.randn((rows, h, d), generator=gen, device=dev)
     _, msg, _ = gat_cuda.gat_bwd(*fwd, smax, denom, dout, al_b,
                                  hg.edge_base)
     dsrc = spmm_cuda.csr_sum_bf16(hg.c_t_indptr, hg.c_t_edges,
-                                  msg.view(-1, h * d), n_src)
+                                  msg.view(-1, h * d), n_src, t_plan)
     x = torch.randn((rows, APPNP_F), generator=gen, device=dev)
     w = (torch.rand(hg.n_edges, generator=gen, device=dev) >= EDGE_DROP
          ).float() * 2
@@ -1634,15 +1660,15 @@ def halo_layer_times(hg, mesh) -> dict:
     kernels = {
         "GAT (8, 16) gat_prep": lambda: gat_cuda.prep(feat, al, ar),
         "GAT (8, 16) gat_fwd": lambda: gat_cuda.gat_fwd(
-            *fwd, edge_base=hg.edge_base),
+            *fwd, edge_base=hg.edge_base, plan=plan),
         "GAT (8, 16) gat_bwd": lambda: gat_cuda.gat_bwd(
             *fwd, smax, denom, dout, al_b, hg.edge_base),
         "GAT (8, 16) source reduce": lambda: spmm_cuda.csr_sum_bf16(
-            hg.c_t_indptr, hg.c_t_edges, msg.view(-1, h * d), n_src),
+            hg.c_t_indptr, hg.c_t_edges, msg.view(-1, h * d), n_src, t_plan),
         "APPNP hop F=40 forward": lambda: spmm_cuda.csr_wsum_bf16(
-            hg.c_indptr, hg.c_indices, None, xsrc, w, rows),
+            hg.c_indptr, hg.c_indices, None, xsrc, w, rows, plan),
         "APPNP hop F=40 dX": lambda: spmm_cuda.csr_wsum_bf16(
-            hg.c_t_indptr, hg.c_t_dst, hg.c_t_edges, dh, w, n_src)}
+            hg.c_t_indptr, hg.c_t_dst, hg.c_t_edges, dh, w, n_src, t_plan)}
     exchanges = {
         "GAT (8, 16) exchange (bf16 features and el)":
             lambda: dmesh.all_to_all(send, hg.send_splits, hg.recv_splits),
@@ -2378,8 +2404,8 @@ def phase_dataset_files(data: str, dev, host, labels, card: str) -> dict:
 
 
 def products_adj(g):
-    """The products graph as an f32 CSR matrix for torch.sparse.mm, its
-    repeated pairs coalesced into counts."""
+    """A graph (the products graph, the hub graph) as an f32 CSR matrix for
+    torch.sparse.mm, its repeated pairs coalesced into counts."""
     from glnn_tpu_torch.ops.cuda_build import row_ids
 
     n = g.n_nodes
@@ -2401,14 +2427,15 @@ def check_products_spmm(spmm_cuda, g, adj) -> dict:
     xb = spmm_cuda.to_message(torch.randn((n, f), generator=gen,
                                           device=g.device))
     lib_x = xb.float()
-    got = spmm_cuda.csr_sum_bf16(g.indptr, g.senders, xb, n)
+    plan = spmm_cuda.plan_of(g, "indptr", n)
+    got = spmm_cuda.csr_sum_bf16(g.indptr, g.senders, xb, n, plan)
     want = torch.sparse.mm(adj, lib_x)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
     err = (got - want).abs().max().item()
     del got, want
     kernel_ms = time_ms(lambda: spmm_cuda.csr_sum_bf16(g.indptr, g.senders,
-                                                       xb, n), iters=10)
+                                                       xb, n, plan), iters=10)
     lib_ms = time_ms(lambda: torch.sparse.mm(adj, lib_x), iters=10)
     nbytes = n * f * 2 + 4 * (e + n + 1) + n * f * 4
     bound = nbytes / HBM_BYTES_PER_S * 1e3
@@ -2889,6 +2916,9 @@ def phase_times(spmm_cuda, g, launches: dict, errs: dict) -> list:
                                   torch.ones(e, device=g.device), (n, n),
                                   check_invariants=True)
     unweighted = ("spmm_csr_bf16", "spmm_csr_int8")
+    # the graph's kept hub plans: no host synchronisation in a timed call
+    plan = spmm_cuda.plan_of(g, "indptr", n)
+    t_plan = spmm_cuda.plan_of(g, "t_indptr", n)
     rows = {name: dict(ms=0.0, device_ms=0.0, plain_ms=0.0, bytes=0, ops=0,
                        gather_bytes=0, library_ms=0.0, per_width={})
             for name in unweighted}
@@ -2900,11 +2930,13 @@ def phase_times(spmm_cuda, g, launches: dict, errs: dict) -> list:
         idx_bytes = 4 * (e + n + 1)
         cases = {
             "spmm_csr_bf16": (
-                lambda: spmm_cuda.csr_sum_bf16(g.indptr, g.senders, xb, n),
+                lambda: spmm_cuda.csr_sum_bf16(g.indptr, g.senders, xb, n,
+                                               plan),
                 lambda: spmm_cuda.plain_csr_sum_bf16(g.indptr, g.senders, xb, n),
                 n * f * 2 + idx_bytes + n * f * 4, e * f * 2),
             "spmm_csr_int8": (
-                lambda: spmm_cuda.csr_sum_int8(g.indptr, g.senders, q, s, n),
+                lambda: spmm_cuda.csr_sum_int8(g.indptr, g.senders, q, s, n,
+                                               plan),
                 lambda: spmm_cuda.plain_csr_sum_int8(g.indptr, g.senders, q, s,
                                                      n),
                 n * f + 4 * f + idx_bytes + n * f * 4, e * f),
@@ -2913,7 +2945,7 @@ def phase_times(spmm_cuda, g, launches: dict, errs: dict) -> list:
         lib_in = xb.float()
         torch.testing.assert_close(
             torch.sparse.mm(adj, lib_in),
-            spmm_cuda.csr_sum_bf16(g.indptr, g.senders, xb, n),
+            spmm_cuda.csr_sum_bf16(g.indptr, g.senders, xb, n, plan),
             rtol=1e-5, atol=1e-4)
         lib_ms = time_ms(lambda: torch.sparse.mm(adj, lib_in))
         for name, (kernel, plain, nbytes, gbytes) in cases.items():
@@ -2944,7 +2976,7 @@ def phase_times(spmm_cuda, g, launches: dict, errs: dict) -> list:
         dh = spmm_cuda.to_message(
             torch.randn((n, f), generator=gen, device=g.device))
         kernel = lambda: spmm_cuda.csr_sum_bf16(g.t_indptr, g.t_receivers,  # noqa: E731,E501
-                                                dh, n)
+                                                dh, n, t_plan)
         lib_in = dh.float()
         torch.testing.assert_close(torch.sparse.mm(t_adj, lib_in), kernel(),
                                    rtol=1e-5, atol=1e-4)
@@ -2993,11 +3025,14 @@ def phase_times_gat(gat_cuda, g, launches: dict, errs: dict) -> list:
     rows = {name: dict(ms=0.0, device_ms=0.0, plain_ms=0.0, bytes=0, ops=0,
                        per_layer={})
             for name in ("gat_prep", "gat_fwd", "gat_bwd")}
+    from glnn_tpu_torch.ops import spmm_cuda
+
+    plan = spmm_cuda.plan_of(g, "indptr", n)    # the graph's kept plan
     for h, d in GAT_SHAPES:
         hd = h * d
         args, dout, al_b = gat_inputs(gat_cuda, g, h, d, ATTN_DROP, 7)
         margs = gat_inputs(gat_cuda, g, h, d, ATTN_DROP, 7, "mask")[0]
-        _, smax, denom = gat_cuda.gat_fwd(*args)
+        _, smax, denom = gat_cuda.gat_fwd(*args, plan=plan)
         gen = torch.Generator(device=g.device).manual_seed(12)
         feat = torch.randn((n, h, d), generator=gen, device=g.device)
         al, ar = (0.3 * torch.randn((h, d), generator=gen, device=g.device)
@@ -3011,11 +3046,11 @@ def phase_times_gat(gat_cuda, g, launches: dict, errs: dict) -> list:
                          lambda: gat_cuda.plain_prep(feat, al, ar),
                          n * hd * 4 + 2 * hd * 4 + n * hd * 2 + n * h * 6,
                          4 * n * hd, None),
-            "gat_fwd": (lambda: gat_cuda.gat_fwd(*args),
+            "gat_fwd": (lambda: gat_cuda.gat_fwd(*args, plan=plan),
                         lambda: gat_cuda.plain_gat_fwd(*args),
                         fwd_in + n * hd * 4 + 2 * n * h * 4,
                         e * h * (2 * d + 6),
-                        lambda: gat_cuda.gat_fwd(*margs)),
+                        lambda: gat_cuda.gat_fwd(*margs, plan=plan)),
             # plus max, denom, f32 dout and bf16 attn_l in; der, the bf16
             # [E, H*D] message and dattn_l out
             "gat_bwd": (lambda: gat_cuda.gat_bwd(*args, smax, denom, dout,
@@ -3092,12 +3127,14 @@ def phase_times_weighted(spmm_cuda, g, launches: dict, errs: dict) -> list:
     idx_bytes = 4 * (e + n + 1)
     per_width, tot = {}, dict(ms=0.0, device_ms=0.0, plain_ms=0.0,
                               library_ms=0.0, bytes=0, ops=0)
-    walks = {"forward": (g.indptr, g.senders, None, w),
+    csr = spmm_cuda.weighted_csr(g)           # with the graph's kept plans
+    walks = {"forward": (g.indptr, g.senders, None, w, csr.plan),
              "transposed": (g.t_indptr, g.t_receivers, g.t_edges,
-                            w[g.t_edges.long()])}
-    for walk, (indptr, cols, widx, lib_w) in walks.items():
+                            w[g.t_edges.long()], csr.t_plan)}
+    for walk, (indptr, cols, widx, lib_w, plan) in walks.items():
         x = torch.randn((n, f), generator=gen, device=g.device)
-        kernel = lambda: spmm_cuda.csr_wsum_bf16(indptr, cols, widx, x, w, n)  # noqa: E731,E501
+        kernel = lambda: spmm_cuda.csr_wsum_bf16(indptr, cols, widx, x, w, n,  # noqa: E731,E501
+                                                 plan)
         plain = lambda: spmm_cuda.plain_csr_wsum_bf16(indptr, cols, widx, x,  # noqa: E731,E501
                                                       w, n)
         # with weights {0, 2}, bf16(x w) = bf16(x) w: the library call gets
@@ -3127,7 +3164,7 @@ def phase_times_weighted(spmm_cuda, g, launches: dict, errs: dict) -> list:
         h = wh.shape[1]
         nbytes = n * x2.shape[1] * 8 + e * h * 4 + idx_bytes
         kernel = lambda: spmm_cuda.csr_wsum_bf16(g.indptr, g.senders, None,  # noqa: E731,E501
-                                                 x2, wh, n)
+                                                 x2, wh, n, csr.plan)
         # the library call: a sparse COO [H, N, N] of the weights times the
         # features as [H, N, D] (laid out before timing); it sums the f32
         # products unrounded, and each bf16 rounding moves a product by at
@@ -3343,12 +3380,118 @@ def phase_times_tiers(host, labels, idx_train, g, card: str) -> dict:
     return out
 
 
+def phase_check_hub_split(spmm_cuda, gat_cuda, hub) -> dict:
+    """The kernels that split hub rows across warps with the hub graph's
+    kept plans (spmm_cuda.plan_of): the template body's three policies at
+    F = APPNP_F on the forward and the transposed walk, and gat_fwd at both
+    GAT shapes in seed mode. Each is held to its plain version at the
+    tolerances of the checks above, a second launch must be bit-equal to
+    the first (no atomics), every call must launch both passes (three for
+    gat_fwd), and the two plans must have been built once each however
+    many calls walked them (the checks above kept theirs on the graph:
+    they are dropped first). Returns the max |error| per kernel."""
+    gen = torch.Generator(device=hub.device).manual_seed(21)
+    n, e = hub.n_nodes, hub.n_edges
+    hub.cache.clear()
+    spmm_cuda.builds["hub_plan"] = 0
+    plans = {"forward": spmm_cuda.plan_of(hub, "indptr", n),
+             "transposed": spmm_cuda.plan_of(hub, "t_indptr", n)}
+    x = torch.randn((n, APPNP_F), generator=gen, device=hub.device)
+    xb = spmm_cuda.to_message(x)
+    q, s = spmm_cuda.quantize_cols(x)
+    w = (torch.rand(e, generator=gen, device=hub.device)
+         >= EDGE_DROP).float() / (1.0 - EDGE_DROP)
+    errs = dict.fromkeys(("spmm_csr_bf16", "spmm_csr_int8",
+                          "spmm_csr_weighted", "gat_fwd"), 0.0)
+    walks = {"forward": (hub.indptr, hub.senders, None),
+             "transposed": (hub.t_indptr, hub.t_receivers, hub.t_edges)}
+    for walk, (indptr, cols, widx) in walks.items():
+        plan = plans[walk]
+        cases = {
+            "spmm_csr_bf16": (
+                lambda: spmm_cuda.csr_sum_bf16(indptr, cols, xb, n, plan),
+                lambda: spmm_cuda.plain_csr_sum_bf16(indptr, cols, xb, n)),
+            "spmm_csr_int8": (
+                lambda: spmm_cuda.csr_sum_int8(indptr, cols, q, s, n, plan),
+                lambda: spmm_cuda.plain_csr_sum_int8(indptr, cols, q, s, n)),
+            "spmm_csr_weighted": (
+                lambda: spmm_cuda.csr_wsum_bf16(indptr, cols, widx, x, w, n,
+                                                plan),
+                lambda: spmm_cuda.plain_csr_wsum_bf16(indptr, cols, widx, x,
+                                                      w, n))}
+        for name, (kernel, plain) in cases.items():
+            before = spmm_cuda.counts[name]
+            got, again = kernel(), kernel()
+            launches = spmm_cuda.counts[name] - before
+            want = plain()
+            torch.cuda.synchronize()
+            if launches != 4:
+                raise AssertionError(f"{name} {walk} walk on the hub graph: "
+                                     f"{launches} launches for two calls, "
+                                     f"expected 4 (the walk and the sum of "
+                                     f"the split rows each)")
+            if not torch.equal(got, again):
+                raise AssertionError(f"{name} {walk} walk on the hub graph: "
+                                     f"two launches differ")
+            if name == "spmm_csr_int8":
+                if not torch.equal(got, want):
+                    raise AssertionError(f"{name} {walk} walk on the hub "
+                                         f"graph differs from plain")
+                err = 0.0
+            else:
+                err = _held(f"{name} {walk}", got, want, 1e-5, 1e-4)
+            errs[name] = max(errs[name], err)
+            log(f"check hub split F={APPNP_F}: {name} {walk} walk vs plain "
+                f"max|err| {err:.3e}; {plan.rows.numel()} rows split into "
+                f"{plan.n_chunks} chunks of T = {plan.chunk}; two launches "
+                f"bit-equal, {launches} launches")
+    for h, d in GAT_SHAPES:
+        args, _, _ = gat_inputs(gat_cuda, hub, h, d, ATTN_DROP, 30 + h)
+        before = gat_cuda.counts["gat_fwd"]
+        got = gat_cuda.gat_fwd(*args, plan=plans["forward"])
+        again = gat_cuda.gat_fwd(*args, plan=plans["forward"])
+        launches = gat_cuda.counts["gat_fwd"] - before
+        want = gat_cuda.plain_gat_fwd(*args)
+        torch.cuda.synchronize()
+        tag = f"(H, D) = ({h}, {d}), dropout {ATTN_DROP} (seed)"
+        if launches != 6:
+            raise AssertionError(f"gat_fwd {tag} on the hub graph: "
+                                 f"{launches} launches for two calls, "
+                                 f"expected 6")
+        for name, a, b in zip(("out", "max", "denom"), got, again):
+            if not torch.equal(a, b):
+                raise AssertionError(f"gat_fwd {tag} on the hub graph: two "
+                                     f"launches differ in {name}")
+        if not torch.equal(got[1], want[1]):
+            raise AssertionError(f"gat_fwd {tag} on the hub graph: segment "
+                                 f"max differs from plain")
+        e_fwd = {"out": _held("out", got[0], want[0], 1e-4, 1e-4),
+                 "denom": _held("denom", got[2], want[2], 1e-4, 1e-4)}
+        errs["gat_fwd"] = max(errs["gat_fwd"], *e_fwd.values())
+        log(f"check hub split {tag}: gat_fwd vs plain max|err| " + ", ".join(
+            f"{k} {v:.3e}" for k, v in e_fwd.items()) + ", max exact; two "
+            f"launches bit-equal, {launches} launches")
+    builds = spmm_cuda.builds["hub_plan"]
+    if builds != 2:
+        raise AssertionError(f"{builds} hub plans built for the hub graph's "
+                             f"two CSRs")
+    log(f"hub plans: {builds} built, one per CSR (forward "
+        f"{plans['forward'].n_chunks} chunks of {plans['forward'].rows.numel()}"
+        f" rows, transposed {plans['transposed'].n_chunks} of "
+        f"{plans['transposed'].rows.numel()}), over every call above")
+    return errs
+
+
 def phase_times_hub(spmm_cuda, gat_cuda, hub, kernels: list) -> None:
-    """One timing of each SpMM entry point at F = 40 (the f32 one at
-    AUG_F, eager and device, its hub rows split across warps) and of
-    gat_fwd and gat_bwd at both GAT shapes (dropout in seed mode) on the
-    hub graph, where every other kernel's warp walks each hub row alone;
-    added to the rows' detail as `hub_graph_ms`, outside their sums."""
+    """Device time (CUDA-graph replays) and eager time on the hub graph of
+    each kernel that splits hub rows across warps, with the graph's kept
+    plans: the template body's three policies at F = APPNP_F (beside
+    torch.sparse.mm on the hub graph for the exact tier's function), the
+    f32 sum at AUG_F, gat_fwd at both GAT shapes (seed mode), each beside
+    its synth-graph device time; and, eager and device, the kernels that
+    walk a hub row with one warp (gat_bwd, the segment softmax at [E, 8]
+    and [E, 1]) and gat_prep, which walks no edge. Added to the rows'
+    detail as `hub_graph_ms`, outside their sums."""
     gen = torch.Generator(device=hub.device).manual_seed(10)
     n, e = hub.n_nodes, hub.n_edges
     f = APPNP_F
@@ -3359,46 +3502,93 @@ def phase_times_hub(spmm_cuda, gat_cuda, hub, kernels: list) -> None:
          >= EDGE_DROP).float() / (1.0 - EDGE_DROP)
     idx_bytes = 4 * (e + n + 1)
     x_aug = torch.randn((n, AUG_F), generator=gen, device=hub.device)
-    plan = spmm_cuda.graph_f32_plan(hub)
-    # (kernel, width, bytes)
+    plan = spmm_cuda.plan_of(hub, "indptr", n)
+    f32_plan = spmm_cuda.graph_f32_plan(hub)
+    synth = {row["name"]: row for row in kernels}
+    # (kernel, width, bytes, synth-graph device ms)
     cases = {
         "spmm_csr_bf16": (lambda: spmm_cuda.csr_sum_bf16(
-            hub.indptr, hub.senders, xb, n), f, n * f * 6 + idx_bytes),
+            hub.indptr, hub.senders, xb, n, plan), f, n * f * 6 + idx_bytes,
+            synth["spmm_csr_bf16"]["per_width_ms"][f]["device_ms"]),
         "spmm_csr_int8": (lambda: spmm_cuda.csr_sum_int8(
-            hub.indptr, hub.senders, q, s, n), f,
-            n * f * 5 + 4 * f + idx_bytes),
+            hub.indptr, hub.senders, q, s, n, plan), f,
+            n * f * 5 + 4 * f + idx_bytes,
+            synth["spmm_csr_int8"]["per_width_ms"][f]["device_ms"]),
         "spmm_csr_weighted": (lambda: spmm_cuda.csr_wsum_bf16(
-            hub.indptr, hub.senders, None, x, w, n), f,
-            n * f * 8 + e * 4 + idx_bytes),
+            hub.indptr, hub.senders, None, x, w, n, plan), f,
+            n * f * 8 + e * 4 + idx_bytes,
+            synth["spmm_csr_weighted"]["per_width_ms"][f"F={f} forward"][
+                "device_ms"]),
         "spmm_csr_f32": (lambda: spmm_cuda.csr_sum_f32(
-            hub.indptr, hub.senders, x_aug, n, plan), AUG_F,
-            n * AUG_F * 8 + idx_bytes),
+            hub.indptr, hub.senders, x_aug, n, f32_plan), AUG_F,
+            n * AUG_F * 8 + idx_bytes, synth["spmm_csr_f32"]["device_ms"]),
     }
     detail = {}
-    for name, (kernel, width, nbytes) in cases.items():
-        if name == "spmm_csr_f32":
-            ms, dev_ms = kernel_times(kernel)
-        else:
-            ms, dev_ms = time_ms(kernel), None
+    for name, (kernel, width, nbytes, synth_ms) in cases.items():
+        ms, dev_ms = kernel_times(kernel)
         detail[name] = {f"F={width}": dict(
-            ms=ms, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)}
-        if dev_ms is not None:
-            detail[name][f"F={width}"]["device_ms"] = dev_ms
-        log(f"time hub graph F={width} {name}: kernel {ms:.4f} ms"
-            f"{'' if dev_ms is None else f' (device {dev_ms:.4f})'}, bytes "
-            f"bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
-    detail["gat_fwd"], detail["gat_bwd"] = {}, {}
+            ms=ms, device_ms=dev_ms, synth_device_ms=synth_ms,
+            x_synth=dev_ms / synth_ms,
+            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)}
+        log(f"time hub graph F={width} {name}: kernel {ms:.4f} ms (device "
+            f"{dev_ms:.4f}), {dev_ms / synth_ms:.2f} x its synth-graph "
+            f"device time {synth_ms:.4f}, bytes bound "
+            f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
+    # the library call on the hub graph: the exact tier's function, f32
+    # sums of the bf16-rounded rows (repeated pairs coalesced into counts)
+    adj = products_adj(hub)
+    lib_in = xb.float()
+    torch.testing.assert_close(torch.sparse.mm(adj, lib_in), cases[
+        "spmm_csr_bf16"][0](), rtol=1e-5, atol=1e-4)
+    lib_ms = time_ms(lambda: torch.sparse.mm(adj, lib_in))
+    detail["spmm_csr_bf16"][f"F={f}"]["library_ms"] = lib_ms
+    log(f"time hub graph F={f} torch.sparse.mm f32 (the exact tier's "
+        f"function): {lib_ms:.4f} ms")
+    del adj, lib_in
+    for name in ("gat_prep", "gat_fwd", "gat_bwd", "edge_softmax_fwd",
+                 "edge_softmax_bwd"):
+        detail[name] = {}
+
+    def timed(name, key, fn, synth_ms, note):
+        ms, dev_ms = kernel_times(fn)
+        detail[name][key] = dict(ms=ms, device_ms=dev_ms,
+                                 synth_device_ms=synth_ms,
+                                 x_synth=dev_ms / synth_ms)
+        log(f"time hub graph {key} {name}: kernel {ms:.4f} ms (device "
+            f"{dev_ms:.4f}{note}), {dev_ms / synth_ms:.2f} x its synth-graph "
+            f"device time {synth_ms:.4f}")
+
     for h, d in GAT_SHAPES:
         args, dout, al_b = gat_inputs(gat_cuda, hub, h, d, ATTN_DROP, 11)
-        _, smax, denom = gat_cuda.gat_fwd(*args)
-        for name, fn in (
-                ("gat_fwd", lambda: gat_cuda.gat_fwd(*args)),
-                ("gat_bwd", lambda: gat_cuda.gat_bwd(*args, smax, denom, dout,
-                                                     al_b))):
-            ms = time_ms(fn)
-            detail[name][f"H={h},D={d}"] = dict(ms=ms)
-            log(f"time hub graph (H, D) = ({h}, {d}) {name}: kernel {ms:.4f} "
-                f"ms (seed mode)")
+        _, smax, denom = gat_cuda.gat_fwd(*args, plan=plan)
+        key = f"H={h},D={d}"
+        gen = torch.Generator(device=hub.device).manual_seed(12)
+        feat = torch.randn((n, h, d), generator=gen, device=hub.device)
+        al, ar = (0.3 * torch.randn((h, d), generator=gen, device=hub.device)
+                  for _ in range(2))
+        timed("gat_prep", key, lambda: gat_cuda.prep(feat, al, ar),
+              synth["gat_prep"]["per_layer_ms"][key]["device_ms"],
+              "; it walks no edge")
+        timed("gat_fwd", key, lambda: gat_cuda.gat_fwd(*args, plan=plan),
+              synth["gat_fwd"]["per_layer_ms"][key]["device_ms"],
+              ", seed mode")
+        timed("gat_bwd", key, lambda: gat_cuda.gat_bwd(
+            *args, smax, denom, dout, al_b),
+            synth["gat_bwd"]["per_layer_ms"][key]["device_ms"],
+            ", seed mode; one warp per hub row")
+    for h, _ in GAT_SHAPES:
+        scores = 3.0 * torch.randn((e, h), generator=gen, device=hub.device)
+        dalpha = torch.randn((e, h), generator=gen, device=hub.device)
+        alpha = gat_cuda.edge_softmax_fwd(hub.indptr, scores, n)
+        key = f"H={h}"
+        timed("edge_softmax_fwd", key, lambda: gat_cuda.edge_softmax_fwd(
+            hub.indptr, scores, n),
+            synth["edge_softmax_fwd"]["per_heads_ms"][key]["device_ms"],
+            "; a row past its registers is walked by one warp")
+        timed("edge_softmax_bwd", key, lambda: gat_cuda.edge_softmax_bwd(
+            hub.indptr, alpha, dalpha, n),
+            synth["edge_softmax_bwd"]["per_heads_ms"][key]["device_ms"],
+            "; one warp per row")
     for row in kernels:
         if row["name"] in detail:
             row["hub_graph_ms"] = detail[row["name"]]
@@ -3463,6 +3653,8 @@ def main() -> int:
             into[f"{name} bf16 x"] = err
         log(f"{tag} graph: max|err| per kernel {into}")
         torch.cuda.empty_cache()
+    for name, err in phase_check_hub_split(spmm_cuda, gat_cuda, hub).items():
+        hub_errs[name] = max(hub_errs[name], err)
     for name, err in hub_errs.items():
         errs[name] = max(errs[name], err)
     # the bf16-input checks are held in bf16 ulps, apart from the f32 ones

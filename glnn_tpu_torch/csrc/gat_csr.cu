@@ -84,6 +84,34 @@
 // tools/sweep_cuda_kernels.py (`gat_fwd_parts`) times the score stage and
 // the feature walk apart.
 //
+// Hub rows in gat_fwd (as in spmm_csr.cu, the counterpart of the tiled TPU
+// kernel's bounded grid steps): a row of more than T edges would be walked
+// twice by one warp while the others have finished, so it is cut into
+// T-edge chunks, listed once per CSR by the caller (ops/spmm_cuda.py
+// hub_plan). gat_fwd_max_kernel, launched first, takes each chunk's
+// per-head max of s (a max is exact in any order). In gat_fwd_kernel the
+// chunks are the first work items: a chunk warp takes its row's max M over
+// the chunks' maxima, forms every term p = exp(s - M) with that final max
+// as a row warp does (no running max is rescaled), and writes its sums of p
+// [H] and p w f [H, D] unnormalised; a row warp leaves a row of more than
+// T edges to its chunks. gat_fwd_combine_kernel sums each split row's
+// partials in chunk order and writes den, the max and out = acc * (1 /
+// den) (den >= 1 still: the max edge's chunk holds exp(0)). The keep bits
+// stay Philox of edge_base + e, so chunking leaves them as they are; out,
+// max and den keep their meaning for gat_bwd. No atomics, so two launches
+// are bit-equal; a row of at most T edges is walked by one warp, as any row
+// of a CSR without hub rows. gat_fwd_kernel is built with and without the
+// chunk items (HUB), and a CSR without such rows takes the one launch of the
+// instantiation without: kept in the same instantiation, the chunk state
+// spilled at 48 registers, and without spills still cost (1, 40) 7.5% of its
+// eager synth-graph time (tools/sweep_cuda_kernels.py); built apart, the
+// synth-graph device times are within 1% of the kernel without any chunk
+// code (tools/hub_kernel_times.py; both on an H100 80GB HBM3 at 700 W).
+// T is the template body's (512, spmm_csr.cu), so one plan serves both: on
+// the hub graph T = 256 would take (8, 16) from 0.507 to 0.448 ms and leave
+// (1, 40) near 0.233, both within 1.5 x the synth graph's time at either T
+// (tools/sweep_cuda_kernels.py --kernels gat_fwd_hub).
+//
 // Backward (gat_bwd). Per dst row v and head h, with alpha_e = exp(s_e - max)
 // / den from the forward's saved max and den, w_e the dropout weight and
 // g_e = <feat[src,h,:], dout[v,h,:]>, pass 1 sums t = sum_e alpha_e w_e g_e;
@@ -490,6 +518,22 @@ PrepGeometry prep_geometry(int d, uintptr_t align) {
 
 // ---- the fused attention ---------------------------------------------------
 
+constexpr int kFwdMaxHeads = 8;  // heads of a gat_fwd pass (NH)
+
+// gat_fwd's hub rows (see the note at the top): the plan of the CSR
+// (ops/spmm_cuda.py hub_plan) and the partials of its chunks
+struct HubArgs {
+  const int2* chunks;     // [n_chunks]: each chunk's edge range
+  const int32_t* owner;   // [n_chunks]: each chunk's split row s
+  const int32_t* rows;    // [n_split]: the split rows
+  const int32_t* first;   // [n_split + 1]: row s's chunks are first[s]:first[s + 1]
+  float* pmax;            // [n_chunks, H]: each chunk's segment max
+  float* pden;            // [n_chunks, H]: each chunk's sum of p
+  float* pacc;            // [n_chunks, H, D]: each chunk's sum of p w f
+  int n_chunks;
+  int chunk_edges;        // T: the row warps leave longer rows to the chunks
+};
+
 // per warp: the scores, then the terms p, of the edges of its chunk
 // [32][NH]; the chunk edges' keep bits; the row's er and segment max for
 // the heads of the pass
@@ -507,13 +551,13 @@ struct FwdScratch {
 // blocks per SM gives it a register budget that needs no spill: 5 blocks
 // (48 registers) for one load per lane, 4 (64) for several, which spill
 // under 48.
-template <int VEC, int REPS, int NH>
+template <int VEC, int REPS, int NH, bool HUB>
 __global__ void __launch_bounds__(kWarps * 32, VEC * REPS <= 8 ? (REPS == 1 ? 5 : 4) : 1)
 gat_fwd_kernel(const int32_t* __restrict__ indptr, const int32_t* __restrict__ src_of,
                const __nv_bfloat16* __restrict__ feat, const float* __restrict__ el,
                const __nv_bfloat16* __restrict__ er, DropArgs drop_args, float slope,
                float* __restrict__ out, float* __restrict__ smax, float* __restrict__ denom,
-               int n_rows, int H, int D, int lh, int hp, int slots) {
+               const HubArgs hub, int n_rows, int H, int D, int lh, int hp, int slots) {
   __shared__ FwdScratch<NH> scratch[kWarps];
   const int lane = threadIdx.x & 31;
   const int warp = blockIdx.x * kWarps + (threadIdx.x >> 5);
@@ -523,17 +567,33 @@ gat_fwd_kernel(const int32_t* __restrict__ indptr, const int32_t* __restrict__ s
   const int hd = H * D;
   const Lanes L = lanes_of(lane, lh, hp);
 
-  for (int row = warp; row < n_rows; row += n_warps) {  // warp-uniform
-    const int start = indptr[row];
-    const int end = indptr[row + 1];
+  // work items: with HUB, the hub chunks first (item < n_chunks: an edge
+  // range of a split row, whose partials go to pden and pacc), then the
+  // rows (item - n_chunks, unless it has more than chunk_edges edges);
+  // without (a plan without chunks), the rows. Only item, start and end
+  // stay live across a pass (more spills at 48 registers): whatever else a
+  // chunk needs is loaded where it is used
+  const int n_chunks = HUB ? hub.n_chunks : 0;
+  for (int item = warp; item < n_chunks + n_rows; item += n_warps) {  // warp-uniform
+    int start, end;
+    if (HUB && item < n_chunks) {
+      const int2 c = hub.chunks[item];
+      start = c.x;
+      end = c.y;
+    } else {
+      start = indptr[item - n_chunks];
+      end = indptr[item - n_chunks + 1];
+      if (HUB && end - start > hub.chunk_edges) continue;  // its chunks walk it
+    }
     for (int h0 = 0; h0 < H; h0 += hp) {  // one pass unless H > hp
       const int hn = min(hp, H - h0);     // heads of the pass
       const int h = h0 + L.hh;
       const bool lane_ok = L.q < slots && L.hh < hn;
       const unsigned cols = col_bits<VEC, REPS>(lane_ok, lh, L.sub, D);
-      const int64_t vh = static_cast<int64_t>(row) * H + h;
-      float* orow = out + static_cast<int64_t>(row) * hd + h * D;
-      if (start == end) {  // no in-edges: zeros
+      if (start == end) {  // no in-edges: zeros (a chunk is never empty)
+        const int64_t row = item - n_chunks;
+        const int64_t vh = row * H + h;
+        float* orow = out + row * hd + h * D;
         if (L.q == 0 && lane_ok) {
 #pragma unroll
           for (int r = 0; r < REPS; ++r)
@@ -547,18 +607,24 @@ gat_fwd_kernel(const int32_t* __restrict__ indptr, const int32_t* __restrict__ s
         }
         continue;
       }
-      if (lane < hn) sc.er[lane] = __bfloat162float(er[static_cast<int64_t>(row) * H + h0 + lane]);
+      if (lane < hn) {
+        const int64_t row =
+            HUB && item < n_chunks ? hub.rows[hub.owner[item]] : item - n_chunks;
+        sc.er[lane] = __bfloat162float(er[row * H + h0 + lane]);
+      }
       __syncwarp();
 
       // pass 1: lane j scores chunk edge j for every head of the pass (the
       // first chunk's scores stay in scratch); the segment max per head
-      // over the lanes
+      // over the lanes. A hub chunk scores only its first 32 edges here and
+      // takes its row's max over the chunks' maxima (gat_fwd_max_kernel)
       {
+        const int scan_end = HUB && item < n_chunks ? min(end, start + 32) : end;
         float m[NH];
 #pragma unroll
         for (int i = 0; i < NH; ++i) m[i] = -CUDART_INF_F;
-        for (int e = start + lane; e - lane < end; e += 32) {  // warp-uniform
-          if (e < end) {
+        for (int e = start + lane; e - lane < scan_end; e += 32) {  // warp-uniform
+          if (e < scan_end) {
             const float* elrow = el + static_cast<int64_t>(src_of[e]) * H + h0;
 #pragma unroll
             for (int i = 0; i < NH; ++i)
@@ -575,6 +641,13 @@ gat_fwd_kernel(const int32_t* __restrict__ indptr, const int32_t* __restrict__ s
           for (int off = 16; off > 0; off >>= 1)
             m[i] = fmaxf(m[i], __shfl_xor_sync(kFull, m[i], off));
           if (lane == i) sc.max[i] = m[i];
+        }
+        if (HUB && item < n_chunks && lane < hn) {  // a max is exact in any order
+          const int split = hub.owner[item];
+          float mm = -CUDART_INF_F;
+          for (int k = hub.first[split]; k < hub.first[split + 1]; ++k)
+            mm = fmaxf(mm, hub.pmax[static_cast<int64_t>(k) * H + h0 + lane]);
+          sc.max[lane] = mm;
         }
       }
       __syncwarp();
@@ -631,19 +704,93 @@ gat_fwd_kernel(const int32_t* __restrict__ indptr, const int32_t* __restrict__ s
 #pragma unroll
         for (int k = 0; k < VEC; ++k) acc[r][k] = slot_fold(acc[r][k], L.q, slots, L.le);
       if (L.q == 0 && lane_ok) {
-        const float inv_den = __fdividef(1.f, den);  // den >= 1
+        // a row's den >= 1 (its max term is exp(0)); a chunk's partials go
+        // out as they are, and gat_fwd_combine_kernel divides
+        const bool chunk = HUB && item < n_chunks;
+        const int64_t at = chunk ? item : item - n_chunks;
+        const float inv_den = chunk ? 1.f : __fdividef(1.f, den);
+        float* orow = (chunk ? hub.pacc : out) + at * hd + h * D;
 #pragma unroll
         for (int r = 0; r < REPS; ++r)
           if (cols >> r & 1u)
 #pragma unroll
             for (int k = 0; k < VEC; ++k) orow[(r * lh + L.sub) * VEC + k] = acc[r][k] * inv_den;
         if (L.sub == 0) {
-          smax[vh] = sc.max[L.hh];
-          denom[vh] = den;
+          if (!chunk) smax[at * H + h] = sc.max[L.hh];
+          (chunk ? hub.pden : denom)[at * H + h] = den;
         }
       }
       __syncwarp();  // the scratch is read above before the next pass writes it
     }
+  }
+}
+
+// Hub rows, before gat_fwd_kernel: one warp per chunk takes its chunk's
+// segment max per head (lane j scores the chunk's edges j, j + 32, ...,
+// with the expression gat_fwd_kernel scores them with) into pmax.
+__global__ void __launch_bounds__(kWarps * 32)
+gat_fwd_max_kernel(const HubArgs hub, const int32_t* __restrict__ src_of,
+                   const float* __restrict__ el, const __nv_bfloat16* __restrict__ er,
+                   float slope, int H) {
+  const int lane = threadIdx.x & 31;
+  const int c = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (c >= hub.n_chunks) return;  // the whole warp leaves together
+  const int2 range = hub.chunks[c];
+  const int row = hub.rows[hub.owner[c]];
+  for (int h0 = 0; h0 < H; h0 += kFwdMaxHeads) {
+    const int hn = min(kFwdMaxHeads, H - h0);
+    float er_v[kFwdMaxHeads], m[kFwdMaxHeads];
+#pragma unroll
+    for (int i = 0; i < kFwdMaxHeads; ++i) {
+      er_v[i] = i < hn ? __bfloat162float(er[static_cast<int64_t>(row) * H + h0 + i]) : 0.f;
+      m[i] = -CUDART_INF_F;
+    }
+    for (int e = range.x + lane; e < range.y; e += 32) {
+      const float* elrow = el + static_cast<int64_t>(src_of[e]) * H + h0;
+#pragma unroll
+      for (int i = 0; i < kFwdMaxHeads; ++i)
+        if (i < hn) m[i] = fmaxf(m[i], leaky(elrow[i] + er_v[i], slope));
+    }
+#pragma unroll
+    for (int i = 0; i < kFwdMaxHeads; ++i) {
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        m[i] = fmaxf(m[i], __shfl_xor_sync(kFull, m[i], off));
+      if (lane == i && i < hn) hub.pmax[static_cast<int64_t>(c) * H + h0 + i] = m[i];
+    }
+  }
+}
+
+// Hub rows, after gat_fwd_kernel: one warp per split row s sums its chunks'
+// den and p w f partials in chunk order and writes the row as gat_fwd_kernel
+// writes one: out = acc * (1 / den) (den >= 1: the chunk of the max edge
+// holds exp(0)), the row max (the largest chunk max) and den.
+__global__ void __launch_bounds__(kWarps * 32)
+gat_fwd_combine_kernel(const HubArgs hub, float* __restrict__ out, float* __restrict__ smax,
+                       float* __restrict__ denom, int n_split, int H, int D) {
+  const int lane = threadIdx.x & 31;
+  const int s = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (s >= n_split) return;
+  const int64_t row = hub.rows[s];
+  const int k0 = hub.first[s], k1 = hub.first[s + 1];
+  const int hd = H * D;
+  for (int h = lane; h < H; h += 32) {
+    float m = -CUDART_INF_F, den = 0.f;
+    for (int k = k0; k < k1; ++k) {
+      m = fmaxf(m, hub.pmax[static_cast<int64_t>(k) * H + h]);
+      den += hub.pden[static_cast<int64_t>(k) * H + h];
+    }
+    smax[row * H + h] = m;
+    denom[row * H + h] = den;
+  }
+  for (int col = lane; col < hd; col += 32) {
+    const int h = col / D;
+    float den = 0.f, acc = 0.f;  // den summed as above, so the same bits
+    for (int k = k0; k < k1; ++k) {
+      den += hub.pden[static_cast<int64_t>(k) * H + h];
+      acc += hub.pacc[static_cast<int64_t>(k) * hd + col];
+    }
+    out[row * hd + col] = acc * __fdividef(1.f, den);
   }
 }
 
@@ -829,8 +976,6 @@ struct AttnGeometry {
   int vec, reps, lh, hp, slots, kcache;
 };
 
-constexpr int kFwdMaxHeads = 8;  // heads of a gat_fwd pass (NH)
-
 int bwd_smem_bytes(const AttnGeometry& g) {
   return kWarps * g.kcache * g.hp * static_cast<int>(sizeof(float4));
 }
@@ -996,6 +1141,45 @@ edge_softmax_bwd_kernel(const int32_t* __restrict__ indptr, const float* __restr
   }
 }
 
+// The hub plan of gat_fwd's CSR (ops/spmm_cuda.py hub_plan): chunks int32
+// [n_chunks, 2], owner int32 [n_chunks], rows int32 [n_split], first int32
+// [n_split + 1], cut with T = chunk_edges; the chunks' partials pmax, pden
+// f32 [n_chunks, H] and pacc f32 [n_chunks, H, D]. With n_chunks == 0 the
+// pointers may be null; gat_fwd_hub_max and gat_fwd_combine then launch
+// nothing.
+HubArgs hub_args(const void* chunks, const void* owner, const void* rows, const void* first,
+                 void* pmax, void* pden, void* pacc, int n_chunks, int chunk_edges) {
+  return HubArgs{static_cast<const int2*>(chunks), static_cast<const int32_t*>(owner),
+                 static_cast<const int32_t*>(rows), static_cast<const int32_t*>(first),
+                 static_cast<float*>(pmax), static_cast<float*>(pden), static_cast<float*>(pacc),
+                 n_chunks, chunk_edges};
+}
+
+bool hub_ok(const HubArgs& hub) {
+  return hub.n_chunks >= 0 && hub.chunk_edges >= 1 &&
+         (hub.n_chunks == 0 || (hub.chunks != nullptr && hub.owner != nullptr &&
+                                hub.rows != nullptr && hub.first != nullptr &&
+                                hub.pmax != nullptr && hub.pden != nullptr &&
+                                hub.pacc != nullptr));
+}
+
+// the occupancy of gat_fwd's instantiation for (vec, reps, hp) and HB
+template <bool HB>
+cudaError_t fwd_occupancy(int* n, int vec, int reps, int hp) {
+#define OCC_CASE(V, R)                                                                     \
+  case V * 16 + R:                                                                         \
+    return hp == 1 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(                        \
+                         n, gat_fwd_kernel<V, R, 1, HB>, kWarps * 32, 0)                   \
+                   : cudaOccupancyMaxActiveBlocksPerMultiprocessor(                        \
+                         n, gat_fwd_kernel<V, R, kFwdMaxHeads, HB>, kWarps * 32, 0);
+  switch (vec * 16 + reps) {
+    GAT_CASES(OCC_CASE)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef OCC_CASE
+}
+
 }  // namespace
 
 extern "C" {
@@ -1032,31 +1216,81 @@ int gat_prep(const void* feat, const void* attn_l, const void* attn_r, void* fea
   return static_cast<int>(cudaGetLastError());
 }
 
+// the chunk maxima of gat_fwd's hub rows, launched before gat_fwd: src_of,
+// el, er and slope as gat_fwd takes them, the plan and pmax as above
+int gat_fwd_hub_max(const void* src_of, const void* el, const void* er, float slope,
+                    const void* chunks, const void* owner, const void* rows, void* pmax,
+                    int n_chunks, int H, void* stream) {
+  const HubArgs hub =
+      hub_args(chunks, owner, rows, nullptr, pmax, nullptr, nullptr, n_chunks, 1);
+  if (n_chunks < 0 || H <= 0 ||
+      (n_chunks > 0 && (chunks == nullptr || owner == nullptr || rows == nullptr ||
+                        pmax == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_chunks == 0) return static_cast<int>(cudaGetLastError());
+  gat_fwd_max_kernel<<<(n_chunks + kWarps - 1) / kWarps, kWarps * 32, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      hub, static_cast<const int32_t*>(src_of), static_cast<const float*>(el),
+      static_cast<const __nv_bfloat16*>(er), slope, H);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the split rows of gat_fwd, launched after it: the plan and the partials as
+// above, out, smax and denom as gat_fwd's
+int gat_fwd_combine(const void* rows, const void* first, const void* pmax, const void* pden,
+                    const void* pacc, void* out, void* smax, void* denom, int n_split, int H,
+                    int D, void* stream) {
+  const HubArgs hub = hub_args(nullptr, nullptr, rows, first, const_cast<void*>(pmax),
+                               const_cast<void*>(pden), const_cast<void*>(pacc), 0, 1);
+  if (n_split < 0 || H <= 0 || D <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_split == 0) return static_cast<int>(cudaGetLastError());
+  gat_fwd_combine_kernel<<<(n_split + kWarps - 1) / kWarps, kWarps * 32, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      hub, static_cast<float*>(out), static_cast<float*>(smax), static_cast<float*>(denom),
+      n_split, H, D);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // feat bf16 [n_src, H, D]; el f32 [n_src, H]; er bf16 [n_rows, H];
 // keep uint8 [E, H] or null; seed one uint64 on the device or null (not
 // both); edge_base the seed mode's counter of edge 0; out f32
-// [n_rows, H, D]; smax, denom f32 [n_rows, H];
+// [n_rows, H, D]; smax, denom f32 [n_rows, H]; the hub plan and partials as
+// above (rows of more than chunk_edges edges are left to gat_fwd_combine);
 // (vec, reps, lh, hp, slots) as ops/gat_cuda.py `fwd_geometry` gives them
 int gat_fwd(const void* indptr, const void* src_of, const void* feat, const void* el,
             const void* er, const void* keep, const void* seed, unsigned thresh,
-            unsigned edge_base, float inv_keep, float slope, void* out, void* smax, void* denom, int n_rows, int H, int D,
-            int n_blocks, int vec, int reps, int lh, int hp, int slots, void* stream) {
-  if (n_rows <= 0 || H <= 0 || D <= 0 || n_blocks <= 0)
+            unsigned edge_base, float inv_keep, float slope, void* out, void* smax, void* denom,
+            const void* chunks, const void* owner, const void* rows, const void* first,
+            const void* pmax, void* pden, void* pacc, int n_chunks, int chunk_edges,
+            int n_rows, int H, int D, int n_blocks, int vec, int reps, int lh, int hp,
+            int slots, void* stream) {
+  if (n_rows + n_chunks <= 0 || H <= 0 || D <= 0 || n_blocks <= 0)
     return static_cast<int>(cudaGetLastError());
   const AttnGeometry geo{vec, reps, lh, hp, slots, 0};
-  if (!fwd_geometry_ok(geo, H, D, reinterpret_cast<uintptr_t>(feat)) || !drop_ok(keep, seed))
+  const HubArgs hub = hub_args(chunks, owner, rows, first, const_cast<void*>(pmax), pden, pacc,
+                               n_chunks, chunk_edges);
+  if (!fwd_geometry_ok(geo, H, D, reinterpret_cast<uintptr_t>(feat)) || !drop_ok(keep, seed) ||
+      n_rows < 0 || !hub_ok(hub))
     return static_cast<int>(cudaErrorInvalidValue);
   const DropArgs drop{static_cast<const uint8_t*>(keep),
                       static_cast<const unsigned long long*>(seed), thresh, edge_base,
                       inv_keep};
   const dim3 grid(n_blocks), block(kWarps * 32);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define FWD_LAUNCH(V, R, NH)                                                                 \
-  gat_fwd_kernel<V, R, NH><<<grid, block, 0, st>>>(                                         \
+  // the instantiation that splits hub rows only where the plan has chunks
+#define FWD_KERNEL(V, R, NH, HB)                                                             \
+  gat_fwd_kernel<V, R, NH, HB><<<grid, block, 0, st>>>(                                     \
       static_cast<const int32_t*>(indptr), static_cast<const int32_t*>(src_of),            \
       static_cast<const __nv_bfloat16*>(feat), static_cast<const float*>(el),              \
       static_cast<const __nv_bfloat16*>(er), drop, slope, static_cast<float*>(out),        \
-      static_cast<float*>(smax), static_cast<float*>(denom), n_rows, H, D, lh, hp, slots)
+      static_cast<float*>(smax), static_cast<float*>(denom), hub, n_rows, H, D, lh, hp, slots)
+#define FWD_LAUNCH(V, R, NH)            \
+  do {                                  \
+    if (n_chunks > 0)                   \
+      FWD_KERNEL(V, R, NH, true);       \
+    else                                \
+      FWD_KERNEL(V, R, NH, false);      \
+  } while (0)
 #define FWD_CASE(V, R)          \
   case V * 16 + R:              \
     if (hp == 1)                \
@@ -1071,6 +1305,7 @@ int gat_fwd(const void* indptr, const void* src_of, const void* feat, const void
   }
 #undef FWD_CASE
 #undef FWD_LAUNCH
+#undef FWD_KERNEL
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1117,24 +1352,16 @@ int gat_bwd(const void* indptr, const void* src_of, const void* feat, const void
   return static_cast<int>(cudaGetLastError());
 }
 
-// blocks of gat_fwd's instantiation for (vec, reps) and hp heads per pass
-// that one SM holds at once; a negative CUDA error code on failure
-int gat_fwd_blocks_per_sm(int vec, int reps, int hp) {
+// blocks of gat_fwd's instantiation for (vec, reps), hp heads per pass and
+// hub rows split (hub != 0) or not that one SM holds at once; a negative
+// CUDA error code on failure
+// blocks of gat_fwd's instantiation for (vec, reps), hp heads per pass and
+// hub rows split (hub != 0) or not that one SM holds at once; a negative
+// CUDA error code on failure
+int gat_fwd_blocks_per_sm(int vec, int reps, int hp, int hub) {
   int n = 0;
-  cudaError_t err = cudaErrorInvalidValue;
-#define OCC_CASE(V, R)                                                                     \
-  case V * 16 + R:                                                                         \
-    err = hp == 1 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(                         \
-                        &n, gat_fwd_kernel<V, R, 1>, kWarps * 32, 0)                       \
-                  : cudaOccupancyMaxActiveBlocksPerMultiprocessor(                         \
-                        &n, gat_fwd_kernel<V, R, kFwdMaxHeads>, kWarps * 32, 0);           \
-    break;
-  switch (vec * 16 + reps) {
-    GAT_CASES(OCC_CASE)
-    default:
-      break;
-  }
-#undef OCC_CASE
+  const cudaError_t err =
+      hub ? fwd_occupancy<true>(&n, vec, reps, hp) : fwd_occupancy<false>(&n, vec, reps, hp);
   return err == cudaSuccess ? n : -static_cast<int>(err);
 }
 

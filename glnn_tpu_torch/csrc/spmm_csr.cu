@@ -5,9 +5,9 @@
 // reduce pre-gathered message rows on the MXU, because the TPU has no fast
 // scatter and no fast in-core row gather. Hopper has both a fast random row
 // read (L2-backed) and a register file per thread, so the gather and the
-// reduction are fused here: the edges are dst-sorted, each dst row is owned by
-// exactly one warp, and the warp walks indptr[v]:indptr[v+1] reading x rows
-// and summing in registers. No one-hot, no atomics, no message tensor in
+// reduction are fused here: the edges are dst-sorted, each dst row (each
+// T-edge chunk of a hub row, below) is owned by exactly one warp, and the
+// warp walks its edges reading x rows and summing in registers. No one-hot, no atomics, no message tensor in
 // device memory.
 //
 // Bound on an H100: bytes. Per call the kernel must read the x rows it
@@ -38,8 +38,37 @@
 //     chunks of 32 * VEC columns, one warp each (the grid's y);
 //   - the warp loads 32 indices with one coalesced read and hands them out
 //     with __shfl_sync.
-// Still one warp per row, with no atomics and a fixed order of summation for a
-// given geometry: a hub row is only slower (its warp walks it alone).
+// Hub rows are split across warps, the counterpart of the tiled TPU kernel
+// (spmm_pallas.py:_kernel), which bounds each grid step at one tile of edges
+// whatever a row's degree and accumulates a hub row's tiles into one output
+// (is_first, :60-90). A row of more than T edges is cut into T-edge chunks
+// (the last one shorter), which the caller lists once per CSR
+// (ops/spmm_cuda.py hub_plan, kept on the Graph, the halo shard or the
+// WeightedCSR). One warp per chunk runs the same walk over the chunk's edge
+// range and writes its partial sum, unscaled (f32; int32 for the int8
+// policy, exact in any order, so the dequantisation happens once, after the
+// sum); the chunk warps come first in the grid, so that they start first,
+// and a row warp leaves a row of more than T edges to its chunks. A second
+// kernel, one warp per split row, sums the row's partials in chunk order
+// and writes the row (wide rows: one partial per chunk and column chunk).
+// A row of at most T edges is walked and summed by one warp, as every row of
+// a CSR without hub rows. No atomics: every sum runs in an order fixed by
+// the CSR, T and the geometry, so two launches on the same inputs are
+// bit-equal. The walk is built twice, with and without the chunk items
+// (HUB), and a plan without chunks runs the instantiation without, which
+// holds no chunk state (synth-graph device times within 1% of the walk with
+// no chunk code, tools/hub_kernel_times.py).
+// T is the caller's (ops/spmm_cuda.py HUB_CHUNK; the kernel takes any T >= 1,
+// and the plan passed must have been cut with it): T = 512, from
+// tools/sweep_cuda_kernels.py --kernels spmm_hub on an H100 80GB HBM3 at
+// 700 W (device ms on chip_smoke.py's hub graph, rows of up to 20,000
+// edges): at F = 40 bf16 0.0713 against 0.0778 at T = 256 and 0.0734 at
+// 1,024, int8 0.0762 against 0.0901 and 0.0729, weighted 0.1167 against
+// 0.1238 and 0.1772; at F = 128 512 is best for bf16 and int8 and 4% behind
+// 256 for the weighted sum; 64 edges per edge group (384 at F = 40) is no
+// better. Shorter chunks add partials and lengthen the second pass; longer
+// ones leave a chunk's warp running after the walk. It is the f32 sum's T
+// as well, so one plan per CSR serves every kernel that splits rows.
 //
 // The geometry (VEC, L, G) is worked out by the caller (ops/spmm_cuda.py
 // `geometry`) and checked here: an entry point returns cudaErrorInvalidValue
@@ -67,8 +96,12 @@
 //             one head.
 //
 // Interface: plain C, called through ctypes. Every entry point launches on
-// the given stream, never synchronises, allocates nothing, and returns
-// cudaGetLastError() so that a refused launch is reported to the caller.
+// the given stream, never synchronises, allocates nothing (the caller
+// allocates the partials), and returns cudaGetLastError() so that a refused
+// launch is reported to the caller. Each policy has two entry points: the
+// walk (spmm_csr_bf16, _int8, _weighted) and the sum of the split rows'
+// partials (spmm_csr_bf16_combine, ...), launched only when the plan has
+// chunks.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -78,7 +111,7 @@
 
 namespace {
 
-constexpr int kWarps = 8;   // dst rows per block, one warp per row
+constexpr int kWarps = 8;   // work items (rows or chunks) per block, one warp each
 constexpr unsigned kFull = 0xffffffffu;
 
 // the type of one lane's load of BYTES bytes, and the register it is held in
@@ -164,24 +197,43 @@ struct Weighted {
 };
 
 // Lane l is column group l % lanes of edge group l / lanes; lanes past
-// lanes * groups only take part in the shuffles. A warp owns one row and one
-// chunk of lanes * VEC columns (blockIdx.y; one chunk unless groups == 1 and
-// f > 32 * VEC). Eight resident blocks per SM (64 warps, at most 32 registers
-// a thread): a row is a short chain of dependent reads, so the SM needs many
-// rows in flight; ptxas meets that budget without spilling.
-template <typename P, int VEC>
+// lanes * groups only take part in the shuffles. A warp owns one work item
+// and one chunk of lanes * VEC columns (blockIdx.y; one chunk unless groups
+// == 1 and f > 32 * VEC). Items 0 .. n_chunks - 1 are the hub chunks
+// (chunks[item], an edge range of a split row, summed into part[item]),
+// then item n_chunks + v is row v (summed into out, unless it has more than
+// chunk_edges edges: its chunks sum it). HUB is false for a plan without
+// chunks: item = row, and no row is left to chunks. Eight resident blocks
+// per SM (64
+// warps, at most 32 registers a thread): a row is a short chain of
+// dependent reads, so the SM needs many rows in flight; ptxas meets that
+// budget without spilling.
+template <typename P, int VEC, bool HUB>
 __global__ void __launch_bounds__(kWarps * 32, 8)
 spmm_csr_kernel(const int32_t* __restrict__ indptr,
                 const int32_t* __restrict__ indices,
                 const typename P::TIn* __restrict__ x, const P p,
-                float* __restrict__ out, int n_rows, int f, int lanes, int groups) {
+                float* __restrict__ out, const int2* __restrict__ chunks,
+                typename P::TAcc* __restrict__ part, int n_rows, int n_chunks,
+                int chunk_edges, int f, int lanes, int groups) {
   using TIn = typename P::TIn;
   using TAcc = typename P::TAcc;
   using V = typename VecOf<sizeof(TIn) * VEC>::T;
   using R = typename VecOf<sizeof(TIn) * VEC>::R;
   const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (row >= n_rows) return;  // the whole warp leaves together
+  const int item = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (!HUB) n_chunks = 0;
+  if (item >= n_chunks + n_rows) return;  // the whole warp leaves together
+  int begin, end;
+  if (HUB && item < n_chunks) {
+    const int2 c = chunks[item];
+    begin = c.x;
+    end = c.y;
+  } else {
+    begin = indptr[item - n_chunks];
+    end = indptr[item - n_chunks + 1];
+    if (HUB && end - begin > chunk_edges) return;  // its chunks sum it
+  }
   const int grp = lane / lanes;
   const int col = (blockIdx.y * lanes + lane - grp * lanes) * VEC;
   const bool active = grp < groups && col < f;
@@ -190,8 +242,7 @@ spmm_csr_kernel(const int32_t* __restrict__ indptr,
 #pragma unroll
   for (int k = 0; k < VEC; ++k) acc[k] = 0;
 
-  const int end = indptr[row + 1];
-  for (int e0 = indptr[row]; e0 < end; e0 += 32) {
+  for (int e0 = begin; e0 < end; e0 += 32) {
     const int n = min(32, end - e0);
     const int mine = lane < n ? indices[e0 + lane] : 0;
     int my_slot = 0;
@@ -222,102 +273,193 @@ spmm_csr_kernel(const int32_t* __restrict__ indptr,
     }
     s = h;
   }
-  if (active && grp == 0) {  // zero-degree rows write zeros
-    float* o = out + static_cast<int64_t>(row) * f + col;
-    if constexpr (VEC % 4 == 0) {
+  if (!active || grp != 0) return;
+  if (HUB && item < n_chunks) {  // a chunk's partial, as it is
+    TAcc* o = part + static_cast<int64_t>(item) * f + col;
 #pragma unroll
-      for (int k = 0; k < VEC; k += 4)
-        *reinterpret_cast<float4*>(o + k) =
-            make_float4(p.out(acc[k], col + k), p.out(acc[k + 1], col + k + 1),
-                        p.out(acc[k + 2], col + k + 2), p.out(acc[k + 3], col + k + 3));
-    } else {
+    for (int k = 0; k < VEC; ++k) o[k] = acc[k];
+    return;
+  }
+  float* o = out + static_cast<int64_t>(item - n_chunks) * f + col;  // zero-degree rows write zeros
+  if constexpr (VEC % 4 == 0) {
 #pragma unroll
-      for (int k = 0; k < VEC; ++k) o[k] = p.out(acc[k], col + k);
-    }
+    for (int k = 0; k < VEC; k += 4)
+      *reinterpret_cast<float4*>(o + k) =
+          make_float4(p.out(acc[k], col + k), p.out(acc[k + 1], col + k + 1),
+                      p.out(acc[k + 2], col + k + 2), p.out(acc[k + 3], col + k + 3));
+  } else {
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) o[k] = p.out(acc[k], col + k);
+  }
+}
+
+// One warp per split row s: out[rows[s]] = the sum of part[first[s]] ...
+// part[first[s + 1] - 1] in chunk order, written as the walk writes a row
+// (the int8 policy scales the exact int32 sum once, here).
+template <typename P>
+__global__ void __launch_bounds__(kWarps * 32)
+spmm_csr_combine_kernel(const int32_t* __restrict__ rows, const int32_t* __restrict__ first,
+                        const typename P::TAcc* __restrict__ part, const P p,
+                        float* __restrict__ out, int n_split, int f) {
+  using TAcc = typename P::TAcc;
+  const int lane = threadIdx.x & 31;
+  const int s = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (s >= n_split) return;
+  const int k0 = first[s], k1 = first[s + 1];
+  float* o = out + static_cast<int64_t>(rows[s]) * f;
+  for (int col = lane; col < f; col += 32) {
+    TAcc acc = 0;
+#pragma unroll 4
+    for (int k = k0; k < k1; ++k) acc += part[static_cast<int64_t>(k) * f + col];
+    o[col] = p.out(acc, col);
   }
 }
 
 template <typename P, int VEC>
 void launch_vec(const int32_t* indptr, const int32_t* indices, const typename P::TIn* x,
-                const P& p, float* out, int n_rows, int f, int lanes, int groups,
+                const P& p, float* out, const int2* chunks, typename P::TAcc* part, int n_rows,
+                int n_chunks, int chunk_edges, int f, int lanes, int groups,
                 cudaStream_t stream) {
-  const dim3 grid((n_rows + kWarps - 1) / kWarps, (f + lanes * VEC - 1) / (lanes * VEC));
+  const dim3 grid((n_chunks + n_rows + kWarps - 1) / kWarps,
+                  (f + lanes * VEC - 1) / (lanes * VEC));
   const dim3 block(kWarps * 32);
-  spmm_csr_kernel<P, VEC><<<grid, block, 0, stream>>>(indptr, indices, x, p, out, n_rows, f,
-                                                       lanes, groups);
+  if (n_chunks > 0)
+    spmm_csr_kernel<P, VEC, true><<<grid, block, 0, stream>>>(
+        indptr, indices, x, p, out, chunks, part, n_rows, n_chunks, chunk_edges, f, lanes,
+        groups);
+  else
+    spmm_csr_kernel<P, VEC, false><<<grid, block, 0, stream>>>(
+        indptr, indices, x, p, out, chunks, part, n_rows, 0, chunk_edges, f, lanes, groups);
 }
 
 // Checks the caller's geometry and launches the instantiation for its VEC. A
 // geometry is taken when VEC is a power of two of at most 8 elements and 16
 // bytes that divides F and suits the policy, x and out are aligned for it,
 // the groups fit in a warp, and several groups share a row only when one
-// chunk covers it.
+// chunk covers it; a plan, when it has chunks, comes with its partials and a
+// chunk length of at least one edge.
 template <typename P>
 int launch(const int32_t* indptr, const int32_t* indices, const typename P::TIn* x,
-           const P& p, float* out, int n_rows, int f, int vec, int lanes, int groups,
-           cudaStream_t stream) {
-  if (n_rows <= 0 || f <= 0) return static_cast<int>(cudaGetLastError());
+           const P& p, float* out, const void* chunks, void* part, int n_rows, int n_chunks,
+           int chunk_edges, int f, int vec, int lanes, int groups, cudaStream_t stream) {
+  if (n_rows < 0 || n_chunks < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_rows + n_chunks == 0 || f <= 0) return static_cast<int>(cudaGetLastError());
   using TIn = typename P::TIn;
+  using TAcc = typename P::TAcc;
   constexpr int kMaxVec = sizeof(TIn) >= 2 ? 16 / static_cast<int>(sizeof(TIn)) : 8;
   const uintptr_t x_addr = reinterpret_cast<uintptr_t>(x);
   const uintptr_t out_addr = reinterpret_cast<uintptr_t>(out);
   const bool ok = vec >= 1 && vec <= kMaxVec && (vec & (vec - 1)) == 0 && f % vec == 0 &&
                   p.fits(vec) && x_addr % (vec * sizeof(TIn)) == 0 &&
                   (vec % 4 != 0 || out_addr % 16 == 0) && lanes >= 1 && lanes <= 32 &&
-                  groups >= 1 && lanes * groups <= 32 && (groups == 1 || lanes * vec >= f);
+                  groups >= 1 && lanes * groups <= 32 && (groups == 1 || lanes * vec >= f) &&
+                  chunk_edges >= 1 &&
+                  (n_chunks == 0 || (chunks != nullptr && part != nullptr));
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  const auto* ch = static_cast<const int2*>(chunks);
+  auto* pt = static_cast<TAcc*>(part);
   switch (vec) {
     case 8:
       if constexpr (kMaxVec >= 8)
-        launch_vec<P, 8>(indptr, indices, x, p, out, n_rows, f, lanes, groups, stream);
+        launch_vec<P, 8>(indptr, indices, x, p, out, ch, pt, n_rows, n_chunks, chunk_edges, f,
+                         lanes, groups, stream);
       break;
     case 4:
-      launch_vec<P, 4>(indptr, indices, x, p, out, n_rows, f, lanes, groups, stream);
+      launch_vec<P, 4>(indptr, indices, x, p, out, ch, pt, n_rows, n_chunks, chunk_edges, f,
+                       lanes, groups, stream);
       break;
     case 2:
-      launch_vec<P, 2>(indptr, indices, x, p, out, n_rows, f, lanes, groups, stream);
+      launch_vec<P, 2>(indptr, indices, x, p, out, ch, pt, n_rows, n_chunks, chunk_edges, f,
+                       lanes, groups, stream);
       break;
     default:
-      launch_vec<P, 1>(indptr, indices, x, p, out, n_rows, f, lanes, groups, stream);
+      launch_vec<P, 1>(indptr, indices, x, p, out, ch, pt, n_rows, n_chunks, chunk_edges, f,
+                       lanes, groups, stream);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename P>
+int combine(const void* rows, const void* first, const void* part, const P& p, void* out,
+            int n_split, int f, void* stream) {
+  if (n_split < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_split == 0 || f <= 0) return static_cast<int>(cudaGetLastError());
+  spmm_csr_combine_kernel<P><<<(n_split + kWarps - 1) / kWarps, kWarps * 32, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(rows), static_cast<const int32_t*>(first),
+      static_cast<const typename P::TAcc*>(part), p, static_cast<float*>(out), n_split, f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+Weighted weighted_policy(const void* widx, const void* w, int f, int heads) {
+  return Weighted{static_cast<const int32_t*>(widx), static_cast<const float*>(w), heads,
+                  heads > 0 ? f / heads : 0};
 }
 
 }  // namespace
 
 extern "C" {
 
-// exact tier: x bf16 [*, f], out f32 [n_rows, f]; (vec, lanes, groups) as
-// ops/spmm_cuda.py `geometry` gives them
+// The walks. Every entry point takes the hub plan of its CSR: chunks int32
+// [n_chunks, 2] (each chunk's edge range), part [n_chunks, f] the chunks'
+// partials (f32; int32 for int8), both null when n_chunks is 0, and
+// chunk_edges the T the plan was cut with; (vec, lanes, groups) as
+// ops/spmm_cuda.py `geometry` gives them.
+
+// exact tier: x bf16 [*, f], out f32 [n_rows, f]
 int spmm_csr_bf16(const void* indptr, const void* indices, const void* x, void* out,
-                  int n_rows, int f, int vec, int lanes, int groups, void* stream) {
+                  const void* chunks, void* part, int n_rows, int n_chunks, int chunk_edges,
+                  int f, int vec, int lanes, int groups, void* stream) {
   return launch(static_cast<const int32_t*>(indptr), static_cast<const int32_t*>(indices),
                 static_cast<const __nv_bfloat16*>(x), Sum<__nv_bfloat16, float>{nullptr},
-                static_cast<float*>(out), n_rows, f, vec, lanes, groups,
-                static_cast<cudaStream_t>(stream));
+                static_cast<float*>(out), chunks, part, n_rows, n_chunks, chunk_edges, f, vec,
+                lanes, groups, static_cast<cudaStream_t>(stream));
 }
 
 // int8 tier: x int8 [*, f], scale f32 [f], out f32 [n_rows, f]
 int spmm_csr_int8(const void* indptr, const void* indices, const void* x, const void* scale,
-                  void* out, int n_rows, int f, int vec, int lanes, int groups, void* stream) {
+                  void* out, const void* chunks, void* part, int n_rows, int n_chunks,
+                  int chunk_edges, int f, int vec, int lanes, int groups, void* stream) {
   return launch(static_cast<const int32_t*>(indptr), static_cast<const int32_t*>(indices),
                 static_cast<const int8_t*>(x), Sum<int8_t, int>{static_cast<const float*>(scale)},
-                static_cast<float*>(out), n_rows, f, vec, lanes, groups,
-                static_cast<cudaStream_t>(stream));
+                static_cast<float*>(out), chunks, part, n_rows, n_chunks, chunk_edges, f, vec,
+                lanes, groups, static_cast<cudaStream_t>(stream));
 }
 
 // weighted: x f32 [*, f], w f32 [E, heads] (heads divides f), widx int32
 // (weight index of each CSR slot) or null for the slot itself, out f32
 // [n_rows, f]
 int spmm_csr_weighted(const void* indptr, const void* indices, const void* widx, const void* x,
-                      const void* w, void* out, int n_rows, int f, int heads, int vec,
-                      int lanes, int groups, void* stream) {
+                      const void* w, void* out, const void* chunks, void* part, int n_rows,
+                      int n_chunks, int chunk_edges, int f, int heads, int vec, int lanes,
+                      int groups, void* stream) {
   if (heads <= 0 || f % heads != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const Weighted p{static_cast<const int32_t*>(widx), static_cast<const float*>(w), heads,
-                   f / heads};
   return launch(static_cast<const int32_t*>(indptr), static_cast<const int32_t*>(indices),
-                static_cast<const float*>(x), p, static_cast<float*>(out), n_rows, f, vec,
+                static_cast<const float*>(x), weighted_policy(widx, w, f, heads),
+                static_cast<float*>(out), chunks, part, n_rows, n_chunks, chunk_edges, f, vec,
                 lanes, groups, static_cast<cudaStream_t>(stream));
+}
+
+// The sums of the split rows: rows int32 [n_split] (the plan's split rows),
+// first int32 [n_split + 1] (row s's partials are part[first[s]:first[s +
+// 1]]), part as the walk wrote it, out f32 [*, f] as the walk's.
+
+int spmm_csr_bf16_combine(const void* rows, const void* first, const void* part, void* out,
+                          int n_split, int f, void* stream) {
+  return combine(rows, first, part, Sum<__nv_bfloat16, float>{nullptr}, out, n_split, f,
+                 stream);
+}
+
+int spmm_csr_int8_combine(const void* rows, const void* first, const void* part,
+                          const void* scale, void* out, int n_split, int f, void* stream) {
+  return combine(rows, first, part, Sum<int8_t, int>{static_cast<const float*>(scale)}, out,
+                 n_split, f, stream);
+}
+
+int spmm_csr_weighted_combine(const void* rows, const void* first, const void* part, void* out,
+                              int n_split, int f, void* stream) {
+  return combine(rows, first, part, weighted_policy(nullptr, nullptr, f, 1), out, n_split, f,
+                 stream);
 }
 
 }  // extern "C"

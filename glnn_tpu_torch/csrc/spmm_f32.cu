@@ -45,7 +45,7 @@
 //     each (grid y).
 // Hub rows: a row of more than kChunkEdges (T) edges is cut into chunks of T
 // edges (the last one shorter). The caller lists them (ops/spmm_cuda.py
-// f32_plan, built once per graph and cached on the Graph); each chunk is one
+// hub_plan, built once per graph and cached on the Graph); each chunk is one
 // warp's work and writes its f32 partial [F] into scratch that the caller
 // allocates, and the chunk warps come first in the grid, so that they start
 // first. A second kernel, one warp per split row, sums its partials in chunk

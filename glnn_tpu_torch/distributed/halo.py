@@ -98,6 +98,9 @@ class HaloGraph:
                              source rows: each slot's dst row and edge.
       edge_base:             global dst-sorted id of the shard's first edge.
       n_edges_global:        the whole graph's edge count.
+      cache:                 the hub plans of its CSRs
+                             (`spmm_cuda.plan_of`), built once; a moved or
+                             replaced shard starts with an empty one.
     """
 
     indptr: torch.Tensor
@@ -125,6 +128,8 @@ class HaloGraph:
     c_t_edges: torch.Tensor | None = None
     edge_base: int = 0
     n_edges_global: int = 0
+    cache: dict = dataclasses.field(default_factory=dict, init=False,
+                                    repr=False, compare=False)
 
     is_halo = True
 
@@ -144,9 +149,12 @@ class HaloGraph:
     def combined_csr(self) -> spmm_cuda.WeightedCSR:
         """The combined CSR as the weighted sum walks it."""
         c = _combined(self)
+        n_src = c.rows + c.n_recv
         return spmm_cuda.WeightedCSR(
             c.c_indptr, c.c_indices, c.c_dst, c.c_t_indptr, c.c_t_dst,
-            c.c_t_edges, c.rows, c.rows + c.n_recv)
+            c.c_t_edges, c.rows, n_src,
+            spmm_cuda.plan_of(c, "c_indptr", c.rows),
+            spmm_cuda.plan_of(c, "c_t_indptr", n_src))
 
     def to(self, device) -> "HaloGraph":
         moved = {f.name: getattr(self, f.name).to(device)
@@ -277,16 +285,21 @@ def shard_rows(x: np.ndarray, n_shards: int, rank: int) -> np.ndarray:
     return np.concatenate([block, pad])
 
 
-def csr_part(kernel: bool, indptr, indices, x: torch.Tensor,
+def csr_part(kernel: bool, hg: HaloGraph, csr: str, x: torch.Tensor,
              n_rows: int) -> torch.Tensor:
-    """One partial sum: the exact CSR SpMM kernel's (bf16 messages, f32
-    sums), or the f32 plain sum, in f32 (no call for no rows)."""
+    """One partial sum over the shard's CSR named `csr` ("indptr",
+    "halo_t_indptr", ...; its indices beside it): the exact CSR SpMM
+    kernel's (bf16 messages, f32 sums; the CSR's hub plan kept on the
+    shard), or the f32 plain sum, in f32 (no call for no rows)."""
     if n_rows == 0:
         return x.new_zeros((0, x.shape[1]), dtype=torch.float32)
+    indptr = getattr(hg, csr)
+    indices = getattr(hg, csr.replace("indptr", "indices"))
     if kernel:
         return spmm_cuda.csr_sum_bf16(indptr, indices,
                                       spmm_cuda.to_message(x.contiguous()),
-                                      n_rows)
+                                      n_rows, spmm_cuda.plan_of(hg, csr,
+                                                                n_rows))
     return refops.csr_sum_f32(indptr, indices, x.float().contiguous(), n_rows)
 
 
@@ -302,19 +315,17 @@ class _HaloCopyUSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, hg, kernel):
         ctx.hg, ctx.kernel = hg, kernel
-        part_l = csr_part(kernel, hg.indptr, hg.indices, x, hg.rows)
+        part_l = csr_part(kernel, hg, "indptr", x, hg.rows)
         recv = _mesh.all_to_all(x.index_select(0, hg.send_idx),
                                 hg.send_splits, hg.recv_splits)
-        part_h = csr_part(kernel, hg.halo_indptr, hg.halo_indices, recv,
-                          hg.rows)
+        part_h = csr_part(kernel, hg, "halo_indptr", recv, hg.rows)
         return (part_l + part_h).to(x.dtype)
 
     @staticmethod
     def backward(ctx, dout):
         hg, kernel = ctx.hg, ctx.kernel
-        dx = csr_part(kernel, hg.t_indptr, hg.t_indices, dout, hg.rows)
-        drecv = csr_part(kernel, hg.halo_t_indptr, hg.halo_t_indices, dout,
-                         hg.n_recv)
+        dx = csr_part(kernel, hg, "t_indptr", dout, hg.rows)
+        drecv = csr_part(kernel, hg, "halo_t_indptr", dout, hg.n_recv)
         return _add_home(hg, dx, drecv).to(dout.dtype), None, None
 
 
@@ -426,7 +437,7 @@ class _HaloGATAttention(torch.autograd.Function):
             torch.float32)])
         out, smax, denom = gat_cuda.gat_fwd(
             hg.c_indptr, hg.c_indices, src_b, src_el, er_b, keep, inv_keep,
-            slope, hg.edge_base)
+            slope, hg.edge_base, spmm_cuda.plan_of(hg, "c_indptr", rows))
         ctx.save_for_backward(feat, attn_r, src_b, src_el, er_b, al_b, keep,
                               smax, denom)
         ctx.hg, ctx.inv_keep, ctx.slope = hg, inv_keep, slope
@@ -442,8 +453,11 @@ class _HaloGATAttention(torch.autograd.Function):
         der, msg, dal = gat_cuda.gat_bwd(
             hg.c_indptr, hg.c_indices, src_b, src_el, er_b, keep,
             ctx.inv_keep, ctx.slope, smax, denom, dout, al_b, hg.edge_base)
+        n_src = rows + hg.n_recv
         dsrc = spmm_cuda.csr_sum_bf16(hg.c_t_indptr, hg.c_t_edges,
-                                      msg.view(-1, h * d), rows + hg.n_recv)
+                                      msg.view(-1, h * d), n_src,
+                                      spmm_cuda.plan_of(hg, "c_t_indptr",
+                                                        n_src))
         dfeat = _add_home(hg, dsrc[:rows], dsrc[rows:]).view(rows, h, d)
         dfeat = dfeat + der[:, :, None] * attn_r.float()[None]
         dattn_r = torch.einsum("nh,nhd->hd", der, feat.float())

@@ -19,7 +19,12 @@ out[v,h,:] = sum alpha * feat[u,h,:].
   TPU's block max, then each term once with that max and the denominator
   of the undropped weights), and lanes across (edge slot, head, column
   group) accumulate the bf16 source rows in f32; it also writes the
-  per-dst max and denominator [N, H] for the backward.
+  per-dst max and denominator [N, H] for the backward. A row of more than
+  `spmm_cuda.HUB_CHUNK` edges is split across warps by the CSR's hub plan
+  (kept on the Graph or the halo shard): the chunks' maxima first
+  (`gat_fwd_hub_max`), then each chunk's sums with the row's final max in
+  `gat_fwd`, then the split rows' sums in chunk order (`gat_fwd_combine`),
+  three launches counted under `gat_fwd`; one on a CSR without such rows.
 * `gat_bwd` recomputes alpha from the same inputs and the saved max and
   denominator and runs the f32 softmax VJP: der [N, H] f32, the per-edge
   message msg[e,h,:] = alpha w dout[v,h,:] + ds_pre attn_l[h,:] in bf16
@@ -100,11 +105,13 @@ _vp, _ci, _cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 _cf = ctypes.c_float
 _SIGNATURES = {
     "gat_prep": [_vp] * 6 + [_ci] * 3 + [_vp],
-    "gat_fwd": [_vp] * 7 + [_cu, _cu, _cf, _cf] + [_vp] * 3 + [_ci] * 9
+    "gat_fwd": [_vp] * 7 + [_cu, _cu, _cf, _cf] + [_vp] * 10 + [_ci] * 11
     + [_vp],
+    "gat_fwd_hub_max": [_vp] * 3 + [_cf] + [_vp] * 4 + [_ci] * 2 + [_vp],
+    "gat_fwd_combine": [_vp] * 8 + [_ci] * 3 + [_vp],
     "gat_bwd": [_vp] * 7 + [_cu, _cu, _cf, _cf] + [_vp] * 7 + [_ci] * 10
     + [_vp],
-    "gat_fwd_blocks_per_sm": [_ci] * 3,
+    "gat_fwd_blocks_per_sm": [_ci] * 4,
     "gat_bwd_blocks_per_sm": [_ci] * 4,
     "edge_softmax_fwd": [_vp] * 3 + [_ci] * 3 + [_vp],
     "edge_softmax_bwd": [_vp] * 4 + [_ci] * 2 + [_vp],
@@ -353,14 +360,16 @@ def plain_gat_bwd(indptr, senders, feat_b, el, er_b, keep, inv_keep, slope,
     return der, msg, dal
 
 
-def _blocks(lib, geo, device: torch.device) -> int:
-    """Blocks of gat_fwd (a FwdGeometry) or gat_bwd (a BwdGeometry) that
-    fill every SM of `device` once."""
-    key = (device, type(geo).__name__, geo)
+def _blocks(lib, geo, device: torch.device, hub: bool = False) -> int:
+    """Blocks of gat_fwd (a FwdGeometry; `hub`: its instantiation that
+    splits hub rows) or gat_bwd (a BwdGeometry) that fill every SM of
+    `device` once."""
+    key = (device, type(geo).__name__, geo, hub)
     if key not in _blocks_per_sm:
         with torch.cuda.device(device):
             if isinstance(geo, FwdGeometry):
-                per_sm = lib.gat_fwd_blocks_per_sm(geo.vec, geo.reps, geo.hp)
+                per_sm = lib.gat_fwd_blocks_per_sm(geo.vec, geo.reps, geo.hp,
+                                                   int(hub))
             else:
                 per_sm = lib.gat_bwd_blocks_per_sm(geo.vec, geo.reps,
                                                    geo.kcache, geo.hp)
@@ -372,9 +381,9 @@ def _blocks(lib, geo, device: torch.device) -> int:
     return _blocks_per_sm[key]
 
 
-def _grid(lib, geo, device, n_rows):
+def _grid(lib, geo, device, n_rows, hub=False):
     return max(1, min(-(-n_rows // WARPS_PER_BLOCK),
-                      _blocks(lib, geo, device)))
+                      _blocks(lib, geo, device, hub)))
 
 
 def _keep_arg(keep):
@@ -384,26 +393,50 @@ def _keep_arg(keep):
 
 
 def _launch_fwd(indptr, senders, feat_b, el, er_b, keep, inv_keep, slope,
-                edge_base):
+                edge_base, plan):
+    """gat_fwd over the CSR; on a plan with chunks also the chunk maxima
+    before it and the split rows' sums after it, each launch counted."""
     n_rows, (_, h, d) = er_b.shape[0], feat_b.shape
     dev = feat_b.device
     f32 = dict(dtype=torch.float32, device=dev)
     out = torch.empty((n_rows, h, d), **f32)
     smax = torch.empty((n_rows, h), **f32)
     denom = torch.empty((n_rows, h), **f32)
+    if plan is None:
+        plan = spmm_cuda.hub_plan(indptr, n_rows)
+    spmm_cuda.check_plan(plan, n_rows, dev)
+    c = plan.n_chunks
+    hub = [None] * 7
+    if c:   # the chunks' maxima, sums of p and sums of p w f
+        pmax = torch.empty((c, h), **f32)
+        pden = torch.empty((c, h), **f32)
+        pacc = torch.empty((c, h, d), **f32)
+        hub = [plan.chunks.data_ptr(), plan.owner.data_ptr(),
+               plan.rows.data_ptr(), plan.first.data_ptr(), pmax.data_ptr(),
+               pden.data_ptr(), pacc.data_ptr()]
     keep = _keep_arg(keep)
     mask_ptr, seed_ptr, thresh, mode = _drop_args(keep, inv_keep)
     geo = fwd_geometry(h, d, align=feat_b.data_ptr())
     lib = cuda_build.load("gat", _SIGNATURES)
+    if c:
+        cuda_build.launch(
+            "gat_fwd", lib.gat_fwd_hub_max, dev, senders.data_ptr(),
+            el.data_ptr(), er_b.data_ptr(), slope, *hub[:3], hub[4], c, h)
+        counts["gat_fwd"] += 1
     cuda_build.launch(
         "gat_fwd", lib.gat_fwd, dev, indptr.data_ptr(), senders.data_ptr(),
         feat_b.data_ptr(), el.data_ptr(), er_b.data_ptr(), mask_ptr,
         seed_ptr, thresh, edge_base, inv_keep, slope, out.data_ptr(),
-        smax.data_ptr(),
-        denom.data_ptr(), n_rows, h, d, _grid(lib, geo, dev, n_rows), *geo)
+        smax.data_ptr(), denom.data_ptr(), *hub, c, plan.chunk, n_rows, h, d,
+        _grid(lib, geo, dev, n_rows + c, c > 0), *geo)
     counts["gat_fwd"] += 1
     if mode:
         counts[f"gat_fwd_{mode}"] += 1
+    if c:
+        cuda_build.launch(
+            "gat_fwd", lib.gat_fwd_combine, dev, *hub[2:7], out.data_ptr(),
+            smax.data_ptr(), denom.data_ptr(), plan.rows.numel(), h, d)
+        counts["gat_fwd"] += 1
     return out, smax, denom
 
 
@@ -437,17 +470,19 @@ def _launch_bwd(indptr, senders, feat_b, el, er_b, keep, inv_keep, slope,
 
 
 def gat_fwd(indptr, senders, feat_b, el, er_b, keep=None, inv_keep=1.0,
-            slope=0.2, edge_base=0):
+            slope=0.2, edge_base=0, plan=None):
     """Fused attention forward over the CSC (indptr, senders), whose
     `senders` holds exactly its indptr[-1] edges: feat_b bf16
     [N_src, H, D], el f32 [N_src, H], er_b bf16 [rows, H] (the dst rows),
     keep a mask [E, H], a seed or None, edge_base the seed mode's Philox
-    counter of edge 0 (see the module note). Returns (out f32
+    counter of edge 0 (see the module note), `plan` the CSR's hub plan
+    (`spmm_cuda.plan_of`; built here when None). Returns (out f32
     [rows, H, D], max f32 [rows, H], denom f32 [rows, H])."""
     _check(indptr, senders, feat_b, el, er_b, keep, edge_base)
     if feat_b.is_cuda:
         return _launch_fwd(indptr, senders, feat_b.contiguous(), el, er_b,
-                           keep, float(inv_keep), float(slope), edge_base)
+                           keep, float(inv_keep), float(slope), edge_base,
+                           plan)
     return plain_gat_fwd(indptr, senders, feat_b, el, er_b, keep, inv_keep,
                          slope, edge_base)
 
@@ -506,8 +541,9 @@ class _GATAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, feat, attn_l, attn_r, g, keep, inv_keep, slope):
         feat_b, el, er_b, al_b = prep(feat, attn_l, attn_r)
-        out, smax, denom = gat_fwd(g.indptr, g.senders, feat_b, el, er_b,
-                                   keep, inv_keep, slope)
+        out, smax, denom = gat_fwd(
+            g.indptr, g.senders, feat_b, el, er_b, keep, inv_keep, slope,
+            plan=spmm_cuda.plan_of(g, "indptr", g.n_nodes))
         ctx.save_for_backward(feat, attn_r, feat_b, el, er_b, al_b, keep,
                               smax, denom)
         ctx.g, ctx.inv_keep, ctx.slope = g, inv_keep, slope
@@ -523,8 +559,9 @@ class _GATAttention(torch.autograd.Function):
         der, msg, dal = gat_bwd(g.indptr, g.senders, feat_b, el, er_b, keep,
                                 ctx.inv_keep, ctx.slope, smax, denom, dout,
                                 al_b)
-        dfeat_src = spmm_cuda.csr_sum_bf16(g.t_indptr, g.t_edges,
-                                           msg.view(-1, h * d), n)
+        dfeat_src = spmm_cuda.csr_sum_bf16(
+            g.t_indptr, g.t_edges, msg.view(-1, h * d), n,
+            spmm_cuda.plan_of(g, "t_indptr", n))
         dfeat = (dfeat_src.view(n, h, d)
                  + der[:, :, None] * attn_r.float()[None])
         dattn_r = torch.einsum("nh,nhd->hd", der, feat.float())

@@ -24,7 +24,7 @@ def feature_prop(feats: torch.Tensor, g, k: int) -> torch.Tensor:
     """k hops of symmetric-normalised propagation of f32 feats [N, F] over
     g (on feats' device)."""
     norm = torch.rsqrt(g.in_degrees.clamp(min=1.0))[:, None]
-    plan = spmm_cuda.graph_f32_plan(g) if feats.is_cuda else None
+    plan = spmm_cuda.graph_f32_plan(g)
     h = feats
     for _ in range(k):
         h = spmm_cuda.csr_sum_f32(g.indptr, g.senders, (h * norm).contiguous(),

@@ -48,12 +48,21 @@ segment sum there (`glnn_tpu/ops/refops.py:37 copy_u_sum` under
 `glnn_tpu/ops/graph_utils.py:22`), and rounding the messages to bf16 would
 compound over the hops. Each warp keeps several source rows in flight
 through a ring of shared-memory stages filled by cp.async; `f32_geometry`
-works out its layout. A row of more than F32_CHUNK edges is cut into
-chunks of F32_CHUNK edges, one warp each, whose f32 partials a second
-kernel sums in chunk order, so two launches are bit-equal; `f32_plan` lists
-the chunks (built once per graph and cached on it, `graph_f32_plan`), and
-a call on a graph with such rows launches both kernels (two launches in
-`counts`). Its plain version is `refops.csr_sum_f32`.
+works out its layout. A row of more than F32_CHUNK edges is split across
+warps as below. Its plain version is `refops.csr_sum_f32`.
+
+Hub rows (every kernel here, and gat_fwd): a row of more than T edges is
+cut into chunks of T edges (HUB_CHUNK for the template body and gat_fwd,
+F32_CHUNK for the f32 sum), one warp each, whose partials a second kernel
+sums in chunk order, so no warp walks a hub row alone and two launches are
+bit-equal; a row of at most T edges takes one warp. `hub_plan`
+lists the chunks of a CSR (two host synchronisations), and `plan_of` keeps
+it on the object that owns the CSR (`Graph.cache` for `indptr` and
+`t_indptr`, a halo shard's `cache` for its CSRs; `WeightedCSR` carries its
+two), so a plan is built once per CSR and every call can be captured in a
+CUDA graph; `builds` counts the plans built. Each entry point takes the
+plan (built at the call when None); a call on a CSR with such rows
+launches both kernels, two launches in `counts`.
 
 Every reduction has a plain PyTorch version (`plain_csr_sum_bf16`,
 `plain_csr_sum_int8`, `plain_csr_wsum_bf16` here, `refops.csr_sum_f32`) with
@@ -79,15 +88,27 @@ from glnn_tpu_torch.ops.cuda_build import note_plain, row_ids
 KERNELS = ("spmm_csr_bf16", "spmm_csr_int8", "spmm_csr_weighted",
            "spmm_csr_f32")
 counts = {name: 0 for name in KERNELS}
+# hub plans built (`hub_plan`): one per CSR and T on a path whose plans are
+# kept, however many calls walk it
+builds = {"hub_plan": 0}
 
 _vp, _ci = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"spmm_csr_bf16": [_vp] * 4 + [_ci] * 5 + [_vp],
-               "spmm_csr_int8": [_vp] * 5 + [_ci] * 5 + [_vp],
-               "spmm_csr_weighted": [_vp] * 6 + [_ci] * 6 + [_vp]}
+_SIGNATURES = {"spmm_csr_bf16": [_vp] * 6 + [_ci] * 7 + [_vp],
+               "spmm_csr_int8": [_vp] * 7 + [_ci] * 7 + [_vp],
+               "spmm_csr_weighted": [_vp] * 8 + [_ci] * 8 + [_vp],
+               "spmm_csr_bf16_combine": [_vp] * 4 + [_ci] * 2 + [_vp],
+               "spmm_csr_int8_combine": [_vp] * 5 + [_ci] * 2 + [_vp],
+               "spmm_csr_weighted_combine": [_vp] * 4 + [_ci] * 2 + [_vp]}
 _F32_SIGNATURES = {"spmm_csr_f32": [_vp] * 6 + [_ci] * 8 + [_vp],
                    "spmm_csr_f32_combine": [_vp] * 4 + [_ci] * 2 + [_vp]}
-# csrc/spmm_f32.cu's kChunkEdges (T): rows of more edges are split into
-# chunks of T edges; the kernel refuses a plan cut with another T
+# T of the template body (csrc/spmm_csr.cu) and of gat_fwd: rows of more
+# edges are split into chunks of T edges, one warp each, whose partials a
+# second kernel sums in chunk order. 512 measured best for the template on
+# the hub graph, and is the f32 sum's T as well, so one plan per CSR serves
+# all of them (csrc/spmm_csr.cu has the sweep's numbers)
+HUB_CHUNK = 512
+# csrc/spmm_f32.cu's kChunkEdges (T); the kernel refuses a plan cut with
+# another T
 F32_CHUNK = 512
 # copies per lane per stage: a stage holds the slices of
 # 32 * F32_COPIES // Q edges (Q the pieces of a slice, at most 32)
@@ -97,6 +118,7 @@ F32_COPIES = 4
 def reset_counts() -> None:
     for k in counts:
         counts[k] = 0
+    builds["hub_plan"] = 0
 
 
 def geometry(f: int, itemsize: int, head_width: int | None = None,
@@ -147,23 +169,34 @@ def f32_geometry(f: int, align: int = 16) -> F32Geometry:
     return F32Geometry(vec, q * vec, 32 // q, min(32, 32 * F32_COPIES // q))
 
 
-class F32Plan(NamedTuple):
-    """The hub rows of a CSR, cut for spmm_csr_f32: `rows` int32 [S], each
-    row of more than F32_CHUNK edges in row order; `first` int32 [S + 1],
-    row s's chunks are first[s]:first[s + 1]; `chunks` int32 [C, 2], each
-    chunk's edge range [start, end), F32_CHUNK edges but a row's last;
-    `n_chunks` = C; `chunk` the T it was cut with."""
+class HubPlan(NamedTuple):
+    """The hub rows of a CSR cut into chunks of T edges, the work list of
+    every kernel that splits rows across warps: `rows` int32 [S], each row
+    of more than T edges in row order; `first` int32 [S + 1], row s's
+    chunks are first[s]:first[s + 1]; `chunks` int32 [C, 2], each chunk's
+    edge range [start, end), T edges but a row's last; `owner` int32 [C],
+    each chunk's split row s; `n_chunks` = C; `chunk` = T; `n_rows`, the
+    CSR's rows."""
     rows: torch.Tensor
     first: torch.Tensor
     chunks: torch.Tensor
+    owner: torch.Tensor
     n_chunks: int
     chunk: int
+    n_rows: int
 
 
-def f32_plan(indptr: torch.Tensor, n_rows: int) -> F32Plan:
-    """spmm_csr_f32's work list of the CSR `indptr` (on its device; two
-    host synchronisations, so `graph_f32_plan` keeps one per graph)."""
-    dev, t = indptr.device, F32_CHUNK
+def hub_plan(indptr: torch.Tensor, n_rows: int,
+             chunk: int = HUB_CHUNK) -> HubPlan:
+    """The hub plan of the CSR `indptr` of n_rows rows with T = `chunk`, on
+    indptr's device. Two host synchronisations, so a plan is built once per
+    CSR and kept (`plan_of`), never inside a hot call; counted in
+    `builds`."""
+    dev, t = indptr.device, int(chunk)
+    if t < 1:
+        raise ValueError(f"a hub plan cuts rows into chunks of T >= 1 edges, "
+                         f"got {t}")
+    builds["hub_plan"] += 1
     lo = indptr[:n_rows].long()
     hi = indptr[1:n_rows + 1].long()
     rows = torch.nonzero(hi - lo > t).flatten()
@@ -177,17 +210,35 @@ def f32_plan(indptr: torch.Tensor, n_rows: int) -> F32Plan:
     start = lo[owner] + (torch.arange(n_chunks, device=dev)
                          - first[owner]) * t
     chunks = torch.stack([start, torch.minimum(start + t, hi[owner])], 1)
-    return F32Plan(rows.int(), first.int(), chunks.int().contiguous(),
-                   n_chunks, t)
+    return HubPlan(rows.int(), first.int(), chunks.int().contiguous(),
+                   owner.int(), n_chunks, t, n_rows)
 
 
-def graph_f32_plan(g) -> F32Plan:
-    """The f32 kernel's plan of g's dst-sorted CSR, built at the first call
-    and kept on g (a moved or replaced Graph builds its own)."""
-    key = ("spmm_csr_f32", F32_CHUNK)
-    if key not in g.cache:
-        g.cache[key] = f32_plan(g.indptr, g.n_nodes)
-    return g.cache[key]
+def plan_of(owner, name: str, n_rows: int,
+            chunk: int = HUB_CHUNK) -> HubPlan:
+    """The hub plan of the CSR `getattr(owner, name)` (a row pointer of n_rows
+    rows), built at the first call and kept in `owner.cache` (a Graph or a
+    halo shard; a moved or replaced one builds its own). On the CPU, where
+    the plain versions need none, it is kept all the same."""
+    key = ("hub_plan", name, n_rows, int(chunk))
+    if key not in owner.cache:
+        owner.cache[key] = hub_plan(getattr(owner, name), n_rows, chunk)
+    return owner.cache[key]
+
+
+def graph_f32_plan(g) -> HubPlan:
+    """The f32 kernel's plan of g's dst-sorted CSR (T = F32_CHUNK), kept on
+    g."""
+    return plan_of(g, "indptr", g.n_nodes, F32_CHUNK)
+
+
+def check_plan(plan: HubPlan, n_rows: int, device, chunk=None) -> None:
+    if plan.n_rows != n_rows or plan.chunks.device != device or (
+            chunk is not None and plan.chunk != chunk):
+        raise ValueError(f"the plan was cut for {plan.n_rows} rows with T = "
+                         f"{plan.chunk} on {plan.chunks.device}; this call "
+                         f"walks {n_rows} rows on {device}"
+                         + ("" if chunk is None else f" with T = {chunk}"))
 
 
 def _check(indptr, indices, x, n_rows, dtype):
@@ -204,19 +255,36 @@ def _check(indptr, indices, x, n_rows, dtype):
                          f"{n_rows} rows")
 
 
-def _launch(name, indptr, indices, x, scale, n_rows):
-    x = x.contiguous()
-    out = torch.empty((n_rows, x.shape[1]), dtype=torch.float32,
-                      device=x.device)
+def _launch(name, indptr, ptrs, x, n_rows, plan, geo, scale=None,
+            heads=None):
+    """The walk of `name` (indptr, the pointers `ptrs`, then out, the plan's
+    chunks and partials) and, where the plan has chunks, the sum of the
+    split rows' partials; each launch counted. `plan` is indptr's hub plan
+    (built here when None: two host synchronisations)."""
+    if plan is None:
+        plan = hub_plan(indptr, n_rows)
+    check_plan(plan, n_rows, x.device)
+    f, c = x.shape[1], plan.n_chunks
+    out = torch.empty((n_rows, f), dtype=torch.float32, device=x.device)
+    part = None
+    if c:   # the chunks' partials: int32 sums for the int8 policy
+        part = torch.empty((c, f), device=x.device, dtype=torch.int32
+                           if name == "spmm_csr_int8" else torch.float32)
     lib = cuda_build.load("spmm", _SIGNATURES)
-    ptrs = [indptr.data_ptr(), indices.data_ptr(), x.data_ptr()]
-    if scale is not None:
-        ptrs.append(scale.data_ptr())
-    cuda_build.launch(name, getattr(lib, name), x.device, *ptrs,
-                      out.data_ptr(), n_rows, x.shape[1],
-                      *geometry(x.shape[1], x.element_size(),
-                                align=x.data_ptr()))
+    head = [] if heads is None else [heads]
+    cuda_build.launch(
+        name, getattr(lib, name), x.device, indptr.data_ptr(), *ptrs,
+        out.data_ptr(),
+        plan.chunks.data_ptr() if c else None, part.data_ptr() if c else None,
+        n_rows, c, plan.chunk, f, *head, *geo)
     counts[name] += 1
+    if c:
+        sc = [] if scale is None else [scale.data_ptr()]
+        cuda_build.launch(
+            name, getattr(lib, f"{name}_combine"), x.device,
+            plan.rows.data_ptr(), plan.first.data_ptr(), part.data_ptr(),
+            *sc, out.data_ptr(), plan.rows.numel(), f)
+        counts[name] += 1
     return out
 
 
@@ -240,28 +308,30 @@ def plain_csr_sum_int8(indptr, indices, q, scale, n_rows):
     return acc.float() * scale[None, :]
 
 
-def csr_sum_bf16(indptr, indices, xb, n_rows):
+def csr_sum_bf16(indptr, indices, xb, n_rows, plan: HubPlan | None = None):
     """out[v] = sum_{e in indptr[v]:indptr[v+1]} xb[indices[e]] in f32.
-    `indices` must lie in [0, xb.shape[0]) (build_graph guarantees it)."""
+    `indices` must lie in [0, xb.shape[0]) (build_graph guarantees it).
+    `plan` is the CSR's hub plan (`plan_of`; built here when None)."""
     _check(indptr, indices, xb, n_rows, torch.bfloat16)
     if xb.is_cuda:
-        return _launch("spmm_csr_bf16", indptr, indices, xb, None, n_rows)
+        xb = xb.contiguous()
+        return _launch("spmm_csr_bf16", indptr,
+                       [indices.data_ptr(), xb.data_ptr()], xb, n_rows, plan,
+                       geometry(xb.shape[1], 2, align=xb.data_ptr()))
     return plain_csr_sum_bf16(indptr, indices, xb, n_rows)
 
 
-def csr_sum_f32(indptr, indices, x, n_rows, plan: F32Plan | None = None):
+def csr_sum_f32(indptr, indices, x, n_rows, plan: HubPlan | None = None):
     """out[v] = sum_{e in indptr[v]:indptr[v+1]} x[indices[e]], f32 rows
     summed in f32; on a CPU tensor its plain version, refops.csr_sum_f32.
-    `plan` is `f32_plan(indptr, n_rows)` (made here when None)."""
+    `plan` is the CSR's hub plan with T = F32_CHUNK (made here when
+    None)."""
     _check(indptr, indices, x, n_rows, torch.float32)
     if not x.is_cuda:
         return refops.csr_sum_f32(indptr, indices, x, n_rows)
     if plan is None:
-        plan = f32_plan(indptr, n_rows)
-    if plan.chunk != F32_CHUNK or plan.chunks.device != x.device:
-        raise ValueError(f"the plan was cut with T = {plan.chunk} on "
-                         f"{plan.chunks.device}, the kernel takes T = "
-                         f"{F32_CHUNK} on {x.device}")
+        plan = hub_plan(indptr, n_rows, F32_CHUNK)
+    check_plan(plan, n_rows, x.device, F32_CHUNK)
     x = x.contiguous()
     f, c = x.shape[1], plan.n_chunks
     out = torch.empty((n_rows, f), dtype=torch.float32, device=x.device)
@@ -283,14 +353,19 @@ def csr_sum_f32(indptr, indices, x, n_rows, plan: F32Plan | None = None):
     return out
 
 
-def csr_sum_int8(indptr, indices, q, scale, n_rows):
-    """Dequantised int32 sums of int8 rows: acc[v, f] * scale[f]."""
+def csr_sum_int8(indptr, indices, q, scale, n_rows,
+                 plan: HubPlan | None = None):
+    """Dequantised int32 sums of int8 rows: acc[v, f] * scale[f]; `plan`
+    as csr_sum_bf16 takes it."""
     _check(indptr, indices, q, n_rows, torch.int8)
     if scale.dtype != torch.float32 or scale.shape != (q.shape[1],):
         raise TypeError("scale must be f32 [F]")
     if q.is_cuda:
-        return _launch("spmm_csr_int8", indptr, indices, q,
-                       scale.contiguous(), n_rows)
+        q, scale = q.contiguous(), scale.contiguous()
+        return _launch("spmm_csr_int8", indptr,
+                       [indices.data_ptr(), q.data_ptr(), scale.data_ptr()],
+                       q, n_rows, plan,
+                       geometry(q.shape[1], 1, align=q.data_ptr()), scale)
     return plain_csr_sum_int8(indptr, indices, q, scale, n_rows)
 
 
@@ -321,10 +396,12 @@ def plain_csr_wsum_bf16(indptr, indices, widx, x, w, n_rows):
     return out.index_add_(0, row_ids(indptr, n_rows), msgs)
 
 
-def csr_wsum_bf16(indptr, indices, widx, x, w, n_rows):
+def csr_wsum_bf16(indptr, indices, widx, x, w, n_rows,
+                  plan: HubPlan | None = None):
     """out[v] = sum_{e in indptr[v]:indptr[v+1]} bf16(x[indices[e]] *
     w[widx(e)]) in f32: x f32 [*, F], w f32 [E] or [E, H] (H dividing F;
-    column c takes head c / (F / H)), widx int32 or None (the slot itself)."""
+    column c takes head c / (F / H)), widx int32 or None (the slot itself);
+    `plan` as csr_sum_bf16 takes it."""
     _check(indptr, indices, x, n_rows, torch.float32)
     heads = _heads(x, w)
     if widx is not None and widx.dtype != torch.int32:
@@ -336,18 +413,14 @@ def csr_wsum_bf16(indptr, indices, widx, x, w, n_rows):
         raise ValueError("widx must be contiguous")
     if x.is_cuda:
         x, w = x.contiguous(), w.contiguous()
-        out = torch.empty((n_rows, x.shape[1]), dtype=torch.float32,
-                          device=x.device)
-        lib = cuda_build.load("spmm", _SIGNATURES)
         f = x.shape[1]
-        cuda_build.launch(
-            "spmm_csr_weighted", lib.spmm_csr_weighted, x.device,
-            indptr.data_ptr(), indices.data_ptr(),
-            None if widx is None else widx.data_ptr(), x.data_ptr(),
-            w.data_ptr(), out.data_ptr(), n_rows, f, heads,
-            *geometry(f, 4, f // heads, align=x.data_ptr()))
-        counts["spmm_csr_weighted"] += 1
-        return out
+        return _launch("spmm_csr_weighted", indptr,
+                       [indices.data_ptr(),
+                        None if widx is None else widx.data_ptr(),
+                        x.data_ptr(), w.data_ptr()],
+                       x, n_rows, plan,
+                       geometry(f, 4, f // heads, align=x.data_ptr()),
+                       heads=heads)
     return plain_csr_wsum_bf16(indptr, indices, widx, x, w, n_rows)
 
 
@@ -377,24 +450,27 @@ def quantize_cols(x: torch.Tensor):
 
 
 class _CopyUSum(torch.autograd.Function):
-    """H = A x with A the dst-sorted CSC; dX = A^T dH on the exact tier."""
+    """H = A x with A the dst-sorted CSC; dX = A^T dH on the exact tier.
+    The hub plans of both walks are kept on the Graph."""
 
     @staticmethod
     def forward(ctx, x, g, tier):
         ctx.g = g
+        plan = plan_of(g, "indptr", g.n_nodes)
         if tier == "int8":
             q, s = quantize_cols(x)
-            out = csr_sum_int8(g.indptr, g.senders, q, s, g.n_nodes)
+            out = csr_sum_int8(g.indptr, g.senders, q, s, g.n_nodes, plan)
         else:
             out = csr_sum_bf16(g.indptr, g.senders, to_message(x.contiguous()),
-                               g.n_nodes)
+                               g.n_nodes, plan)
         return out.to(x.dtype)
 
     @staticmethod
     def backward(ctx, dh):
         g = ctx.g
         dx = csr_sum_bf16(g.t_indptr, g.t_receivers,
-                          to_message(dh.contiguous()), g.n_nodes)
+                          to_message(dh.contiguous()), g.n_nodes,
+                          plan_of(g, "t_indptr", g.n_nodes))
         return dx.to(dh.dtype), None, None
 
 
@@ -412,7 +488,9 @@ class WeightedCSR(NamedTuple):
     """What the weighted sum walks: the dst-sorted CSR (indptr; indices,
     each edge's source row; dst, its dst row) of n_rows rows over n_src
     source rows, and its transpose (t_indptr over the sources; t_dst, each
-    slot's dst row; t_edges, its edge)."""
+    slot's dst row; t_edges, its edge); `plan` and `t_plan`, the hub plans
+    of the two walks (`plan_of` on the owner of the CSR; None builds them
+    at each call on CUDA)."""
     indptr: torch.Tensor
     indices: torch.Tensor
     dst: torch.Tensor
@@ -421,6 +499,8 @@ class WeightedCSR(NamedTuple):
     t_edges: torch.Tensor
     n_rows: int
     n_src: int
+    plan: HubPlan | None = None
+    t_plan: HubPlan | None = None
 
 
 class _UMulESum(torch.autograd.Function):
@@ -433,7 +513,7 @@ class _UMulESum(torch.autograd.Function):
         ctx.save_for_backward(x, w)
         out = csr_wsum_bf16(csr.indptr, csr.indices, None,
                             x.reshape(x.shape[0], -1).float(), w.float(),
-                            csr.n_rows)
+                            csr.n_rows, csr.plan)
         return out.view((csr.n_rows,) + tuple(x.shape[1:])).to(x.dtype)
 
     @staticmethod
@@ -444,7 +524,7 @@ class _UMulESum(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             dx = csr_wsum_bf16(csr.t_indptr, csr.t_dst, csr.t_edges,
                                dh.reshape(csr.n_rows, -1).float(), w.float(),
-                               csr.n_src)
+                               csr.n_src, csr.t_plan)
             dx = dx.view(x.shape).to(x.dtype)
         if ctx.needs_input_grad[1]:
             xs = x.float().index_select(0, csr.indices)
@@ -478,6 +558,12 @@ def u_mul_e_sum(g, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     differentiable in x and w. w follows the graph's dst-sorted edge
     order."""
     _check_weighted(x, w, g.n_nodes, g.n_edges)
-    return _UMulESum.apply(x, w, WeightedCSR(
+    return _UMulESum.apply(x, w, weighted_csr(g))
+
+
+def weighted_csr(g) -> WeightedCSR:
+    """The Graph g as the weighted sum walks it, with its kept plans."""
+    return WeightedCSR(
         g.indptr, g.senders, g.receivers, g.t_indptr, g.t_receivers,
-        g.t_edges, g.n_nodes, g.n_nodes))
+        g.t_edges, g.n_nodes, g.n_nodes, plan_of(g, "indptr", g.n_nodes),
+        plan_of(g, "t_indptr", g.n_nodes))

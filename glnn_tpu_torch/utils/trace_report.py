@@ -42,18 +42,21 @@ HOST_CATS = ("cpu_op",)
 _NS = r"(?:\(anonymous namespace\)::)?"
 # a demangled kernel name -> the port's kernel. Three SpMM kernels are one
 # template, spmm_csr_kernel<P, VEC> (csrc/spmm_csr.cu), told apart by its
-# policy P; spmm_csr_f32 (csrc/spmm_f32.cu) is two kernels, the walk and
-# the second pass that sums split rows' partials, each counted as one
-# launch of spmm_csr_f32 (its wrapper counts launches, not calls)
+# policy P. Where a CSR has hub rows split across warps, a kernel is
+# several: the walk and the second pass that sums split rows' partials
+# (spmm_csr_combine_kernel<P>, spmm_f32_combine_kernel), and for gat_fwd
+# also the chunks' maxima before it (gat_fwd_max_kernel) and the sums
+# after it (gat_fwd_combine_kernel); each is counted as one launch of its
+# port kernel (the wrappers count launches, not calls)
+_WALK = r"\bspmm_csr_(?:combine_)?kernel<"
 PORT_KERNELS = (
-    (re.compile(rf"\bspmm_csr_kernel<{_NS}Sum<__nv_bfloat16, float>"),
-     "spmm_csr_bf16"),
-    (re.compile(rf"\bspmm_csr_kernel<{_NS}Sum<(?:signed char|int8_t|char), "
-                rf"int>"), "spmm_csr_int8"),
-    (re.compile(rf"\bspmm_csr_kernel<{_NS}Weighted\b"), "spmm_csr_weighted"),
+    (re.compile(rf"{_WALK}{_NS}Sum<__nv_bfloat16, float>"), "spmm_csr_bf16"),
+    (re.compile(rf"{_WALK}{_NS}Sum<(?:signed char|int8_t|char), int>"),
+     "spmm_csr_int8"),
+    (re.compile(rf"{_WALK}{_NS}Weighted\b"), "spmm_csr_weighted"),
     (re.compile(r"\bspmm_f32_(?:combine_)?kernel\b"), "spmm_csr_f32"),
     (re.compile(r"\bgat_prep_kernel\b"), "gat_prep"),
-    (re.compile(r"\bgat_fwd_kernel\b"), "gat_fwd"),
+    (re.compile(r"\bgat_fwd_(?:max_|combine_)?kernel\b"), "gat_fwd"),
     (re.compile(r"\bgat_bwd_kernel\b"), "gat_bwd"),
     (re.compile(r"\bedge_softmax_fwd_kernel\b"), "edge_softmax_fwd"),
     (re.compile(r"\bedge_softmax_bwd_kernel\b"), "edge_softmax_bwd"),

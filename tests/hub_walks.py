@@ -1,0 +1,197 @@
+"""Mirrors of the CUDA kernels' walks with hub rows split across warps, for
+the CPU tests (tests/test_torch_kernel_design.py) and the card's
+(tests/test_torch_cuda.py). No JAX here: the card's tests import it.
+
+* `template_walk` follows csrc/spmm_csr.cu in numpy: an item is a row of at
+  most T edges or one T-edge chunk of a longer row (the hub plan's); its
+  edges are taken a 32-edge window at a time, edge k of a window by edge
+  group k % groups, each group summing its edges in order; the groups fold
+  onto group 0; a split row's chunk partials are summed in chunk order
+  from zero; the int8 policy sums exactly and scales once at the end. Its
+  f32 adds are the kernel's, in the kernel's order, so on the card the
+  kernel must equal it bit for bit.
+* `gat_fwd_walk` follows gat_fwd in f32 torch: per item and pass of heads,
+  lane j scores the 32-edge window's edge j; a row's max over its edges, a
+  chunk's over its row's chunk maxima; each term exp(s - max) once; p and
+  p w f summed per edge slot and folded onto slot 0; a row divides by its
+  own den, a split row's den and p w f are the sums of its chunks' in
+  chunk order. Its exponentials and products are torch's on the CPU, not
+  the card's expf and fused multiply-adds, so it equals the kernel only to
+  a tolerance.
+"""
+
+import numpy as np
+import torch
+
+from glnn_tpu_torch.ops import gat_cuda, spmm_cuda
+
+T = spmm_cuda.HUB_CHUNK
+# the rows' degrees of the split tests: empty, one edge, either side of T,
+# and 20 T
+HUB_SPLIT = (0, 1, T - 1, T, T + 1, 20 * T)
+
+
+def hub_split_arrays(seed, degrees=HUB_SPLIT, n=300, n_random=2500):
+    """(src, dst, n): n_random random edges among rows len(degrees).. of n,
+    and rows 0, 1, ... with degrees[i] in-edges and as many out-edges (so
+    both walks meet them), to and from random other rows (repeats
+    allowed)."""
+    rs = np.random.RandomState(seed)
+    k = len(degrees)
+    hubs = np.repeat(np.arange(k), degrees)
+    ends = [rs.randint(k, n, hubs.size) for _ in range(2)]
+    src = np.concatenate([ends[0], hubs, rs.randint(k, n, n_random)])
+    dst = np.concatenate([hubs, ends[1], rs.randint(k, n, n_random)])
+    return src, dst, n
+
+
+def fold(parts):
+    """The kernels' fold of slot partials onto slot 0: slots [h, s) onto
+    [0, s - h), halving s."""
+    parts = list(parts)
+    s = len(parts)
+    while s > 1:
+        h = (s + 1) // 2
+        for q in range(s - h):
+            parts[q] = parts[q] + parts[q + h]
+        s = h
+    return parts[0]
+
+
+def items(indptr, n_rows, chunk):
+    """(row, [(begin, end), ...]) per row: one range for a row of at most
+    `chunk` edges, its T-edge chunks (the hub plan's) for a longer one."""
+    for row in range(n_rows):
+        a, b = int(indptr[row]), int(indptr[row + 1])
+        if b - a <= chunk:
+            yield row, [(a, b)]
+        else:
+            yield row, [(c, min(b, c + chunk)) for c in range(a, b, chunk)]
+
+
+def bf16_round(a: np.ndarray) -> np.ndarray:
+    """f32 values rounded to bf16 (nearest, ties to even) and back."""
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
+        torch.bfloat16).float().numpy()
+
+
+def _item_sum(terms: np.ndarray, groups: int) -> np.ndarray:
+    """One warp's walk of an item whose per-edge terms are `terms` [n, F]:
+    edge k of each 32-edge window goes to group k % groups, each group sums
+    its edges in order (add.accumulate is sequential), the groups fold."""
+    zero = np.zeros(terms.shape[1:], terms.dtype)
+    if terms.shape[0] == 0:
+        return zero
+    grp = (np.arange(terms.shape[0]) % 32) % groups
+    parts = []
+    for q in range(groups):
+        mine = terms[grp == q]
+        parts.append(np.add.accumulate(mine, axis=0)[-1] if len(mine)
+                     else zero)
+    return fold(parts)
+
+
+def template_walk(indptr, indices, x, n_rows, geo, chunk, policy="bf16",
+                  scale=None, w=None, widx=None, heads=1):
+    """csrc/spmm_csr.cu's walk in numpy: out f32 [n_rows, F].
+
+    policy "bf16": x holds bf16 values as f32, summed in f32; "int8": x
+    int8 values, summed exactly, then acc * scale in f32; "weighted": x
+    f32 [*, F], w f32 [E, heads], terms bf16(x[src] * w[widx(e), head])
+    summed in f32 (widx(e) = widx[e], or e where widx is None; column c
+    takes head c // (F // heads)). geo = (vec, lanes, groups) as
+    spmm_cuda.geometry gives it; chunk = the plan's T."""
+    _, _, groups = geo
+    f = x.shape[1]
+    indices = np.asarray(indices)
+    if policy == "int8":
+        x = np.asarray(x, np.int64)
+    else:
+        x = np.asarray(x, np.float32)
+    if policy == "weighted":
+        w = np.asarray(w, np.float32).reshape(-1, heads)
+        head_of = np.arange(f) // (f // heads)
+
+    def terms(a, b):
+        rows = x[indices[a:b]]
+        if policy != "weighted":
+            return rows
+        slots = np.arange(a, b) if widx is None else np.asarray(widx)[a:b]
+        return bf16_round(rows * w[slots][:, head_of])
+
+    out = np.zeros((n_rows, f), np.float32)
+    for row, ranges in items(indptr, n_rows, chunk):
+        if len(ranges) == 1:
+            acc = _item_sum(terms(*ranges[0]), groups)
+        else:  # each chunk a warp's, then summed in chunk order from zero
+            acc = np.zeros(f, np.int64 if policy == "int8" else np.float32)
+            for a, b in ranges:
+                acc = acc + _item_sum(terms(a, b), groups)
+        out[row] = (acc.astype(np.float32) * np.asarray(scale, np.float32)
+                    if policy == "int8" else acc)
+    return out
+
+
+def _keep_words(keep, h0, hp):
+    """Per edge, the word its lane packs: bit i for head h0 + i."""
+    words = torch.zeros(keep.shape[0], dtype=torch.int64)
+    for i in range(min(hp, keep.shape[1] - h0)):
+        words |= keep[:, h0 + i].long() << i
+    return words
+
+
+def gat_fwd_walk(indptr, senders, feat_b, el, er_b, keep, inv_keep, slope,
+                 chunk):
+    """gat_fwd in f32 torch on the CPU with rows of more than `chunk`
+    edges split: (out, max, denom)."""
+    n_rows, heads = er_b.shape
+    geo = gat_cuda.fwd_geometry(heads, feat_b.shape[2])
+    slots, hp = geo.slots, geo.hp
+    if keep is None:
+        inv_keep = 1.0    # without dropout every weight is 1
+    elif keep.dtype == torch.int64:
+        keep = gat_cuda.philox_keep(keep, senders.numel(), heads,
+                                    1.0 / inv_keep)
+    out = torch.zeros((n_rows,) + tuple(feat_b.shape[1:]))
+    smax = torch.zeros((n_rows, heads))
+    denom = torch.zeros((n_rows, heads))
+
+    def scores(a, b, hs):
+        s = el[senders[a:b].long(), hs] + er_b[row, hs].float()
+        return torch.where(s >= 0, s, slope * s)
+
+    for h0 in range(0, heads, hp):
+        hs = slice(h0, min(h0 + hp, heads))
+        nh = hs.stop - h0
+        words = (_keep_words(keep, h0, hp) if keep is not None
+                 else torch.full((senders.numel(),), (1 << 32) - 1))
+        bit = torch.arange(nh)
+        for row, ranges in items(indptr, n_rows, chunk):
+            a, b = ranges[0][0], ranges[-1][1]
+            if a == b:
+                continue
+            # a max is exact in any order: a chunk's row max is its row's
+            m = torch.stack([scores(c, d, hs).max(0).values
+                             for c, d in ranges]).max(0).values
+            den_sum = torch.zeros(nh)
+            acc_sum = torch.zeros((nh, feat_b.shape[2]))
+            for c, d in ranges:
+                src = senders[c:d].long()
+                p = torch.exp(scores(c, d, hs) - m)
+                kept = (words[c:d, None] >> bit) & 1 == 1
+                pw = torch.where(kept, p * inv_keep, torch.zeros_like(p))
+                den = torch.zeros((slots, nh))
+                acc = torch.zeros((slots, nh, feat_b.shape[2]))
+                for e0 in range(0, d - c, 32):
+                    n = min(32, d - c - e0)
+                    for j in range(-(-n // slots)):
+                        for q in range(min(slots, n - j * slots)):
+                            k = e0 + j * slots + q
+                            den[q] += p[k]
+                            acc[q] += (pw[k, :, None]
+                                       * feat_b[src[k], hs].float())
+                den_sum = den_sum + fold(den)
+                acc_sum = acc_sum + fold(acc)
+            out[row, hs] = acc_sum * (1.0 / den_sum)[:, None]
+            smax[row, hs], denom[row, hs] = m, den_sum
+    return out, smax, denom

@@ -28,12 +28,18 @@ kernel splits rows of more than T = spmm_cuda.F32_CHUNK edges across
 warps, so its tests also take rows of T - 1, T, T + 1 and 3T + 5 edges
 (SPLIT_DEGREES), and a second launch must be bit-equal to the first (no
 atomics: its order of summation is fixed by the graph and the layout).
+The template body (bf16, int8, weighted) and gat_fwd split rows of more
+than T = spmm_cuda.HUB_CHUNK edges as well: on rows of T - 1, T, T + 1
+and 20 T edges (hub_walks.HUB_SPLIT) the template kernels equal their
+numpy walk (tests/hub_walks.py) bit for bit, and gat_fwd its torch walk
+to 1e-5 (the walk's exponentials and products are the CPU's).
 """
 
 import numpy as np
 import pytest
 import torch
 
+import hub_walks
 from glnn_tpu_torch import ops
 from glnn_tpu_torch.graph.container import build_graph
 from glnn_tpu_torch.ops import (cuda_build, gat_cuda, graph_utils, refops,
@@ -196,7 +202,7 @@ def test_f32_kernel_on_split_rows(cuda, f):
     walks against the plain version, two launches bit-equal; the plan
     lists exactly the rows of more than T edges."""
     g = _hub_graph(HUB_NODES, 6000, f + 1, cuda, SPLIT_DEGREES)
-    plan = spmm_cuda.f32_plan(g.indptr, g.n_nodes)
+    plan = spmm_cuda.hub_plan(g.indptr, g.n_nodes, spmm_cuda.F32_CHUNK)
     deg = (g.indptr[1:g.n_nodes + 1] - g.indptr[:g.n_nodes]).cpu()
     assert plan.rows.tolist() == torch.nonzero(deg > T).flatten().tolist()
     assert plan.n_chunks == sum(-(-d // T) for d in SPLIT_DEGREES if d > T)
@@ -239,6 +245,210 @@ def test_f32_counts_both_passes_and_keeps_the_plan(cuda):
                                      g.n_nodes) * norm
     assert torch.equal(got, want)
     assert g.to(cuda).cache == {}                  # a moved graph's own
+
+
+# ---- hub rows split across warps: the template body and gat_fwd ----------
+
+HT = spmm_cuda.HUB_CHUNK
+
+
+def _split_graph(seed, device, n_random=6000):
+    """Rows of 0, 1, T - 1, T, T + 1 and 20 T in- and out-edges among 3,000
+    nodes (hub_walks.HUB_SPLIT), the rest random."""
+    src, dst, n = hub_walks.hub_split_arrays(seed, n=3000,
+                                             n_random=n_random)
+    return build_graph(src, dst, n).to(device)
+
+
+def _template_case(g, policy, f, heads, walk):
+    """(kernel call, plain call, mirror, magnitude) of one policy on one
+    walk of g: the kernel with the walk's kept plan, the plain version,
+    hub_walks.template_walk on the same inputs, and the plain version on
+    |x| and |w| (each sum's magnitude)."""
+    gen = torch.Generator(device=g.device).manual_seed(f * 7 + heads)
+    n = g.n_nodes
+    indptr, indices, widx, name = (
+        (g.indptr, g.senders, None, "indptr") if walk == "forward"
+        else (g.t_indptr, g.t_receivers, g.t_edges, "t_indptr"))
+    plan = spmm_cuda.plan_of(g, name, n)
+    ip, ix = indptr[:n + 1].cpu().numpy(), indices.cpu().numpy()
+    x = torch.randn((n, f), generator=gen, device=g.device)
+    if policy == "bf16":
+        xb = spmm_cuda.to_message(x)
+
+        def call(xb=xb):
+            return spmm_cuda.csr_sum_bf16(indptr, indices, xb, n, plan)
+
+        def plain(xb=xb):
+            return spmm_cuda.plain_csr_sum_bf16(indptr, indices, xb, n)
+        mirror = hub_walks.template_walk(
+            ip, ix, xb.float().cpu().numpy(), n,
+            spmm_cuda.geometry(f, 2, align=xb.data_ptr()), HT)
+        mag = spmm_cuda.plain_csr_sum_bf16(indptr, indices, xb.abs(), n)
+        return call, plain, mirror, mag
+    if policy == "int8":
+        q, sc = spmm_cuda.quantize_cols(x)
+
+        def call():
+            return spmm_cuda.csr_sum_int8(indptr, indices, q, sc, n, plan)
+
+        def plain():
+            return spmm_cuda.plain_csr_sum_int8(indptr, indices, q, sc, n)
+        mirror = hub_walks.template_walk(
+            ip, ix, q.cpu().numpy(), n,
+            spmm_cuda.geometry(f, 1, align=q.data_ptr()), HT, "int8",
+            scale=sc.cpu().numpy())
+        return call, plain, mirror, None
+    w = torch.rand((g.n_edges, heads), generator=gen, device=g.device) * 2
+    w = w[:, 0] if heads == 1 else w
+
+    def call():
+        return spmm_cuda.csr_wsum_bf16(indptr, indices, widx, x, w, n, plan)
+
+    def plain(x=x):
+        return spmm_cuda.plain_csr_wsum_bf16(indptr, indices, widx, x, w, n)
+    mirror = hub_walks.template_walk(
+        ip, ix, x.cpu().numpy(), n,
+        spmm_cuda.geometry(f, 4, f // heads, align=x.data_ptr()), HT,
+        "weighted", w=w.cpu().numpy(),
+        widx=None if widx is None else widx.cpu().numpy(), heads=heads)
+    return call, plain, mirror, plain(x.abs())
+
+
+@pytest.mark.parametrize("walk", ["forward", "transposed"])
+@pytest.mark.parametrize("policy,f,heads", [
+    ("bf16", 40, 1), ("bf16", 128, 1), ("bf16", 7, 1), ("bf16", 300, 1),
+    ("int8", 40, 1), ("int8", 128, 1), ("int8", 300, 1),
+    ("weighted", 40, 1), ("weighted", 128, 8), ("weighted", 15, 3)])
+def test_template_split_kernels_equal_their_walk(cuda, policy, f, heads,
+                                                 walk):
+    """The template body with rows of more than T edges split (both
+    launches counted): bit for bit equal to hub_walks.template_walk (the
+    same f32 adds in the same order), to a second launch, and to the plain
+    version within 1e-5 of each sum's magnitude (int8: exactly)."""
+    g = _split_graph(f + heads, cuda)
+    call, plain, mirror, mag = _template_case(g, policy, f, heads, walk)
+    name = f"spmm_csr_{policy}"
+    spmm_cuda.reset_counts()
+    got = call()
+    again = call()
+    assert spmm_cuda.counts[name] == 4               # two calls, two passes
+    assert torch.equal(got, again)
+    assert torch.equal(got.cpu(), torch.from_numpy(mirror))
+    want = plain()
+    if mag is None:
+        assert torch.equal(got, want)
+    else:
+        assert bool(((got - want).abs() <= 1e-5 * mag).all())
+    assert got[len(hub_walks.HUB_SPLIT) - 1].abs().max() > 0
+
+
+@pytest.mark.parametrize("drop", [0.0, 0.3])
+@pytest.mark.parametrize("h,d", GAT_SHAPES)
+def test_gat_fwd_split_matches_walk_and_plain(cuda, h, d, drop):
+    """gat_fwd with rows of more than T edges split (three launches): two
+    launches bit-equal; the max bit for bit equal to the plain version's
+    and to hub_walks.gat_fwd_walk's; out and den within the GAT
+    tolerances of the plain version (den of the split rows, sums of up to
+    10,240 terms in another order, within 1e-4 of itself) and within 1e-5
+    of the walk (which differs in its exponentials and fused
+    multiply-adds only). Seed mode: the kernels' own keep bits."""
+    g = _split_graph(h * 10 + d, cuda)
+    feat, al, ar, _ = _gat_inputs(g, h, d, 0.0, 3)
+    keep = (torch.tensor([0x5EED0000 + h * d], dtype=torch.int64,
+                         device=cuda) if drop else None)
+    feat_b, el, er_b, _ = gat_cuda.prep(feat, al, ar)
+    args = (g.indptr, g.senders, feat_b, el, er_b, keep,
+            1.0 / (1.0 - drop), 0.2)
+    plan = spmm_cuda.plan_of(g, "indptr", g.n_nodes)
+    gat_cuda.reset_counts()
+    got = gat_cuda.gat_fwd(*args, plan=plan)
+    again = gat_cuda.gat_fwd(*args, plan=plan)
+    assert gat_cuda.counts["gat_fwd"] == 6
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    short = (g.indptr[1:g.n_nodes + 1] - g.indptr[:g.n_nodes]) <= HT
+    walk = hub_walks.gat_fwd_walk(*(t.cpu() if torch.is_tensor(t) else t
+                                    for t in args), HT)
+    want = gat_cuda.plain_gat_fwd(*args)
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[1].cpu(), walk[1])
+    _close(got[0], want[0])
+    _close(got[2][short], want[2][short], rtol=1e-5, scale=1e-6)
+    torch.testing.assert_close(got[2][~short], want[2][~short], rtol=1e-4,
+                               atol=0)
+    _close(got[0].cpu(), walk[0], rtol=1e-5, scale=1e-5)
+    torch.testing.assert_close(got[2].cpu(), walk[2], rtol=1e-5, atol=0)
+    assert bool((got[2][~short] >= 1).all())
+
+
+def test_hub_plans_kept_and_built_once(cuda):
+    """Every walk of the Graph (copy_u_sum both tiers and its backward,
+    u_mul_e_sum and its dX, the GAT layer and its source reduce,
+    feature_prop) takes the two plans kept on it: two builds however many
+    calls, and weighted_csr carries them. A halo shard keeps its own, one
+    per CSR; a moved Graph or shard starts anew."""
+    from glnn_tpu_torch.distributed.halo import build_halo_graph, csr_part
+
+    g = _split_graph(5, cuda)
+    n = g.n_nodes
+    x = torch.randn((n, 40), device=cuda, requires_grad=True)
+    w = torch.rand(g.n_edges, device=cuda, requires_grad=True)
+    feat, al, ar, _ = _gat_inputs(g, 8, 16, 0.0, 4)
+    spmm_cuda.builds["hub_plan"] = 0
+    for _ in range(2):
+        for op in (spmm_cuda.copy_u_sum, spmm_cuda.copy_u_sum_int8):
+            op(g, x).sum().backward()
+        spmm_cuda.u_mul_e_sum(g, x, w).sum().backward()
+        ops.gat_attention(g, feat.requires_grad_(True), al, ar).sum()\
+            .backward()
+        graph_utils.feature_prop(x.detach(), g, 2)
+    assert spmm_cuda.builds["hub_plan"] == 2
+    csr = spmm_cuda.weighted_csr(g)
+    assert csr.plan is spmm_cuda.plan_of(g, "indptr", n)
+    assert csr.t_plan is spmm_cuda.plan_of(g, "t_indptr", n)
+    assert csr.plan.n_chunks > 0 and csr.t_plan.n_chunks > 0
+    assert g.to(cuda).cache == {}
+
+    src, dst = (t.cpu().numpy() for t in (g.senders, g.receivers))
+    hg = build_halo_graph(src, dst, n, 1, combined=True)[0].to(cuda)
+    spmm_cuda.builds["hub_plan"] = 0
+    for _ in range(2):
+        c = hg.combined_csr()
+        for name, rows in (("indptr", hg.rows), ("t_indptr", hg.rows)):
+            csr_part(True, hg, name, x.detach(), rows)
+    assert spmm_cuda.builds["hub_plan"] == 4
+    assert c.plan is hg.combined_csr().plan and c.plan.n_chunks > 0
+    assert hg.to(cuda).cache == {}
+
+
+def test_gat_layer_on_hub_rows_matches_plain_chain(cuda):
+    """ops.gat_attention on a graph with split rows: gat_fwd's three
+    launches and the source reduce's two, no plain call; the forward and
+    the gradients against the plain versions' chain."""
+    g = _split_graph(13, cuda)
+    feat, al, ar, _ = _gat_inputs(g, 4, 8, 0.0, 6)
+    leaves = [t.clone().requires_grad_(True) for t in (feat, al, ar)]
+    dout = torch.randn_like(feat)
+    spmm_cuda.reset_counts()
+    gat_cuda.reset_counts()
+    cuda_build.reset_counts()
+    out = ops.gat_attention(g, *leaves)
+    out.backward(dout)
+    assert (gat_cuda.counts["gat_fwd"], gat_cuda.counts["gat_bwd"]) == (3, 1)
+    assert spmm_cuda.counts["spmm_csr_bf16"] == 2
+    assert cuda_build.counts == {"plain_on_cuda": 0}
+    feat_b, el, er_b, al_b = gat_cuda.prep(feat, al, ar)
+    args = (g.indptr, g.senders, feat_b, el, er_b, None, 1.0, 0.2)
+    want_out, smax, denom = gat_cuda.plain_gat_fwd(*args)
+    der, msg, dal = gat_cuda.plain_gat_bwd(*args, smax, denom, dout, al_b)
+    dfeat = torch.zeros_like(feat).index_add_(0, g.senders, msg.float())
+    dfeat += der[:, :, None] * ar[None]
+    _close(out, want_out)
+    _close(leaves[0].grad, dfeat, rtol=1e-2, scale=1e-2)
+    _close(leaves[1].grad, dal, rtol=1e-3, scale=1e-3)
+    _close(leaves[2].grad, torch.einsum("nh,nhd->hd", der, feat),
+           rtol=1e-3, scale=1e-3)
 
 
 def test_feature_prop_on_cuda_matches_cpu(cuda):

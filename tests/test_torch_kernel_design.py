@@ -55,6 +55,8 @@ from glnn_tpu.ops import refops as jax_refops
 from glnn_tpu_torch.graph.container import build_graph
 from glnn_tpu_torch.ops import gat_cuda, refops, spmm_cuda
 
+import hub_walks
+
 N = 300
 HUB = 150          # in-degree of row 1: several 32-edge chunks, past K
 BF16, F32, INT8 = 2, 4, 1
@@ -285,7 +287,7 @@ def test_f32_plan_cuts_each_split_row():
     tiles each with chunks of T edges but the last."""
     src, dst, n = _split_graph(0)
     g = build_graph(src, dst, n)
-    plan = spmm_cuda.f32_plan(g.indptr, n)
+    plan = spmm_cuda.hub_plan(g.indptr, n, T)
     assert plan.rows.tolist() == [i for i, d in enumerate(SPLIT_DEGREES)
                                   if d > T]
     assert plan.chunk == T and plan.n_chunks == plan.chunks.shape[0]
@@ -334,6 +336,259 @@ def test_f32_walk_matches_plain_and_jax(f):
     for want in (plain, jax_sum):
         assert np.all(np.abs(got - want) <= 1e-5 * magnitude)
     assert np.abs(got[len(SPLIT_DEGREES) - 1]).max() > 0   # the 20,000 row
+
+
+# ---- hub rows split across warps: the template body and gat_fwd ----------
+
+HT = spmm_cuda.HUB_CHUNK
+HUB_SPLIT = hub_walks.HUB_SPLIT
+
+
+def _walks(g):
+    """(indptr, indices, widx) of the forward and the transposed walk."""
+    return ((g.indptr, g.senders, None),
+            (g.t_indptr, g.t_receivers, g.t_edges))
+
+
+@pytest.mark.parametrize("chunk", [32, 256, HT, 1024])
+def test_hub_plan_cuts_each_split_row(chunk):
+    """On both walks the plan lists exactly the rows of more than T edges,
+    in order, tiles each with chunks of T edges but the last, and names
+    each chunk's row (owner): every edge of a split row in one chunk. The
+    graph's plan is built once and kept (plan_of), and counted once."""
+    src, dst, n = hub_walks.hub_split_arrays(chunk)
+    g = build_graph(src, dst, n)
+    for name, (indptr, _, _) in zip(("indptr", "t_indptr"), _walks(g)):
+        ip = indptr[:n + 1].tolist()
+        plan = spmm_cuda.hub_plan(indptr, n, chunk)
+        deg = np.diff(ip)
+        assert plan.rows.tolist() == np.nonzero(deg > chunk)[0].tolist()
+        assert (plan.chunk, plan.n_rows) == (chunk, n)
+        assert plan.n_chunks == plan.chunks.shape[0] == plan.owner.numel()
+        covered = np.zeros(ip[-1], np.int64)
+        for s, row in enumerate(plan.rows.tolist()):
+            lo, hi = plan.first[s].item(), plan.first[s + 1].item()
+            ranges = plan.chunks[lo:hi].tolist()
+            assert plan.owner[lo:hi].tolist() == [s] * (hi - lo)
+            assert ranges[0][0] == ip[row] and ranges[-1][1] == ip[row + 1]
+            assert all(b - a == chunk for a, b in ranges[:-1])
+            assert 0 < ranges[-1][1] - ranges[-1][0] <= chunk
+            for a, b in ranges:
+                covered[a:b] += 1
+        split = np.repeat(deg > chunk, deg)
+        assert (covered[split] == 1).all() and (covered[~split] == 0).all()
+        before = spmm_cuda.builds["hub_plan"]
+        kept = spmm_cuda.plan_of(g, name, n, chunk)
+        assert spmm_cuda.plan_of(g, name, n, chunk) is kept
+        assert spmm_cuda.builds["hub_plan"] == before + 1
+        assert torch.equal(kept.chunks, plan.chunks)
+    assert g.to("cpu").cache == {}                     # a moved graph's own
+
+
+def _template_case(policy, f, seed, integer):
+    """The inputs of one template policy on the hub-split graph: x (and
+    the int8 scale, the weights), integer-valued where `integer`."""
+    src, dst, n = hub_walks.hub_split_arrays(seed)
+    g = build_graph(src, dst, n)
+    rs = np.random.RandomState(seed + 1)
+    if integer:
+        x = rs.randint(-100, 100, (n, f)).astype(np.float32)
+        w = rs.randint(0, 3, g.n_edges).astype(np.float32)
+    else:
+        x = rs.randn(n, f).astype(np.float32)
+        w = (rs.rand(g.n_edges) * 2).astype(np.float32)
+    return g, x, w
+
+
+def _template_pair(policy, g, x, w, indptr, indices, widx):
+    """(mirror, plain version) of one walk of `policy`, f32 numpy."""
+    n, f = g.n_nodes, x.shape[1]
+    xt = torch.from_numpy(x)
+    if policy == "bf16":
+        xb = spmm_cuda.to_message(xt)
+        mirror = hub_walks.template_walk(
+            indptr[:n + 1].numpy(), indices.numpy(), xb.float().numpy(), n,
+            spmm_cuda.geometry(f, BF16), HT)
+        plain = spmm_cuda.plain_csr_sum_bf16(indptr, indices, xb, n)
+    elif policy == "int8":
+        q, s = spmm_cuda.quantize_cols(xt)
+        mirror = hub_walks.template_walk(
+            indptr[:n + 1].numpy(), indices.numpy(), q.numpy(), n,
+            spmm_cuda.geometry(f, INT8), HT, "int8", scale=s.numpy())
+        plain = spmm_cuda.plain_csr_sum_int8(indptr, indices, q, s, n)
+    else:
+        wt = torch.from_numpy(w)
+        mirror = hub_walks.template_walk(
+            indptr[:n + 1].numpy(), indices.numpy(), x, n,
+            spmm_cuda.geometry(f, F32, f), HT, "weighted", w=w,
+            widx=None if widx is None else widx.numpy())
+        plain = spmm_cuda.plain_csr_wsum_bf16(indptr, indices, widx, xt, wt,
+                                              n)
+    return mirror, plain.numpy()
+
+
+@pytest.mark.parametrize("f", [40, 128, 7, 300])
+@pytest.mark.parametrize("policy", ["bf16", "int8", "weighted"])
+def test_template_walk_covers_each_edge_once(policy, f):
+    """Integer rows make every sum exact whatever the order: on rows of 0,
+    1, T - 1, T, T + 1 and 20 T edges, forward and transposed, the split
+    walk (chunks, then their partials in chunk order) equals the plain
+    version bit for bit."""
+    g, x, w = _template_case(policy, f, f, integer=True)
+    for indptr, indices, widx in _walks(g):
+        mirror, plain = _template_pair(policy, g, x, w, indptr, indices,
+                                       widx)
+        np.testing.assert_array_equal(mirror, plain)
+        assert np.abs(mirror[len(HUB_SPLIT) - 1]).max() > 0   # 20 T edges
+
+
+@pytest.mark.parametrize("f", [40, 128, 7])
+@pytest.mark.parametrize("policy", ["bf16", "int8", "weighted"])
+def test_template_walk_matches_plain(policy, f):
+    """On random rows the f32 sums of the split walk differ from the plain
+    version's in order only: each element within 1e-5 of its row's
+    magnitude (the same sum over |x| and |w|), as the f32 sum's walk is
+    held (a fixed rtol does not fit sums of 10,240 terms that cancel);
+    the int8 sums are exact, so equal. Where the orders agree (rows of
+    one edge, F wide enough that groups == 1), bit for bit."""
+    g, x, w = _template_case(policy, f, f + 5, integer=False)
+    for indptr, indices, widx in _walks(g):
+        mirror, plain = _template_pair(policy, g, x, w, indptr, indices,
+                                       widx)
+        if policy == "int8":
+            np.testing.assert_array_equal(mirror, plain)
+        else:
+            _, magnitude = _template_pair(policy, g, np.abs(x), np.abs(w),
+                                          indptr, indices, widx)
+            assert np.all(np.abs(mirror - plain) <= 1e-5 * magnitude)
+        deg = np.diff(indptr[:g.n_nodes + 1].numpy())
+        if spmm_cuda.geometry(f, 2)[2] == 1:
+            one = np.nonzero(deg == 1)[0]
+            np.testing.assert_array_equal(mirror[one], plain[one])
+
+
+def _jax_plans_tiled(gj):
+    """Every forward and backward SpMM plan of gj is a tiled one (the
+    skewed graph sends build_block_plan back to spmm_pallas._kernel)."""
+    plans = []
+    for p in gj.plans:
+        plans.extend(p if isinstance(p, (tuple, list)) else [p])
+    return all(p.tiles_per_block is None for p in plans)
+
+
+@pytest.mark.parametrize("f", [40, 128])
+def test_template_walk_matches_jax(f):
+    """The split walk of the exact tier and of the int8 tier against JAX
+    on the same numpy inputs: spmm_pallas.copy_u_sum / copy_u_sum_int8 in
+    interpret mode, whose plans on this graph are the tiled kernel's
+    (spmm_pallas._kernel, the TPU's answer to hub rows), and refops'
+    f32 sum; the weighted walk against spmm_pallas.u_mul_e_sum."""
+    from glnn_tpu.ops import spmm_pallas
+
+    src, dst, n = hub_walks.hub_split_arrays(f + 11)
+    g = build_graph(src, dst, n)
+    gj = jax_build_graph(src, dst, n).with_plans()
+    assert _jax_plans_tiled(gj)
+    rs = np.random.RandomState(f)
+    x = rs.randn(n, f).astype(np.float32)
+    w = (rs.rand(g.n_edges) * 2).astype(np.float32)
+    xj = jnp.asarray(x)
+    bf16, _ = _template_pair("bf16", g, x, w, g.indptr, g.senders, None)
+    int8, _ = _template_pair("int8", g, x, w, g.indptr, g.senders, None)
+    wsum, _ = _template_pair("weighted", g, x, w, g.indptr, g.senders, None)
+    np.testing.assert_allclose(
+        bf16, np.asarray(spmm_pallas.copy_u_sum(gj, xj)), rtol=1e-5,
+        atol=1e-4)
+    np.testing.assert_array_equal(
+        int8, np.asarray(spmm_pallas.copy_u_sum_int8(gj, xj)))
+    np.testing.assert_allclose(
+        wsum, np.asarray(spmm_pallas.u_mul_e_sum(gj, xj, jnp.asarray(w))),
+        rtol=1e-5, atol=1e-4)
+    # the f32 oracle at the Pallas tests' bf16 tolerance
+    np.testing.assert_allclose(
+        bf16, np.asarray(jax_refops.copy_u_sum(gj, xj)), rtol=2e-2,
+        atol=5e-2 * np.sqrt(np.diff(g.indptr[:n + 1].numpy())).max())
+
+
+def _gat_split_case(h, d, drop, seed):
+    """gat_fwd's inputs on the hub-split graph with large logits (about
+    randn x 10), in seed mode or without dropout."""
+    src, dst, n = hub_walks.hub_split_arrays(seed)
+    g = build_graph(src, dst, n)
+    rs = np.random.RandomState(seed)
+    feat = torch.from_numpy(rs.randn(n, h, d).astype(np.float32))
+    al, ar = (torch.from_numpy((rs.randn(h, d) * 10 / np.sqrt(d))
+                               .astype(np.float32)) for _ in range(2))
+    feat_b, el, er_b, _ = gat_cuda.prep(feat, al, ar)
+    keep = (torch.tensor([987654321], dtype=torch.int64) if drop == "seed"
+            else None)
+    return g, (g.indptr, g.senders, feat_b, el, er_b, keep, 1 / 0.7, 0.2)
+
+
+@pytest.mark.parametrize("drop", ["none", "seed"])
+@pytest.mark.parametrize("h,d", [(8, 16), (1, 40), (3, 5)])
+def test_gat_fwd_split_walk_matches_plain(h, d, drop):
+    """gat_fwd with rows of 0 to 20 T edges split: each chunk's terms with
+    its row's final max, den and p w f summed per chunk, then in chunk
+    order. Against plain_gat_fwd at the card's tolerance (out rtol 1e-4 /
+    atol 1e-4 x max, den 1e-5), the max bit for bit; and against the
+    unsplit walk (the same rows walked by one warp each): only the order
+    of the sums differs."""
+    g, args = _gat_split_case(h, d, drop, h * d)
+    got = hub_walks.gat_fwd_walk(*args, HT)
+    want = gat_cuda.plain_gat_fwd(*args)
+    whole = hub_walks.gat_fwd_walk(*args, 10 ** 9)
+    short = torch.from_numpy(np.diff(g.indptr[:g.n_nodes + 1].numpy())
+                             <= HT)
+    for other in (want, whole):
+        _close(got[0], other[0])
+        assert torch.equal(got[1], other[1])
+        _close(got[2][short], other[2][short], rtol=1e-5, scale=1e-6)
+        # den of the split rows: sums of up to 10,240 positive terms in
+        # another order, within 1e-4 of themselves
+        torch.testing.assert_close(got[2][~short], other[2][~short],
+                                   rtol=1e-4, atol=0)
+    assert torch.equal(got[0][short], whole[0][short])
+    assert torch.equal(got[2][short], whole[2][short])
+    assert got[0][0].abs().max() == 0 and got[2][0].abs().max() == 0
+    assert got[2][len(HUB_SPLIT) - 1].min() >= 1      # den >= 1 when split
+
+
+@pytest.mark.parametrize("logit", [0.3, 3.0])
+def test_gat_fwd_split_walk_through_layer_matches_pallas(monkeypatch, logit):
+    """The autograd layer with gat_fwd replaced by the split walk, against
+    glnn_tpu's gat_attention on the same numpy inputs (its fused kernel
+    in interpret mode where the graph has an attention plan, else its XLA
+    tier) at 1e-2 x max, as tests/test_torch_gat.py holds plain_gat_fwd;
+    and the layer's gradients (gat_bwd's plain version on the split
+    forward's max and den) likewise. Rows of up to 2 T + 3 edges, so that
+    every dst block's in-edges fit JAX's attention plan (X_MAX = 4,096)
+    and its fused kernel runs."""
+    src, dst, n = hub_walks.hub_split_arrays(7, (0, 1, HT - 1, HT, HT + 1, 2 * HT + 3),
+                                    n=2048, n_random=2000)
+    gt = build_graph(src, dst, n)
+    gj = jax_build_graph(src, dst, n).with_plans()
+    assert gj.smx is not None
+    rs = np.random.RandomState(12)
+    feat = rs.randn(n, 2, 8).astype(np.float32)
+    al, ar = ((rs.randn(2, 8) * logit).astype(np.float32) for _ in range(2))
+
+    monkeypatch.setattr(gat_cuda, "gat_fwd", lambda *a, **k: (
+        hub_walks.gat_fwd_walk(*a[:8], HT)))
+    leaves = [torch.from_numpy(a).requires_grad_(True)
+              for a in (feat, al, ar)]
+    out = gat_cuda.gat_attention(gt, *leaves)
+    torch.sin(out).sum().backward()
+    fn = lambda f, a, b: gat_pallas.gat_attention(gj, f, a, b)  # noqa: E731
+    want = np.asarray(fn(*(jnp.asarray(a) for a in (feat, al, ar))))
+    assert np.abs(out.detach().numpy() - want).max() / np.abs(want).max() \
+        < 1e-2
+    grads = jax.grad(lambda *a: jnp.sum(jnp.sin(fn(*a))), argnums=(0, 1, 2))(
+        *(jnp.asarray(a) for a in (feat, al, ar)))
+    for leaf, w in zip(leaves, grads):
+        w = np.asarray(w)
+        assert np.abs(leaf.grad.numpy() - w).max() / (np.abs(w).max()
+                                                      + 1e-6) < 1e-2
 
 
 # ---- the GAT attention backward ----------------------------------------

@@ -17,8 +17,9 @@ from glnn_tpu_torch.utils.trace_report import ITER_SPAN, port_name, report
 
 # the kernels' demangled names as the H100's trace gives them
 _SPMM = ("void (anonymous namespace)::spmm_csr_kernel<(anonymous namespace)::"
-         "{p}, {v}>(int const*, int const*, (anonymous namespace)::{p}::TIn "
-         "const*, (anonymous namespace)::{p}, float*, int, int, int, int)")
+         "{p}, {v}, false>(int const*, int const*, (anonymous namespace)::"
+         "{p}::TIn const*, (anonymous namespace)::{p}, float*, int2 const*, "
+         "(anonymous namespace)::{p}::TAcc*, int, int, int, int, int, int)")
 DEMANGLED = {
     "spmm_csr_bf16": _SPMM.format(p="Sum<__nv_bfloat16, float>", v=8),
     "spmm_csr_int8": _SPMM.format(p="Sum<signed char, int>", v=8),
@@ -29,10 +30,11 @@ DEMANGLED = {
     "gat_prep": "void (anonymous namespace)::gat_prep_kernel<4, 1>(float "
                 "const*, float const*, float const*, __nv_bfloat16*, float*, "
                 "__nv_bfloat16*, long, int, int, int)",
-    "gat_fwd": "void (anonymous namespace)::gat_fwd_kernel<8, 1, 8>(int "
-               "const*, int const*, __nv_bfloat16 const*, float const*, "
+    "gat_fwd": "void (anonymous namespace)::gat_fwd_kernel<8, 1, 8, false>("
+               "int const*, int const*, __nv_bfloat16 const*, float const*, "
                "__nv_bfloat16 const*, (anonymous namespace)::DropArgs, float, "
-               "float*, float*, float*, int, int, int, int, int, int)",
+               "float*, float*, float*, (anonymous namespace)::HubArgs, int, "
+               "int, int, int, int, int)",
     "gat_bwd": "void (anonymous namespace)::gat_bwd_kernel<8, 1>(int const*, "
                "int const*, __nv_bfloat16 const*, float const*, __nv_bfloat16 "
                "const*, (anonymous namespace)::DropArgs, float, float const*)",
@@ -60,6 +62,33 @@ F32_COMBINE = ("(anonymous namespace)::spmm_f32_combine_kernel(int const*, "
 
 def test_port_name_of_the_f32_second_pass():
     assert port_name(F32_COMBINE) == "spmm_csr_f32"
+
+
+# the passes of split hub rows, each counted as a launch of its kernel
+HUB_PASSES = {
+    "spmm_csr_bf16": "void (anonymous namespace)::spmm_csr_combine_kernel<"
+                     "(anonymous namespace)::Sum<__nv_bfloat16, float> >(int "
+                     "const*, int const*, float const*, (anonymous namespace)"
+                     "::Sum<__nv_bfloat16, float>, float*, int, int)",
+    "spmm_csr_int8": "void (anonymous namespace)::spmm_csr_combine_kernel<"
+                     "(anonymous namespace)::Sum<signed char, int> >(int "
+                     "const*, int const*, int const*, (anonymous namespace)"
+                     "::Sum<signed char, int>, float*, int, int)",
+    "spmm_csr_weighted": "void (anonymous namespace)::spmm_csr_combine_kernel"
+                         "<(anonymous namespace)::Weighted>(int const*, int "
+                         "const*, float const*, (anonymous namespace)::"
+                         "Weighted, float*, int, int)",
+    "gat_fwd": "(anonymous namespace)::gat_fwd_max_kernel((anonymous "
+               "namespace)::HubArgs, int const*, float const*, __nv_bfloat16 "
+               "const*, float, int)",
+    "gat_fwd ": "(anonymous namespace)::gat_fwd_combine_kernel((anonymous "
+                "namespace)::HubArgs, float*, float*, float*, int, int, int)",
+}
+
+
+@pytest.mark.parametrize("port", sorted(HUB_PASSES))
+def test_port_name_of_the_hub_passes(port):
+    assert port_name(HUB_PASSES[port]) == port.strip()
 
 
 @pytest.mark.parametrize("name", [TORCH_KERNEL, "Memcpy HtoD (Pageable -> "

@@ -16,7 +16,10 @@ ring depth S (kStages), chunk length T (kChunkEdges) or set of L2 hints H
 (kCacheHints), and "template":
 spmm_csr.cu with an entry point that instantiates its body for f32 rows
 (Sum<float, float>, the f32 sum's earlier form) at `spmm_cuda.geometry`'s
-layout, timed beside the others in the same run. Every variant is built
+layout, timed beside the others in the same run; or, with the sources as
+they are, the chunk length T of the hub plan (a launch argument, so no
+rebuild) that splits hub rows across warps in the template body
+(`spmm_hub`) and in gat_fwd (`gat_fwd_hub`). Every variant is built
 with the port's nvcc flags
 into a temporary directory, loaded in place of the port's library,
 checked against the plain version (the cut gat_fwd variants are only
@@ -36,8 +39,15 @@ graph at the main paths' widths:
   hub graph (rows of up to 20,000 edges), each S, T and H variant under
   F32_COPIES = 1, 2, 4, 8 copies per lane per stage (the edges a stage
   holds), checked against the plain version (1e-5 of each row's
-  magnitude) and for two launches bit-equal, eager and device time.
-The lane layouts and grids are launch arguments, so they need no
+  magnitude) and for two launches bit-equal, eager and device time;
+- `spmm_hub`: the exact, int8 and weighted sums at F = 40 and 128, and
+  `gat_fwd_hub`: gat_fwd at both GAT shapes in seed mode, on the synth
+  and the hub graph, with hub plans cut at T = 256, 512 and 1,024 edges,
+  at T = 64 edges per edge group (64 steps of a chunk's warp whatever
+  the layout; gat_fwd: 64 per edge slot) and unsplit (one warp per row,
+  what the split replaces), each held to the plain version (int8 exactly) and
+  for two launches bit-equal, eager and device time.
+The lane layouts, grids and plans are launch arguments, so they need no
 rebuild. Prints each variant's ptxas registers, stack frame and spill
 stores per instantiation of the swept kernel and its times, and writes
 them all to PATH as JSON (by default build/sweep_cuda_kernels.json).
@@ -77,12 +87,18 @@ VARIANTS = {"spmm": [None, 6, 0], "gat_fwd": [None, 0, 6], "gat_bwd": [None],
             "softmax": [None, 1, 2, 4],
             "gat_fwd_parts": [None, "scores only", "features only"],
             "f32": [None, "S=1", "S=3", "S=4", "T=128", "T=256", "T=1024",
-                    "H=0", "template"]}
+                    "H=0", "template"],
+            "spmm_hub": [None], "gat_fwd_hub": [None]}
 KERNEL = {"spmm": "spmm_csr_kernel", "gat_fwd": "gat_fwd_kernel",
           "gat_bwd": "gat_bwd_kernel", "softmax": "edge_softmax_fwd_kernel",
-          "gat_fwd_parts": "gat_fwd_kernel", "f32": "spmm_f32_kernel"}
+          "gat_fwd_parts": "gat_fwd_kernel", "f32": "spmm_f32_kernel",
+          "spmm_hub": "spmm_csr_kernel", "gat_fwd_hub": "gat_fwd_kernel"}
 LIBRARY = {"spmm": "spmm", "gat_fwd": "gat", "gat_bwd": "gat",
-           "softmax": "gat", "gat_fwd_parts": "gat", "f32": "spmm_f32"}
+           "softmax": "gat", "gat_fwd_parts": "gat", "f32": "spmm_f32",
+           "spmm_hub": "spmm", "gat_fwd_hub": "gat"}
+# the hub sweeps' chunk lengths: edges, "64G" (64 per edge group or slot)
+# and None, unsplit (a T no row exceeds)
+HUB_CHUNKS = (256, 512, 1024, "64G", None)
 F32_WIDTHS = (100, 128)
 F32_COPIES = (1, 2, 4, 8)
 # the template body's entry point for f32 rows, appended to spmm_csr.cu
@@ -93,7 +109,8 @@ extern "C" int spmm_csr_template_f32(const void* indptr, const void* indices,
   return launch(static_cast<const int32_t*>(indptr),
                 static_cast<const int32_t*>(indices),
                 static_cast<const float*>(x), Sum<float, float>{nullptr},
-                static_cast<float*>(out), n_rows, f, vec, lanes, groups,
+                static_cast<float*>(out), nullptr, nullptr, n_rows, 0,
+                1 << 30, f, vec, lanes, groups,
                 static_cast<cudaStream_t>(stream));
 }
 """
@@ -235,35 +252,40 @@ def _time_geometries(name, call, f, itemsize, head_width=None) -> dict:
 def _time_spmm(g) -> dict:
     gen = torch.Generator(device=g.device).manual_seed(1)
     n, out = g.n_nodes, {}
+    csr = spmm_cuda.weighted_csr(g)      # the graph's kept hub plans
+    plan = csr.plan
     for f in WIDTHS:
         x = torch.randn((n, f), generator=gen, device=g.device)
         xb = spmm_cuda.to_message(x)
         q, s = spmm_cuda.quantize_cols(x)
         torch.testing.assert_close(
-            spmm_cuda.csr_sum_bf16(g.indptr, g.senders, xb, n),
+            spmm_cuda.csr_sum_bf16(g.indptr, g.senders, xb, n, plan),
             spmm_cuda.plain_csr_sum_bf16(g.indptr, g.senders, xb, n),
             rtol=1e-5, atol=1e-4)
         out[f"bf16 F={f}"] = _time_geometries(
             f"bf16 F={f}",
-            lambda: spmm_cuda.csr_sum_bf16(g.indptr, g.senders, xb, n), f, 2)
+            lambda: spmm_cuda.csr_sum_bf16(g.indptr, g.senders, xb, n, plan),
+            f, 2)
         out[f"int8 F={f}"] = _time_geometries(
             f"int8 F={f}",
-            lambda: spmm_cuda.csr_sum_int8(g.indptr, g.senders, q, s, n), f, 1)
+            lambda: spmm_cuda.csr_sum_int8(g.indptr, g.senders, q, s, n,
+                                           plan), f, 1)
     x = torch.randn((n, 40), generator=gen, device=g.device)
     w = (torch.rand(g.n_edges, generator=gen, device=g.device)
          >= 0.5).float() * 2
-    for walk, args in (("forward", (g.indptr, g.senders, None)),
+    for walk, args in (("forward", (g.indptr, g.senders, None, csr.plan)),
                        ("transposed", (g.t_indptr, g.t_receivers,
-                                       g.t_edges))):
+                                       g.t_edges, csr.t_plan))):
         out[f"weighted F=40 {walk}"] = _time_geometries(
             f"weighted F=40 {walk}",
-            lambda: spmm_cuda.csr_wsum_bf16(*args, x, w, n), 40, 4, 40)
+            lambda: spmm_cuda.csr_wsum_bf16(*args[:3], x, w, n, args[3]), 40,
+            4, 40)
     xh = torch.randn((n, 128), generator=gen, device=g.device)
     wh = torch.rand((g.n_edges, 8), generator=gen, device=g.device)
     out["weighted (8, 16)"] = _time_geometries(
         "weighted (8, 16)",
-        lambda: spmm_cuda.csr_wsum_bf16(g.indptr, g.senders, None, xh, wh, n),
-        128, 4, 16)
+        lambda: spmm_cuda.csr_wsum_bf16(g.indptr, g.senders, None, xh, wh, n,
+                                        plan), 128, 4, 16)
     return out
 
 
@@ -290,6 +312,7 @@ def _time_gat_fwd(g) -> dict:
     """gat_fwd (seed mode) under every lane layout and grid; the port's own
     choice is marked with a '*'."""
     out = {}
+    plan = spmm_cuda.plan_of(g, "indptr", g.n_nodes)
     for h, d in chip_smoke.GAT_SHAPES:
         args, _, _ = chip_smoke.gat_inputs(gat_cuda, g, h, d,
                                            chip_smoke.ATTN_DROP, 7)
@@ -303,11 +326,11 @@ def _time_gat_fwd(g) -> dict:
                 for grid in ("fill", "rows"):
                     gat_cuda._blocks = (_port_blocks if grid == "fill"
                                         else lambda *a: 1 << 30)
-                    got = gat_cuda.gat_fwd(*args)
+                    got = gat_cuda.gat_fwd(*args, plan=plan)
                     chip_smoke._held("out", got[0], want[0], 1e-4, 1e-4)
                     mark = "*" if geo == chosen and grid == "fill" else ""
                     times[f"{tuple(geo)} {grid}{mark}"] = chip_smoke.time_ms(
-                        lambda: gat_cuda.gat_fwd(*args))
+                        lambda: gat_cuda.gat_fwd(*args, plan=plan))
         finally:
             gat_cuda.fwd_geometry = _port_fwd_geometry
             gat_cuda._blocks = _port_blocks
@@ -324,7 +347,8 @@ def _time_gat_bwd(g) -> dict:
     for h, d in chip_smoke.GAT_SHAPES:
         args, dout, al_b = chip_smoke.gat_inputs(gat_cuda, g, h, d,
                                                  chip_smoke.ATTN_DROP, 7)
-        _, smax, denom = gat_cuda.gat_fwd(*args)
+        _, smax, denom = gat_cuda.gat_fwd(
+            *args, plan=spmm_cuda.plan_of(g, "indptr", g.n_nodes))
         got = gat_cuda.gat_bwd(*args, smax, denom, dout, al_b)
         want = gat_cuda.plain_gat_bwd(*args, smax, denom, dout, al_b)
         chip_smoke._held("der", got[0], want[0], 1e-4, 1e-4)
@@ -346,11 +370,12 @@ def _time_gat_fwd_parts(g, left) -> dict:
     """A cut gat_fwd (seed mode, the port's layout and grid) at both GAT
     shapes; its output is not gat_fwd's, so it is only timed."""
     out, left = {}, left or "whole"
+    plan = spmm_cuda.plan_of(g, "indptr", g.n_nodes)
     for h, d in chip_smoke.GAT_SHAPES:
         args, _, _ = chip_smoke.gat_inputs(gat_cuda, g, h, d,
                                            chip_smoke.ATTN_DROP, 7)
         out[f"gat_fwd ({h}, {d}) {left}"] = chip_smoke.time_ms(
-            lambda: gat_cuda.gat_fwd(*args))
+            lambda: gat_cuda.gat_fwd(*args, plan=plan))
     print("  " + ", ".join(f"{k} {v:.4f}" for k, v in out.items()),
           flush=True)
     return out
@@ -431,7 +456,7 @@ def _time_f32(cases, variant, lib) -> dict:
             spmm_cuda.F32_CHUNK = int(variant[2:])
         copies = spmm_cuda.F32_COPIES
         try:
-            plans = {tag: spmm_cuda.f32_plan(g.indptr, g.n_nodes)
+            plans = {tag: spmm_cuda.hub_plan(g.indptr, g.n_nodes, spmm_cuda.F32_CHUNK)
                      for tag, _, g, *_ in cases}
             for spmm_cuda.F32_COPIES in F32_COPIES:
                 for tag, f, g, x, want, mag in cases:
@@ -448,6 +473,90 @@ def _time_f32(cases, variant, lib) -> dict:
             spmm_cuda.F32_CHUNK, spmm_cuda.F32_COPIES = chunk, copies
     print("  f32 " + ", ".join(f"{k} {e:.4f} [{d:.4f}]"
                                for k, (e, d) in out.items()), flush=True)
+    return out
+
+
+def _chunk(t, per_step: int) -> int:
+    """The T of HUB_CHUNKS entry t: edges, 64 per edge group (or slot)
+    for "64G", and a T no row exceeds for None (unsplit)."""
+    return 1 << 30 if t is None else 64 * per_step if t == "64G" else t
+
+
+def _hub_times(tag, what, call, held, per_step) -> dict:
+    """{T: (eager ms, device ms)} of `call(plan)` under each HUB_CHUNKS
+    plan of the CSR (indptr, n); `held(got)` holds one result to the plain
+    version, and two launches must be bit-equal."""
+    out = {}
+    for t in HUB_CHUNKS:
+        chunk = _chunk(t, per_step)
+        plan = spmm_cuda.hub_plan(*what, chunk)
+        got, again = call(plan), call(plan)
+        for a, b in zip(got if isinstance(got, tuple) else (got,),
+                        again if isinstance(again, tuple) else (again,)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{tag} T={t}: two launches differ")
+        held(got)
+        key = f"T={'unsplit' if t is None else t} ({plan.n_chunks} chunks)"
+        out[key] = chip_smoke.kernel_times(lambda p=plan: call(p))
+    print(f"  {tag}: " + ", ".join(f"{k} {e:.4f} [{d:.4f}]"
+                                   for k, (e, d) in out.items()), flush=True)
+    return out
+
+
+def _time_spmm_hub(graphs) -> dict:
+    """The template body's three policies at F = 40 and 128 on each graph
+    under each hub plan: {case: {T: (eager ms, device ms)}}."""
+    out = {}
+    for tag, g in graphs.items():
+        gen = torch.Generator(device=g.device).manual_seed(16)
+        n, ip, ix = g.n_nodes, g.indptr, g.senders
+        w = (torch.rand(g.n_edges, generator=gen, device=g.device)
+             >= 0.5).float() * 2
+        for f in (40, 128):
+            x = torch.randn((n, f), generator=gen, device=g.device)
+            xb = spmm_cuda.to_message(x)
+            q, s = spmm_cuda.quantize_cols(x)
+            cases = {
+                "bf16": (lambda p: spmm_cuda.csr_sum_bf16(ip, ix, xb, n, p),
+                         spmm_cuda.plain_csr_sum_bf16(ip, ix, xb, n),
+                         spmm_cuda.geometry(f, 2)),
+                "int8": (lambda p: spmm_cuda.csr_sum_int8(ip, ix, q, s, n,
+                                                          p),
+                         spmm_cuda.plain_csr_sum_int8(ip, ix, q, s, n),
+                         spmm_cuda.geometry(f, 1)),
+                "weighted": (lambda p: spmm_cuda.csr_wsum_bf16(
+                    ip, ix, None, x, w, n, p),
+                    spmm_cuda.plain_csr_wsum_bf16(ip, ix, None, x, w, n),
+                    spmm_cuda.geometry(f, 4, f))}
+            for policy, (call, want, geo) in cases.items():
+                def held(got, want=want, exact=policy == "int8"):
+                    if exact and not torch.equal(got, want):
+                        raise AssertionError("int8 differs from plain")
+                    chip_smoke._held(policy, got, want, 1e-5, 1e-4)
+                out[f"{tag} {policy} F={f} {geo}"] = _hub_times(
+                    f"{tag} {policy} F={f}", (ip, n), call, held, geo[2])
+    return out
+
+
+def _time_gat_fwd_hub(graphs) -> dict:
+    """gat_fwd (seed mode) at both GAT shapes on each graph under each hub
+    plan: {case: {T: (eager ms, device ms)}}."""
+    out = {}
+    for tag, g in graphs.items():
+        for h, d in chip_smoke.GAT_SHAPES:
+            args, _, _ = chip_smoke.gat_inputs(gat_cuda, g, h, d,
+                                               chip_smoke.ATTN_DROP, 7)
+            want = gat_cuda.plain_gat_fwd(*args)
+
+            def held(got, want=want):
+                if not torch.equal(got[1], want[1]):
+                    raise AssertionError("gat_fwd max differs from plain")
+                chip_smoke._held("out", got[0], want[0], 1e-4, 1e-4)
+                chip_smoke._held("denom", got[2], want[2], 1e-4, 1e-4)
+            out[f"{tag} gat_fwd ({h}, {d})"] = _hub_times(
+                f"{tag} gat_fwd ({h}, {d})", (g.indptr, g.n_nodes),
+                lambda p, a=args: gat_cuda.gat_fwd(*a, plan=p), held,
+                gat_cuda.fwd_geometry(h, d).slots)
     return out
 
 
@@ -469,8 +578,11 @@ def main() -> int:
     print(smi)
     host, *_ = load_synth_data(chip_smoke.DATASET, 0, 20, 30)
     g = host.to_device(torch.device("cuda:0"))
-    f32_cases = (_f32_inputs({"synth": g, "hub": chip_smoke.hub_graph(
-        g.n_nodes, g.n_edges, 9).to(g.device)}) if "f32" in kernels else [])
+    graphs = {"synth": g}
+    if {"f32", "spmm_hub", "gat_fwd_hub"} & set(kernels):
+        graphs["hub"] = chip_smoke.hub_graph(g.n_nodes, g.n_edges,
+                                             9).to(g.device)
+    f32_cases = _f32_inputs(graphs) if "f32" in kernels else []
     rows = []
     with tempfile.TemporaryDirectory() as tmp:
         jobs = [(name, b, tmp) for name, bs in VARIANTS.items()
@@ -493,6 +605,10 @@ def main() -> int:
                 times = _time_f32(f32_cases, variant, None)
             elif name == "spmm":
                 times = _time_spmm(g)
+            elif name == "spmm_hub":
+                times = _time_spmm_hub(graphs)
+            elif name == "gat_fwd_hub":
+                times = _time_gat_fwd_hub(graphs)
             elif name == "gat_fwd":
                 times = _time_gat_fwd(g)
             elif name == "gat_fwd_parts":
