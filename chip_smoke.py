@@ -68,7 +68,14 @@ Phases, each fatal on failure:
      all of it twice: on the synth graph, and on a hub graph of the same N
      and E whose first rows have HUB_DEGREES in- and out-edges (0 to
      20,000: every kernel walks a row in 32-edge chunks, and the synth
-     graph's largest in-degree is 29), at the same tolerances;
+     graph's largest in-degree is 29), at the same tolerances; then, on
+     the hub graph with its kept hub plans (spmm_cuda.plan_of), the
+     kernels that split rows of more than spmm_cuda.HUB_CHUNK edges across
+     warps (the SpMM template's three policies on both walks, gat_fwd and
+     gat_bwd at both GAT shapes in seed mode, edge_softmax_fwd on [E, 8]
+     and [E, 1]): each against its plain version at the tolerances above,
+     two launches bit-equal, every pass launched (two per call for the
+     template, three for the others) and one plan built per CSR;
   3. the op-surface path: the per-op GAT layer at both GAT shapes with a
      keep mask, composed from the public ops on CUDA (u_add_v ->
      leaky_relu -> edge_softmax -> mask -> u_mul_e_sum), counts set to 0
@@ -240,10 +247,11 @@ Phases, each fatal on failure:
      time and bound in the rows' detail; the f32 SpMM also beside its
      all-miss bound (every gathered row from device memory) and with its
      products F = 100 hop in its row; then time the SpMM kernels at
-     F = 40 (the f32 one at F = 128, eager and on the device) and gat_fwd
-     and gat_bwd at both GAT shapes on the hub graph, where every kernel
-     but the f32 one walks each hub row with one warp (in the rows'
-     detail, outside their sums);
+     F = 40 (the f32 one at F = 128), the GAT kernels at both GAT shapes
+     and the softmax kernels at [E, 8] and [E, 1] on the hub graph with
+     its kept plans, eager and on the device, each beside its synth-graph
+     device time, and torch.sparse.softmax and its backward there (in the
+     rows' detail as hub_graph_ms, outside their sums);
   6. time the sampled SAGE epoch in floyd/f32, window/f32 and window/bf16,
      and the all-node MLP student inference in f32 and bf16 (its log-probs
      within 3e-2 x max of f32's), each on a line with the card's name and
@@ -1649,7 +1657,7 @@ def halo_layer_times(hg, mesh) -> dict:
                                       plan=plan)
     dout = torch.randn((rows, h, d), generator=gen, device=dev)
     _, msg, _ = gat_cuda.gat_bwd(*fwd, smax, denom, dout, al_b,
-                                 hg.edge_base)
+                                 hg.edge_base, plan)
     dsrc = spmm_cuda.csr_sum_bf16(hg.c_t_indptr, hg.c_t_edges,
                                   msg.view(-1, h * d), n_src, t_plan)
     x = torch.randn((rows, APPNP_F), generator=gen, device=dev)
@@ -1662,7 +1670,7 @@ def halo_layer_times(hg, mesh) -> dict:
         "GAT (8, 16) gat_fwd": lambda: gat_cuda.gat_fwd(
             *fwd, edge_base=hg.edge_base, plan=plan),
         "GAT (8, 16) gat_bwd": lambda: gat_cuda.gat_bwd(
-            *fwd, smax, denom, dout, al_b, hg.edge_base),
+            *fwd, smax, denom, dout, al_b, hg.edge_base, plan),
         "GAT (8, 16) source reduce": lambda: spmm_cuda.csr_sum_bf16(
             hg.c_t_indptr, hg.c_t_edges, msg.view(-1, h * d), n_src, t_plan),
         "APPNP hop F=40 forward": lambda: spmm_cuda.csr_wsum_bf16(
@@ -3054,14 +3062,14 @@ def phase_times_gat(gat_cuda, g, launches: dict, errs: dict) -> list:
             # plus max, denom, f32 dout and bf16 attn_l in; der, the bf16
             # [E, H*D] message and dattn_l out
             "gat_bwd": (lambda: gat_cuda.gat_bwd(*args, smax, denom, dout,
-                                                 al_b),
+                                                 al_b, plan=plan),
                         lambda: gat_cuda.plain_gat_bwd(*args, smax, denom,
                                                        dout, al_b),
                         fwd_in + 2 * n * h * 4 + n * hd * 4 + hd * 2
                         + n * h * 4 + e * hd * 2 + hd * 4,
                         e * h * (9 * d + 18),
                         lambda: gat_cuda.gat_bwd(*margs, smax, denom, dout,
-                                                 al_b)),
+                                                 al_b, plan=plan)),
         }
         for name, (kernel, plain, nbytes, ops, masked) in cases.items():
             (k_ms, k_dev), p_ms = kernel_times(kernel), time_ms(plain,
@@ -3230,52 +3238,75 @@ def phase_times_f32(spmm_cuda, refops, g, launches: dict, errs: dict) -> list:
                  {"device_ms": k_dev, "all_miss_bound_ms": miss})]
 
 
+def softmax_library(gat_cuda, g, s, da, alpha, rtol=1e-5) -> tuple:
+    """(forward ms, backward ms) of torch.sparse.softmax over a COO
+    [N, R N] (x H) tensor of g's edges with the scores s as values (hybrid
+    for H > 1) and of its VJP, torch._sparse_softmax_backward_data, on the
+    same layout: edge (v, u) at column u + N r, r its repeat of the pair
+    (R - 1 the most repeats), so that no two edges merge and the softmax
+    over dim 1 is the segment softmax; [N, N] on a graph without repeated
+    pairs. The library's alpha held to alpha (the kernel's) at `rtol` and
+    its backward to edge_softmax_bwd fed the library's alpha (rtol
+    1e-4)."""
+    from glnn_tpu_torch.ops.cuda_build import row_ids
+
+    n, (e, h) = g.n_nodes, s.shape
+    dst, src = row_ids(g.indptr, n), g.senders.long()
+    by_pair = torch.argsort(dst * n + src, stable=True)
+    pair = (dst * n + src)[by_pair]
+    pos = torch.arange(e, device=g.device)
+    first = torch.ones(e, dtype=torch.bool, device=g.device)
+    first[1:] = pair[1:] != pair[:-1]
+    repeat = torch.empty_like(pos)
+    repeat[by_pair] = pos - torch.cummax(torch.where(first, pos, 0), 0)[0]
+    cols = src + n * repeat
+    width = n * (int(repeat.max()) + 1)
+    order = torch.argsort(dst * width + cols)
+    coo_idx = torch.stack([dst[order], cols[order]])
+    coo = torch.sparse_coo_tensor(
+        coo_idx, s[order] if h > 1 else s[order, 0],
+        (n, width) + ((h,) if h > 1 else ()), check_invariants=True).coalesce()
+    lib = torch.sparse.softmax(coo, 1)
+    torch.testing.assert_close(lib.values().reshape(e, h), alpha[order],
+                               rtol=rtol, atol=1e-6)
+    lib_ms = time_ms(lambda: torch.sparse.softmax(coo, 1))
+    dcoo = torch.sparse_coo_tensor(
+        lib.indices(), da[order] if h > 1 else da[order, 0],
+        lib.shape, check_invariants=True).coalesce()
+    lib_bwd = lambda: torch._sparse_softmax_backward_data(  # noqa: E731
+        dcoo, lib, 1, coo)
+    # both backwards from the library's alpha: ds = a (da - t) cancels,
+    # so a last-bit difference in alpha alone can move ds past 1e-6
+    lib_alpha = torch.empty_like(alpha)
+    lib_alpha[order] = lib.values().reshape(e, h)
+    torch.testing.assert_close(
+        lib_bwd().values().reshape(e, h),
+        gat_cuda.edge_softmax_bwd(g.indptr, lib_alpha, da, n)[order],
+        rtol=1e-4, atol=1e-6)
+    return lib_ms, time_ms(lib_bwd)
+
+
 def phase_times_softmax(gat_cuda, g, launches: dict, errs: dict) -> list:
     """The segment softmax at the GAT shapes' heads ([E, 8] and [E, 1]):
-    kernel, plain version, bound; the forward also against
-    torch.sparse.softmax over a COO [N, N] (x H) tensor, with the scores
-    as values (hybrid for H = 8), and the backward against its VJP,
-    torch._sparse_softmax_backward_data, on the same COO layout and the
-    library's alpha. Bytes:
+    kernel (with the graph's kept hub plan), plain version, bound; beside
+    them torch.sparse.softmax and its backward (`softmax_library`). Bytes:
     the [E, H] inputs and output and indptr."""
-    from glnn_tpu_torch.ops.cuda_build import row_ids
+    from glnn_tpu_torch.ops import spmm_cuda
 
     gen = torch.Generator(device=g.device).manual_seed(8)
     n, e = g.n_nodes, g.n_edges
-    dst = row_ids(g.indptr, n)
-    order = torch.argsort(dst * n + g.senders.long())
-    coo_idx = torch.stack([dst[order], g.senders.long()[order]])
+    plan = spmm_cuda.plan_of(g, "indptr", n)
     rows = {name: dict(ms=0.0, device_ms=0.0, plain_ms=0.0, library_ms=0.0,
                        bytes=0, ops=0, per_heads={})
             for name in ("edge_softmax_fwd", "edge_softmax_bwd")}
     for h, _ in GAT_SHAPES:
         s = 3.0 * torch.randn((e, h), generator=gen, device=g.device)
         da = torch.randn((e, h), generator=gen, device=g.device)
-        alpha = gat_cuda.edge_softmax_fwd(g.indptr, s, n)
-        vals = s[order] if h > 1 else s[order, 0]
-        coo = torch.sparse_coo_tensor(coo_idx, vals, (n, n) + (
-            (h,) if h > 1 else ()), check_invariants=True).coalesce()
-        lib = torch.sparse.softmax(coo, 1)
-        torch.testing.assert_close(
-            lib.values().reshape(e, h), alpha[order], rtol=1e-5, atol=1e-6)
-        lib_ms = time_ms(lambda: torch.sparse.softmax(coo, 1))
-        dcoo = torch.sparse_coo_tensor(
-            lib.indices(), da[order] if h > 1 else da[order, 0],
-            lib.shape, check_invariants=True).coalesce()
-        lib_bwd = lambda: torch._sparse_softmax_backward_data(  # noqa: E731
-            dcoo, lib, 1, coo)
-        # both backwards from the library's alpha: ds = a (da - t) cancels,
-        # so a last-bit difference in alpha alone can move ds past 1e-6
-        lib_alpha = torch.empty_like(alpha)
-        lib_alpha[order] = lib.values().reshape(e, h)
-        torch.testing.assert_close(
-            lib_bwd().values().reshape(e, h),
-            gat_cuda.edge_softmax_bwd(g.indptr, lib_alpha, da, n)[order],
-            rtol=1e-4, atol=1e-6)
-        lib_bwd_ms = time_ms(lib_bwd)
+        alpha = gat_cuda.edge_softmax_fwd(g.indptr, s, n, plan)
+        lib_ms, lib_bwd_ms = softmax_library(gat_cuda, g, s, da, alpha)
         cases = {
             "edge_softmax_fwd": (
-                lambda: gat_cuda.edge_softmax_fwd(g.indptr, s, n),
+                lambda: gat_cuda.edge_softmax_fwd(g.indptr, s, n, plan),
                 lambda: gat_cuda.plain_edge_softmax_fwd(g.indptr, s, n),
                 2 * e * h * 4 + (n + 1) * 4, 5 * e * h, lib_ms),
             "edge_softmax_bwd": (
@@ -3383,13 +3414,15 @@ def phase_times_tiers(host, labels, idx_train, g, card: str) -> dict:
 def phase_check_hub_split(spmm_cuda, gat_cuda, hub) -> dict:
     """The kernels that split hub rows across warps with the hub graph's
     kept plans (spmm_cuda.plan_of): the template body's three policies at
-    F = APPNP_F on the forward and the transposed walk, and gat_fwd at both
-    GAT shapes in seed mode. Each is held to its plain version at the
+    F = APPNP_F on the forward and the transposed walk, gat_fwd and
+    gat_bwd at both GAT shapes in seed mode, and edge_softmax_fwd on
+    [E, 8] and [E, 1] scores. Each is held to its plain version at the
     tolerances of the checks above, a second launch must be bit-equal to
     the first (no atomics), every call must launch both passes (three for
-    gat_fwd), and the two plans must have been built once each however
-    many calls walked them (the checks above kept theirs on the graph:
-    they are dropped first). Returns the max |error| per kernel."""
+    gat_fwd, gat_bwd and edge_softmax_fwd), and the two plans must have
+    been built once each however many calls walked them (the checks above
+    kept theirs on the graph: they are dropped first). Returns the max
+    |error| per kernel."""
     gen = torch.Generator(device=hub.device).manual_seed(21)
     n, e = hub.n_nodes, hub.n_edges
     hub.cache.clear()
@@ -3402,7 +3435,8 @@ def phase_check_hub_split(spmm_cuda, gat_cuda, hub) -> dict:
     w = (torch.rand(e, generator=gen, device=hub.device)
          >= EDGE_DROP).float() / (1.0 - EDGE_DROP)
     errs = dict.fromkeys(("spmm_csr_bf16", "spmm_csr_int8",
-                          "spmm_csr_weighted", "gat_fwd"), 0.0)
+                          "spmm_csr_weighted", "gat_fwd", "gat_bwd",
+                          "edge_softmax_fwd"), 0.0)
     walks = {"forward": (hub.indptr, hub.senders, None),
              "transposed": (hub.t_indptr, hub.t_receivers, hub.t_edges)}
     for walk, (indptr, cols, widx) in walks.items():
@@ -3446,7 +3480,7 @@ def phase_check_hub_split(spmm_cuda, gat_cuda, hub) -> dict:
                 f"{plan.n_chunks} chunks of T = {plan.chunk}; two launches "
                 f"bit-equal, {launches} launches")
     for h, d in GAT_SHAPES:
-        args, _, _ = gat_inputs(gat_cuda, hub, h, d, ATTN_DROP, 30 + h)
+        args, dout, al_b = gat_inputs(gat_cuda, hub, h, d, ATTN_DROP, 30 + h)
         before = gat_cuda.counts["gat_fwd"]
         got = gat_cuda.gat_fwd(*args, plan=plans["forward"])
         again = gat_cuda.gat_fwd(*args, plan=plans["forward"])
@@ -3471,6 +3505,54 @@ def phase_check_hub_split(spmm_cuda, gat_cuda, hub) -> dict:
         log(f"check hub split {tag}: gat_fwd vs plain max|err| " + ", ".join(
             f"{k} {v:.3e}" for k, v in e_fwd.items()) + ", max exact; two "
             f"launches bit-equal, {launches} launches")
+        # gat_bwd on the forward's max and den
+        _, smax, denom = got
+        before = gat_cuda.counts["gat_bwd"]
+        got = gat_cuda.gat_bwd(*args, smax, denom, dout, al_b,
+                               plan=plans["forward"])
+        again = gat_cuda.gat_bwd(*args, smax, denom, dout, al_b,
+                                 plan=plans["forward"])
+        launches = gat_cuda.counts["gat_bwd"] - before
+        want = gat_cuda.plain_gat_bwd(*args, smax, denom, dout, al_b)
+        torch.cuda.synchronize()
+        if launches != 6:
+            raise AssertionError(f"gat_bwd {tag} on the hub graph: "
+                                 f"{launches} launches for two calls, "
+                                 f"expected 6")
+        for name, a, b in zip(("der", "msg", "dattn_l"), got, again):
+            if not torch.equal(a, b):
+                raise AssertionError(f"gat_bwd {tag} on the hub graph: two "
+                                     f"launches differ in {name}")
+        e_bwd = {"der": _held("der", got[0], want[0], 1e-4, 1e-4),
+                 "msg": _held("msg", got[1], want[1], 2.0 ** -7, 1e-5),
+                 "dattn_l": _held("dattn_l", got[2], want[2], 1e-4, 1e-4)}
+        errs["gat_bwd"] = max(errs["gat_bwd"], *e_bwd.values())
+        log(f"check hub split {tag}: gat_bwd vs plain max|err| " + ", ".join(
+            f"{k} {v:.3e}" for k, v in e_bwd.items()) + f"; two launches "
+            f"bit-equal, {launches} launches")
+        del got, again, want
+    for h, _ in GAT_SHAPES:
+        scores = 3.0 * torch.randn((e, h), generator=gen, device=hub.device)
+        before = gat_cuda.counts["edge_softmax_fwd"]
+        got = gat_cuda.edge_softmax_fwd(hub.indptr, scores, n,
+                                        plans["forward"])
+        again = gat_cuda.edge_softmax_fwd(hub.indptr, scores, n,
+                                          plans["forward"])
+        launches = gat_cuda.counts["edge_softmax_fwd"] - before
+        want = gat_cuda.plain_edge_softmax_fwd(hub.indptr, scores, n)
+        torch.cuda.synchronize()
+        if launches != 6:
+            raise AssertionError(f"edge_softmax_fwd [E, {h}] on the hub "
+                                 f"graph: {launches} launches for two "
+                                 f"calls, expected 6")
+        if not torch.equal(got, again):
+            raise AssertionError(f"edge_softmax_fwd [E, {h}] on the hub "
+                                 f"graph: two launches differ")
+        err = _held(f"softmax [E, {h}]", got, want, 1e-5, 1e-6)
+        errs["edge_softmax_fwd"] = max(errs["edge_softmax_fwd"], err)
+        log(f"check hub split scores [E, {h}]: edge_softmax_fwd vs plain "
+            f"max|err| {err:.3e}; two launches bit-equal, {launches} "
+            f"launches")
     builds = spmm_cuda.builds["hub_plan"]
     if builds != 2:
         raise AssertionError(f"{builds} hub plans built for the hub graph's "
@@ -3487,11 +3569,12 @@ def phase_times_hub(spmm_cuda, gat_cuda, hub, kernels: list) -> None:
     each kernel that splits hub rows across warps, with the graph's kept
     plans: the template body's three policies at F = APPNP_F (beside
     torch.sparse.mm on the hub graph for the exact tier's function), the
-    f32 sum at AUG_F, gat_fwd at both GAT shapes (seed mode), each beside
-    its synth-graph device time; and, eager and device, the kernels that
-    walk a hub row with one warp (gat_bwd, the segment softmax at [E, 8]
-    and [E, 1]) and gat_prep, which walks no edge. Added to the rows'
-    detail as `hub_graph_ms`, outside their sums."""
+    f32 sum at AUG_F, gat_fwd and gat_bwd at both GAT shapes (seed mode),
+    edge_softmax_fwd at [E, 8] and [E, 1], each beside its synth-graph
+    device time; edge_softmax_bwd, which walks a hub row with one warp,
+    and gat_prep, which walks no edge; torch.sparse.softmax and its
+    backward on the hub graph beside the softmax kernels. Added to the
+    rows' detail as `hub_graph_ms`, outside their sums."""
     gen = torch.Generator(device=hub.device).manual_seed(10)
     n, e = hub.n_nodes, hub.n_edges
     f = APPNP_F
@@ -3573,22 +3656,30 @@ def phase_times_hub(spmm_cuda, gat_cuda, hub, kernels: list) -> None:
               synth["gat_fwd"]["per_layer_ms"][key]["device_ms"],
               ", seed mode")
         timed("gat_bwd", key, lambda: gat_cuda.gat_bwd(
-            *args, smax, denom, dout, al_b),
+            *args, smax, denom, dout, al_b, plan=plan),
             synth["gat_bwd"]["per_layer_ms"][key]["device_ms"],
-            ", seed mode; one warp per hub row")
+            ", seed mode")
     for h, _ in GAT_SHAPES:
         scores = 3.0 * torch.randn((e, h), generator=gen, device=hub.device)
         dalpha = torch.randn((e, h), generator=gen, device=hub.device)
-        alpha = gat_cuda.edge_softmax_fwd(hub.indptr, scores, n)
+        alpha = gat_cuda.edge_softmax_fwd(hub.indptr, scores, n, plan)
         key = f"H={h}"
         timed("edge_softmax_fwd", key, lambda: gat_cuda.edge_softmax_fwd(
-            hub.indptr, scores, n),
-            synth["edge_softmax_fwd"]["per_heads_ms"][key]["device_ms"],
-            "; a row past its registers is walked by one warp")
+            hub.indptr, scores, n, plan),
+            synth["edge_softmax_fwd"]["per_heads_ms"][key]["device_ms"], "")
         timed("edge_softmax_bwd", key, lambda: gat_cuda.edge_softmax_bwd(
             hub.indptr, alpha, dalpha, n),
             synth["edge_softmax_bwd"]["per_heads_ms"][key]["device_ms"],
             "; one warp per row")
+        # the library beside them; rows of 20,000 edges: a plain f32 sum
+        # of their exponentials is about 1e-5 of itself off, the kernel's
+        # compensated one is not
+        lib_fwd, lib_bwd = softmax_library(gat_cuda, hub, scores, dalpha,
+                                           alpha, rtol=1e-4)
+        detail["edge_softmax_fwd"][key]["library_ms"] = lib_fwd
+        detail["edge_softmax_bwd"][key]["library_ms"] = lib_bwd
+        log(f"time hub graph {key} torch.sparse.softmax {lib_fwd:.4f} ms, "
+            f"its backward {lib_bwd:.4f} ms")
     for row in kernels:
         if row["name"] in detail:
             row["hub_graph_ms"] = detail[row["name"]]

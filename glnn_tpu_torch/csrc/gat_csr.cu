@@ -138,6 +138,27 @@
 // just gathered by the same warp), and attn_l from L1; only edges past K
 // load el and recompute alpha and g. Both passes regenerate the keep bits.
 //
+// Hub rows in gat_bwd (the counterpart of the bounded work per dst block of
+// gat_pallas._gat_bwd_kernel; past X_MAX, of JAX's XLA tier): a row of more
+// than T edges is cut into the CSR's hub-plan chunks, as in gat_fwd, but
+// every edge's ds_pre = c alpha (w g - t) needs its row's t = sum alpha w g
+// before pass 2, so no chunk can finish alone. gat_bwd_kernel is built
+// three ways (BwdItems): kRows, the kernel as it was, for a CSR without
+// hub rows; kChunkT, launched first, one warp per chunk running pass 1
+// alone (no cache) and writing the chunk's part of t (pt, folded over the
+// slots as a row's t is); and kSplit, the chunks first in the grid, each
+// taking its row's t as the sum of the row's pt in chunk order from zero
+// (every chunk warp of a row the same sum, so the same t) and running
+// pass 2 over its own edges with no cache: it writes their messages (one
+// chunk per edge, so no combine), adds to its warp's dattn_l partial as a
+// row does, and writes its part of der (pder); then the rows of at most T
+// edges. gat_bwd_combine_kernel sums each split row's pder in chunk order
+// into der. ds_pre stays per edge (der as a difference of row sums
+// cancels, above). alpha needs the row's final max and den, which gat_fwd
+// (or its combine) saved, so it is the same in every chunk. No atomics:
+// the dattn_l partials are per warp of one grid (the kSplit
+// instantiation's occupancy), so two launches are bit-equal.
+//
 // The standalone segment softmax (edge_softmax_fwd, edge_softmax_bwd)
 // replaces :_smx_fwd_kernel (:694) and :_smx_bwd_kernel (:712), which run
 // the same one-hot slot-space reduction per dst block. Here scores are f32
@@ -159,6 +180,21 @@
 // one warp per row. A row without in-edges writes nothing. Both are bound by
 // bytes (each reads its [E, H] inputs once and writes [E, H] once; a few
 // flops per element).
+//
+// Hub rows in the forward (the counterpart of _smx_fwd_kernel's bounded
+// work per dst block): a row of more than T edges is cut into the hub
+// plan's chunks, one warp each, in three launches as gat_fwd's:
+// edge_softmax_hub_max_kernel takes each chunk's max per head;
+// edge_softmax_hub_sum_kernel each chunk's compensated sum of exp(s - M),
+// M its row's final max (the largest chunk max: exact in any order); then
+// edge_softmax_fwd_kernel<true>, whose first warps write each chunk's
+// alpha = exp(s - M) / den, den the row's chunk sums added in chunk order
+// from zero, and whose row groups leave those rows to them (rows of at
+// most T edges as before: registers or the whole warp). A chunk warp's
+// lane keeps kSmxInFlight scores loaded before it uses the first, since
+// one dependent load at a time is what held a 20,000-edge row to one
+// warp's latency. The same lanes, edge order and compensated sums as a
+// long row's walk, so a chunk's sum is that walk's over its edges.
 //
 // Interface: plain C, called through ctypes. Every entry point launches on
 // the given stream, never synchronises, allocates nothing, and returns
@@ -808,9 +844,29 @@ __device__ __forceinline__ EdgeTerms edge_terms(float el_src, float er_v, float 
   return t;
 }
 
+// gat_bwd's hub rows (see the note at the top): the plan of the CSR
+// (ops/spmm_cuda.py hub_plan) and the partials of its chunks
+struct BwdHub {
+  const int2* chunks;     // [n_chunks]: each chunk's edge range
+  const int32_t* owner;   // [n_chunks]: each chunk's split row s
+  const int32_t* rows;    // [n_split]: the split rows
+  const int32_t* first;   // [n_split + 1]: row s's chunks are first[s]:first[s + 1]
+  float* pt;              // [n_chunks, H]: each chunk's sum of alpha w g
+  float* pder;            // [n_chunks, H]: each chunk's sum of ds_pre
+  int n_chunks;
+  int chunk_edges;        // T: the row items leave longer rows to the chunks
+};
+
+// the work items of a launch of gat_bwd_kernel
+enum class BwdItems {
+  kRows,    // every row (a CSR without hub rows)
+  kChunkT,  // each hub chunk's pass 1 alone: its part of t into hub.pt
+  kSplit,   // the hub chunks' pass 2 with their row's t, then the rows
+};
+
 // 3 resident blocks per SM (up to 85 registers) as for gat_fwd; <2, 4>
 // spills under that budget once it forms keep bits, so it has none.
-template <int VEC, int REPS>
+template <int VEC, int REPS, BwdItems ITEMS>
 __global__ void __launch_bounds__(kWarps * 32, VEC * REPS <= 8 && REPS < 4 ? 3 : 1)
 gat_bwd_kernel(const int32_t* __restrict__ indptr, const int32_t* __restrict__ src_of,
                const __nv_bfloat16* __restrict__ feat, const float* __restrict__ el,
@@ -818,8 +874,8 @@ gat_bwd_kernel(const int32_t* __restrict__ indptr, const int32_t* __restrict__ s
                const float* __restrict__ smax, const float* __restrict__ denom,
                const float* __restrict__ dout, const __nv_bfloat16* __restrict__ attn_l,
                float* __restrict__ der, __nv_bfloat16* __restrict__ msg,
-               float* __restrict__ dal_part, int n_rows, int H, int D, int lh, int hp, int slots,
-               int kcache) {
+               float* __restrict__ dal_part, const BwdHub hub, int n_rows, int H, int D, int lh,
+               int hp, int slots, int kcache) {
   // (alpha, w, w g, leaky_relu' factor) of the first kcache edges of the
   // warp's row, per head of the pass: [kWarps][kcache][hp]
   extern __shared__ float4 edge_cache[];
@@ -831,6 +887,12 @@ gat_bwd_kernel(const int32_t* __restrict__ indptr, const int32_t* __restrict__ s
   const int hd = H * D;
   const Lanes L = lanes_of(lane, lh, hp);
   const int q = L.q, hh = L.hh, sub = L.sub, le = L.le;
+  // with chunks, the chunks are the first items (item < n_chunks: an edge
+  // range of a split row), then, unless kChunkT, the rows (item -
+  // n_chunks, unless it has more than chunk_edges edges)
+  constexpr bool kChunks = ITEMS != BwdItems::kRows;
+  const int n_chunks = kChunks ? hub.n_chunks : 0;
+  const int n_items = ITEMS == BwdItems::kChunkT ? n_chunks : n_chunks + n_rows;
 
   for (int h0 = 0; h0 < H; h0 += hp) {  // one pass unless H * LH > 32
     const int h = h0 + hh;
@@ -842,11 +904,22 @@ gat_bwd_kernel(const int32_t* __restrict__ indptr, const int32_t* __restrict__ s
 #pragma unroll
       for (int k = 0; k < VEC; ++k) dal[r][k] = 0.f;
 
-    for (int row = warp; row < n_rows; row += n_warps) {  // warp-uniform
-      const int start = indptr[row];
-      const int end = indptr[row + 1];
+    for (int item = warp; item < n_items; item += n_warps) {  // warp-uniform
+      const bool chunk = kChunks && item < n_chunks;
+      int start, end, row;
+      if (chunk) {
+        const int2 c = hub.chunks[item];
+        start = c.x;
+        end = c.y;
+        row = hub.rows[hub.owner[item]];
+      } else {
+        row = item - n_chunks;
+        start = indptr[row];
+        end = indptr[row + 1];
+        if (kChunks && end - start > hub.chunk_edges) continue;  // its chunks walk it
+      }
       const int64_t vh = static_cast<int64_t>(row) * H + h;
-      if (start == end) {  // no in-edges: nothing flows back
+      if (start == end) {  // no in-edges: nothing flows back (a chunk is never empty)
         if (lane_ok && q == 0 && sub == 0) der[vh] = 0.f;
         continue;
       }
@@ -863,35 +936,53 @@ gat_bwd_kernel(const int32_t* __restrict__ indptr, const int32_t* __restrict__ s
         for (int k = 0; k < VEC; ++k)
           go[r][k] = (cols >> r & 1u) ? gorow[(r * lh + sub) * VEC + k] : 0.f;
 
-      // pass 1: alpha, w and g of every edge, t, and the cache
+      // a chunk caches nothing: its pass 2 recomputes every edge's terms
+      const int kc = chunk ? 0 : kcache;
+
       float t = 0.f;
-      for (int e0 = start; e0 < end; e0 += 32) {
-        const int n = min(32, end - e0);
-        const int mine = lane < n ? src_of[e0 + lane] : 0;
-        const unsigned kept = lane < n ? keep_bits(drop, e0 + lane, H, h0, hp) : 0u;
-        const int steps = (n + slots - 1) / slots;  // warp-uniform
-        for (int j = 0; j < steps; ++j) {
-          const int k = j * slots + q;
-          const int src = __shfl_sync(kFull, mine, k & 31);
-          const unsigned bits = __shfl_sync(kFull, kept, k & 31);
-          const bool on = lane_ok && k < n;
-          EdgeTerms et{0.f, 0.f};
-          float f[REPS][VEC];
-          if (on) {
-            et = edge_terms(el[static_cast<int64_t>(src) * H + h], er_v, m_v, inv_den, slope);
-            load_slice<VEC, REPS>(feat + static_cast<int64_t>(src) * hd + h * D, cols, lh, sub, f);
-          }
-          const float g = head_sum(on ? dot<VEC, REPS>(f, go, cols) : 0.f, sub, lh);
-          if (!on) continue;
-          const float w = (bits >> hh & 1u) ? drop.inv_keep : 0.f;
-          const float wg = w * g;
-          t += et.alpha * wg;
-          const int ro = e0 - start + k;  // edge of the row
-          if (ro < kcache && sub == 0)
-            cache[ro * hp + hh] = make_float4(et.alpha, w, wg, et.s_pre >= 0.f ? 1.f : slope);
+      if (ITEMS == BwdItems::kSplit && chunk) {
+        // the row's t: its chunks' parts in chunk order, the same sum in
+        // every chunk warp of the row
+        if (lane_ok) {
+          const int s = hub.owner[item];
+          for (int k = hub.first[s]; k < hub.first[s + 1]; ++k)
+            t += hub.pt[static_cast<int64_t>(k) * H + h];
         }
+      } else {
+        // pass 1: alpha, w and g of every edge, t, and the cache
+        for (int e0 = start; e0 < end; e0 += 32) {
+          const int n = min(32, end - e0);
+          const int mine = lane < n ? src_of[e0 + lane] : 0;
+          const unsigned kept = lane < n ? keep_bits(drop, e0 + lane, H, h0, hp) : 0u;
+          const int steps = (n + slots - 1) / slots;  // warp-uniform
+          for (int j = 0; j < steps; ++j) {
+            const int k = j * slots + q;
+            const int src = __shfl_sync(kFull, mine, k & 31);
+            const unsigned bits = __shfl_sync(kFull, kept, k & 31);
+            const bool on = lane_ok && k < n;
+            EdgeTerms et{0.f, 0.f};
+            float f[REPS][VEC];
+            if (on) {
+              et = edge_terms(el[static_cast<int64_t>(src) * H + h], er_v, m_v, inv_den, slope);
+              load_slice<VEC, REPS>(feat + static_cast<int64_t>(src) * hd + h * D, cols, lh, sub,
+                                    f);
+            }
+            const float g = head_sum(on ? dot<VEC, REPS>(f, go, cols) : 0.f, sub, lh);
+            if (!on) continue;
+            const float w = (bits >> hh & 1u) ? drop.inv_keep : 0.f;
+            const float wg = w * g;
+            t += et.alpha * wg;
+            const int ro = e0 - start + k;  // edge of the row
+            if (ro < kc && sub == 0)
+              cache[ro * hp + hh] = make_float4(et.alpha, w, wg, et.s_pre >= 0.f ? 1.f : slope);
+          }
+        }
+        t = __shfl_sync(kFull, slot_fold(t, q, slots, le), lane - q * le);  // the item's t
       }
-      t = __shfl_sync(kFull, slot_fold(t, q, slots, le), lane - q * le);  // the row's t
+      if (ITEMS == BwdItems::kChunkT) {  // the chunk's part of its row's t
+        if (lane_ok && q == 0 && sub == 0) hub.pt[static_cast<int64_t>(item) * H + h] = t;
+        continue;
+      }
       __syncwarp();  // the cache written above is read by other lanes below
 
       // pass 2: the softmax VJP per edge, from the cache (recomputed past
@@ -903,7 +994,7 @@ gat_bwd_kernel(const int32_t* __restrict__ indptr, const int32_t* __restrict__ s
         const int mine = lane < n ? src_of[e0 + lane] : 0;
         const int steps = (n + slots - 1) / slots;
         // every step of the chunk cached: no keep bits needed (warp-uniform)
-        const bool chunk_cached = e0 - start + steps * slots <= kcache;
+        const bool chunk_cached = e0 - start + steps * slots <= kc;
         const unsigned kept =
             lane < n && !chunk_cached ? keep_bits(drop, e0 + lane, H, h0, hp) : 0u;
         for (int j = 0; j < steps; ++j) {
@@ -911,7 +1002,7 @@ gat_bwd_kernel(const int32_t* __restrict__ indptr, const int32_t* __restrict__ s
           const int src = __shfl_sync(kFull, mine, k & 31);
           const unsigned bits = __shfl_sync(kFull, kept, k & 31);
           const bool on = lane_ok && k < n;
-          const bool cached = e0 - start + (j + 1) * slots <= kcache;  // warp-uniform
+          const bool cached = e0 - start + (j + 1) * slots <= kc;  // warp-uniform
           float4 es = make_float4(0.f, 0.f, 0.f, 0.f);  // (alpha, w, w g, leaky_relu')
           float f[REPS][VEC];
           if (on) {
@@ -947,9 +1038,12 @@ gat_bwd_kernel(const int32_t* __restrict__ indptr, const int32_t* __restrict__ s
         }
       }
       der_acc = slot_fold(der_acc, q, slots, le);
-      if (lane_ok && q == 0 && sub == 0) der[vh] = der_acc;
-      __syncwarp();  // every lane is done with the cache before the next row
+      // a chunk's part of der goes to pder, which gat_bwd_combine_kernel sums
+      if (lane_ok && q == 0 && sub == 0)
+        (chunk ? hub.pder + static_cast<int64_t>(item) * H + h : der + vh)[0] = der_acc;
+      __syncwarp();  // every lane is done with the cache before the next item
     }
+    if (ITEMS == BwdItems::kChunkT) continue;  // no dattn_l in pass 1
 
     // fold the slots' dattn_l partials onto slot 0, which writes them
 #pragma unroll
@@ -963,6 +1057,22 @@ gat_bwd_kernel(const int32_t* __restrict__ indptr, const int32_t* __restrict__ s
       if (cols >> r & 1u)
 #pragma unroll
         for (int k = 0; k < VEC; ++k) prow[(r * lh + sub) * VEC + k] = dal[r][k];
+  }
+}
+
+// Hub rows, after gat_bwd_kernel: one warp per split row s sums its chunks'
+// der partials in chunk order into der[row].
+__global__ void __launch_bounds__(kWarps * 32)
+gat_bwd_combine_kernel(const BwdHub hub, float* __restrict__ der, int n_split, int H) {
+  const int lane = threadIdx.x & 31;
+  const int s = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (s >= n_split) return;
+  const int64_t row = hub.rows[s];
+  for (int h = lane; h < H; h += 32) {
+    float d = 0.f;
+    for (int k = hub.first[s]; k < hub.first[s + 1]; ++k)
+      d += hub.pder[static_cast<int64_t>(k) * H + h];
+    der[row * H + h] = d;
   }
 }
 
@@ -1048,6 +1158,107 @@ __device__ __forceinline__ void softmax_row_warp(const float* __restrict__ score
   }
 }
 
+// Hub rows of the segment softmax (see the note at the top): one warp per
+// chunk of a split row, lanes as in softmax_row_warp (g lanes per edge,
+// 32 / g edges per step). A lane walks its edges e = start + slot, + 32 /
+// g, ... in order, kSmxInFlight scores loaded before the first is used,
+// and calls f(score, e) on each.
+constexpr int kSmxInFlight = 8;
+
+template <class F>
+__device__ __forceinline__ void chunk_scores(const float* __restrict__ scores, int start,
+                                             int end, int H, int G, int h, F f) {
+  const int per = 32 / G;
+  for (int e0 = start + (threadIdx.x & 31) / G; e0 < end; e0 += kSmxInFlight * per) {
+    float v[kSmxInFlight];
+#pragma unroll
+    for (int u = 0; u < kSmxInFlight; ++u) {
+      const int e = e0 + u * per;
+      v[u] = e < end ? scores[static_cast<int64_t>(e) * H + h] : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kSmxInFlight; ++u)
+      if (e0 + u * per < end) f(v[u], e0 + u * per);
+  }
+}
+
+// the final max of split row s for head h: the largest of its chunks'
+// maxima (a max is exact in any order)
+__device__ __forceinline__ float split_max(const HubArgs& hub, int s, int H, int h) {
+  float m = -CUDART_INF_F;
+  for (int k = hub.first[s]; k < hub.first[s + 1]; ++k)
+    m = fmaxf(m, hub.pmax[static_cast<int64_t>(k) * H + h]);
+  return m;
+}
+
+// pass 1 of the split rows: each chunk's max per head into pmax
+__global__ void __launch_bounds__(kWarps * 32)
+edge_softmax_hub_max_kernel(const HubArgs hub, const float* __restrict__ scores, int H, int G) {
+  const int lane = threadIdx.x & 31;
+  const int c = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (c >= hub.n_chunks) return;  // the whole warp leaves together
+  const int2 range = hub.chunks[c];
+  for (int h0 = 0; h0 < H; h0 += G) {
+    const int h = h0 + (lane & (G - 1));
+    float m = -CUDART_INF_F;
+    if (h < H) chunk_scores(scores, range.x, range.y, H, G, h, [&](float v, int) {
+      m = fmaxf(m, v);
+    });
+    for (int off = 16; off >= G; off >>= 1) m = fmaxf(m, __shfl_xor_sync(kFull, m, off));
+    if (h < H && lane < G) hub.pmax[static_cast<int64_t>(c) * H + h] = m;
+  }
+}
+
+// pass 2: each chunk's compensated sum of exp(s - M) per head into pden,
+// M its row's final max
+__global__ void __launch_bounds__(kWarps * 32)
+edge_softmax_hub_sum_kernel(const HubArgs hub, const float* __restrict__ scores, int H, int G) {
+  const int lane = threadIdx.x & 31;
+  const int c = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (c >= hub.n_chunks) return;  // the whole warp leaves together
+  const int2 range = hub.chunks[c];
+  const int s = hub.owner[c];
+  for (int h0 = 0; h0 < H; h0 += G) {
+    const int h = h0 + (lane & (G - 1));
+    float den = 0.f;
+    float comp = 0.f;  // the sum's lost low-order part
+    if (h < H) {
+      const float m = split_max(hub, s, H, h);
+      chunk_scores(scores, range.x, range.y, H, G, h, [&](float v, int) {
+        const float y = expf(v - m) - comp;
+        const float sum = den + y;
+        comp = (sum - den) - y;
+        den = sum;
+      });
+      den -= comp;
+    }
+    for (int off = 16; off >= G; off >>= 1) den += __shfl_xor_sync(kFull, den, off);
+    if (h < H && lane < G) hub.pden[static_cast<int64_t>(c) * H + h] = den;
+  }
+}
+
+// pass 3, chunk c's items of edge_softmax_fwd_kernel: alpha = exp(s - M) /
+// den, with den its row's chunks' sums added in chunk order
+__device__ __forceinline__ void softmax_chunk_alpha(const HubArgs& hub,
+                                                    const float* __restrict__ scores,
+                                                    float* __restrict__ alpha, int c, int H,
+                                                    int G) {
+  const int lane = threadIdx.x & 31;
+  const int2 range = hub.chunks[c];
+  const int s = hub.owner[c];
+  for (int h0 = 0; h0 < H; h0 += G) {
+    const int h = h0 + (lane & (G - 1));
+    if (h >= H) continue;
+    const float m = split_max(hub, s, H, h);
+    float den = 0.f;
+    for (int k = hub.first[s]; k < hub.first[s + 1]; ++k)
+      den += hub.pden[static_cast<int64_t>(k) * H + h];
+    chunk_scores(scores, range.x, range.y, H, G, h, [&](float v, int e) {
+      alpha[static_cast<int64_t>(e) * H + h] = __fdividef(expf(v - m), den);  // den >= 1
+    });
+  }
+}
+
 // scores per lane that edge_softmax_fwd holds (SOFTMAX_REGS in
 // ops/gat_cuda.py; tools/sweep_cuda_kernels.py rebuilds other values)
 constexpr int kSoftmaxRegs = 8;
@@ -1055,13 +1266,25 @@ constexpr int kSoftmaxRegs = 8;
 // G lanes per edge, P edge slots per row, 32 / (G P) consecutive rows per
 // warp; a row of at most P R edges is held in R registers per lane. One
 // row group per warp (a grid of resident blocks striding over the groups
-// was 5-30% slower on the card).
+// was 5-30% slower on the card). With HUB, the first hub.n_chunks warps
+// each write a chunk of a split row (pass 3), and the row groups leave the
+// rows of more than chunk_edges edges to them.
+template <bool HUB>
 __global__ void __launch_bounds__(kWarps * 32)
 edge_softmax_fwd_kernel(const int32_t* __restrict__ indptr, const float* __restrict__ scores,
-                        float* __restrict__ alpha, int n_rows, int H, int G, int P) {
+                        float* __restrict__ alpha, const HubArgs hub, int n_rows, int H, int G,
+                        int P) {
   const int lane = threadIdx.x & 31;
+  int w = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (HUB) {
+    if (w < hub.n_chunks) {  // warp-uniform
+      softmax_chunk_alpha(hub, scores, alpha, w, H, G);
+      return;
+    }
+    w -= hub.n_chunks;
+  }
   const int gp = G * P;
-  const int row0 = (blockIdx.x * kWarps + (threadIdx.x >> 5)) * (32 / gp);
+  const int row0 = w * (32 / gp);
   if (row0 >= n_rows) return;  // the whole warp leaves together
   const int grp = lane / gp;
   const int q = (lane - grp * gp) / G;  // edge slot
@@ -1100,7 +1323,9 @@ edge_softmax_fwd_kernel(const int32_t* __restrict__ indptr, const float* __restr
   }
 
   // the warp's rows that did not fit, one after another by the whole warp
-  unsigned long_rows = __ballot_sync(kFull, row_ok && !fits && lane == grp * gp);
+  // (with HUB, those of at most chunk_edges edges)
+  const bool split = HUB && end - start > hub.chunk_edges;
+  unsigned long_rows = __ballot_sync(kFull, row_ok && !fits && !split && lane == grp * gp);
   while (long_rows) {
     const int first = __ffs(long_rows) - 1;
     long_rows &= long_rows - 1;
@@ -1178,6 +1403,50 @@ cudaError_t fwd_occupancy(int* n, int vec, int reps, int hp) {
       return cudaErrorInvalidValue;
   }
 #undef OCC_CASE
+}
+
+// gat_bwd_kernel<vec, reps, ITEMS> on `grid` blocks with the geometry's
+// cache; cudaErrorInvalidValue for a (vec, reps) it does not instantiate
+template <BwdItems ITEMS>
+int launch_bwd(const AttnGeometry& g, unsigned grid, cudaStream_t st, const void* indptr,
+               const void* src_of, const void* feat, const void* el, const void* er,
+               const DropArgs& drop, float slope, const void* smax, const void* denom,
+               const void* dout, const void* attn_l, void* der, void* msg, void* dal_part,
+               const BwdHub& hub, int n_rows, int H, int D) {
+#define BWD_CASE(V, R)                                                                       \
+  case V * 16 + R:                                                                          \
+    gat_bwd_kernel<V, R, ITEMS><<<grid, kWarps * 32, bwd_smem_bytes(g), st>>>(             \
+        static_cast<const int32_t*>(indptr), static_cast<const int32_t*>(src_of),          \
+        static_cast<const __nv_bfloat16*>(feat), static_cast<const float*>(el),            \
+        static_cast<const __nv_bfloat16*>(er), drop, slope, static_cast<const float*>(smax), \
+        static_cast<const float*>(denom), static_cast<const float*>(dout),                 \
+        static_cast<const __nv_bfloat16*>(attn_l), static_cast<float*>(der),               \
+        static_cast<__nv_bfloat16*>(msg), static_cast<float*>(dal_part), hub, n_rows, H, D, \
+        g.lh, g.hp, g.slots, g.kcache);                                                     \
+    break;
+  switch (g.vec * 16 + g.reps) {
+    GAT_CASES(BWD_CASE)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef BWD_CASE
+  return static_cast<int>(cudaGetLastError());
+}
+
+// gat_bwd's hub plan and partials (see BwdHub); null where a launch reads
+// none of them
+BwdHub bwd_hub(const void* chunks, const void* owner, const void* rows, const void* first,
+               void* pt, void* pder, int n_chunks, int chunk_edges) {
+  return BwdHub{static_cast<const int2*>(chunks), static_cast<const int32_t*>(owner),
+                static_cast<const int32_t*>(rows), static_cast<const int32_t*>(first),
+                static_cast<float*>(pt), static_cast<float*>(pder), n_chunks, chunk_edges};
+}
+
+// a launch's dropout: a keep mask, a seed or neither (see DropArgs)
+DropArgs dropout_of(const void* keep, const void* seed, unsigned thresh, unsigned edge_base,
+                    float inv_keep) {
+  return DropArgs{static_cast<const uint8_t*>(keep),
+                  static_cast<const unsigned long long*>(seed), thresh, edge_base, inv_keep};
 }
 
 }  // namespace
@@ -1272,9 +1541,7 @@ int gat_fwd(const void* indptr, const void* src_of, const void* feat, const void
   if (!fwd_geometry_ok(geo, H, D, reinterpret_cast<uintptr_t>(feat)) || !drop_ok(keep, seed) ||
       n_rows < 0 || !hub_ok(hub))
     return static_cast<int>(cudaErrorInvalidValue);
-  const DropArgs drop{static_cast<const uint8_t*>(keep),
-                      static_cast<const unsigned long long*>(seed), thresh, edge_base,
-                      inv_keep};
+  const DropArgs drop = dropout_of(keep, seed, thresh, edge_base, inv_keep);
   const dim3 grid(n_blocks), block(kWarps * 32);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   // the instantiation that splits hub rows only where the plan has chunks
@@ -1309,52 +1576,81 @@ int gat_fwd(const void* indptr, const void* src_of, const void* feat, const void
   return static_cast<int>(cudaGetLastError());
 }
 
+// the hub chunks' parts of t of gat_bwd's split rows, launched before
+// gat_bwd: its inputs but the row pointer and attn_l, the plan's chunks,
+// owner and rows, and pt f32 [n_chunks, H]; one warp per chunk, with
+// gat_bwd's lane layout (vec, reps, lh, hp, slots)
+int gat_bwd_hub_t(const void* src_of, const void* feat, const void* el, const void* er,
+                  const void* keep, const void* seed, unsigned thresh, unsigned edge_base,
+                  float inv_keep, float slope, const void* smax, const void* denom,
+                  const void* dout, const void* chunks, const void* owner, const void* rows,
+                  void* pt, int n_chunks, int H, int D, int vec, int reps, int lh, int hp,
+                  int slots, void* stream) {
+  const AttnGeometry geo{vec, reps, lh, hp, slots, 0};
+  if (n_chunks < 0 || H <= 0 || D <= 0 ||
+      !bwd_geometry_ok(geo, H, D, reinterpret_cast<uintptr_t>(feat)) || !drop_ok(keep, seed) ||
+      (n_chunks > 0 && (chunks == nullptr || owner == nullptr || rows == nullptr ||
+                        pt == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_chunks == 0) return static_cast<int>(cudaGetLastError());
+  return launch_bwd<BwdItems::kChunkT>(
+      geo, (n_chunks + kWarps - 1) / kWarps, static_cast<cudaStream_t>(stream), nullptr,
+      src_of, feat, el, er, dropout_of(keep, seed, thresh, edge_base, inv_keep), slope, smax,
+      denom, dout, nullptr, nullptr, nullptr, nullptr,
+      bwd_hub(chunks, owner, rows, nullptr, pt, nullptr, n_chunks, 1), 0, H, D);
+}
+
 // as gat_fwd, plus smax, denom from it; dout f32 [n_rows, H, D];
 // attn_l bf16 [H, D]; der f32 [n_rows, H]; msg bf16 [E, H, D] (dst-sorted
 // edge order); dal_part f32 [n_blocks * 8, H, D], one partial per warp;
-// (vec, reps, lh, hp, slots, kcache) as ops/gat_cuda.py `bwd_geometry`
-// gives them
+// the hub plan as gat_fwd takes it, pt from gat_bwd_hub_t and pder f32
+// [n_chunks, H] (rows of more than chunk_edges edges are left to the
+// chunks and gat_bwd_combine); (vec, reps, lh, hp, slots, kcache) as
+// ops/gat_cuda.py `bwd_geometry` gives them
 int gat_bwd(const void* indptr, const void* src_of, const void* feat, const void* el,
             const void* er, const void* keep, const void* seed, unsigned thresh,
             unsigned edge_base, float inv_keep,
             float slope, const void* smax, const void* denom, const void* dout,
-            const void* attn_l, void* der, void* msg, void* dal_part, int n_rows, int H, int D,
-            int n_blocks, int vec, int reps, int lh, int hp, int slots, int kcache,
-            void* stream) {
+            const void* attn_l, void* der, void* msg, void* dal_part, const void* chunks,
+            const void* owner, const void* rows, const void* first, const void* pt, void* pder,
+            int n_chunks, int chunk_edges, int n_rows, int H, int D, int n_blocks, int vec,
+            int reps, int lh, int hp, int slots, int kcache, void* stream) {
   if (n_rows <= 0 || H <= 0 || D <= 0 || n_blocks <= 0)
     return static_cast<int>(cudaGetLastError());
   const AttnGeometry geo{vec, reps, lh, hp, slots, kcache};
   const uintptr_t align = reinterpret_cast<uintptr_t>(feat) | reinterpret_cast<uintptr_t>(msg);
-  if (!bwd_geometry_ok(geo, H, D, align) || !drop_ok(keep, seed))
+  const BwdHub hub = bwd_hub(chunks, owner, rows, first, const_cast<void*>(pt), pder,
+                             n_chunks, chunk_edges);
+  if (!bwd_geometry_ok(geo, H, D, align) || !drop_ok(keep, seed) || n_chunks < 0 ||
+      chunk_edges < 1 ||
+      (n_chunks > 0 && (chunks == nullptr || owner == nullptr || rows == nullptr ||
+                        first == nullptr || pt == nullptr || pder == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const DropArgs drop{static_cast<const uint8_t*>(keep),
-                      static_cast<const unsigned long long*>(seed), thresh, edge_base,
-                      inv_keep};
-  const dim3 grid(n_blocks), block(kWarps * 32);
+  const DropArgs drop = dropout_of(keep, seed, thresh, edge_base, inv_keep);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define BWD_CASE(V, R)                                                                      \
-  case V * 16 + R:                                                                          \
-    gat_bwd_kernel<V, R><<<grid, block, bwd_smem_bytes(geo), st>>>(                         \
-        static_cast<const int32_t*>(indptr), static_cast<const int32_t*>(src_of),          \
-        static_cast<const __nv_bfloat16*>(feat), static_cast<const float*>(el),            \
-        static_cast<const __nv_bfloat16*>(er), drop, slope, static_cast<const float*>(smax), \
-        static_cast<const float*>(denom), static_cast<const float*>(dout),                 \
-        static_cast<const __nv_bfloat16*>(attn_l), static_cast<float*>(der),               \
-        static_cast<__nv_bfloat16*>(msg), static_cast<float*>(dal_part), n_rows, H, D, lh,  \
-        hp, slots, kcache);                                                                 \
-    break;
-  switch (vec * 16 + reps) {
-    GAT_CASES(BWD_CASE)
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef BWD_CASE
+  // the instantiation that splits hub rows only where the plan has chunks
+  if (n_chunks > 0)
+    return launch_bwd<BwdItems::kSplit>(geo, n_blocks, st, indptr, src_of, feat, el, er, drop,
+                                        slope, smax, denom, dout, attn_l, der, msg, dal_part,
+                                        hub, n_rows, H, D);
+  return launch_bwd<BwdItems::kRows>(geo, n_blocks, st, indptr, src_of, feat, el, er, drop,
+                                     slope, smax, denom, dout, attn_l, der, msg, dal_part, hub,
+                                     n_rows, H, D);
+}
+
+// the split rows' der, launched after gat_bwd: the plan's rows and first,
+// pder from gat_bwd, der as gat_bwd's
+int gat_bwd_combine(const void* rows, const void* first, const void* pder, void* der,
+                    int n_split, int H, void* stream) {
+  if (n_split < 0 || H <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_split == 0) return static_cast<int>(cudaGetLastError());
+  gat_bwd_combine_kernel<<<(n_split + kWarps - 1) / kWarps, kWarps * 32, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      bwd_hub(nullptr, nullptr, rows, first, nullptr, const_cast<void*>(pder), 0, 1),
+      static_cast<float*>(der), n_split, H);
   return static_cast<int>(cudaGetLastError());
 }
 
-// blocks of gat_fwd's instantiation for (vec, reps), hp heads per pass and
-// hub rows split (hub != 0) or not that one SM holds at once; a negative
-// CUDA error code on failure
 // blocks of gat_fwd's instantiation for (vec, reps), hp heads per pass and
 // hub rows split (hub != 0) or not that one SM holds at once; a negative
 // CUDA error code on failure
@@ -1365,16 +1661,19 @@ int gat_fwd_blocks_per_sm(int vec, int reps, int hp, int hub) {
   return err == cudaSuccess ? n : -static_cast<int>(err);
 }
 
-// blocks of gat_bwd's instantiation for (vec, reps) that one SM holds at
-// once with the cache of (kcache, hp); a negative CUDA error code on failure
-int gat_bwd_blocks_per_sm(int vec, int reps, int kcache, int hp) {
+// blocks of gat_bwd's instantiation for (vec, reps) with hub rows split
+// (hub != 0) or not that one SM holds at once with the cache of (kcache,
+// hp); a negative CUDA error code on failure
+int gat_bwd_blocks_per_sm(int vec, int reps, int kcache, int hp, int hub) {
   const int smem = bwd_smem_bytes(AttnGeometry{vec, reps, 1, hp, 1, kcache});
   int n = 0;
   cudaError_t err = cudaErrorInvalidValue;
-#define OCC_CASE(V, R)                                                                      \
-  case V * 16 + R:                                                                          \
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, gat_bwd_kernel<V, R>,           \
-                                                        kWarps * 32, smem);                 \
+#define OCC_CASE(V, R)                                                                     \
+  case V * 16 + R:                                                                         \
+    err = hub ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(                             \
+                    &n, gat_bwd_kernel<V, R, BwdItems::kSplit>, kWarps * 32, smem)         \
+              : cudaOccupancyMaxActiveBlocksPerMultiprocessor(                             \
+                    &n, gat_bwd_kernel<V, R, BwdItems::kRows>, kWarps * 32, smem);         \
     break;
   switch (vec * 16 + reps) {
     GAT_CASES(OCC_CASE)
@@ -1385,18 +1684,59 @@ int gat_bwd_blocks_per_sm(int vec, int reps, int kcache, int hp) {
   return err == cudaSuccess ? n : -static_cast<int>(err);
 }
 
+// the split rows' chunk maxima (pass 1, kernel 0) or sums of exp(s - M)
+// (pass 2, kernel 1), launched in that order before edge_softmax_fwd:
+// scores as it takes them, the plan's chunks, owner and first, pmax and
+// pden f32 [n_chunks, H]
+int edge_softmax_hub_pass(int kernel, const void* scores, const void* chunks,
+                          const void* owner, const void* first, void* pmax, void* pden,
+                          int n_chunks, int H, void* stream) {
+  const HubArgs hub = hub_args(chunks, owner, nullptr, first, pmax, pden, nullptr, n_chunks, 1);
+  if ((kernel != 0 && kernel != 1) || n_chunks < 0 || H <= 0 ||
+      (n_chunks > 0 && (chunks == nullptr || pmax == nullptr ||
+                        (kernel == 1 && (owner == nullptr || first == nullptr ||
+                                         pden == nullptr)))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_chunks == 0) return static_cast<int>(cudaGetLastError());
+  const dim3 grid((n_chunks + kWarps - 1) / kWarps), block(kWarps * 32);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* s = static_cast<const float*>(scores);
+  if (kernel == 0)
+    edge_softmax_hub_max_kernel<<<grid, block, 0, st>>>(hub, s, H, lanes_per_edge(H));
+  else
+    edge_softmax_hub_sum_kernel<<<grid, block, 0, st>>>(hub, s, H, lanes_per_edge(H));
+  return static_cast<int>(cudaGetLastError());
+}
+
 // scores f32 [E, H] in dst-sorted edge order; alpha f32 [E, H]; p edge
-// slots per row as ops/gat_cuda.py `softmax_geometry` gives it
-int edge_softmax_fwd(const void* indptr, const void* scores, void* alpha, int n_rows, int H,
-                     int p, void* stream) {
+// slots per row as ops/gat_cuda.py `softmax_geometry` gives it; the hub
+// plan (chunks, owner, first cut with T = chunk_edges) and pmax, pden from
+// edge_softmax_hub_pass (rows of more than chunk_edges edges are left to
+// the chunks; null pointers where n_chunks == 0)
+int edge_softmax_fwd(const void* indptr, const void* scores, void* alpha, const void* chunks,
+                     const void* owner, const void* first, const void* pmax, const void* pden,
+                     int n_chunks, int chunk_edges, int n_rows, int H, int p, void* stream) {
   if (n_rows <= 0 || H <= 0) return static_cast<int>(cudaGetLastError());
   const int g = lanes_per_edge(H);
-  if (p < 1 || (p & (p - 1)) != 0 || g * p > 32) return static_cast<int>(cudaErrorInvalidValue);
-  const int rows_per_block = 32 / (g * p) * kWarps;
-  const dim3 grid((n_rows + rows_per_block - 1) / rows_per_block), block(kWarps * 32);
-  edge_softmax_fwd_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(indptr), static_cast<const float*>(scores),
-      static_cast<float*>(alpha), n_rows, H, g, p);
+  if (p < 1 || (p & (p - 1)) != 0 || g * p > 32 || n_chunks < 0 || chunk_edges < 1 ||
+      (n_chunks > 0 && (chunks == nullptr || owner == nullptr || first == nullptr ||
+                        pmax == nullptr || pden == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const HubArgs hub = hub_args(chunks, owner, nullptr, first, const_cast<void*>(pmax),
+                               const_cast<void*>(pden), nullptr, n_chunks, chunk_edges);
+  // chunk warps first, then one warp per group of 32 / (g p) rows
+  const int rows_per_warp = 32 / (g * p);
+  const int64_t warps = n_chunks + (n_rows + rows_per_warp - 1) / rows_per_warp;
+  const dim3 grid(static_cast<unsigned>((warps + kWarps - 1) / kWarps)), block(kWarps * 32);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int32_t* ip = static_cast<const int32_t*>(indptr);
+  const float* s = static_cast<const float*>(scores);
+  float* a = static_cast<float*>(alpha);
+  // the instantiation that splits hub rows only where the plan has chunks
+  if (n_chunks > 0)
+    edge_softmax_fwd_kernel<true><<<grid, block, 0, st>>>(ip, s, a, hub, n_rows, H, g, p);
+  else
+    edge_softmax_fwd_kernel<false><<<grid, block, 0, st>>>(ip, s, a, hub, n_rows, H, g, p);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -395,7 +395,8 @@ def halo_edge_softmax(hg: HaloGraph, scores: torch.Tensor,
     softmax."""
     _check_edges(_combined(hg), "halo_edge_softmax", scores)
     if kernel:
-        return gat_cuda.csr_softmax(hg.c_indptr, scores, hg.rows)
+        return gat_cuda.csr_softmax(hg.c_indptr, scores, hg.rows,
+                                    spmm_cuda.plan_of(hg, "c_indptr", hg.rows))
     cuda_build.note_plain(scores)
     return refops.segment_softmax(hg.c_dst, hg.rows, scores)
 
@@ -452,7 +453,8 @@ class _HaloGATAttention(torch.autograd.Function):
         rows, h, d = feat.shape
         der, msg, dal = gat_cuda.gat_bwd(
             hg.c_indptr, hg.c_indices, src_b, src_el, er_b, keep,
-            ctx.inv_keep, ctx.slope, smax, denom, dout, al_b, hg.edge_base)
+            ctx.inv_keep, ctx.slope, smax, denom, dout, al_b, hg.edge_base,
+            spmm_cuda.plan_of(hg, "c_indptr", rows))
         n_src = rows + hg.n_recv
         dsrc = spmm_cuda.csr_sum_bf16(hg.c_t_indptr, hg.c_t_edges,
                                       msg.view(-1, h * d), n_src,

@@ -31,7 +31,11 @@ out[v,h,:] = sum alpha * feat[u,h,:].
   (dst-sorted edge order, as gat_pallas.py:264 per slot), and per-warp
   partials of dattn_l, summed here. Its first pass keeps each edge's
   alpha, w, w g and leaky_relu' factor in shared memory, from which the
-  second forms the VJP and the message.
+  second forms the VJP and the message. On the forward's hub plan a split
+  row's chunks first write their parts of t (`gat_bwd_hub_t`), then each
+  chunk runs the second pass with its row's t in `gat_bwd`, and
+  `gat_bwd_combine` sums the split rows' der in chunk order: three
+  launches counted under `gat_bwd`, one on a CSR without such rows.
 * `fwd_geometry` / `bwd_geometry` work out both kernels' lane layout (see
   the source's note) and the launch passes it, with a grid that fills
   every SM once.
@@ -63,7 +67,9 @@ the contract of `gat_pallas.edge_softmax` (:786-806): f32 scores [E] or
 [E, H] in dst-sorted edge order in, alpha per dst segment out, in the same
 shape. `edge_softmax_fwd` subtracts the segment's own max (the TPU kernel
 subtracts its block's, :700) and reads each short row's scores once
-(`softmax_geometry` packs several rows into a warp); `edge_softmax_bwd`
+(`softmax_geometry` packs several rows into a warp); on the CSR's hub plan
+a split row's chunk maxima and sums come first (`edge_softmax_hub_pass`),
+three launches counted under `edge_softmax_fwd`. `edge_softmax_bwd`
 gives ds = alpha * dalpha - alpha * sum_seg(alpha * dalpha), all f32. Rows
 without in-edges own no score and write nothing.
 
@@ -109,11 +115,15 @@ _SIGNATURES = {
     + [_vp],
     "gat_fwd_hub_max": [_vp] * 3 + [_cf] + [_vp] * 4 + [_ci] * 2 + [_vp],
     "gat_fwd_combine": [_vp] * 8 + [_ci] * 3 + [_vp],
-    "gat_bwd": [_vp] * 7 + [_cu, _cu, _cf, _cf] + [_vp] * 7 + [_ci] * 10
+    "gat_bwd_hub_t": [_vp] * 6 + [_cu, _cu, _cf, _cf] + [_vp] * 7
+    + [_ci] * 8 + [_vp],
+    "gat_bwd": [_vp] * 7 + [_cu, _cu, _cf, _cf] + [_vp] * 13 + [_ci] * 12
     + [_vp],
+    "gat_bwd_combine": [_vp] * 4 + [_ci] * 2 + [_vp],
     "gat_fwd_blocks_per_sm": [_ci] * 4,
-    "gat_bwd_blocks_per_sm": [_ci] * 4,
-    "edge_softmax_fwd": [_vp] * 3 + [_ci] * 3 + [_vp],
+    "gat_bwd_blocks_per_sm": [_ci] * 5,
+    "edge_softmax_hub_pass": [_ci] + [_vp] * 6 + [_ci] * 2 + [_vp],
+    "edge_softmax_fwd": [_vp] * 8 + [_ci] * 5 + [_vp],
     "edge_softmax_bwd": [_vp] * 4 + [_ci] * 2 + [_vp],
 }
 _blocks_per_sm: dict = {}
@@ -361,9 +371,9 @@ def plain_gat_bwd(indptr, senders, feat_b, el, er_b, keep, inv_keep, slope,
 
 
 def _blocks(lib, geo, device: torch.device, hub: bool = False) -> int:
-    """Blocks of gat_fwd (a FwdGeometry; `hub`: its instantiation that
-    splits hub rows) or gat_bwd (a BwdGeometry) that fill every SM of
-    `device` once."""
+    """Blocks of gat_fwd (a FwdGeometry) or gat_bwd (a BwdGeometry) that
+    fill every SM of `device` once; `hub`: the instantiation that splits
+    hub rows."""
     key = (device, type(geo).__name__, geo, hub)
     if key not in _blocks_per_sm:
         with torch.cuda.device(device):
@@ -372,7 +382,8 @@ def _blocks(lib, geo, device: torch.device, hub: bool = False) -> int:
                                                    int(hub))
             else:
                 per_sm = lib.gat_bwd_blocks_per_sm(geo.vec, geo.reps,
-                                                   geo.kcache, geo.hp)
+                                                   geo.kcache, geo.hp,
+                                                   int(hub))
             props = torch.cuda.get_device_properties(device)
         if per_sm <= 0:
             raise RuntimeError(f"gat occupancy query failed: CUDA error "
@@ -441,31 +452,54 @@ def _launch_fwd(indptr, senders, feat_b, el, er_b, keep, inv_keep, slope,
 
 
 def _launch_bwd(indptr, senders, feat_b, el, er_b, keep, inv_keep, slope,
-                smax, denom, dout, al_b, edge_base):
+                smax, denom, dout, al_b, edge_base, plan):
+    """gat_bwd over the CSR; on a plan with chunks also the chunks' parts
+    of t before it and the split rows' der after it, each launch
+    counted."""
     n_rows, (_, h, d) = er_b.shape[0], feat_b.shape
     n_edges = senders.numel()
     dev = feat_b.device
-    der = torch.empty((n_rows, h), dtype=torch.float32, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    der = torch.empty((n_rows, h), **f32)
     msg = torch.empty((n_edges, h, d), dtype=torch.bfloat16, device=dev)
+    if plan is None:
+        plan = spmm_cuda.hub_plan(indptr, n_rows)
+    spmm_cuda.check_plan(plan, n_rows, dev)
+    c = plan.n_chunks
     geo = bwd_geometry(h, d, align=feat_b.data_ptr() | msg.data_ptr())
     lib = cuda_build.load("gat", _SIGNATURES)
-    n_blocks = _grid(lib, geo, dev, n_rows)
-    part = torch.empty((n_blocks * WARPS_PER_BLOCK, h, d),
-                       dtype=torch.float32, device=dev)
+    n_blocks = _grid(lib, geo, dev, n_rows + c, c > 0)
+    part = torch.empty((n_blocks * WARPS_PER_BLOCK, h, d), **f32)
     keep = _keep_arg(keep)
     mask_ptr, seed_ptr, thresh, mode = _drop_args(keep, inv_keep)
     dout = dout.float().contiguous()
     al_b = al_b.contiguous()
+    inputs = (feat_b.data_ptr(), el.data_ptr(), er_b.data_ptr(), mask_ptr,
+              seed_ptr, thresh, edge_base, inv_keep, slope, smax.data_ptr(),
+              denom.data_ptr(), dout.data_ptr())
+    hub = [None] * 6
+    if c:   # each chunk's part of its row's t, and of its der
+        pt = torch.empty((c, h), **f32)
+        pder = torch.empty((c, h), **f32)
+        hub = [plan.chunks.data_ptr(), plan.owner.data_ptr(),
+               plan.rows.data_ptr(), plan.first.data_ptr(), pt.data_ptr(),
+               pder.data_ptr()]
+        cuda_build.launch(
+            "gat_bwd", lib.gat_bwd_hub_t, dev, senders.data_ptr(), *inputs,
+            *hub[:3], hub[4], c, h, d, *geo[:5])
+        counts["gat_bwd"] += 1
     cuda_build.launch(
         "gat_bwd", lib.gat_bwd, dev, indptr.data_ptr(), senders.data_ptr(),
-        feat_b.data_ptr(), el.data_ptr(), er_b.data_ptr(), mask_ptr,
-        seed_ptr, thresh, edge_base, inv_keep, slope, smax.data_ptr(),
-        denom.data_ptr(),
-        dout.data_ptr(), al_b.data_ptr(), der.data_ptr(), msg.data_ptr(),
-        part.data_ptr(), n_rows, h, d, n_blocks, *geo)
+        *inputs, al_b.data_ptr(), der.data_ptr(), msg.data_ptr(),
+        part.data_ptr(), *hub, c, plan.chunk, n_rows, h, d, n_blocks, *geo)
     counts["gat_bwd"] += 1
     if mode:
         counts[f"gat_bwd_{mode}"] += 1
+    if c:
+        cuda_build.launch(
+            "gat_bwd", lib.gat_bwd_combine, dev, hub[2], hub[3], hub[5],
+            der.data_ptr(), plan.rows.numel(), h)
+        counts["gat_bwd"] += 1
     return der, msg, part.sum(0)
 
 
@@ -488,16 +522,17 @@ def gat_fwd(indptr, senders, feat_b, el, er_b, keep=None, inv_keep=1.0,
 
 
 def gat_bwd(indptr, senders, feat_b, el, er_b, keep, inv_keep, slope, smax,
-            denom, dout, al_b, edge_base=0):
+            denom, dout, al_b, edge_base=0, plan=None):
     """Fused attention backward: the forward's inputs, its max and denom,
-    dout f32 [rows, H, D] and bf16 attn_l [H, D]. Returns (der f32
-    [rows, H], msg bf16 [E, H, D] in dst-sorted edge order, dattn_l f32
-    [H, D])."""
+    dout f32 [rows, H, D] and bf16 attn_l [H, D]; `plan` the CSR's hub plan,
+    the forward's (`spmm_cuda.plan_of`; built here when None, two host
+    syncs). Returns (der f32 [rows, H], msg bf16 [E, H, D] in dst-sorted
+    edge order, dattn_l f32 [H, D])."""
     _check(indptr, senders, feat_b, el, er_b, keep, edge_base)
     if feat_b.is_cuda:
         return _launch_bwd(indptr, senders, feat_b.contiguous(), el, er_b,
                            keep, float(inv_keep), float(slope), smax, denom,
-                           dout, al_b, edge_base)
+                           dout, al_b, edge_base, plan)
     return plain_gat_bwd(indptr, senders, feat_b, el, er_b, keep, inv_keep,
                          slope, smax, denom, dout.float(), al_b, edge_base)
 
@@ -558,7 +593,7 @@ class _GATAttention(torch.autograd.Function):
         n, h, d = feat.shape
         der, msg, dal = gat_bwd(g.indptr, g.senders, feat_b, el, er_b, keep,
                                 ctx.inv_keep, ctx.slope, smax, denom, dout,
-                                al_b)
+                                al_b, plan=spmm_cuda.plan_of(g, "indptr", n))
         dfeat_src = spmm_cuda.csr_sum_bf16(
             g.t_indptr, g.t_edges, msg.view(-1, h * d), n,
             spmm_cuda.plan_of(g, "t_indptr", n))
@@ -648,20 +683,43 @@ def plain_edge_softmax_bwd(indptr, alpha, dalpha, n_rows):
     return ag - alpha * t.index_select(0, dst)
 
 
-def edge_softmax_fwd(indptr, scores, n_rows):
+def _launch_softmax_fwd(indptr, scores, n_rows, plan):
+    """edge_softmax_fwd over the CSR; on a plan with chunks also the
+    chunks' maxima and sums before it, each launch counted."""
+    dev, h = scores.device, scores.shape[1]
+    alpha = torch.empty_like(scores)
+    if plan is None:
+        plan = spmm_cuda.hub_plan(indptr, n_rows)
+    spmm_cuda.check_plan(plan, n_rows, dev)
+    c = plan.n_chunks
+    lib = cuda_build.load("gat", _SIGNATURES)
+    hub = [None] * 5
+    if c:   # each chunk's max, then its sum of exp(s - the row's max)
+        pmax = torch.empty((c, h), dtype=torch.float32, device=dev)
+        pden = torch.empty((c, h), dtype=torch.float32, device=dev)
+        hub = [plan.chunks.data_ptr(), plan.owner.data_ptr(),
+               plan.first.data_ptr(), pmax.data_ptr(), pden.data_ptr()]
+        for kernel in (0, 1):
+            cuda_build.launch("edge_softmax_fwd", lib.edge_softmax_hub_pass,
+                              dev, kernel, scores.data_ptr(), *hub, c, h)
+            counts["edge_softmax_fwd"] += 1
+    geo = softmax_geometry(h, scores.shape[0], n_rows)
+    cuda_build.launch("edge_softmax_fwd", lib.edge_softmax_fwd, dev,
+                      indptr.data_ptr(), scores.data_ptr(), alpha.data_ptr(),
+                      *hub, c, plan.chunk, n_rows, h, geo.p)
+    counts["edge_softmax_fwd"] += 1
+    return alpha
+
+
+def edge_softmax_fwd(indptr, scores, n_rows, plan=None):
     """Segment softmax over the CSC rows: scores f32 [E, H] (E =
-    indptr[n_rows], dst-sorted) -> alpha f32 [E, H]."""
+    indptr[n_rows], dst-sorted) -> alpha f32 [E, H]. `plan` is the CSR's
+    hub plan (`spmm_cuda.plan_of`; built here when None, two host syncs):
+    on a plan with chunks the split rows' chunk maxima and sums go first,
+    three launches in all."""
     _check_edge_rows(indptr, n_rows, scores)
     if scores.is_cuda:
-        scores = scores.contiguous()
-        alpha = torch.empty_like(scores)
-        lib = cuda_build.load("gat", _SIGNATURES)
-        geo = softmax_geometry(scores.shape[1], scores.shape[0], n_rows)
-        cuda_build.launch("edge_softmax_fwd", lib.edge_softmax_fwd,
-                          scores.device, indptr.data_ptr(), scores.data_ptr(),
-                          alpha.data_ptr(), n_rows, scores.shape[1], geo.p)
-        counts["edge_softmax_fwd"] += 1
-        return alpha
+        return _launch_softmax_fwd(indptr, scores.contiguous(), n_rows, plan)
     return plain_edge_softmax_fwd(indptr, scores, n_rows)
 
 
@@ -684,8 +742,8 @@ def edge_softmax_bwd(indptr, alpha, dalpha, n_rows):
 class _EdgeSoftmax(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, scores, indptr, n_rows):
-        alpha = edge_softmax_fwd(indptr, scores, n_rows)
+    def forward(ctx, scores, indptr, n_rows, plan):
+        alpha = edge_softmax_fwd(indptr, scores, n_rows, plan)
         ctx.save_for_backward(alpha, indptr)
         ctx.n_rows = n_rows
         return alpha
@@ -694,25 +752,29 @@ class _EdgeSoftmax(torch.autograd.Function):
     def backward(ctx, dalpha):
         alpha, indptr = ctx.saved_tensors
         return edge_softmax_bwd(indptr, alpha, dalpha.float(),
-                                ctx.n_rows), None, None
+                                ctx.n_rows), None, None, None
 
 
-def csr_softmax(indptr, scores, n_rows):
+def csr_softmax(indptr, scores, n_rows, plan=None):
     """Softmax of scores [E] or [E, H] over the segments of the CSR
     indptr's n_rows rows (E = indptr[n_rows]), in the same shape and
-    dtype; the kernels run in f32."""
+    dtype; the kernels run in f32. `plan`: the CSR's hub plan, as
+    `edge_softmax_fwd` takes it (pass the kept one: `spmm_cuda.plan_of`)."""
     if scores.dim() not in (1, 2):
         raise ValueError(f"the softmax takes scores [E] or [E, H], got "
                          f"{tuple(scores.shape)}")
     s2 = scores[:, None] if scores.dim() == 1 else scores
-    alpha = _EdgeSoftmax.apply(s2.float(), indptr, n_rows).to(scores.dtype)
+    alpha = _EdgeSoftmax.apply(s2.float(), indptr, n_rows, plan).to(
+        scores.dtype)
     return alpha[:, 0] if scores.dim() == 1 else alpha
 
 
 def edge_softmax(g, scores):
     """Softmax of scores [E] or [E, H] (dst-sorted edge order) over each
-    dst's in-edges, in the same shape and dtype; the kernels run in f32."""
+    dst's in-edges, in the same shape and dtype; the kernels run in f32
+    with g's kept hub plan."""
     if scores.dim() not in (1, 2) or scores.shape[0] != g.n_edges:
         raise ValueError(f"edge_softmax takes scores [{g.n_edges}] or "
                          f"[{g.n_edges}, H], got {tuple(scores.shape)}")
-    return csr_softmax(g.indptr, scores, g.n_nodes)
+    return csr_softmax(g.indptr, scores, g.n_nodes,
+                       spmm_cuda.plan_of(g, "indptr", g.n_nodes))

@@ -46,8 +46,12 @@ _NS = r"(?:\(anonymous namespace\)::)?"
 # several: the walk and the second pass that sums split rows' partials
 # (spmm_csr_combine_kernel<P>, spmm_f32_combine_kernel), and for gat_fwd
 # also the chunks' maxima before it (gat_fwd_max_kernel) and the sums
-# after it (gat_fwd_combine_kernel); each is counted as one launch of its
-# port kernel (the wrappers count launches, not calls)
+# after it (gat_fwd_combine_kernel); gat_bwd_kernel's chunk instantiation
+# (the chunks' parts of t) before gat_bwd and gat_bwd_combine_kernel
+# after it; the segment softmax's chunk maxima and sums
+# (edge_softmax_hub_max_kernel, edge_softmax_hub_sum_kernel) before it.
+# Each is counted as one launch of its port kernel (the wrappers count
+# launches, not calls)
 _WALK = r"\bspmm_csr_(?:combine_)?kernel<"
 PORT_KERNELS = (
     (re.compile(rf"{_WALK}{_NS}Sum<__nv_bfloat16, float>"), "spmm_csr_bf16"),
@@ -57,8 +61,9 @@ PORT_KERNELS = (
     (re.compile(r"\bspmm_f32_(?:combine_)?kernel\b"), "spmm_csr_f32"),
     (re.compile(r"\bgat_prep_kernel\b"), "gat_prep"),
     (re.compile(r"\bgat_fwd_(?:max_|combine_)?kernel\b"), "gat_fwd"),
-    (re.compile(r"\bgat_bwd_kernel\b"), "gat_bwd"),
-    (re.compile(r"\bedge_softmax_fwd_kernel\b"), "edge_softmax_fwd"),
+    (re.compile(r"\bgat_bwd_(?:combine_)?kernel\b"), "gat_bwd"),
+    (re.compile(r"\bedge_softmax_(?:fwd|hub_max|hub_sum)_kernel\b"),
+     "edge_softmax_fwd"),
     (re.compile(r"\bedge_softmax_bwd_kernel\b"), "edge_softmax_bwd"),
 )
 

@@ -18,6 +18,22 @@ the CPU tests (tests/test_torch_kernel_design.py) and the card's
   chunk order. Its exponentials and products are torch's on the CPU, not
   the card's expf and fused multiply-adds, so it equals the kernel only to
   a tolerance.
+* `gat_bwd_walk` follows gat_bwd in f32 torch, one item at a time: a
+  chunk's part of t (alpha w g summed per edge slot, edge k of each 32-edge
+  window in slot k % slots, the slots folded onto slot 0); a split row's t
+  its chunks' parts summed in chunk order from zero, the same t for every
+  chunk; ds_pre per edge with that t; der per item folded as t is, a
+  split row's its chunks' in chunk order; the message per edge; dattn_l
+  summed over every edge (the kernel's per-warp order depends on the
+  grid). A tolerance again, for the same reason.
+* `softmax_fwd_walk` follows edge_softmax_fwd in f32 torch: a row of at
+  most P R edges in registers (per slot, the slots summed by a butterfly
+  over slot ^ 1, ^ 2, ...); a longer row of at most T edges by the whole
+  warp, a chunk of a longer row by one warp (lane slot q takes the edges
+  q, q + 32 / G, ... of its range in order, a compensated sum each, the
+  slots summed by a butterfly over slot ^ (32 / G) / 2, ..., ^ 1); a
+  split row's max the max of its chunks', its den its chunks' sums in
+  chunk order from zero.
 """
 
 import numpy as np
@@ -195,3 +211,117 @@ def gat_fwd_walk(indptr, senders, feat_b, el, er_b, keep, inv_keep, slope,
             out[row, hs] = acc_sum * (1.0 / den_sum)[:, None]
             smax[row, hs], denom[row, hs] = m, den_sum
     return out, smax, denom
+
+
+def gat_bwd_walk(indptr, senders, feat_b, el, er_b, keep, inv_keep, slope,
+                 smax, denom, dout, al_b, chunk):
+    """gat_bwd in f32 torch on the CPU with rows of more than `chunk` edges
+    split: (der, msg bf16, dattn_l)."""
+    n_rows, heads = er_b.shape
+    slots = gat_cuda.bwd_geometry(heads, feat_b.shape[2]).slots
+    if keep is None:
+        inv_keep = 1.0    # without dropout every weight is 1
+    elif keep.dtype == torch.int64:
+        keep = gat_cuda.philox_keep(keep, senders.numel(), heads,
+                                    1.0 / inv_keep)
+    der = torch.zeros((n_rows, heads))
+    msg = torch.zeros((senders.numel(),) + tuple(feat_b.shape[1:]))
+    dal = torch.zeros(feat_b.shape[1:])
+    al = al_b.float()
+    dout = dout.float()
+
+    def by_slot(values):
+        """An item's per-slot sums, each in edge order, folded."""
+        slot = (torch.arange(values.shape[0]) % 32) % slots
+        return fold([values[slot == q].cumsum(0)[-1] if (slot == q).any()
+                     else torch.zeros(values.shape[1:])
+                     for q in range(slots)])
+
+    def terms(a, b, v):
+        src = senders[a:b].long()
+        feat = feat_b[src].float()                              # [e, H, D]
+        s_pre = el[src] + er_b[v].float()
+        alpha = torch.exp(torch.where(s_pre >= 0, s_pre, slope * s_pre)
+                          - smax[v]) * (1.0 / denom[v])
+        w = (keep[a:b].float() * inv_keep if keep is not None
+             else torch.ones_like(alpha))
+        wg = w * (feat * dout[v]).sum(-1)
+        lk = torch.where(s_pre >= 0, torch.ones_like(s_pre),
+                         torch.full_like(s_pre, slope))
+        return feat, alpha, w, wg, lk
+
+    for v, ranges in items(indptr, n_rows, chunk):
+        if ranges[0][0] == ranges[-1][1]:
+            continue
+        parts = [terms(a, b, v) for a, b in ranges]
+        # the items' sums in chunk order from zero (0 + x is x: a row of
+        # one item is its own sum)
+        t = torch.zeros(heads)
+        for _, alpha, _, wg, _ in parts:
+            t = t + by_slot(alpha * wg)
+        for (a, b), (feat, alpha, w, wg, lk) in zip(ranges, parts):
+            ds_pre = lk * (alpha * (wg - t))
+            der[v] += by_slot(ds_pre)
+            dal += (ds_pre[..., None] * feat).sum(0)
+            msg[a:b] = ((alpha * w)[..., None] * dout[v]
+                        + ds_pre[..., None] * al)
+    return der, msg.to(torch.bfloat16), dal
+
+
+def _xor_sum(parts, offsets):
+    """The lanes' __shfl_xor_sync sum over slots, slot ^ o for each o in
+    `offsets` in turn; slot 0's result."""
+    parts = list(parts)
+    for off in offsets:
+        parts = [parts[q] + parts[q ^ off] for q in range(len(parts))]
+    return parts[0]
+
+
+def _warp_den(ex, per):
+    """One warp's compensated sums of ex [e, H] over its range: slot q
+    takes edges q, q + per, ... in order; the slots' sums (less their lost
+    parts) summed by the butterfly from per / 2 down to 1."""
+    heads = ex.shape[1]
+    parts = []
+    for q in range(per):
+        den, comp = torch.zeros(heads), torch.zeros(heads)
+        for y0 in ex[q::per]:
+            y = y0 - comp
+            t = den + y
+            comp = (t - den) - y
+            den = t
+        parts.append(den - comp)
+    offs, o = [], per // 2
+    while o >= 1:
+        offs.append(o)
+        o //= 2
+    return _xor_sum(parts, offs)
+
+
+def softmax_fwd_walk(indptr, scores, n_rows, chunk):
+    """edge_softmax_fwd in f32 torch on the CPU with rows of more than
+    `chunk` edges split: alpha [E, H]."""
+    n_edges, heads = scores.shape
+    g, p, r = gat_cuda.softmax_geometry(heads, n_edges, n_rows)
+    per = 32 // g
+    alpha = torch.zeros_like(scores)
+    offs = [1 << i for i in range(p.bit_length() - 1)]
+    for v, ranges in items(indptr, n_rows, chunk):
+        a, b = ranges[0][0], ranges[-1][1]
+        if a == b:
+            continue
+        s = scores[a:b]
+        m = s.max(0).values          # a max is exact in any order
+        ex = torch.exp(s - m)
+        if b - a <= p * r:           # registers: slot q holds q, q + p, ...
+            den = _xor_sum([ex[q::p].cumsum(0)[-1] if len(ex[q::p])
+                            else torch.zeros(heads) for q in range(p)],
+                           offs)
+        elif len(ranges) == 1:       # the whole warp
+            den = _warp_den(ex, per)
+        else:                        # the chunks' sums in chunk order
+            den = torch.zeros(heads)
+            for c, d in ranges:
+                den = den + _warp_den(ex[c - a:d - a], per)
+        alpha[a:b] = ex / den
+    return alpha

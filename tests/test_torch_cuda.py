@@ -32,7 +32,10 @@ The template body (bf16, int8, weighted) and gat_fwd split rows of more
 than T = spmm_cuda.HUB_CHUNK edges as well: on rows of T - 1, T, T + 1
 and 20 T edges (hub_walks.HUB_SPLIT) the template kernels equal their
 numpy walk (tests/hub_walks.py) bit for bit, and gat_fwd its torch walk
-to 1e-5 (the walk's exponentials and products are the CPU's).
+to 1e-5 (the walk's exponentials and products are the CPU's). gat_bwd and
+edge_softmax_fwd split the same rows (three launches each on such a CSR)
+and are held to their walks at 1e-5 and to their plain versions at the
+tolerances above, two launches bit-equal.
 """
 
 import numpy as np
@@ -382,10 +385,70 @@ def test_gat_fwd_split_matches_walk_and_plain(cuda, h, d, drop):
     assert bool((got[2][~short] >= 1).all())
 
 
+@pytest.mark.parametrize("drop", [0.0, 0.3])
+@pytest.mark.parametrize("h,d", GAT_SHAPES)
+def test_gat_bwd_split_matches_walk_and_plain(cuda, h, d, drop):
+    """gat_bwd with rows of more than T edges split (the chunks' parts of
+    t, the walk, the split rows' der: three launches): two launches
+    bit-equal; der, msg and dattn_l within 1e-5 of hub_walks.gat_bwd_walk
+    (the message within a bf16 ulp) and within the GAT tolerances of the
+    plain version. Seed mode: the kernels' own keep bits."""
+    g = _split_graph(h * 10 + d + 1, cuda)
+    feat, al, ar, _ = _gat_inputs(g, h, d, 0.0, 5)
+    keep = (torch.tensor([0x5EED0000 + h * d], dtype=torch.int64,
+                         device=cuda) if drop else None)
+    feat_b, el, er_b, al_b = gat_cuda.prep(feat, al, ar)
+    args = (g.indptr, g.senders, feat_b, el, er_b, keep,
+            1.0 / (1.0 - drop), 0.2)
+    plan = spmm_cuda.plan_of(g, "indptr", g.n_nodes)
+    assert plan.n_chunks > 0
+    _, smax, denom = gat_cuda.gat_fwd(*args, plan=plan)
+    dout = torch.randn_like(feat)
+    gat_cuda.reset_counts()
+    got = gat_cuda.gat_bwd(*args, smax, denom, dout, al_b, plan=plan)
+    again = gat_cuda.gat_bwd(*args, smax, denom, dout, al_b, plan=plan)
+    assert gat_cuda.counts["gat_bwd"] == 6
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    walk = hub_walks.gat_bwd_walk(*(t.cpu() if torch.is_tensor(t) else t
+                                    for t in args + (smax, denom, dout,
+                                                     al_b)), HT)
+    want = gat_cuda.plain_gat_bwd(*args, smax, denom, dout, al_b)
+    for other, rtol in ((want, 1e-4), (walk, 1e-5)):
+        _close(got[0].cpu(), other[0].cpu(), rtol, rtol)
+        _close(got[1].cpu(), other[1].cpu(), rtol=2.0 ** -7, scale=1e-5)
+        _close(got[2].cpu(), other[2].cpu(), rtol, rtol)
+    assert got[0][0].abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("heads", [1, 3, 8, 40])
+def test_edge_softmax_fwd_split_matches_walk_and_plain(cuda, heads):
+    """edge_softmax_fwd with rows of more than T edges split (the chunks'
+    maxima, their sums with the row's max, then alpha: three launches):
+    two launches bit-equal, within 1e-5 of hub_walks.softmax_fwd_walk and
+    of the plain version (atol 1e-6); every split row sums to 1."""
+    g = _split_graph(heads + 40, cuda)
+    s = 3 * torch.randn((g.n_edges, heads), device=cuda)
+    plan = spmm_cuda.plan_of(g, "indptr", g.n_nodes)
+    gat_cuda.reset_counts()
+    got = gat_cuda.edge_softmax_fwd(g.indptr, s, g.n_nodes, plan)
+    again = gat_cuda.edge_softmax_fwd(g.indptr, s, g.n_nodes, plan)
+    assert gat_cuda.counts["edge_softmax_fwd"] == 6
+    assert torch.equal(got, again)
+    walk = hub_walks.softmax_fwd_walk(g.indptr.cpu(), s.cpu(), g.n_nodes,
+                                      HT)
+    want = gat_cuda.plain_edge_softmax_fwd(g.indptr, s, g.n_nodes)
+    torch.testing.assert_close(got.cpu(), walk, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    split = g.receivers.long() == len(hub_walks.HUB_SPLIT) - 1
+    torch.testing.assert_close(got[split].sum(0).cpu(), torch.ones(heads))
+
+
 def test_hub_plans_kept_and_built_once(cuda):
     """Every walk of the Graph (copy_u_sum both tiers and its backward,
-    u_mul_e_sum and its dX, the GAT layer and its source reduce,
-    feature_prop) takes the two plans kept on it: two builds however many
+    u_mul_e_sum and its dX, the GAT layer's forward, backward and source
+    reduce, the segment softmax, feature_prop) takes the two plans kept on
+    it: two builds however many
     calls, and weighted_csr carries them. A halo shard keeps its own, one
     per CSR; a moved Graph or shard starts anew."""
     from glnn_tpu_torch.distributed.halo import build_halo_graph, csr_part
@@ -402,6 +465,7 @@ def test_hub_plans_kept_and_built_once(cuda):
         spmm_cuda.u_mul_e_sum(g, x, w).sum().backward()
         ops.gat_attention(g, feat.requires_grad_(True), al, ar).sum()\
             .backward()
+        ops.edge_softmax(g, w[:, None].expand(-1, 4)).sum().backward()
         graph_utils.feature_prop(x.detach(), g, 2)
     assert spmm_cuda.builds["hub_plan"] == 2
     csr = spmm_cuda.weighted_csr(g)
@@ -424,8 +488,8 @@ def test_hub_plans_kept_and_built_once(cuda):
 
 def test_gat_layer_on_hub_rows_matches_plain_chain(cuda):
     """ops.gat_attention on a graph with split rows: gat_fwd's three
-    launches and the source reduce's two, no plain call; the forward and
-    the gradients against the plain versions' chain."""
+    launches, gat_bwd's three and the source reduce's two, no plain call;
+    the forward and the gradients against the plain versions' chain."""
     g = _split_graph(13, cuda)
     feat, al, ar, _ = _gat_inputs(g, 4, 8, 0.0, 6)
     leaves = [t.clone().requires_grad_(True) for t in (feat, al, ar)]
@@ -435,7 +499,7 @@ def test_gat_layer_on_hub_rows_matches_plain_chain(cuda):
     cuda_build.reset_counts()
     out = ops.gat_attention(g, *leaves)
     out.backward(dout)
-    assert (gat_cuda.counts["gat_fwd"], gat_cuda.counts["gat_bwd"]) == (3, 1)
+    assert (gat_cuda.counts["gat_fwd"], gat_cuda.counts["gat_bwd"]) == (3, 3)
     assert spmm_cuda.counts["spmm_csr_bf16"] == 2
     assert cuda_build.counts == {"plain_on_cuda": 0}
     feat_b, el, er_b, al_b = gat_cuda.prep(feat, al, ar)
@@ -767,10 +831,12 @@ def _softmax_matches_plain(g, heads):
     shape = (g.n_edges,) if heads is None else (g.n_edges, heads)
     s = (3 * torch.randn(shape, device=cuda)).requires_grad_(True)
     da = torch.randn(shape, device=cuda)
+    split = spmm_cuda.plan_of(g, "indptr", g.n_nodes).n_chunks > 0
     gat_cuda.reset_counts()
     alpha = gat_cuda.edge_softmax(g, s)
     (ds,) = torch.autograd.grad(alpha, s, da)
-    assert gat_cuda.counts["edge_softmax_fwd"] == 1
+    # with split rows: the chunks' maxima and sums, then alpha
+    assert gat_cuda.counts["edge_softmax_fwd"] == (3 if split else 1)
     assert gat_cuda.counts["edge_softmax_bwd"] == 1
     assert alpha.shape == shape
     s2 = s.detach().reshape(g.n_edges, -1)

@@ -41,6 +41,18 @@ walks in the kernels' order of operations.
   with the kernel's butterfly, and walks longer rows with the whole warp
   (max, then a compensated sum); it is held against plain_edge_softmax_fwd
   (rtol 1e-5) and counts the reads of every score.
+* With hub rows split across warps (rows of more than T =
+  spmm_cuda.HUB_CHUNK edges, hub_walks.HUB_SPLIT: 0 to 20 T edges), the
+  walks of tests/hub_walks.py: the template body's and gat_fwd's, and
+  gat_bwd's (each chunk's part of t, t in chunk order, ds_pre per edge,
+  der per chunk in chunk order) and edge_softmax_fwd's (chunk maxima,
+  chunk sums with the row's max). Each is held to its plain version and
+  to its unsplit walk at the card's tolerances, and through the autograd
+  layer (gat_fwd and gat_bwd both walked) to glnn_tpu: the interpret-mode
+  Pallas kernels on rows of up to 2 T + 3 edges, its XLA tier on the 20 T
+  row, at 1e-2 x max; the softmax walk to refops.edge_softmax and the
+  interpret-mode gat_pallas.edge_softmax. The layer's backward and the
+  softmax take the CSR's kept plan, built once.
 """
 
 import jax
@@ -695,7 +707,7 @@ def test_gat_bwd_mirror_through_layer_matches_pallas(monkeypatch, logit):
     feat = rs.randn(N, 2, 8).astype(np.float32)
     al, ar = ((rs.randn(2, 8) * logit).astype(np.float32) for _ in range(2))
 
-    monkeypatch.setattr(gat_cuda, "gat_bwd", lambda *a: _gat_bwd_mirror(
+    monkeypatch.setattr(gat_cuda, "gat_bwd", lambda *a, **k: _gat_bwd_mirror(
         *a[:10], a[10].float(), a[11]))
     leaves = [torch.from_numpy(a).requires_grad_(True)
               for a in (feat, al, ar)]
@@ -707,6 +719,230 @@ def test_gat_bwd_mirror_through_layer_matches_pallas(monkeypatch, logit):
         w = np.asarray(w)
         assert np.abs(leaf.grad.numpy() - w).max() / (np.abs(w).max()
                                                       + 1e-6) < 1e-2
+
+
+# ---- hub rows split across warps in gat_bwd and the segment softmax ----
+
+def _gat_bwd_split_case(h, d, drop, seed):
+    """gat_bwd's inputs on the hub-split graph (rows of 0 to 20 T edges)
+    with large logits, seed mode or no dropout: _gat_split_case's, the
+    plain forward's max and den, a cotangent and the bf16 attn_l."""
+    g, args = _gat_split_case(h, d, drop, seed)
+    rs = np.random.RandomState(seed)      # _gat_split_case's draws again
+    rs.randn(g.n_nodes, h, d)
+    al_b = torch.from_numpy((rs.randn(h, d) * 10 / np.sqrt(d))
+                            .astype(np.float32)).to(torch.bfloat16)
+    _, smax, denom = gat_cuda.plain_gat_fwd(*args)
+    dout = torch.from_numpy(np.random.RandomState(seed + 1).randn(
+        g.n_nodes, h, d).astype(np.float32))
+    return g, args + (smax, denom, dout, al_b)
+
+
+@pytest.mark.parametrize("drop", ["none", "seed"])
+@pytest.mark.parametrize("h,d", [(8, 16), (1, 40), (3, 5)])
+def test_gat_bwd_split_walk_matches_plain(h, d, drop):
+    """gat_bwd with rows of 0 to 20 T edges split: each chunk's part of t,
+    t summed in chunk order by every chunk, ds_pre per edge, der per chunk
+    summed in chunk order. Against plain_gat_bwd and the unsplit walk at
+    the card's tolerances (der and dattn_l rtol 1e-4 / atol 1e-4 x max, the
+    message within a bf16 ulp); rows of at most T edges are the unsplit
+    walk's bit for bit."""
+    g, args = _gat_bwd_split_case(h, d, drop, h * d + 1)
+    got = hub_walks.gat_bwd_walk(*args, HT)
+    whole = hub_walks.gat_bwd_walk(*args, 10 ** 9)
+    want = gat_cuda.plain_gat_bwd(*args)
+    for other in (want, whole):
+        _close(got[0], other[0])
+        _close(got[1], other[1], rtol=2.0 ** -7, scale=1e-5)
+        _close(got[2], other[2])
+    deg = torch.from_numpy(np.diff(g.indptr[:g.n_nodes + 1].numpy()))
+    short = deg <= HT
+    assert torch.equal(got[0][short], whole[0][short])
+    edge_short = short[g.receivers.long()]
+    assert torch.equal(got[1][edge_short], whole[1][edge_short])
+    assert got[0][0].abs().max() == 0
+    assert got[0][len(HUB_SPLIT) - 1].abs().max() > 0
+
+
+def _layer_grads(gt, fn, feat, al, ar):
+    """The port's layer (its kernels' plain versions or walks, as patched)
+    and `fn` (JAX's) on the same numpy inputs: out and the gradients of
+    sum(sin(out)), each pair held at 1e-2 x max."""
+    leaves = [torch.from_numpy(a).requires_grad_(True)
+              for a in (feat, al, ar)]
+    out = gat_cuda.gat_attention(gt, *leaves)
+    torch.sin(out).sum().backward()
+    want = np.asarray(fn(*(jnp.asarray(a) for a in (feat, al, ar))))
+    assert np.abs(out.detach().numpy() - want).max() / np.abs(want).max() \
+        < 1e-2
+    grads = jax.grad(lambda *a: jnp.sum(jnp.sin(fn(*a))), argnums=(0, 1, 2))(
+        *(jnp.asarray(a) for a in (feat, al, ar)))
+    for leaf, w in zip(leaves, grads):
+        w = np.asarray(w)
+        assert np.abs(leaf.grad.numpy() - w).max() / (np.abs(w).max()
+                                                      + 1e-6) < 1e-2
+
+
+def _patch_split_walks(monkeypatch):
+    monkeypatch.setattr(gat_cuda, "gat_fwd", lambda *a, **k: (
+        hub_walks.gat_fwd_walk(*a[:8], HT)))
+    monkeypatch.setattr(gat_cuda, "gat_bwd", lambda *a, **k: (
+        hub_walks.gat_bwd_walk(*a[:12], HT)))
+
+
+@pytest.mark.parametrize("logit", [0.3, 3.0])
+def test_gat_bwd_split_walk_through_layer_matches_pallas(monkeypatch, logit):
+    """The autograd layer with gat_fwd and gat_bwd replaced by their split
+    walks, against glnn_tpu's fused layer (interpret-mode Pallas, forward
+    and backward kernels) on rows of up to 2 T + 3 edges, whose dst blocks
+    fit JAX's attention plan: out and gradients at 1e-2 x max."""
+    src, dst, n = hub_walks.hub_split_arrays(
+        8, (0, 1, HT - 1, HT, HT + 1, 2 * HT + 3), n=2048, n_random=2000)
+    gt = build_graph(src, dst, n)
+    gj = jax_build_graph(src, dst, n).with_plans()
+    assert gj.smx is not None
+    rs = np.random.RandomState(13)
+    feat = rs.randn(n, 2, 8).astype(np.float32)
+    al, ar = ((rs.randn(2, 8) * logit).astype(np.float32) for _ in range(2))
+    _patch_split_walks(monkeypatch)
+    _layer_grads(gt, lambda f, a, b: gat_pallas.gat_attention(gj, f, a, b),
+                 feat, al, ar)
+
+
+def _bf16_forward(x):
+    """x rounded to bf16 in the forward, the identity in the backward."""
+    return x + jax.lax.stop_gradient(
+        x.astype(jnp.bfloat16).astype(jnp.float32) - x)
+
+
+@pytest.mark.parametrize("logit", [0.3, 3.0])
+def test_gat_bwd_split_walk_through_layer_matches_xla_tier(monkeypatch,
+                                                           logit):
+    """The same on hub_walks.HUB_SPLIT's rows (one of 20 T edges), where
+    JAX has no attention plan (a dst block past X_MAX) and composes its
+    XLA tier (glnn_tpu/ops/__init__.py:205-220: refops.u_add_v,
+    edge_softmax, u_mul_e_sum): out and gradients at 1e-2 x max. That tier
+    forms el and er in f32, where JAX's fused tier and the port take el of
+    bf16 features and bf16 attn_l (gat_pallas.py:118) and round er once
+    to bf16 (`_prep`, :409-420); on the 10,240-edge row the er rounding
+    alone moves dattn_r by 2.4e-2 (logit 0.3) and 1.2e-1 (logit 3) of its
+    max, for the plain chain and the unsplit walk as much as for the
+    split one. So the tier's ops here take el and er with the fused
+    tier's roundings, the gradient flowing through them in f32 as through
+    the fused tier's VJP."""
+    src, dst, n = hub_walks.hub_split_arrays(9, n=2048, n_random=2000)
+    gt = build_graph(src, dst, n)
+    gj = jax_build_graph(src, dst, n).with_plans()
+    assert gj.smx is None
+
+    def xla_tier(f, a, b):
+        el = jnp.sum(_bf16_forward(f) * _bf16_forward(a)[None], -1)
+        er = _bf16_forward(jnp.sum(f * b[None], -1))
+        e = jax_refops.u_add_v(gj, el, er)
+        e = jnp.where(e >= 0, e, 0.2 * e)
+        return jax_refops.u_mul_e_sum(gj, f, jax_refops.edge_softmax(gj, e))
+
+    rs = np.random.RandomState(14)
+    feat = rs.randn(n, 2, 8).astype(np.float32)
+    al, ar = ((rs.randn(2, 8) * logit).astype(np.float32) for _ in range(2))
+    _patch_split_walks(monkeypatch)
+    _layer_grads(gt, xla_tier, feat, al, ar)
+
+
+@pytest.mark.parametrize("heads", [1, 3, 8, 40])
+def test_softmax_split_walk_matches_plain(heads):
+    """edge_softmax_fwd with rows of more than T edges split (chunk maxima,
+    chunk sums with the row's max, alpha per chunk) on rows of 0 to 20 T
+    edges: against the plain version (sums in f64) and the unsplit walk at
+    rtol 1e-5 / atol 1e-6; rows of at most T edges are the unsplit walk's
+    bit for bit."""
+    src, dst, n = hub_walks.hub_split_arrays(heads + 30)
+    g = build_graph(src, dst, n)
+    s = torch.from_numpy(3 * np.random.RandomState(heads).randn(
+        g.n_edges, heads).astype(np.float32))
+    got = hub_walks.softmax_fwd_walk(g.indptr, s, n, HT)
+    whole = hub_walks.softmax_fwd_walk(g.indptr, s, n, 10 ** 9)
+    want = gat_cuda.plain_edge_softmax_fwd(g.indptr, s, n)
+    for other in (want, whole):
+        torch.testing.assert_close(got, other, rtol=1e-5, atol=1e-6)
+    deg = torch.from_numpy(np.diff(g.indptr[:n + 1].numpy()))
+    edge_short = (deg <= HT)[g.receivers.long()]
+    assert torch.equal(got[edge_short], whole[edge_short])
+    split = g.receivers.long() == len(HUB_SPLIT) - 1
+    torch.testing.assert_close(got[split].sum(0), torch.ones(heads))
+
+
+@pytest.mark.parametrize("heads", [None, 1, 8])
+def test_softmax_split_walk_matches_jax(heads):
+    """The split walk against glnn_tpu's softmax on the same numpy scores:
+    the interpret-mode gat_pallas.edge_softmax on rows of up to 2 T + 3
+    edges (planned) at rtol 1e-5 / atol 1e-6, as tests/test_torch_gat.py
+    holds the plain version, and refops.edge_softmax (the XLA tier) on
+    rows of up to 20 T edges at rtol 2e-5: refops sums a row's 10,240
+    exponentials in f32, 1.4e-5 of itself off the f64 sums of
+    plain_edge_softmax_fwd on one [E, 8] element, where the walk stays
+    within 1.2e-7 of them (test_softmax_split_walk_matches_plain)."""
+    for degrees, seed, rtol in ((HUB_SPLIT, 3, 2e-5), (
+            (0, 1, HT - 1, HT, HT + 1, 2 * HT + 3), 4, 1e-5)):
+        src, dst, n = hub_walks.hub_split_arrays(seed, degrees, n=2048,
+                                                 n_random=2000)
+        g = build_graph(src, dst, n)
+        gj = jax_build_graph(src, dst, n)
+        shape = (g.n_edges,) if heads is None else (g.n_edges, heads)
+        s = (3 * np.random.RandomState(seed).randn(*shape)).astype(
+            np.float32)
+        got = hub_walks.softmax_fwd_walk(
+            g.indptr, torch.from_numpy(s).reshape(g.n_edges, -1), n, HT)
+        got = got.reshape(shape).numpy()
+        if degrees is HUB_SPLIT:
+            want = jax_refops.edge_softmax(gj, jnp.asarray(s))
+        else:
+            gj = gj.with_plans()
+            assert gj.smx is not None
+            want = gat_pallas.edge_softmax(gj, jnp.asarray(s))
+        np.testing.assert_allclose(got, np.asarray(want), rtol=rtol,
+                                   atol=1e-6)
+
+
+def test_gat_bwd_and_softmax_take_the_kept_plan(monkeypatch):
+    """The layer's backward hands gat_bwd the plan its forward took, and
+    edge_softmax and the halo softmax hand the softmax their CSR's kept
+    plan: over two layer steps and two softmax calls on the Graph, and two
+    on a halo shard, two plans are built for the Graph (the dst-sorted CSR
+    and its transpose) and one for the shard's combined CSR."""
+    from glnn_tpu_torch.distributed.halo import (build_halo_graph,
+                                                 halo_edge_softmax)
+
+    src, dst, n = hub_walks.hub_split_arrays(17)
+    g = build_graph(src, dst, n)
+    hg = build_halo_graph(src, dst, n, 1, combined=True)[0]
+    taken = []
+    bwd, smx = gat_cuda.gat_bwd, gat_cuda.edge_softmax_fwd
+    monkeypatch.setattr(gat_cuda, "gat_bwd", lambda *a, **k: (
+        taken.append(("gat_bwd", k["plan"])), bwd(*a, **k))[1])
+    monkeypatch.setattr(gat_cuda, "edge_softmax_fwd", lambda *a: (
+        taken.append(("softmax", a[3])), smx(*a))[1])
+    rs = np.random.RandomState(2)
+    feat = torch.from_numpy(rs.randn(n, 2, 4).astype(np.float32))
+    al, ar = (torch.from_numpy(rs.randn(2, 4).astype(np.float32))
+              for _ in range(2))
+    s = torch.from_numpy(rs.randn(g.n_edges, 3).astype(np.float32))
+    spmm_cuda.builds["hub_plan"] = 0
+    for _ in range(2):
+        gat_cuda.gat_attention(g, feat.requires_grad_(True), al, ar).sum()\
+            .backward()
+        gat_cuda.edge_softmax(g, s.requires_grad_(True)).sum().backward()
+    assert spmm_cuda.builds["hub_plan"] == 2
+    plan = spmm_cuda.plan_of(g, "indptr", n)
+    assert plan.n_chunks > 0
+    assert taken == [("gat_bwd", plan), ("softmax", plan)] * 2
+    assert all(p is plan for _, p in taken)
+    taken.clear()
+    for _ in range(2):
+        halo_edge_softmax(hg, s[:hg.n_edges], kernel=True)
+    assert spmm_cuda.builds["hub_plan"] == 3
+    assert [p for _, p in taken] == [spmm_cuda.plan_of(
+        hg, "c_indptr", hg.rows)] * 2
 
 
 # ---- the GAT attention forward ---------------------------------------------

@@ -83,6 +83,22 @@ HUB_PASSES = {
                "const*, float, int)",
     "gat_fwd ": "(anonymous namespace)::gat_fwd_combine_kernel((anonymous "
                 "namespace)::HubArgs, float*, float*, float*, int, int, int)",
+    "gat_bwd": "void (anonymous namespace)::gat_bwd_kernel<8, 1, (anonymous "
+               "namespace)::BwdItems)1>(int const*, int const*, "
+               "__nv_bfloat16 const*, float const*, __nv_bfloat16 const*, "
+               "(anonymous namespace)::DropArgs, float, float const*)",
+    "gat_bwd ": "(anonymous namespace)::gat_bwd_combine_kernel((anonymous "
+                "namespace)::BwdHub, float*, int, int)",
+    "edge_softmax_fwd": "(anonymous namespace)::edge_softmax_hub_max_kernel("
+                        "(anonymous namespace)::HubArgs, float const*, int, "
+                        "int)",
+    "edge_softmax_fwd ": "(anonymous namespace)::edge_softmax_hub_sum_kernel("
+                         "(anonymous namespace)::HubArgs, float const*, int, "
+                         "int)",
+    "edge_softmax_fwd  ": "void (anonymous namespace)::edge_softmax_fwd_kernel"
+                          "<true>(int const*, float const*, float*, "
+                          "(anonymous namespace)::HubArgs, int, int, int, "
+                          "int)",
 }
 
 

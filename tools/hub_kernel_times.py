@@ -6,17 +6,19 @@ on the synth graph and on the hub graph, for one checkout of the port.
 
 Times `spmm_csr_bf16`, `spmm_csr_int8` and `spmm_csr_weighted` at F = 40
 (the GCN and APPNP width; the weighted sum with APPNP's {0, 2} keep
-weights, forward walk) and `gat_fwd` at both of chip_smoke.py's GAT shapes
-(dropout in seed mode), each on chip_smoke.py's synth graph
+weights, forward walk), `gat_fwd` and `gat_bwd` at both of chip_smoke.py's
+GAT shapes (dropout in seed mode) and `edge_softmax_fwd` on [E, 8] and
+[E, 1] scores, each on chip_smoke.py's synth graph
 (synth-n169343-c40-f128-d7) and on its hub graph (the same N and E, rows
 of up to 20,000 edges), with chip_smoke.kernel_times: the eager time of
 calls back to back, and the device time of CUDA-graph replays. --root is
 the checkout whose package and chip_smoke.py are timed (by default this
 one): a parent commit unpacked into a git-ignored directory compares two
 versions on one card in one call (run parent, change, change, parent).
-A checkout whose wrappers take a hub plan (`spmm_cuda.plan_of`) gets the
-graph's kept plan, as its paths do; an older one is called as its paths
-call it. Each case is timed --reps times and reported by its median.
+A wrapper that takes a hub plan (a `plan` parameter) gets the graph's
+kept plan (`spmm_cuda.plan_of`), as its paths give it; an older one is
+called as its paths call it. Each case is timed --reps times and
+reported by its median.
 Prints the card's name and power limit, then one JSON line: {"root",
 "device_ms": {case: ms}, "ms": {case: ms}}.
 """
@@ -24,6 +26,7 @@ Prints the card's name and power limit, then one JSON line: {"root",
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import statistics
 import subprocess
@@ -58,6 +61,12 @@ def main() -> int:
     graphs = {"synth": g, "hub": cs.hub_graph(g.n_nodes, g.n_edges,
                                               9).to(dev)}
     kept = hasattr(spmm_cuda, "plan_of")
+
+    def plan_kw(fn, plan):
+        """{"plan": plan} where fn takes one."""
+        return ({"plan": plan[0]} if plan
+                and "plan" in inspect.signature(fn).parameters else {})
+
     cases = {}
     for tag, gr in graphs.items():
         n, e, f = gr.n_nodes, gr.n_edges, cs.APPNP_F
@@ -68,7 +77,9 @@ def main() -> int:
         w = (torch.rand(e, generator=gen, device=dev)
              >= cs.EDGE_DROP).float() / (1.0 - cs.EDGE_DROP)
         plan = (spmm_cuda.plan_of(gr, "indptr", n),) if kept else ()
-        fwd_plan = {"plan": plan[0]} if kept else {}
+        fwd_plan = plan_kw(gat_cuda.gat_fwd, plan)
+        bwd_plan = plan_kw(gat_cuda.gat_bwd, plan)
+        smx_plan = plan_kw(gat_cuda.edge_softmax_fwd, plan)
         cases[f"{tag} spmm_csr_bf16 F={f}"] = (
             lambda gr=gr, xb=xb, p=plan: spmm_cuda.csr_sum_bf16(
                 gr.indptr, gr.senders, xb, gr.n_nodes, *p))
@@ -79,9 +90,18 @@ def main() -> int:
             lambda gr=gr, x=x, w=w, p=plan: spmm_cuda.csr_wsum_bf16(
                 gr.indptr, gr.senders, None, x, w, gr.n_nodes, *p))
         for h, d in cs.GAT_SHAPES:
-            args, _, _ = cs.gat_inputs(gat_cuda, gr, h, d, cs.ATTN_DROP, 11)
+            args, dout, al_b = cs.gat_inputs(gat_cuda, gr, h, d,
+                                             cs.ATTN_DROP, 11)
             cases[f"{tag} gat_fwd ({h}, {d})"] = (
                 lambda a=args, k=fwd_plan: gat_cuda.gat_fwd(*a, **k))
+            _, smax, denom = gat_cuda.gat_fwd(*args, **fwd_plan)
+            cases[f"{tag} gat_bwd ({h}, {d})"] = (
+                lambda a=args + (smax, denom, dout, al_b), k=bwd_plan:
+                gat_cuda.gat_bwd(*a, **k))
+            scores = 3.0 * torch.randn((e, h), generator=gen, device=dev)
+            cases[f"{tag} edge_softmax_fwd [E, {h}]"] = (
+                lambda gr=gr, sc=scores, k=smx_plan: gat_cuda.edge_softmax_fwd(
+                    gr.indptr, sc, gr.n_nodes, **k))
     times = {name: [] for name in cases}
     for _ in range(opts.reps):
         for name, fn in cases.items():

@@ -19,7 +19,8 @@ spmm_csr.cu with an entry point that instantiates its body for f32 rows
 layout, timed beside the others in the same run; or, with the sources as
 they are, the chunk length T of the hub plan (a launch argument, so no
 rebuild) that splits hub rows across warps in the template body
-(`spmm_hub`) and in gat_fwd (`gat_fwd_hub`). Every variant is built
+(`spmm_hub`), in gat_fwd (`gat_fwd_hub`), in gat_bwd (`gat_bwd_hub`) and
+in edge_softmax_fwd (`softmax_hub`). Every variant is built
 with the port's nvcc flags
 into a temporary directory, loaded in place of the port's library,
 checked against the plain version (the cut gat_fwd variants are only
@@ -46,7 +47,11 @@ graph at the main paths' widths:
   at T = 64 edges per edge group (64 steps of a chunk's warp whatever
   the layout; gat_fwd: 64 per edge slot) and unsplit (one warp per row,
   what the split replaces), each held to the plain version (int8 exactly) and
-  for two launches bit-equal, eager and device time.
+  for two launches bit-equal, eager and device time;
+- `gat_bwd_hub`: gat_bwd at both GAT shapes in seed mode with T = 256
+  and 512 and unsplit, and `softmax_hub`: edge_softmax_fwd on [E, 1] and
+  [E, 8] scores with T = 128, 256 and 512 and unsplit, on the synth and
+  the hub graph, held and timed alike.
 The lane layouts, grids and plans are launch arguments, so they need no
 rebuild. Prints each variant's ptxas registers, stack frame and spill
 stores per instantiation of the swept kernel and its times, and writes
@@ -88,17 +93,23 @@ VARIANTS = {"spmm": [None, 6, 0], "gat_fwd": [None, 0, 6], "gat_bwd": [None],
             "gat_fwd_parts": [None, "scores only", "features only"],
             "f32": [None, "S=1", "S=3", "S=4", "T=128", "T=256", "T=1024",
                     "H=0", "template"],
-            "spmm_hub": [None], "gat_fwd_hub": [None]}
+            "spmm_hub": [None], "gat_fwd_hub": [None], "gat_bwd_hub": [None],
+            "softmax_hub": [None]}
 KERNEL = {"spmm": "spmm_csr_kernel", "gat_fwd": "gat_fwd_kernel",
           "gat_bwd": "gat_bwd_kernel", "softmax": "edge_softmax_fwd_kernel",
           "gat_fwd_parts": "gat_fwd_kernel", "f32": "spmm_f32_kernel",
-          "spmm_hub": "spmm_csr_kernel", "gat_fwd_hub": "gat_fwd_kernel"}
+          "spmm_hub": "spmm_csr_kernel", "gat_fwd_hub": "gat_fwd_kernel",
+          "gat_bwd_hub": "gat_bwd_kernel",
+          "softmax_hub": "edge_softmax_fwd_kernel"}
 LIBRARY = {"spmm": "spmm", "gat_fwd": "gat", "gat_bwd": "gat",
            "softmax": "gat", "gat_fwd_parts": "gat", "f32": "spmm_f32",
-           "spmm_hub": "spmm", "gat_fwd_hub": "gat"}
+           "spmm_hub": "spmm", "gat_fwd_hub": "gat", "gat_bwd_hub": "gat",
+           "softmax_hub": "gat"}
 # the hub sweeps' chunk lengths: edges, "64G" (64 per edge group or slot)
 # and None, unsplit (a T no row exceeds)
 HUB_CHUNKS = (256, 512, 1024, "64G", None)
+GAT_BWD_CHUNKS = (256, 512, None)
+SOFTMAX_CHUNKS = (128, 256, 512, None)
 F32_WIDTHS = (100, 128)
 F32_COPIES = (1, 2, 4, 8)
 # the template body's entry point for f32 rows, appended to spmm_csr.cu
@@ -174,18 +185,30 @@ def _variant_source(name: str, variant) -> str:
                     f"{bounds}\n{KERNEL[name]}(")
 
 
+def _template_args(mangled) -> str:
+    """A kernel's mangled template arguments as "8,1", "8,1,8,true" or
+    "8,1,BwdItems 2" where all are ints, bools or enum values, else as
+    mangled; "-" for none."""
+    token = r"Li(\d+)E|Lb(\d)E|LNS_\d+([A-Za-z]\w*?)E(\d+)E"
+    if not mangled:
+        return "-"
+    if not re.fullmatch(rf"(?:{token})+", mangled):
+        return mangled
+    return ",".join(n or ({"1": "true", "0": "false"}[b] if b
+                          else f"{enum} {v}")
+                    for n, b, enum, v in re.findall(token, mangled))
+
+
 def ptxas_table(messages: str, kernel: str) -> dict:
     """{instantiation: {registers, stack, spill_stores}} of `kernel` from
-    nvcc -Xptxas -v messages (two integer template arguments as
-    "VEC,REPS", others mangled as they are, none as "-")."""
+    nvcc -Xptxas -v messages (template arguments as `_template_args`
+    gives them)."""
     table, current = {}, None
     for line in messages.splitlines():
         if "Compiling entry function" in line:
             m = re.search(rf"{kernel}(?:I(.*?)EEv)?", line)
             args = m.group(1) if m else None
-            ints = re.fullmatch(r"Li(\d+)ELi(\d+)E", args) if args else None
-            current = (f"{ints[1]},{ints[2]}" if ints
-                       else (args or "-") if m else None)
+            current = _template_args(args) if m else None
             if current:
                 table[current] = {}
         elif current:
@@ -347,14 +370,15 @@ def _time_gat_bwd(g) -> dict:
     for h, d in chip_smoke.GAT_SHAPES:
         args, dout, al_b = chip_smoke.gat_inputs(gat_cuda, g, h, d,
                                                  chip_smoke.ATTN_DROP, 7)
-        _, smax, denom = gat_cuda.gat_fwd(
-            *args, plan=spmm_cuda.plan_of(g, "indptr", g.n_nodes))
-        got = gat_cuda.gat_bwd(*args, smax, denom, dout, al_b)
+        plan = spmm_cuda.plan_of(g, "indptr", g.n_nodes)
+        _, smax, denom = gat_cuda.gat_fwd(*args, plan=plan)
+        got = gat_cuda.gat_bwd(*args, smax, denom, dout, al_b, plan=plan)
         want = gat_cuda.plain_gat_bwd(*args, smax, denom, dout, al_b)
         chip_smoke._held("der", got[0], want[0], 1e-4, 1e-4)
         chip_smoke._held("msg", got[1], want[1], 2.0 ** -7, 1e-5)
         out[f"gat_bwd ({h}, {d})"] = chip_smoke.time_ms(
-            lambda: gat_cuda.gat_bwd(*args, smax, denom, dout, al_b))
+            lambda: gat_cuda.gat_bwd(*args, smax, denom, dout, al_b,
+                                     plan=plan))
         gen = torch.Generator(device=g.device).manual_seed(12)
         feat = torch.randn((g.n_nodes, h, d), generator=gen, device=g.device)
         al, ar = (torch.randn((h, d), generator=gen, device=g.device)
@@ -386,6 +410,7 @@ def _time_softmax(g, regs: int) -> dict:
     slots per row that R implies."""
     out, n = {}, g.n_nodes
     gen = torch.Generator(device=g.device).manual_seed(8)
+    plan = spmm_cuda.plan_of(g, "indptr", n)
     port_regs = gat_cuda.SOFTMAX_REGS
     gat_cuda.SOFTMAX_REGS = regs
     try:
@@ -394,12 +419,12 @@ def _time_softmax(g, regs: int) -> dict:
                                   device=g.device)
             want = gat_cuda.plain_edge_softmax_fwd(g.indptr, s, n)
             torch.testing.assert_close(
-                gat_cuda.edge_softmax_fwd(g.indptr, s, n), want,
+                gat_cuda.edge_softmax_fwd(g.indptr, s, n, plan), want,
                 rtol=1e-5, atol=1e-6)
             geo = gat_cuda.softmax_geometry(h, g.n_edges, n)
             mark = "*" if regs == port_regs else ""
             out[f"[E, {h}] {tuple(geo)}{mark}"] = chip_smoke.time_ms(
-                lambda: gat_cuda.edge_softmax_fwd(g.indptr, s, n))
+                lambda: gat_cuda.edge_softmax_fwd(g.indptr, s, n, plan))
     finally:
         gat_cuda.SOFTMAX_REGS = port_regs
     print("  edge_softmax_fwd " + ", ".join(f"{k} {v:.4f}"
@@ -482,12 +507,13 @@ def _chunk(t, per_step: int) -> int:
     return 1 << 30 if t is None else 64 * per_step if t == "64G" else t
 
 
-def _hub_times(tag, what, call, held, per_step) -> dict:
-    """{T: (eager ms, device ms)} of `call(plan)` under each HUB_CHUNKS
-    plan of the CSR (indptr, n); `held(got)` holds one result to the plain
-    version, and two launches must be bit-equal."""
+def _hub_times(tag, what, call, held, per_step, chunks=HUB_CHUNKS) -> dict:
+    """{T: (eager ms, device ms)} of `call(plan)` under each plan of
+    `chunks` (HUB_CHUNKS by default) of the CSR (indptr, n); `held(got)`
+    holds one result to the plain version, and two launches must be
+    bit-equal."""
     out = {}
-    for t in HUB_CHUNKS:
+    for t in chunks:
         chunk = _chunk(t, per_step)
         plan = spmm_cuda.hub_plan(*what, chunk)
         got, again = call(plan), call(plan)
@@ -560,6 +586,52 @@ def _time_gat_fwd_hub(graphs) -> dict:
     return out
 
 
+def _time_gat_bwd_hub(graphs) -> dict:
+    """gat_bwd (seed mode) at both GAT shapes on each graph under each
+    GAT_BWD_CHUNKS plan: {case: {T: (eager ms, device ms)}}."""
+    out = {}
+    for tag, g in graphs.items():
+        plan = spmm_cuda.plan_of(g, "indptr", g.n_nodes)
+        for h, d in chip_smoke.GAT_SHAPES:
+            args, dout, al_b = chip_smoke.gat_inputs(
+                gat_cuda, g, h, d, chip_smoke.ATTN_DROP, 7)
+            _, smax, denom = gat_cuda.gat_fwd(*args, plan=plan)
+            bwd = args + (smax, denom, dout, al_b)
+            want = gat_cuda.plain_gat_bwd(*bwd)
+
+            def held(got, want=want):
+                chip_smoke._held("der", got[0], want[0], 1e-4, 1e-4)
+                chip_smoke._held("msg", got[1], want[1], 2.0 ** -7, 1e-5)
+                chip_smoke._held("dattn_l", got[2], want[2], 1e-4, 1e-4)
+            out[f"{tag} gat_bwd ({h}, {d})"] = _hub_times(
+                f"{tag} gat_bwd ({h}, {d})", (g.indptr, g.n_nodes),
+                lambda p, a=bwd: gat_cuda.gat_bwd(*a, plan=p), held,
+                gat_cuda.bwd_geometry(h, d).slots, GAT_BWD_CHUNKS)
+    return out
+
+
+def _time_softmax_hub(graphs) -> dict:
+    """edge_softmax_fwd on [E, 1] and [E, 8] scores on each graph under
+    each SOFTMAX_CHUNKS plan: {case: {T: (eager ms, device ms)}}."""
+    out = {}
+    for tag, g in graphs.items():
+        gen = torch.Generator(device=g.device).manual_seed(8)
+        for h in (1, 8):
+            s = 3.0 * torch.randn((g.n_edges, h), generator=gen,
+                                  device=g.device)
+            want = gat_cuda.plain_edge_softmax_fwd(g.indptr, s, g.n_nodes)
+
+            def held(got, want=want):
+                chip_smoke._held("alpha", got, want, 1e-5, 1e-6)
+            out[f"{tag} edge_softmax_fwd [E, {h}]"] = _hub_times(
+                f"{tag} edge_softmax_fwd [E, {h}]", (g.indptr, g.n_nodes),
+                lambda p, s=s: gat_cuda.edge_softmax_fwd(g.indptr, s,
+                                                         g.n_nodes, p),
+                held, 32 // gat_cuda.softmax_geometry(h, 1, 1).g,
+                SOFTMAX_CHUNKS)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path,
@@ -579,7 +651,8 @@ def main() -> int:
     host, *_ = load_synth_data(chip_smoke.DATASET, 0, 20, 30)
     g = host.to_device(torch.device("cuda:0"))
     graphs = {"synth": g}
-    if {"f32", "spmm_hub", "gat_fwd_hub"} & set(kernels):
+    if {"f32", "spmm_hub", "gat_fwd_hub", "gat_bwd_hub",
+            "softmax_hub"} & set(kernels):
         graphs["hub"] = chip_smoke.hub_graph(g.n_nodes, g.n_edges,
                                              9).to(g.device)
     f32_cases = _f32_inputs(graphs) if "f32" in kernels else []
@@ -609,6 +682,10 @@ def main() -> int:
                 times = _time_spmm_hub(graphs)
             elif name == "gat_fwd_hub":
                 times = _time_gat_fwd_hub(graphs)
+            elif name == "gat_bwd_hub":
+                times = _time_gat_bwd_hub(graphs)
+            elif name == "softmax_hub":
+                times = _time_softmax_hub(graphs)
             elif name == "gat_fwd":
                 times = _time_gat_fwd(g)
             elif name == "gat_fwd_parts":
