@@ -70,12 +70,14 @@ Phases, each fatal on failure:
      20,000: every kernel walks a row in 32-edge chunks, and the synth
      graph's largest in-degree is 29), at the same tolerances; then, on
      the hub graph with its kept hub plans (spmm_cuda.plan_of), the
-     kernels that split rows of more than spmm_cuda.HUB_CHUNK edges across
-     warps (the SpMM template's three policies on both walks, gat_fwd and
-     gat_bwd at both GAT shapes in seed mode, edge_softmax_fwd on [E, 8]
-     and [E, 1]): each against its plain version at the tolerances above,
-     two launches bit-equal, every pass launched (two per call for the
-     template, three for the others) and one plan built per CSR;
+     kernels that split rows of more than T edges across warps (the SpMM
+     template's three policies on both walks at T = spmm_cuda.HUB_CHUNK,
+     gat_fwd and gat_bwd at both GAT shapes in seed mode at the GAT
+     layer's T = gat_cuda.GAT_CHUNK, edge_softmax_fwd and edge_softmax_bwd
+     on [E, 8] and [E, 1] at HUB_CHUNK): each against its plain version at
+     the tolerances above, two launches bit-equal, every pass launched (two
+     per call for the template and edge_softmax_bwd, three for the others)
+     and one plan built per CSR and T;
   3. the op-surface path: the per-op GAT layer at both GAT shapes with a
      keep mask, composed from the public ops on CUDA (u_add_v ->
      leaky_relu -> edge_softmax -> mask -> u_mul_e_sum), counts set to 0
@@ -164,8 +166,9 @@ Phases, each fatal on failure:
      row); each out.npz checked, the launches summed over the ranks (the
      `launches` line of the run's log; each rank is a fresh process, its
      counts 0 at the start) exactly as predicted: 4 ranks x 2 partials x
-     layers x (2 x steps + graphs x (evals + 1)) spmm_csr_bf16 (SAGE 96,
-     GCN 160, GCN ind 224; the student and the int8 tier 0); GAT
+     layers x (2 x steps + graphs x (evals + 1)) spmm_csr_bf16 (SAGE 72,
+     GCN 112, GCN ind 160, each over 2 teacher epochs, one fewer than
+     the other paths; the student and the int8 tier 0); GAT
      gat_prep and gat_fwd 4 x 2 x (3 + 4) = 56, gat_bwd, its source
      reduce (spmm_csr_bf16) and the seed-mode counts 4 x 2 x 3 = 24;
      APPNP spmm_csr_weighted 4 x 10 hops x 2 x 3 = 240 and spmm_csr_bf16
@@ -283,6 +286,10 @@ import torch
 DATASET = "synth-n169343-c40-f128-d7"
 N_NODES, N_CLASSES = 169343, 40
 TEACHER_EPOCHS = 3
+# the sharded SAGE, GCN and GCN ind teachers (phase 4c) take one epoch
+# fewer: a data-parallel SAGE epoch takes 12-17.5 s of host time on four
+# ranks sharing the card, and the run must stay inside its time limit
+SHARD_CUT_EPOCHS = TEACHER_EPOCHS - 1
 # one distillation epoch per path: a student epoch is about 500 host-bound
 # MLP steps (3-4 s at the ogbn-arxiv sizes) and launches no kernel
 STUDENT_EPOCHS = 1
@@ -1650,14 +1657,16 @@ def halo_layer_times(hg, mesh) -> dict:
     fwd = (hg.c_indptr, hg.c_indices,
            source_table(hg, feat_b.view(rows, -1)).view(-1, h, d),
            source_table(hg, el), er_b, seed, inv_keep, 0.2)
-    # the shard's kept hub plans of its combined CSR and transpose
+    # the shard's kept hub plans of its combined CSR (the GAT layer's and
+    # the weighted sum's) and transpose
     plan = spmm_cuda.plan_of(hg, "c_indptr", rows)
+    gat_plan = spmm_cuda.plan_of(hg, "c_indptr", rows, gat_cuda.GAT_CHUNK)
     t_plan = spmm_cuda.plan_of(hg, "c_t_indptr", n_src)
     _, smax, denom = gat_cuda.gat_fwd(*fwd, edge_base=hg.edge_base,
-                                      plan=plan)
+                                      plan=gat_plan)
     dout = torch.randn((rows, h, d), generator=gen, device=dev)
     _, msg, _ = gat_cuda.gat_bwd(*fwd, smax, denom, dout, al_b,
-                                 hg.edge_base, plan)
+                                 hg.edge_base, gat_plan)
     dsrc = spmm_cuda.csr_sum_bf16(hg.c_t_indptr, hg.c_t_edges,
                                   msg.view(-1, h * d), n_src, t_plan)
     x = torch.randn((rows, APPNP_F), generator=gen, device=dev)
@@ -1668,9 +1677,9 @@ def halo_layer_times(hg, mesh) -> dict:
     kernels = {
         "GAT (8, 16) gat_prep": lambda: gat_cuda.prep(feat, al, ar),
         "GAT (8, 16) gat_fwd": lambda: gat_cuda.gat_fwd(
-            *fwd, edge_base=hg.edge_base, plan=plan),
+            *fwd, edge_base=hg.edge_base, plan=gat_plan),
         "GAT (8, 16) gat_bwd": lambda: gat_cuda.gat_bwd(
-            *fwd, smax, denom, dout, al_b, hg.edge_base, plan),
+            *fwd, smax, denom, dout, al_b, hg.edge_base, gat_plan),
         "GAT (8, 16) source reduce": lambda: spmm_cuda.csr_sum_bf16(
             hg.c_t_indptr, hg.c_t_edges, msg.view(-1, h * d), n_src, t_plan),
         "APPNP hop F=40 forward": lambda: spmm_cuda.csr_wsum_bf16(
@@ -1839,10 +1848,12 @@ def sharded_counts(tag: str, log_path: str, device: str) -> dict:
 
 
 def drive_sharded(tag, workdir, common, model, extra=(), sub="transductive",
-                  student=False, device="cuda:0") -> tuple:
-    """One CLI run with --n_shards N_SHARDS (the teacher, or with `student`
-    an MLP student of the teacher `model`): its score line, out.npz and the
-    summed launches from its log; returns (counts, seconds)."""
+                  student=False, device="cuda:0",
+                  epochs=TEACHER_EPOCHS) -> tuple:
+    """One CLI run with --n_shards N_SHARDS (the teacher for `epochs`
+    epochs, or with `student` an MLP student of the teacher `model`): its
+    score line, out.npz and the summed launches from its log; returns
+    (counts, seconds)."""
     from glnn_tpu_torch import native
     from glnn_tpu_torch.cli import train_student, train_teacher
 
@@ -1858,7 +1869,7 @@ def drive_sharded(tag, workdir, common, model, extra=(), sub="transductive",
                 "--out_t_path", os.path.join(workdir, "outputs"), *extra])
         else:
             train_teacher.main(common + [
-                "--teacher", model, "--max_epoch", str(TEACHER_EPOCHS),
+                "--teacher", model, "--max_epoch", str(epochs),
                 "--n_shards", str(N_SHARDS), *extra])
     seconds = time.perf_counter() - t0
     score = printed.getvalue().strip()
@@ -1968,25 +1979,27 @@ def phase_dist_paths(workdir: str, cfg: str, host, g, common: list,
     ind = ["--exp_setting", "ind", "--split_rate", str(SPLIT_RATE)]
     sub = f"inductive/split_rate_{SPLIT_RATE}"
     runs = {}
-    for tag, model, extra, sub_, student, want in (
+    cut = SHARD_CUT_EPOCHS
+    for tag, model, extra, sub_, student, epochs, want in (
             ("SAGE n_shards 4", "SAGE", ["--save_results"], "transductive",
-             False, {"spmm_csr_bf16": sharded_launches(TEACHER_EPOCHS, 1, 0,
-                                                       len(WIDTHS))}),
-            ("SAGE MLP n_shards 4", "SAGE", [], "transductive", True, {}),
-            ("GCN n_shards 4", "GCN", [], "transductive", False,
+             False, cut, {"spmm_csr_bf16": sharded_launches(
+                 cut, 1, 0, len(WIDTHS))}),
+            ("SAGE MLP n_shards 4", "SAGE", [], "transductive", True,
+             TEACHER_EPOCHS, {}),
+            ("GCN n_shards 4", "GCN", [], "transductive", False, cut,
              {"spmm_csr_bf16": sharded_launches(
-                 TEACHER_EPOCHS, 1, TEACHER_EPOCHS, len(GCN_WIDTHS))}),
-            ("GCN ind n_shards 4", "GCN", ind, sub, False,
+                 cut, 1, cut, len(GCN_WIDTHS))}),
+            ("GCN ind n_shards 4", "GCN", ind, sub, False, cut,
              {"spmm_csr_bf16": sharded_launches(
-                 TEACHER_EPOCHS, 2, TEACHER_EPOCHS, len(GCN_WIDTHS))}),
+                 cut, 2, cut, len(GCN_WIDTHS))}),
             ("GAT n_shards 4", "GAT", ["--save_results"], "transductive",
-             False, sharded_gat_launches(TEACHER_EPOCHS, 1)),
+             False, TEACHER_EPOCHS, sharded_gat_launches(TEACHER_EPOCHS, 1)),
             ("APPNP n_shards 4", "APPNP", [], "transductive", False,
-             sharded_appnp_launches(TEACHER_EPOCHS, 1)),
+             TEACHER_EPOCHS, sharded_appnp_launches(TEACHER_EPOCHS, 1)),
             ("APPNP ind n_shards 4", "APPNP", ind, sub, False,
-             sharded_appnp_launches(TEACHER_EPOCHS, 2))):
+             TEACHER_EPOCHS, sharded_appnp_launches(TEACHER_EPOCHS, 2))):
         counts, seconds = drive_sharded(tag, workdir, common, model, extra,
-                                        sub_, student, device)
+                                        sub_, student, device, epochs)
         log(f"{tag}: launches predicted {want}")
         check_counts(tag, counts, want if on_card else {})
         runs[tag] = {"counts": counts, "seconds": seconds}
@@ -3035,7 +3048,8 @@ def phase_times_gat(gat_cuda, g, launches: dict, errs: dict) -> list:
             for name in ("gat_prep", "gat_fwd", "gat_bwd")}
     from glnn_tpu_torch.ops import spmm_cuda
 
-    plan = spmm_cuda.plan_of(g, "indptr", n)    # the graph's kept plan
+    # the GAT layer's kept plan of the graph
+    plan = spmm_cuda.plan_of(g, "indptr", n, gat_cuda.GAT_CHUNK)
     for h, d in GAT_SHAPES:
         hd = h * d
         args, dout, al_b = gat_inputs(gat_cuda, g, h, d, ATTN_DROP, 7)
@@ -3238,7 +3252,7 @@ def phase_times_f32(spmm_cuda, refops, g, launches: dict, errs: dict) -> list:
                  {"device_ms": k_dev, "all_miss_bound_ms": miss})]
 
 
-def softmax_library(gat_cuda, g, s, da, alpha, rtol=1e-5) -> tuple:
+def softmax_library(gat_cuda, g, s, da, alpha, plan, rtol=1e-5) -> tuple:
     """(forward ms, backward ms) of torch.sparse.softmax over a COO
     [N, R N] (x H) tensor of g's edges with the scores s as values (hybrid
     for H > 1) and of its VJP, torch._sparse_softmax_backward_data, on the
@@ -3247,7 +3261,7 @@ def softmax_library(gat_cuda, g, s, da, alpha, rtol=1e-5) -> tuple:
     over dim 1 is the segment softmax; [N, N] on a graph without repeated
     pairs. The library's alpha held to alpha (the kernel's) at `rtol` and
     its backward to edge_softmax_bwd fed the library's alpha (rtol
-    1e-4)."""
+    1e-4), with g's kept hub plan `plan`."""
     from glnn_tpu_torch.ops.cuda_build import row_ids
 
     n, (e, h) = g.n_nodes, s.shape
@@ -3281,7 +3295,7 @@ def softmax_library(gat_cuda, g, s, da, alpha, rtol=1e-5) -> tuple:
     lib_alpha[order] = lib.values().reshape(e, h)
     torch.testing.assert_close(
         lib_bwd().values().reshape(e, h),
-        gat_cuda.edge_softmax_bwd(g.indptr, lib_alpha, da, n)[order],
+        gat_cuda.edge_softmax_bwd(g.indptr, lib_alpha, da, n, plan)[order],
         rtol=1e-4, atol=1e-6)
     return lib_ms, time_ms(lib_bwd)
 
@@ -3303,14 +3317,16 @@ def phase_times_softmax(gat_cuda, g, launches: dict, errs: dict) -> list:
         s = 3.0 * torch.randn((e, h), generator=gen, device=g.device)
         da = torch.randn((e, h), generator=gen, device=g.device)
         alpha = gat_cuda.edge_softmax_fwd(g.indptr, s, n, plan)
-        lib_ms, lib_bwd_ms = softmax_library(gat_cuda, g, s, da, alpha)
+        lib_ms, lib_bwd_ms = softmax_library(gat_cuda, g, s, da, alpha,
+                                             plan)
         cases = {
             "edge_softmax_fwd": (
                 lambda: gat_cuda.edge_softmax_fwd(g.indptr, s, n, plan),
                 lambda: gat_cuda.plain_edge_softmax_fwd(g.indptr, s, n),
                 2 * e * h * 4 + (n + 1) * 4, 5 * e * h, lib_ms),
             "edge_softmax_bwd": (
-                lambda: gat_cuda.edge_softmax_bwd(g.indptr, alpha, da, n),
+                lambda: gat_cuda.edge_softmax_bwd(g.indptr, alpha, da, n,
+                                                  plan),
                 lambda: gat_cuda.plain_edge_softmax_bwd(g.indptr, alpha, da,
                                                         n),
                 3 * e * h * 4 + (n + 1) * 4, 4 * e * h, lib_bwd_ms),
@@ -3415,20 +3431,24 @@ def phase_check_hub_split(spmm_cuda, gat_cuda, hub) -> dict:
     """The kernels that split hub rows across warps with the hub graph's
     kept plans (spmm_cuda.plan_of): the template body's three policies at
     F = APPNP_F on the forward and the transposed walk, gat_fwd and
-    gat_bwd at both GAT shapes in seed mode, and edge_softmax_fwd on
+    gat_bwd at both GAT shapes in seed mode (on the GAT layer's plan, T =
+    gat_cuda.GAT_CHUNK), and edge_softmax_fwd and edge_softmax_bwd on
     [E, 8] and [E, 1] scores. Each is held to its plain version at the
     tolerances of the checks above, a second launch must be bit-equal to
-    the first (no atomics), every call must launch both passes (three for
-    gat_fwd, gat_bwd and edge_softmax_fwd), and the two plans must have
-    been built once each however many calls walked them (the checks above
-    kept theirs on the graph: they are dropped first). Returns the max
-    |error| per kernel."""
+    the first (no atomics), every call must launch every pass (two for the
+    template and edge_softmax_bwd, three for gat_fwd, gat_bwd and
+    edge_softmax_fwd), and the three plans (the forward CSR at HUB_CHUNK
+    and at GAT_CHUNK, the transposed one at HUB_CHUNK) must have been
+    built once each however many calls walked them (the checks above kept
+    theirs on the graph: they are dropped first). Returns the max |error|
+    per kernel."""
     gen = torch.Generator(device=hub.device).manual_seed(21)
     n, e = hub.n_nodes, hub.n_edges
     hub.cache.clear()
     spmm_cuda.builds["hub_plan"] = 0
     plans = {"forward": spmm_cuda.plan_of(hub, "indptr", n),
-             "transposed": spmm_cuda.plan_of(hub, "t_indptr", n)}
+             "transposed": spmm_cuda.plan_of(hub, "t_indptr", n),
+             "gat": spmm_cuda.plan_of(hub, "indptr", n, gat_cuda.GAT_CHUNK)}
     x = torch.randn((n, APPNP_F), generator=gen, device=hub.device)
     xb = spmm_cuda.to_message(x)
     q, s = spmm_cuda.quantize_cols(x)
@@ -3436,7 +3456,7 @@ def phase_check_hub_split(spmm_cuda, gat_cuda, hub) -> dict:
          >= EDGE_DROP).float() / (1.0 - EDGE_DROP)
     errs = dict.fromkeys(("spmm_csr_bf16", "spmm_csr_int8",
                           "spmm_csr_weighted", "gat_fwd", "gat_bwd",
-                          "edge_softmax_fwd"), 0.0)
+                          "edge_softmax_fwd", "edge_softmax_bwd"), 0.0)
     walks = {"forward": (hub.indptr, hub.senders, None),
              "transposed": (hub.t_indptr, hub.t_receivers, hub.t_edges)}
     for walk, (indptr, cols, widx) in walks.items():
@@ -3482,12 +3502,13 @@ def phase_check_hub_split(spmm_cuda, gat_cuda, hub) -> dict:
     for h, d in GAT_SHAPES:
         args, dout, al_b = gat_inputs(gat_cuda, hub, h, d, ATTN_DROP, 30 + h)
         before = gat_cuda.counts["gat_fwd"]
-        got = gat_cuda.gat_fwd(*args, plan=plans["forward"])
-        again = gat_cuda.gat_fwd(*args, plan=plans["forward"])
+        got = gat_cuda.gat_fwd(*args, plan=plans["gat"])
+        again = gat_cuda.gat_fwd(*args, plan=plans["gat"])
         launches = gat_cuda.counts["gat_fwd"] - before
         want = gat_cuda.plain_gat_fwd(*args)
         torch.cuda.synchronize()
-        tag = f"(H, D) = ({h}, {d}), dropout {ATTN_DROP} (seed)"
+        tag = (f"(H, D) = ({h}, {d}), dropout {ATTN_DROP} (seed), T = "
+               f"{plans['gat'].chunk}")
         if launches != 6:
             raise AssertionError(f"gat_fwd {tag} on the hub graph: "
                                  f"{launches} launches for two calls, "
@@ -3509,9 +3530,9 @@ def phase_check_hub_split(spmm_cuda, gat_cuda, hub) -> dict:
         _, smax, denom = got
         before = gat_cuda.counts["gat_bwd"]
         got = gat_cuda.gat_bwd(*args, smax, denom, dout, al_b,
-                               plan=plans["forward"])
+                               plan=plans["gat"])
         again = gat_cuda.gat_bwd(*args, smax, denom, dout, al_b,
-                                 plan=plans["forward"])
+                                 plan=plans["gat"])
         launches = gat_cuda.counts["gat_bwd"] - before
         want = gat_cuda.plain_gat_bwd(*args, smax, denom, dout, al_b)
         torch.cuda.synchronize()
@@ -3553,14 +3574,37 @@ def phase_check_hub_split(spmm_cuda, gat_cuda, hub) -> dict:
         log(f"check hub split scores [E, {h}]: edge_softmax_fwd vs plain "
             f"max|err| {err:.3e}; two launches bit-equal, {launches} "
             f"launches")
+        # the backward on the kernel's alpha: the chunks' parts of t, ds
+        dalpha = torch.randn((e, h), generator=gen, device=hub.device)
+        before = gat_cuda.counts["edge_softmax_bwd"]
+        got_ds = gat_cuda.edge_softmax_bwd(hub.indptr, got, dalpha, n,
+                                           plans["forward"])
+        again = gat_cuda.edge_softmax_bwd(hub.indptr, got, dalpha, n,
+                                          plans["forward"])
+        launches = gat_cuda.counts["edge_softmax_bwd"] - before
+        want = gat_cuda.plain_edge_softmax_bwd(hub.indptr, got, dalpha, n)
+        torch.cuda.synchronize()
+        if launches != 4:
+            raise AssertionError(f"edge_softmax_bwd [E, {h}] on the hub "
+                                 f"graph: {launches} launches for two "
+                                 f"calls, expected 4")
+        if not torch.equal(got_ds, again):
+            raise AssertionError(f"edge_softmax_bwd [E, {h}] on the hub "
+                                 f"graph: two launches differ")
+        err = _held(f"softmax grad [E, {h}]", got_ds, want, 1e-4, 1e-6)
+        errs["edge_softmax_bwd"] = max(errs["edge_softmax_bwd"], err)
+        log(f"check hub split scores [E, {h}]: edge_softmax_bwd vs plain "
+            f"max|err| {err:.3e}; two launches bit-equal, {launches} "
+            f"launches")
+        del got, again, want, got_ds
     builds = spmm_cuda.builds["hub_plan"]
-    if builds != 2:
+    if builds != len(plans):
         raise AssertionError(f"{builds} hub plans built for the hub graph's "
-                             f"two CSRs")
-    log(f"hub plans: {builds} built, one per CSR (forward "
-        f"{plans['forward'].n_chunks} chunks of {plans['forward'].rows.numel()}"
-        f" rows, transposed {plans['transposed'].n_chunks} of "
-        f"{plans['transposed'].rows.numel()}), over every call above")
+                             f"{len(plans)} CSRs and T")
+    log(f"hub plans: {builds} built, one per CSR and T ("
+        + ", ".join(f"{k} {p.n_chunks} chunks of {p.rows.numel()} rows at "
+                    f"T = {p.chunk}" for k, p in plans.items())
+        + "), over every call above")
     return errs
 
 
@@ -3569,12 +3613,12 @@ def phase_times_hub(spmm_cuda, gat_cuda, hub, kernels: list) -> None:
     each kernel that splits hub rows across warps, with the graph's kept
     plans: the template body's three policies at F = APPNP_F (beside
     torch.sparse.mm on the hub graph for the exact tier's function), the
-    f32 sum at AUG_F, gat_fwd and gat_bwd at both GAT shapes (seed mode),
-    edge_softmax_fwd at [E, 8] and [E, 1], each beside its synth-graph
-    device time; edge_softmax_bwd, which walks a hub row with one warp,
-    and gat_prep, which walks no edge; torch.sparse.softmax and its
-    backward on the hub graph beside the softmax kernels. Added to the
-    rows' detail as `hub_graph_ms`, outside their sums."""
+    f32 sum at AUG_F, gat_fwd and gat_bwd at both GAT shapes (seed mode,
+    the GAT layer's plan), edge_softmax_fwd and edge_softmax_bwd at [E, 8]
+    and [E, 1], each beside its synth-graph device time; gat_prep, which
+    walks no edge; torch.sparse.softmax and its backward on the hub graph
+    beside the softmax kernels. Added to the rows' detail as
+    `hub_graph_ms`, outside their sums."""
     gen = torch.Generator(device=hub.device).manual_seed(10)
     n, e = hub.n_nodes, hub.n_edges
     f = APPNP_F
@@ -3586,6 +3630,7 @@ def phase_times_hub(spmm_cuda, gat_cuda, hub, kernels: list) -> None:
     idx_bytes = 4 * (e + n + 1)
     x_aug = torch.randn((n, AUG_F), generator=gen, device=hub.device)
     plan = spmm_cuda.plan_of(hub, "indptr", n)
+    gat_plan = spmm_cuda.plan_of(hub, "indptr", n, gat_cuda.GAT_CHUNK)
     f32_plan = spmm_cuda.graph_f32_plan(hub)
     synth = {row["name"]: row for row in kernels}
     # (kernel, width, bytes, synth-graph device ms)
@@ -3643,7 +3688,7 @@ def phase_times_hub(spmm_cuda, gat_cuda, hub, kernels: list) -> None:
 
     for h, d in GAT_SHAPES:
         args, dout, al_b = gat_inputs(gat_cuda, hub, h, d, ATTN_DROP, 11)
-        _, smax, denom = gat_cuda.gat_fwd(*args, plan=plan)
+        _, smax, denom = gat_cuda.gat_fwd(*args, plan=gat_plan)
         key = f"H={h},D={d}"
         gen = torch.Generator(device=hub.device).manual_seed(12)
         feat = torch.randn((n, h, d), generator=gen, device=hub.device)
@@ -3652,13 +3697,14 @@ def phase_times_hub(spmm_cuda, gat_cuda, hub, kernels: list) -> None:
         timed("gat_prep", key, lambda: gat_cuda.prep(feat, al, ar),
               synth["gat_prep"]["per_layer_ms"][key]["device_ms"],
               "; it walks no edge")
-        timed("gat_fwd", key, lambda: gat_cuda.gat_fwd(*args, plan=plan),
-              synth["gat_fwd"]["per_layer_ms"][key]["device_ms"],
-              ", seed mode")
+        timed("gat_fwd", key, lambda: gat_cuda.gat_fwd(
+            *args, plan=gat_plan),
+            synth["gat_fwd"]["per_layer_ms"][key]["device_ms"],
+            f", seed mode, T = {gat_plan.chunk}")
         timed("gat_bwd", key, lambda: gat_cuda.gat_bwd(
-            *args, smax, denom, dout, al_b, plan=plan),
+            *args, smax, denom, dout, al_b, plan=gat_plan),
             synth["gat_bwd"]["per_layer_ms"][key]["device_ms"],
-            ", seed mode")
+            f", seed mode, T = {gat_plan.chunk}")
     for h, _ in GAT_SHAPES:
         scores = 3.0 * torch.randn((e, h), generator=gen, device=hub.device)
         dalpha = torch.randn((e, h), generator=gen, device=hub.device)
@@ -3668,14 +3714,13 @@ def phase_times_hub(spmm_cuda, gat_cuda, hub, kernels: list) -> None:
             hub.indptr, scores, n, plan),
             synth["edge_softmax_fwd"]["per_heads_ms"][key]["device_ms"], "")
         timed("edge_softmax_bwd", key, lambda: gat_cuda.edge_softmax_bwd(
-            hub.indptr, alpha, dalpha, n),
-            synth["edge_softmax_bwd"]["per_heads_ms"][key]["device_ms"],
-            "; one warp per row")
+            hub.indptr, alpha, dalpha, n, plan),
+            synth["edge_softmax_bwd"]["per_heads_ms"][key]["device_ms"], "")
         # the library beside them; rows of 20,000 edges: a plain f32 sum
         # of their exponentials is about 1e-5 of itself off, the kernel's
         # compensated one is not
         lib_fwd, lib_bwd = softmax_library(gat_cuda, hub, scores, dalpha,
-                                           alpha, rtol=1e-4)
+                                           alpha, plan, rtol=1e-4)
         detail["edge_softmax_fwd"][key]["library_ms"] = lib_fwd
         detail["edge_softmax_bwd"][key]["library_ms"] = lib_bwd
         log(f"time hub graph {key} torch.sparse.softmax {lib_fwd:.4f} ms, "
@@ -3816,13 +3861,15 @@ def main() -> int:
     tiers = phase_times_tiers(host, labels, idx_train, g, smi)
     log(f"tier times {json.dumps(tiers)}")
     log(f"sampled SAGE epoch: data-parallel on {N_SHARDS} ranks "
-        f"{dist['paths']['sage_epoch']} (3 epochs of the CLI run); single "
+        f"{dist['paths']['sage_epoch']} ({SHARD_CUT_EPOCHS} epochs of the "
+        f"CLI run); single "
         f"process floyd/float32 {tiers['sage_epoch_s']['floyd/float32']} s; "
         f"{smi}")
     for model in ("GAT", "APPNP"):
         log(f"{model} epoch: halo-sharded on {N_SHARDS} ranks "
-            f"{dist['paths'][f'{model.lower()}_epoch']} (3 epochs of the CLI "
-            f"run); single process {EPOCH_LINES[model]}; {smi}")
+            f"{dist['paths'][f'{model.lower()}_epoch']} ({TEACHER_EPOCHS} "
+            f"epochs of the CLI run); single process {EPOCH_LINES[model]}; "
+            f"{smi}")
     log(f"distributed {json.dumps(dist)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)

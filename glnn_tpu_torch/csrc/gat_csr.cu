@@ -107,10 +107,14 @@
 // eager synth-graph time (tools/sweep_cuda_kernels.py); built apart, the
 // synth-graph device times are within 1% of the kernel without any chunk
 // code (tools/hub_kernel_times.py; both on an H100 80GB HBM3 at 700 W).
-// T is the template body's (512, spmm_csr.cu), so one plan serves both: on
-// the hub graph T = 256 would take (8, 16) from 0.507 to 0.448 ms and leave
-// (1, 40) near 0.233, both within 1.5 x the synth graph's time at either T
-// (tools/sweep_cuda_kernels.py --kernels gat_fwd_hub).
+// T is a launch argument. The GAT layer keeps a plan of its own for
+// gat_fwd and gat_bwd (ops/gat_cuda.py GAT_CHUNK = 128; the template
+// body's T is 512): on the hub graph the two kernels' step is fastest at
+// T = 128 at both GAT shapes. gat_fwd takes 0.465 / 0.247 ms at (8, 16) /
+// (1, 40) there, 0.446 / 0.237 at T = 256 and 0.507 / 0.236 at 512, and
+// gat_bwd gains 9% over 256 and 22-24% over 512 (device ms,
+// tools/sweep_cuda_kernels.py --kernels gat_fwd_hub,gat_bwd_hub; H100
+// 80GB HBM3, 700 W).
 //
 // Backward (gat_bwd). Per dst row v and head h, with alpha_e = exp(s_e - max)
 // / den from the forward's saved max and den, w_e the dropout weight and
@@ -177,9 +181,12 @@
 // sum. Every term is formed with the segment's own final max (the TPU
 // kernel subtracts its block's, gat_pallas.py:700). The backward sums
 // t = sum_seg(alpha * dalpha) and writes ds = alpha * dalpha - alpha * t,
-// one warp per row. A row without in-edges writes nothing. Both are bound by
-// bytes (each reads its [E, H] inputs once and writes [E, H] once; a few
-// flops per element).
+// one warp per row (g lanes per edge, 32 / g edges a step, each lane's
+// plain f32 sum of its edges in order, the lanes' sums by __shfl_xor_sync).
+// A row without in-edges writes nothing. Both are bound by bytes (each
+// reads its [E, H] inputs once and writes [E, H] once; a few flops per
+// element): the backward's bound is alpha and dalpha read once and ds
+// written once, 12 bytes per element.
 //
 // Hub rows in the forward (the counterpart of _smx_fwd_kernel's bounded
 // work per dst block): a row of more than T edges is cut into the hub
@@ -195,6 +202,24 @@
 // one dependent load at a time is what held a 20,000-edge row to one
 // warp's latency. The same lanes, edge order and compensated sums as a
 // long row's walk, so a chunk's sum is that walk's over its edges.
+//
+// Hub rows in the backward (the counterpart of the bounded work per dst
+// block of gat_pallas._smx_bwd_kernel, :712; past X_MAX, of JAX's XLA
+// tier, which a mega-hub's block goes to): every ds of a row needs the
+// row's t, so a row of more than T edges is cut into the hub plan's chunks
+// in two launches. edge_softmax_bwd_hub_t_kernel, launched first, one warp
+// per chunk with a row warp's lanes, writes the chunk's part of t (pt
+// [n_chunks, H], its lanes' sums folded as a row's are), kSmxInFlight
+// alpha and dalpha loaded before the first product is taken. Then
+// edge_softmax_bwd_kernel<true>, whose first warps take their row's t as
+// the sum of its chunks' pt in chunk order from zero (every chunk warp of
+// a row the same sum, so the same t) and write ds over their own edges:
+// ds is per edge, so no third launch combines anything. Its row warps
+// leave the rows of more than T edges to them. No atomics, so two launches
+// are bit-equal. edge_softmax_bwd_kernel<false>, the kernel without chunk
+// items, is the only launch on a CSR without such rows, so the chunk state
+// costs those graphs nothing (as gat_fwd's and the forward's HUB
+// instantiations).
 //
 // Interface: plain C, called through ctypes. Every entry point launches on
 // the given stream, never synchronises, allocates nothing, and returns
@@ -1334,15 +1359,91 @@ edge_softmax_fwd_kernel(const int32_t* __restrict__ indptr, const float* __restr
   }
 }
 
+// chunk_scores over two arrays: f(a, b, e) on each of the lane's edges in
+// order, kSmxInFlight values of each loaded before the first is used
+template <class F>
+__device__ __forceinline__ void chunk_pairs(const float* __restrict__ a,
+                                            const float* __restrict__ b, int start, int end,
+                                            int H, int G, int h, F f) {
+  const int per = 32 / G;
+  for (int e0 = start + (threadIdx.x & 31) / G; e0 < end; e0 += kSmxInFlight * per) {
+    float va[kSmxInFlight];
+    float vb[kSmxInFlight];
+#pragma unroll
+    for (int u = 0; u < kSmxInFlight; ++u) {
+      const int e = e0 + u * per;
+      const int64_t i = static_cast<int64_t>(e) * H + h;
+      va[u] = e < end ? a[i] : 0.f;
+      vb[u] = e < end ? b[i] : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kSmxInFlight; ++u)
+      if (e0 + u * per < end) f(va[u], vb[u], e0 + u * per);
+  }
+}
+
+// the backward's t pass of the split rows: each chunk's sum of alpha *
+// dalpha per head into pt, the lanes' sums folded as a row warp's are
+__global__ void __launch_bounds__(kWarps * 32)
+edge_softmax_bwd_hub_t_kernel(const BwdHub hub, const float* __restrict__ alpha,
+                              const float* __restrict__ dalpha, int H, int G) {
+  const int lane = threadIdx.x & 31;
+  const int c = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (c >= hub.n_chunks) return;  // the whole warp leaves together
+  const int2 range = hub.chunks[c];
+  for (int h0 = 0; h0 < H; h0 += G) {
+    const int h = h0 + (lane & (G - 1));
+    float t = 0.f;
+    if (h < H) chunk_pairs(alpha, dalpha, range.x, range.y, H, G, h, [&](float a, float da, int) {
+      t += a * da;
+    });
+    for (int off = 16; off >= G; off >>= 1) t += __shfl_xor_sync(kFull, t, off);
+    if (h < H && lane < G) hub.pt[static_cast<int64_t>(c) * H + h] = t;
+  }
+}
+
+// chunk c's items of edge_softmax_bwd_kernel: ds over the chunk's edges,
+// with t its row's chunks' parts added in chunk order
+__device__ __forceinline__ void softmax_bwd_chunk(const BwdHub& hub,
+                                                  const float* __restrict__ alpha,
+                                                  const float* __restrict__ dalpha,
+                                                  float* __restrict__ ds, int c, int H, int G) {
+  const int lane = threadIdx.x & 31;
+  const int2 range = hub.chunks[c];
+  const int s = hub.owner[c];
+  for (int h0 = 0; h0 < H; h0 += G) {
+    const int h = h0 + (lane & (G - 1));
+    if (h >= H) continue;
+    float t = 0.f;
+    for (int k = hub.first[s]; k < hub.first[s + 1]; ++k)
+      t += hub.pt[static_cast<int64_t>(k) * H + h];
+    chunk_pairs(alpha, dalpha, range.x, range.y, H, G, h, [&](float a, float da, int e) {
+      ds[static_cast<int64_t>(e) * H + h] = a * da - a * t;
+    });
+  }
+}
+
+// One warp per row. With HUB, the first hub.n_chunks warps each write a
+// chunk of a split row, and the row warps leave the rows of more than
+// chunk_edges edges to them.
+template <bool HUB>
 __global__ void __launch_bounds__(kWarps * 32)
 edge_softmax_bwd_kernel(const int32_t* __restrict__ indptr, const float* __restrict__ alpha,
-                        const float* __restrict__ dalpha, float* __restrict__ ds, int n_rows,
-                        int H, int G) {
+                        const float* __restrict__ dalpha, float* __restrict__ ds,
+                        const BwdHub hub, int n_rows, int H, int G) {
   const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (HUB) {
+    if (row < hub.n_chunks) {  // warp-uniform
+      softmax_bwd_chunk(hub, alpha, dalpha, ds, row, H, G);
+      return;
+    }
+    row -= hub.n_chunks;
+  }
   if (row >= n_rows) return;  // the whole warp leaves together
   const int start = indptr[row];
   const int end = indptr[row + 1];
+  if (HUB && end - start > hub.chunk_edges) return;  // its chunks write it
   const int per = 32 / G;
   const int slot = lane / G;
 
@@ -1740,15 +1841,50 @@ int edge_softmax_fwd(const void* indptr, const void* scores, void* alpha, const 
   return static_cast<int>(cudaGetLastError());
 }
 
-// alpha, dalpha, ds f32 [E, H] in dst-sorted edge order
-int edge_softmax_bwd(const void* indptr, const void* alpha, const void* dalpha, void* ds,
-                     int n_rows, int H, void* stream) {
-  if (n_rows <= 0 || H <= 0) return static_cast<int>(cudaGetLastError());
-  const dim3 grid((n_rows + kWarps - 1) / kWarps), block(kWarps * 32);
-  edge_softmax_bwd_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(indptr), static_cast<const float*>(alpha),
-      static_cast<const float*>(dalpha), static_cast<float*>(ds), n_rows, H,
+// the split rows' parts of t, launched before edge_softmax_bwd: alpha and
+// dalpha as it takes them, the plan's chunks, pt f32 [n_chunks, H]
+int edge_softmax_bwd_hub_t(const void* alpha, const void* dalpha, const void* chunks, void* pt,
+                           int n_chunks, int H, void* stream) {
+  if (n_chunks < 0 || H <= 0 || (n_chunks > 0 && (chunks == nullptr || pt == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_chunks == 0) return static_cast<int>(cudaGetLastError());
+  edge_softmax_bwd_hub_t_kernel<<<(n_chunks + kWarps - 1) / kWarps, kWarps * 32, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      bwd_hub(chunks, nullptr, nullptr, nullptr, pt, nullptr, n_chunks, 1),
+      static_cast<const float*>(alpha), static_cast<const float*>(dalpha), H,
       lanes_per_edge(H));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// alpha, dalpha, ds f32 [E, H] in dst-sorted edge order; the hub plan
+// (chunks, owner, first cut with T = chunk_edges) and pt from
+// edge_softmax_bwd_hub_t (rows of more than chunk_edges edges are left to
+// the chunks; null pointers where n_chunks == 0)
+int edge_softmax_bwd(const void* indptr, const void* alpha, const void* dalpha, void* ds,
+                     const void* chunks, const void* owner, const void* first, const void* pt,
+                     int n_chunks, int chunk_edges, int n_rows, int H, void* stream) {
+  if (n_rows <= 0 || H <= 0) return static_cast<int>(cudaGetLastError());
+  if (n_chunks < 0 || chunk_edges < 1 ||
+      (n_chunks > 0 &&
+       (chunks == nullptr || owner == nullptr || first == nullptr || pt == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const BwdHub hub = bwd_hub(chunks, owner, nullptr, first, const_cast<void*>(pt), nullptr,
+                             n_chunks, chunk_edges);
+  // chunk warps first, then one warp per row
+  const int64_t warps = static_cast<int64_t>(n_chunks) + n_rows;
+  const dim3 grid(static_cast<unsigned>((warps + kWarps - 1) / kWarps)), block(kWarps * 32);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int32_t* ip = static_cast<const int32_t*>(indptr);
+  const float* a = static_cast<const float*>(alpha);
+  const float* da = static_cast<const float*>(dalpha);
+  float* out = static_cast<float*>(ds);
+  // the instantiation that splits hub rows only where the plan has chunks
+  if (n_chunks > 0)
+    edge_softmax_bwd_kernel<true><<<grid, block, 0, st>>>(ip, a, da, out, hub, n_rows, H,
+                                                          lanes_per_edge(H));
+  else
+    edge_softmax_bwd_kernel<false><<<grid, block, 0, st>>>(ip, a, da, out, hub, n_rows, H,
+                                                           lanes_per_edge(H));
   return static_cast<int>(cudaGetLastError());
 }
 

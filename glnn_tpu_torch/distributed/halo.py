@@ -47,8 +47,8 @@ gradient home and adds it at the send rows.
 
 * `halo_u_add_v`, `halo_edge_softmax` (JAX `:391`, `:478`): gathers over
   the combined CSR; the softmax runs the segment softmax kernels
-  (`gat_cuda.csr_softmax`) under the kernel tier, the f32 plain softmax
-  otherwise.
+  (`gat_cuda.csr_softmax`, forward and backward on the CSR's kept plan)
+  under the kernel tier, the f32 plain softmax otherwise.
 * `halo_u_mul_e_sum` (JAX `:604`, `_planned_halo_wsum` :523-600): the
   weighted SpMM kernel over the combined CSR on [x; recv], its dX over
   the transpose (weights through `c_t_edges`), dW in f32 (as
@@ -58,7 +58,8 @@ gradient home and adds it at the send rows.
 * `halo_gat_attention` (JAX `:748` with `_fused_gat`, :776): `gat_prep`
   on the shard's rows; one exchange of the send rows' bf16 features
   beside their el (its f32 bits as two bf16 values); `gat_fwd` over the
-  combined CSR with `edge_base`. Its backward: `gat_bwd`, the exact SpMM
+  combined CSR with `edge_base` and the CSR's hub plan at
+  `gat_cuda.GAT_CHUNK`. Its backward: `gat_bwd` on that plan, the exact SpMM
   source reduce over the combined transpose (`c_t_edges`, rows + n_recv
   rows), the receive rows' part of dfeat sent home; dattn_l and dattn_r
   are this shard's, summed over the ranks by `mesh.all_reduce_grads`.
@@ -438,7 +439,8 @@ class _HaloGATAttention(torch.autograd.Function):
             torch.float32)])
         out, smax, denom = gat_cuda.gat_fwd(
             hg.c_indptr, hg.c_indices, src_b, src_el, er_b, keep, inv_keep,
-            slope, hg.edge_base, spmm_cuda.plan_of(hg, "c_indptr", rows))
+            slope, hg.edge_base,
+            spmm_cuda.plan_of(hg, "c_indptr", rows, gat_cuda.GAT_CHUNK))
         ctx.save_for_backward(feat, attn_r, src_b, src_el, er_b, al_b, keep,
                               smax, denom)
         ctx.hg, ctx.inv_keep, ctx.slope = hg, inv_keep, slope
@@ -454,7 +456,7 @@ class _HaloGATAttention(torch.autograd.Function):
         der, msg, dal = gat_cuda.gat_bwd(
             hg.c_indptr, hg.c_indices, src_b, src_el, er_b, keep,
             ctx.inv_keep, ctx.slope, smax, denom, dout, al_b, hg.edge_base,
-            spmm_cuda.plan_of(hg, "c_indptr", rows))
+            spmm_cuda.plan_of(hg, "c_indptr", rows, gat_cuda.GAT_CHUNK))
         n_src = rows + hg.n_recv
         dsrc = spmm_cuda.csr_sum_bf16(hg.c_t_indptr, hg.c_t_edges,
                                       msg.view(-1, h * d), n_src,

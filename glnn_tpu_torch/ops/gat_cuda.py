@@ -20,8 +20,9 @@ out[v,h,:] = sum alpha * feat[u,h,:].
   of the undropped weights), and lanes across (edge slot, head, column
   group) accumulate the bf16 source rows in f32; it also writes the
   per-dst max and denominator [N, H] for the backward. A row of more than
-  `spmm_cuda.HUB_CHUNK` edges is split across warps by the CSR's hub plan
-  (kept on the Graph or the halo shard): the chunks' maxima first
+  T edges is split across warps by the CSR's hub plan (kept on the Graph
+  or the halo shard; the GAT layer's is cut at T = `GAT_CHUNK`, the
+  softmax's at `spmm_cuda.HUB_CHUNK`): the chunks' maxima first
   (`gat_fwd_hub_max`), then each chunk's sums with the row's final max in
   `gat_fwd`, then the split rows' sums in chunk order (`gat_fwd_combine`),
   three launches counted under `gat_fwd`; one on a CSR without such rows.
@@ -70,7 +71,10 @@ subtracts its block's, :700) and reads each short row's scores once
 (`softmax_geometry` packs several rows into a warp); on the CSR's hub plan
 a split row's chunk maxima and sums come first (`edge_softmax_hub_pass`),
 three launches counted under `edge_softmax_fwd`. `edge_softmax_bwd`
-gives ds = alpha * dalpha - alpha * sum_seg(alpha * dalpha), all f32. Rows
+gives ds = alpha * dalpha - alpha * sum_seg(alpha * dalpha), all f32; on
+the forward's plan a split row's chunks first write their parts of the sum
+(`edge_softmax_bwd_hub_t`), then each chunk writes ds over its edges with
+its row's sum, two launches counted under `edge_softmax_bwd`. Rows
 without in-edges own no score and write nothing.
 
 Each kernel has a plain PyTorch version here (`plain_prep`,
@@ -103,6 +107,15 @@ FWD_MAX_HEADS = 8        # heads per gat_fwd pass (kFwdMaxHeads)
 FWD_MAX_SLOTS = 4        # edges gat_fwd walks at once, where a load allows
 BWD_CACHE_BYTES = 4096   # shared memory per warp for gat_bwd's per-edge terms
 SOFTMAX_REGS = 8         # scores per lane in edge_softmax_fwd (kSoftmaxRegs)
+# T of the GAT layer's hub plan (gat_fwd and gat_bwd): rows of more edges
+# are split across warps. On chip_smoke.py's hub graph T = 128 gave the
+# fastest step of the two kernels at both GAT shapes, device ms (8, 16)
+# 1.352 against 1.418 at T = 256 and 1.681 at 512, (1, 40) 0.627 against
+# 0.656 and 0.722: gat_bwd is 9% faster than at 256, gat_fwd 4% slower
+# (tools/sweep_cuda_kernels.py --kernels gat_fwd_hub,gat_bwd_hub; H100
+# 80GB HBM3, 700 W). The softmax, the SpMMs and the source reduce keep
+# spmm_cuda.HUB_CHUNK
+GAT_CHUNK = 128
 # per-head widths the kernels take: D / VEC <= 128, VEC the largest power
 # of two <= 8 dividing D
 _MAX_GROUPS = 128
@@ -124,7 +137,8 @@ _SIGNATURES = {
     "gat_bwd_blocks_per_sm": [_ci] * 5,
     "edge_softmax_hub_pass": [_ci] + [_vp] * 6 + [_ci] * 2 + [_vp],
     "edge_softmax_fwd": [_vp] * 8 + [_ci] * 5 + [_vp],
-    "edge_softmax_bwd": [_vp] * 4 + [_ci] * 2 + [_vp],
+    "edge_softmax_bwd_hub_t": [_vp] * 4 + [_ci] * 2 + [_vp],
+    "edge_softmax_bwd": [_vp] * 8 + [_ci] * 4 + [_vp],
 }
 _blocks_per_sm: dict = {}
 
@@ -578,7 +592,7 @@ class _GATAttention(torch.autograd.Function):
         feat_b, el, er_b, al_b = prep(feat, attn_l, attn_r)
         out, smax, denom = gat_fwd(
             g.indptr, g.senders, feat_b, el, er_b, keep, inv_keep, slope,
-            plan=spmm_cuda.plan_of(g, "indptr", g.n_nodes))
+            plan=spmm_cuda.plan_of(g, "indptr", g.n_nodes, GAT_CHUNK))
         ctx.save_for_backward(feat, attn_r, feat_b, el, er_b, al_b, keep,
                               smax, denom)
         ctx.g, ctx.inv_keep, ctx.slope = g, inv_keep, slope
@@ -593,7 +607,9 @@ class _GATAttention(torch.autograd.Function):
         n, h, d = feat.shape
         der, msg, dal = gat_bwd(g.indptr, g.senders, feat_b, el, er_b, keep,
                                 ctx.inv_keep, ctx.slope, smax, denom, dout,
-                                al_b, plan=spmm_cuda.plan_of(g, "indptr", n))
+                                al_b,
+                                plan=spmm_cuda.plan_of(g, "indptr", n,
+                                                       GAT_CHUNK))
         dfeat_src = spmm_cuda.csr_sum_bf16(
             g.t_indptr, g.t_edges, msg.view(-1, h * d), n,
             spmm_cuda.plan_of(g, "t_indptr", n))
@@ -723,19 +739,41 @@ def edge_softmax_fwd(indptr, scores, n_rows, plan=None):
     return plain_edge_softmax_fwd(indptr, scores, n_rows)
 
 
-def edge_softmax_bwd(indptr, alpha, dalpha, n_rows):
-    """Its VJP: alpha and dalpha f32 [E, H] -> ds f32 [E, H]."""
+def _launch_softmax_bwd(indptr, alpha, dalpha, n_rows, plan):
+    """edge_softmax_bwd over the CSR; on a plan with chunks also the
+    chunks' parts of t before it, each launch counted."""
+    dev, h = alpha.device, alpha.shape[1]
+    ds = torch.empty_like(alpha)
+    if plan is None:
+        plan = spmm_cuda.hub_plan(indptr, n_rows)
+    spmm_cuda.check_plan(plan, n_rows, dev)
+    c = plan.n_chunks
+    lib = cuda_build.load("gat", _SIGNATURES)
+    hub = [None] * 4
+    if c:   # each chunk's part of its row's t
+        pt = torch.empty((c, h), dtype=torch.float32, device=dev)
+        hub = [plan.chunks.data_ptr(), plan.owner.data_ptr(),
+               plan.first.data_ptr(), pt.data_ptr()]
+        cuda_build.launch("edge_softmax_bwd", lib.edge_softmax_bwd_hub_t,
+                          dev, alpha.data_ptr(), dalpha.data_ptr(), hub[0],
+                          hub[3], c, h)
+        counts["edge_softmax_bwd"] += 1
+    cuda_build.launch("edge_softmax_bwd", lib.edge_softmax_bwd, dev,
+                      indptr.data_ptr(), alpha.data_ptr(), dalpha.data_ptr(),
+                      ds.data_ptr(), *hub, c, plan.chunk, n_rows, h)
+    counts["edge_softmax_bwd"] += 1
+    return ds
+
+
+def edge_softmax_bwd(indptr, alpha, dalpha, n_rows, plan=None):
+    """Its VJP: alpha and dalpha f32 [E, H] -> ds f32 [E, H]. `plan` is
+    the CSR's hub plan, the forward's (`spmm_cuda.plan_of`; built here when
+    None, two host syncs): on a plan with chunks the split rows' parts of
+    t go first, two launches in all."""
     _check_edge_rows(indptr, n_rows, alpha, dalpha)
     if alpha.is_cuda:
-        alpha, dalpha = alpha.contiguous(), dalpha.contiguous()
-        ds = torch.empty_like(alpha)
-        lib = cuda_build.load("gat", _SIGNATURES)
-        cuda_build.launch("edge_softmax_bwd", lib.edge_softmax_bwd,
-                          alpha.device, indptr.data_ptr(), alpha.data_ptr(),
-                          dalpha.data_ptr(), ds.data_ptr(), n_rows,
-                          alpha.shape[1])
-        counts["edge_softmax_bwd"] += 1
-        return ds
+        return _launch_softmax_bwd(indptr, alpha.contiguous(),
+                                   dalpha.contiguous(), n_rows, plan)
     return plain_edge_softmax_bwd(indptr, alpha, dalpha, n_rows)
 
 
@@ -745,14 +783,14 @@ class _EdgeSoftmax(torch.autograd.Function):
     def forward(ctx, scores, indptr, n_rows, plan):
         alpha = edge_softmax_fwd(indptr, scores, n_rows, plan)
         ctx.save_for_backward(alpha, indptr)
-        ctx.n_rows = n_rows
+        ctx.n_rows, ctx.plan = n_rows, plan
         return alpha
 
     @staticmethod
     def backward(ctx, dalpha):
         alpha, indptr = ctx.saved_tensors
-        return edge_softmax_bwd(indptr, alpha, dalpha.float(),
-                                ctx.n_rows), None, None, None
+        return edge_softmax_bwd(indptr, alpha, dalpha.float(), ctx.n_rows,
+                                ctx.plan), None, None, None
 
 
 def csr_softmax(indptr, scores, n_rows, plan=None):

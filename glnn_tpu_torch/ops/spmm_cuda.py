@@ -51,16 +51,18 @@ through a ring of shared-memory stages filled by cp.async; `f32_geometry`
 works out its layout. A row of more than F32_CHUNK edges is split across
 warps as below. Its plain version is `refops.csr_sum_f32`.
 
-Hub rows (every kernel here, and gat_fwd): a row of more than T edges is
-cut into chunks of T edges (HUB_CHUNK for the template body and gat_fwd,
-F32_CHUNK for the f32 sum), one warp each, whose partials a second kernel
-sums in chunk order, so no warp walks a hub row alone and two launches are
-bit-equal; a row of at most T edges takes one warp. `hub_plan`
-lists the chunks of a CSR (two host synchronisations), and `plan_of` keeps
-it on the object that owns the CSR (`Graph.cache` for `indptr` and
-`t_indptr`, a halo shard's `cache` for its CSRs; `WeightedCSR` carries its
-two), so a plan is built once per CSR and every call can be captured in a
-CUDA graph; `builds` counts the plans built. Each entry point takes the
+Hub rows (every kernel here, and the GAT kernels): a row of more than T
+edges is cut into chunks of T edges (HUB_CHUNK for the template body and
+the segment softmax, `gat_cuda.GAT_CHUNK` for the GAT layer's gat_fwd
+and gat_bwd, F32_CHUNK for the f32 sum), one warp each, whose partials a
+second kernel sums in chunk order, so no warp walks a hub row alone and
+two launches are bit-equal; a row of at most T edges takes one warp.
+`hub_plan` lists the chunks of a CSR (two host synchronisations), and
+`plan_of` keeps it on the object that owns the CSR (`Graph.cache` for
+`indptr` and `t_indptr`, a halo shard's `cache` for its CSRs;
+`WeightedCSR` carries its two), so a plan is built once per CSR and T
+and every call can be captured in a CUDA graph; `builds` counts the
+plans built. Each entry point takes the
 plan (built at the call when None); a call on a CSR with such rows
 launches both kernels, two launches in `counts`.
 
@@ -101,11 +103,12 @@ _SIGNATURES = {"spmm_csr_bf16": [_vp] * 6 + [_ci] * 7 + [_vp],
                "spmm_csr_weighted_combine": [_vp] * 4 + [_ci] * 2 + [_vp]}
 _F32_SIGNATURES = {"spmm_csr_f32": [_vp] * 6 + [_ci] * 8 + [_vp],
                    "spmm_csr_f32_combine": [_vp] * 4 + [_ci] * 2 + [_vp]}
-# T of the template body (csrc/spmm_csr.cu) and of gat_fwd: rows of more
-# edges are split into chunks of T edges, one warp each, whose partials a
-# second kernel sums in chunk order. 512 measured best for the template on
-# the hub graph, and is the f32 sum's T as well, so one plan per CSR serves
-# all of them (csrc/spmm_csr.cu has the sweep's numbers)
+# T of the template body (csrc/spmm_csr.cu) and of the segment softmax:
+# rows of more edges are split into chunks of T edges, one warp each, whose
+# partials a second kernel sums in chunk order. 512 measured best for the
+# template on the hub graph, and is the f32 sum's T as well, so one plan
+# per CSR serves all of them (csrc/spmm_csr.cu has the sweep's numbers);
+# the GAT layer keeps its own (gat_cuda.GAT_CHUNK)
 HUB_CHUNK = 512
 # csrc/spmm_f32.cu's kChunkEdges (T); the kernel refuses a plan cut with
 # another T

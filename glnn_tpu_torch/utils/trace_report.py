@@ -49,8 +49,9 @@ _NS = r"(?:\(anonymous namespace\)::)?"
 # after it (gat_fwd_combine_kernel); gat_bwd_kernel's chunk instantiation
 # (the chunks' parts of t) before gat_bwd and gat_bwd_combine_kernel
 # after it; the segment softmax's chunk maxima and sums
-# (edge_softmax_hub_max_kernel, edge_softmax_hub_sum_kernel) before it.
-# Each is counted as one launch of its port kernel (the wrappers count
+# (edge_softmax_hub_max_kernel, edge_softmax_hub_sum_kernel) before it,
+# and its backward's chunks' parts of t (edge_softmax_bwd_hub_t_kernel)
+# before edge_softmax_bwd_kernel. Each is counted as one launch of its port kernel (the wrappers count
 # launches, not calls)
 _WALK = r"\bspmm_csr_(?:combine_)?kernel<"
 PORT_KERNELS = (
@@ -64,7 +65,8 @@ PORT_KERNELS = (
     (re.compile(r"\bgat_bwd_(?:combine_)?kernel\b"), "gat_bwd"),
     (re.compile(r"\bedge_softmax_(?:fwd|hub_max|hub_sum)_kernel\b"),
      "edge_softmax_fwd"),
-    (re.compile(r"\bedge_softmax_bwd_kernel\b"), "edge_softmax_bwd"),
+    (re.compile(r"\bedge_softmax_bwd_(?:hub_t_)?kernel\b"),
+     "edge_softmax_bwd"),
 )
 
 

@@ -34,6 +34,14 @@ the CPU tests (tests/test_torch_kernel_design.py) and the card's
   slots summed by a butterfly over slot ^ (32 / G) / 2, ..., ^ 1); a
   split row's max the max of its chunks', its den its chunks' sums in
   chunk order from zero.
+* `softmax_bwd_walk` follows edge_softmax_bwd in f32 torch: per item (a
+  row of at most T edges, or a chunk of a longer one) lane slot q sums
+  alpha * dalpha over the edges q, q + 32 / G, ... of its range in order,
+  each step one fused multiply-add (emulated in f64, where the product of
+  two f32 values is exact), the slots summed by the butterfly as in
+  `softmax_fwd_walk`; a split row's t its chunks' parts summed in chunk
+  order from zero, the same t for every chunk; ds = alpha * dalpha -
+  alpha * t per edge.
 """
 
 import numpy as np
@@ -291,11 +299,51 @@ def _warp_den(ex, per):
             comp = (t - den) - y
             den = t
         parts.append(den - comp)
+    return _xor_sum(parts, _butterfly(per))
+
+
+def _butterfly(per):
+    """The butterfly's slot offsets over 32 / G = per slots: per / 2, ...,
+    1."""
     offs, o = [], per // 2
     while o >= 1:
         offs.append(o)
         o //= 2
-    return _xor_sum(parts, offs)
+    return offs
+
+
+def _warp_t(alpha, dalpha, per):
+    """One warp's t of an item, alpha and dalpha [e, H]: slot q takes edges
+    q, q + per, ... in order, t = fma(alpha, dalpha, t) each; the slots'
+    sums by the butterfly."""
+    e, heads = alpha.shape
+    steps = -(-e // per)
+    pad = alpha.new_zeros((steps * per - e, heads))
+    a = torch.cat([alpha, pad]).double().view(steps, per, heads)
+    da = torch.cat([dalpha, pad]).double().view(steps, per, heads)
+    t = torch.zeros((per, heads))
+    for j in range(steps):      # padding adds 0 * 0: t unchanged
+        t = (t.double() + a[j] * da[j]).float()
+    return _xor_sum(list(t), _butterfly(per))
+
+
+def softmax_bwd_walk(indptr, alpha, dalpha, n_rows, chunk):
+    """edge_softmax_bwd in f32 torch on the CPU with rows of more than
+    `chunk` edges split: ds [E, H]."""
+    heads = alpha.shape[1]
+    per = 32 // gat_cuda.softmax_geometry(heads, 1, 1).g
+    ds = torch.zeros_like(alpha)
+    for _, ranges in items(indptr, n_rows, chunk):
+        a, b = ranges[0][0], ranges[-1][1]
+        if a == b:
+            continue
+        # the items' parts in chunk order from zero (0 + x is x: a row of
+        # one item is its own t)
+        t = torch.zeros(heads)
+        for c, d in ranges:
+            t = t + _warp_t(alpha[c:d], dalpha[c:d], per)
+        ds[a:b] = alpha[a:b] * dalpha[a:b] - alpha[a:b] * t
+    return ds
 
 
 def softmax_fwd_walk(indptr, scores, n_rows, chunk):

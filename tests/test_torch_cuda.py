@@ -33,9 +33,11 @@ than T = spmm_cuda.HUB_CHUNK edges as well: on rows of T - 1, T, T + 1
 and 20 T edges (hub_walks.HUB_SPLIT) the template kernels equal their
 numpy walk (tests/hub_walks.py) bit for bit, and gat_fwd its torch walk
 to 1e-5 (the walk's exponentials and products are the CPU's). gat_bwd and
-edge_softmax_fwd split the same rows (three launches each on such a CSR)
-and are held to their walks at 1e-5 and to their plain versions at the
-tolerances above, two launches bit-equal.
+edge_softmax_fwd split the same rows (three launches each on such a CSR),
+and edge_softmax_bwd (two launches), each held to its walk at 1e-5 and to
+its plain version at the tolerances above, two launches bit-equal. The
+GAT kernels' split tests run at T = spmm_cuda.HUB_CHUNK and at the GAT
+layer's T = gat_cuda.GAT_CHUNK (rows either side of each).
 """
 
 import numpy as np
@@ -253,12 +255,15 @@ def test_f32_counts_both_passes_and_keeps_the_plan(cuda):
 # ---- hub rows split across warps: the template body and gat_fwd ----------
 
 HT = spmm_cuda.HUB_CHUNK
+GT = gat_cuda.GAT_CHUNK
 
 
-def _split_graph(seed, device, n_random=6000):
+def _split_graph(seed, device, n_random=6000, chunk=HT):
     """Rows of 0, 1, T - 1, T, T + 1 and 20 T in- and out-edges among 3,000
-    nodes (hub_walks.HUB_SPLIT), the rest random."""
-    src, dst, n = hub_walks.hub_split_arrays(seed, n=3000,
+    nodes (hub_walks.HUB_SPLIT at T = HUB_CHUNK), the rest random; T =
+    `chunk`."""
+    degrees = (0, 1, chunk - 1, chunk, chunk + 1, 20 * chunk)
+    src, dst, n = hub_walks.hub_split_arrays(seed, degrees, n=3000,
                                              n_random=n_random)
     return build_graph(src, dst, n).to(device)
 
@@ -346,9 +351,10 @@ def test_template_split_kernels_equal_their_walk(cuda, policy, f, heads,
     assert got[len(hub_walks.HUB_SPLIT) - 1].abs().max() > 0
 
 
+@pytest.mark.parametrize("chunk", [HT, GT])
 @pytest.mark.parametrize("drop", [0.0, 0.3])
 @pytest.mark.parametrize("h,d", GAT_SHAPES)
-def test_gat_fwd_split_matches_walk_and_plain(cuda, h, d, drop):
+def test_gat_fwd_split_matches_walk_and_plain(cuda, h, d, drop, chunk):
     """gat_fwd with rows of more than T edges split (three launches): two
     launches bit-equal; the max bit for bit equal to the plain version's
     and to hub_walks.gat_fwd_walk's; out and den within the GAT
@@ -356,23 +362,23 @@ def test_gat_fwd_split_matches_walk_and_plain(cuda, h, d, drop):
     10,240 terms in another order, within 1e-4 of itself) and within 1e-5
     of the walk (which differs in its exponentials and fused
     multiply-adds only). Seed mode: the kernels' own keep bits."""
-    g = _split_graph(h * 10 + d, cuda)
+    g = _split_graph(h * 10 + d, cuda, chunk=chunk)
     feat, al, ar, _ = _gat_inputs(g, h, d, 0.0, 3)
     keep = (torch.tensor([0x5EED0000 + h * d], dtype=torch.int64,
                          device=cuda) if drop else None)
     feat_b, el, er_b, _ = gat_cuda.prep(feat, al, ar)
     args = (g.indptr, g.senders, feat_b, el, er_b, keep,
             1.0 / (1.0 - drop), 0.2)
-    plan = spmm_cuda.plan_of(g, "indptr", g.n_nodes)
+    plan = spmm_cuda.plan_of(g, "indptr", g.n_nodes, chunk)
     gat_cuda.reset_counts()
     got = gat_cuda.gat_fwd(*args, plan=plan)
     again = gat_cuda.gat_fwd(*args, plan=plan)
     assert gat_cuda.counts["gat_fwd"] == 6
     for a, b in zip(got, again):
         assert torch.equal(a, b)
-    short = (g.indptr[1:g.n_nodes + 1] - g.indptr[:g.n_nodes]) <= HT
+    short = (g.indptr[1:g.n_nodes + 1] - g.indptr[:g.n_nodes]) <= chunk
     walk = hub_walks.gat_fwd_walk(*(t.cpu() if torch.is_tensor(t) else t
-                                    for t in args), HT)
+                                    for t in args), chunk)
     want = gat_cuda.plain_gat_fwd(*args)
     assert torch.equal(got[1], want[1])
     assert torch.equal(got[1].cpu(), walk[1])
@@ -385,22 +391,23 @@ def test_gat_fwd_split_matches_walk_and_plain(cuda, h, d, drop):
     assert bool((got[2][~short] >= 1).all())
 
 
+@pytest.mark.parametrize("chunk", [HT, GT])
 @pytest.mark.parametrize("drop", [0.0, 0.3])
 @pytest.mark.parametrize("h,d", GAT_SHAPES)
-def test_gat_bwd_split_matches_walk_and_plain(cuda, h, d, drop):
+def test_gat_bwd_split_matches_walk_and_plain(cuda, h, d, drop, chunk):
     """gat_bwd with rows of more than T edges split (the chunks' parts of
     t, the walk, the split rows' der: three launches): two launches
     bit-equal; der, msg and dattn_l within 1e-5 of hub_walks.gat_bwd_walk
     (the message within a bf16 ulp) and within the GAT tolerances of the
     plain version. Seed mode: the kernels' own keep bits."""
-    g = _split_graph(h * 10 + d + 1, cuda)
+    g = _split_graph(h * 10 + d + 1, cuda, chunk=chunk)
     feat, al, ar, _ = _gat_inputs(g, h, d, 0.0, 5)
     keep = (torch.tensor([0x5EED0000 + h * d], dtype=torch.int64,
                          device=cuda) if drop else None)
     feat_b, el, er_b, al_b = gat_cuda.prep(feat, al, ar)
     args = (g.indptr, g.senders, feat_b, el, er_b, keep,
             1.0 / (1.0 - drop), 0.2)
-    plan = spmm_cuda.plan_of(g, "indptr", g.n_nodes)
+    plan = spmm_cuda.plan_of(g, "indptr", g.n_nodes, chunk)
     assert plan.n_chunks > 0
     _, smax, denom = gat_cuda.gat_fwd(*args, plan=plan)
     dout = torch.randn_like(feat)
@@ -412,7 +419,7 @@ def test_gat_bwd_split_matches_walk_and_plain(cuda, h, d, drop):
         assert torch.equal(a, b)
     walk = hub_walks.gat_bwd_walk(*(t.cpu() if torch.is_tensor(t) else t
                                     for t in args + (smax, denom, dout,
-                                                     al_b)), HT)
+                                                     al_b)), chunk)
     want = gat_cuda.plain_gat_bwd(*args, smax, denom, dout, al_b)
     for other, rtol in ((want, 1e-4), (walk, 1e-5)):
         _close(got[0].cpu(), other[0].cpu(), rtol, rtol)
@@ -444,13 +451,64 @@ def test_edge_softmax_fwd_split_matches_walk_and_plain(cuda, heads):
     torch.testing.assert_close(got[split].sum(0).cpu(), torch.ones(heads))
 
 
+@pytest.mark.parametrize("heads", [1, 3, 8, 40])
+def test_edge_softmax_bwd_split_matches_walk_and_plain(cuda, heads):
+    """edge_softmax_bwd with rows of more than T edges split (the chunks'
+    parts of t, then ds: two launches): two launches bit-equal, within
+    1e-5 of hub_walks.softmax_bwd_walk and within the gradient's tolerance
+    of the plain version (rtol 1e-4 / atol 1e-6)."""
+    g = _split_graph(heads + 60, cuda)
+    s = 3 * torch.randn((g.n_edges, heads), device=cuda)
+    da = torch.randn((g.n_edges, heads), device=cuda)
+    plan = spmm_cuda.plan_of(g, "indptr", g.n_nodes)
+    assert plan.n_chunks > 0
+    alpha = gat_cuda.edge_softmax_fwd(g.indptr, s, g.n_nodes, plan)
+    gat_cuda.reset_counts()
+    got = gat_cuda.edge_softmax_bwd(g.indptr, alpha, da, g.n_nodes, plan)
+    again = gat_cuda.edge_softmax_bwd(g.indptr, alpha, da, g.n_nodes, plan)
+    assert gat_cuda.counts["edge_softmax_bwd"] == 4
+    assert torch.equal(got, again)
+    walk = hub_walks.softmax_bwd_walk(g.indptr.cpu(), alpha.cpu(), da.cpu(),
+                                      g.n_nodes, HT)
+    want = gat_cuda.plain_edge_softmax_bwd(g.indptr, alpha, da, g.n_nodes)
+    torch.testing.assert_close(got.cpu(), walk, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)
+    split = g.receivers.long() == len(hub_walks.HUB_SPLIT) - 1
+    assert got[split].abs().max().item() > 0
+
+
+def test_edge_softmax_op_on_split_rows(cuda):
+    """ops.edge_softmax forward and backward on a graph with split rows:
+    the forward's three launches and the backward's two on the graph's
+    kept plan, no plain call, no plan built past the first step; alpha and
+    ds against the plain versions."""
+    g = _split_graph(71, cuda)
+    s = (3 * torch.randn((g.n_edges, 8), device=cuda)).requires_grad_(True)
+    da = torch.randn((g.n_edges, 8), device=cuda)
+    ops.edge_softmax(g, s)                       # builds the kept plan
+    spmm_cuda.reset_counts()
+    gat_cuda.reset_counts()
+    cuda_build.reset_counts()
+    alpha = ops.edge_softmax(g, s)
+    (ds,) = torch.autograd.grad(alpha, s, da)
+    assert (gat_cuda.counts["edge_softmax_fwd"],
+            gat_cuda.counts["edge_softmax_bwd"]) == (3, 2)
+    assert cuda_build.counts == {"plain_on_cuda": 0}
+    assert spmm_cuda.builds["hub_plan"] == 0
+    want = gat_cuda.plain_edge_softmax_fwd(g.indptr, s.detach(), g.n_nodes)
+    want_ds = gat_cuda.plain_edge_softmax_bwd(g.indptr, want, da, g.n_nodes)
+    torch.testing.assert_close(alpha, want, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(ds, want_ds, rtol=1e-4, atol=1e-6)
+
+
 def test_hub_plans_kept_and_built_once(cuda):
     """Every walk of the Graph (copy_u_sum both tiers and its backward,
     u_mul_e_sum and its dX, the GAT layer's forward, backward and source
-    reduce, the segment softmax, feature_prop) takes the two plans kept on
-    it: two builds however many
-    calls, and weighted_csr carries them. A halo shard keeps its own, one
-    per CSR; a moved Graph or shard starts anew."""
+    reduce, the segment softmax forward and backward, feature_prop) takes
+    the plans kept on it: three builds however many calls (the dst-sorted
+    CSR at T = HUB_CHUNK and at the GAT layer's GAT_CHUNK, the transpose at
+    HUB_CHUNK), and weighted_csr carries the two at HUB_CHUNK. A halo shard
+    keeps its own, one per CSR; a moved Graph or shard starts anew."""
     from glnn_tpu_torch.distributed.halo import build_halo_graph, csr_part
 
     g = _split_graph(5, cuda)
@@ -467,7 +525,7 @@ def test_hub_plans_kept_and_built_once(cuda):
             .backward()
         ops.edge_softmax(g, w[:, None].expand(-1, 4)).sum().backward()
         graph_utils.feature_prop(x.detach(), g, 2)
-    assert spmm_cuda.builds["hub_plan"] == 2
+    assert spmm_cuda.builds["hub_plan"] == 3
     csr = spmm_cuda.weighted_csr(g)
     assert csr.plan is spmm_cuda.plan_of(g, "indptr", n)
     assert csr.t_plan is spmm_cuda.plan_of(g, "t_indptr", n)
@@ -837,7 +895,8 @@ def _softmax_matches_plain(g, heads):
     (ds,) = torch.autograd.grad(alpha, s, da)
     # with split rows: the chunks' maxima and sums, then alpha
     assert gat_cuda.counts["edge_softmax_fwd"] == (3 if split else 1)
-    assert gat_cuda.counts["edge_softmax_bwd"] == 1
+    # with split rows: the chunks' parts of t, then ds
+    assert gat_cuda.counts["edge_softmax_bwd"] == (2 if split else 1)
     assert alpha.shape == shape
     s2 = s.detach().reshape(g.n_edges, -1)
     want = gat_cuda.plain_edge_softmax_fwd(g.indptr, s2, g.n_nodes)

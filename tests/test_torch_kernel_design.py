@@ -45,14 +45,18 @@ walks in the kernels' order of operations.
   spmm_cuda.HUB_CHUNK edges, hub_walks.HUB_SPLIT: 0 to 20 T edges), the
   walks of tests/hub_walks.py: the template body's and gat_fwd's, and
   gat_bwd's (each chunk's part of t, t in chunk order, ds_pre per edge,
-  der per chunk in chunk order) and edge_softmax_fwd's (chunk maxima,
-  chunk sums with the row's max). Each is held to its plain version and
-  to its unsplit walk at the card's tolerances, and through the autograd
-  layer (gat_fwd and gat_bwd both walked) to glnn_tpu: the interpret-mode
-  Pallas kernels on rows of up to 2 T + 3 edges, its XLA tier on the 20 T
-  row, at 1e-2 x max; the softmax walk to refops.edge_softmax and the
-  interpret-mode gat_pallas.edge_softmax. The layer's backward and the
-  softmax take the CSR's kept plan, built once.
+  der per chunk in chunk order), edge_softmax_fwd's (chunk maxima, chunk
+  sums with the row's max) and edge_softmax_bwd's (each chunk's part of
+  t, t in chunk order, ds per edge). Each is held to its plain version and
+  to its unsplit walk at the card's tolerances (the GAT walks also at the
+  GAT layer's T = gat_cuda.GAT_CHUNK), and through the autograd layer
+  (gat_fwd and gat_bwd both walked at the layer's T) to glnn_tpu: the
+  interpret-mode Pallas kernels on rows of up to 2 T + 3 edges, its XLA
+  tier on the 20 T row, at 1e-2 x max; the softmax walks to
+  refops.edge_softmax and the interpret-mode gat_pallas.edge_softmax and
+  their gradients. The layer's forward and backward take the CSR's kept
+  GAT plan, the softmax's forward and backward its kept plan at
+  HUB_CHUNK, each built once.
 """
 
 import jax
@@ -522,10 +526,11 @@ def test_template_walk_matches_jax(f):
         atol=5e-2 * np.sqrt(np.diff(g.indptr[:n + 1].numpy())).max())
 
 
-def _gat_split_case(h, d, drop, seed):
-    """gat_fwd's inputs on the hub-split graph with large logits (about
-    randn x 10), in seed mode or without dropout."""
-    src, dst, n = hub_walks.hub_split_arrays(seed)
+def _gat_split_case(h, d, drop, seed, degrees=HUB_SPLIT):
+    """gat_fwd's inputs on the hub-split graph (rows of `degrees` edges)
+    with large logits (about randn x 10), in seed mode or without
+    dropout."""
+    src, dst, n = hub_walks.hub_split_arrays(seed, degrees)
     g = build_graph(src, dst, n)
     rs = np.random.RandomState(seed)
     feat = torch.from_numpy(rs.randn(n, h, d).astype(np.float32))
@@ -537,21 +542,20 @@ def _gat_split_case(h, d, drop, seed):
     return g, (g.indptr, g.senders, feat_b, el, er_b, keep, 1 / 0.7, 0.2)
 
 
-@pytest.mark.parametrize("drop", ["none", "seed"])
-@pytest.mark.parametrize("h,d", [(8, 16), (1, 40), (3, 5)])
-def test_gat_fwd_split_walk_matches_plain(h, d, drop):
-    """gat_fwd with rows of 0 to 20 T edges split: each chunk's terms with
-    its row's final max, den and p w f summed per chunk, then in chunk
-    order. Against plain_gat_fwd at the card's tolerance (out rtol 1e-4 /
-    atol 1e-4 x max, den 1e-5), the max bit for bit; and against the
-    unsplit walk (the same rows walked by one warp each): only the order
-    of the sums differs."""
-    g, args = _gat_split_case(h, d, drop, h * d)
-    got = hub_walks.gat_fwd_walk(*args, HT)
+GT = gat_cuda.GAT_CHUNK
+# HUB_SPLIT's degrees about the GAT layer's T
+GAT_SPLIT = (0, 1, GT - 1, GT, GT + 1, 20 * GT)
+
+
+def _gat_fwd_split_walk(h, d, drop, seed, chunk, degrees):
+    """gat_fwd's split walk at T = chunk on rows of `degrees` edges, held
+    to plain_gat_fwd and to the unsplit walk (see the tests below)."""
+    g, args = _gat_split_case(h, d, drop, seed, degrees)
+    got = hub_walks.gat_fwd_walk(*args, chunk)
     want = gat_cuda.plain_gat_fwd(*args)
     whole = hub_walks.gat_fwd_walk(*args, 10 ** 9)
     short = torch.from_numpy(np.diff(g.indptr[:g.n_nodes + 1].numpy())
-                             <= HT)
+                             <= chunk)
     for other in (want, whole):
         _close(got[0], other[0])
         assert torch.equal(got[1], other[1])
@@ -563,13 +567,34 @@ def test_gat_fwd_split_walk_matches_plain(h, d, drop):
     assert torch.equal(got[0][short], whole[0][short])
     assert torch.equal(got[2][short], whole[2][short])
     assert got[0][0].abs().max() == 0 and got[2][0].abs().max() == 0
-    assert got[2][len(HUB_SPLIT) - 1].min() >= 1      # den >= 1 when split
+    assert got[2][len(degrees) - 1].min() >= 1        # den >= 1 when split
+
+
+@pytest.mark.parametrize("drop", ["none", "seed"])
+@pytest.mark.parametrize("h,d", [(8, 16), (1, 40), (3, 5)])
+def test_gat_fwd_split_walk_matches_plain(h, d, drop):
+    """gat_fwd with rows of 0 to 20 T edges split: each chunk's terms with
+    its row's final max, den and p w f summed per chunk, then in chunk
+    order. Against plain_gat_fwd at the card's tolerance (out rtol 1e-4 /
+    atol 1e-4 x max, den 1e-5), the max bit for bit; and against the
+    unsplit walk (the same rows walked by one warp each): only the order
+    of the sums differs."""
+    _gat_fwd_split_walk(h, d, drop, h * d, HT, HUB_SPLIT)
+
+
+@pytest.mark.parametrize("drop", ["none", "seed"])
+@pytest.mark.parametrize("h,d", [(8, 16), (1, 40), (3, 5)])
+def test_gat_fwd_split_walk_at_gat_chunk_matches_plain(h, d, drop):
+    """The same at the GAT layer's T = GAT_CHUNK, on rows of 0 to 20 of
+    those T edges."""
+    _gat_fwd_split_walk(h, d, drop, h * d + 2, GT, GAT_SPLIT)
 
 
 @pytest.mark.parametrize("logit", [0.3, 3.0])
 def test_gat_fwd_split_walk_through_layer_matches_pallas(monkeypatch, logit):
-    """The autograd layer with gat_fwd replaced by the split walk, against
-    glnn_tpu's gat_attention on the same numpy inputs (its fused kernel
+    """The autograd layer with gat_fwd replaced by the split walk (at the
+    T of the layer's kept plan), against glnn_tpu's gat_attention on the
+    same numpy inputs (its fused kernel
     in interpret mode where the graph has an attention plan, else its XLA
     tier) at 1e-2 x max, as tests/test_torch_gat.py holds plain_gat_fwd;
     and the layer's gradients (gat_bwd's plain version on the split
@@ -586,7 +611,7 @@ def test_gat_fwd_split_walk_through_layer_matches_pallas(monkeypatch, logit):
     al, ar = ((rs.randn(2, 8) * logit).astype(np.float32) for _ in range(2))
 
     monkeypatch.setattr(gat_cuda, "gat_fwd", lambda *a, **k: (
-        hub_walks.gat_fwd_walk(*a[:8], HT)))
+        hub_walks.gat_fwd_walk(*a[:8], k["plan"].chunk)))
     leaves = [torch.from_numpy(a).requires_grad_(True)
               for a in (feat, al, ar)]
     out = gat_cuda.gat_attention(gt, *leaves)
@@ -723,11 +748,12 @@ def test_gat_bwd_mirror_through_layer_matches_pallas(monkeypatch, logit):
 
 # ---- hub rows split across warps in gat_bwd and the segment softmax ----
 
-def _gat_bwd_split_case(h, d, drop, seed):
-    """gat_bwd's inputs on the hub-split graph (rows of 0 to 20 T edges)
-    with large logits, seed mode or no dropout: _gat_split_case's, the
-    plain forward's max and den, a cotangent and the bf16 attn_l."""
-    g, args = _gat_split_case(h, d, drop, seed)
+def _gat_bwd_split_case(h, d, drop, seed, degrees=HUB_SPLIT):
+    """gat_bwd's inputs on the hub-split graph (rows of `degrees` edges,
+    by default 0 to 20 T) with large logits, seed mode or no dropout:
+    _gat_split_case's, the plain forward's max and den, a cotangent and
+    the bf16 attn_l."""
+    g, args = _gat_split_case(h, d, drop, seed, degrees)
     rs = np.random.RandomState(seed)      # _gat_split_case's draws again
     rs.randn(g.n_nodes, h, d)
     al_b = torch.from_numpy((rs.randn(h, d) * 10 / np.sqrt(d))
@@ -736,6 +762,26 @@ def _gat_bwd_split_case(h, d, drop, seed):
     dout = torch.from_numpy(np.random.RandomState(seed + 1).randn(
         g.n_nodes, h, d).astype(np.float32))
     return g, args + (smax, denom, dout, al_b)
+
+
+def _gat_bwd_split_walk(h, d, drop, seed, chunk, degrees):
+    """gat_bwd's split walk at T = chunk on rows of `degrees` edges, held
+    to plain_gat_bwd and to the unsplit walk (see the tests below)."""
+    g, args = _gat_bwd_split_case(h, d, drop, seed, degrees)
+    got = hub_walks.gat_bwd_walk(*args, chunk)
+    whole = hub_walks.gat_bwd_walk(*args, 10 ** 9)
+    want = gat_cuda.plain_gat_bwd(*args)
+    for other in (want, whole):
+        _close(got[0], other[0])
+        _close(got[1], other[1], rtol=2.0 ** -7, scale=1e-5)
+        _close(got[2], other[2])
+    deg = torch.from_numpy(np.diff(g.indptr[:g.n_nodes + 1].numpy()))
+    short = deg <= chunk
+    assert torch.equal(got[0][short], whole[0][short])
+    edge_short = short[g.receivers.long()]
+    assert torch.equal(got[1][edge_short], whole[1][edge_short])
+    assert got[0][0].abs().max() == 0
+    assert got[0][len(degrees) - 1].abs().max() > 0
 
 
 @pytest.mark.parametrize("drop", ["none", "seed"])
@@ -747,21 +793,15 @@ def test_gat_bwd_split_walk_matches_plain(h, d, drop):
     the card's tolerances (der and dattn_l rtol 1e-4 / atol 1e-4 x max, the
     message within a bf16 ulp); rows of at most T edges are the unsplit
     walk's bit for bit."""
-    g, args = _gat_bwd_split_case(h, d, drop, h * d + 1)
-    got = hub_walks.gat_bwd_walk(*args, HT)
-    whole = hub_walks.gat_bwd_walk(*args, 10 ** 9)
-    want = gat_cuda.plain_gat_bwd(*args)
-    for other in (want, whole):
-        _close(got[0], other[0])
-        _close(got[1], other[1], rtol=2.0 ** -7, scale=1e-5)
-        _close(got[2], other[2])
-    deg = torch.from_numpy(np.diff(g.indptr[:g.n_nodes + 1].numpy()))
-    short = deg <= HT
-    assert torch.equal(got[0][short], whole[0][short])
-    edge_short = short[g.receivers.long()]
-    assert torch.equal(got[1][edge_short], whole[1][edge_short])
-    assert got[0][0].abs().max() == 0
-    assert got[0][len(HUB_SPLIT) - 1].abs().max() > 0
+    _gat_bwd_split_walk(h, d, drop, h * d + 1, HT, HUB_SPLIT)
+
+
+@pytest.mark.parametrize("drop", ["none", "seed"])
+@pytest.mark.parametrize("h,d", [(8, 16), (1, 40), (3, 5)])
+def test_gat_bwd_split_walk_at_gat_chunk_matches_plain(h, d, drop):
+    """The same at the GAT layer's T = GAT_CHUNK, on rows of 0 to 20 of
+    those T edges."""
+    _gat_bwd_split_walk(h, d, drop, h * d + 3, GT, GAT_SPLIT)
 
 
 def _layer_grads(gt, fn, feat, al, ar):
@@ -784,10 +824,16 @@ def _layer_grads(gt, fn, feat, al, ar):
 
 
 def _patch_split_walks(monkeypatch):
+    """gat_fwd and gat_bwd replaced by their split walks at the T of the
+    plan the layer hands them (its kept plan, T = GAT_CHUNK)."""
+    def chunk(k):
+        assert k["plan"].chunk == GT
+        return k["plan"].chunk
+
     monkeypatch.setattr(gat_cuda, "gat_fwd", lambda *a, **k: (
-        hub_walks.gat_fwd_walk(*a[:8], HT)))
+        hub_walks.gat_fwd_walk(*a[:8], chunk(k))))
     monkeypatch.setattr(gat_cuda, "gat_bwd", lambda *a, **k: (
-        hub_walks.gat_bwd_walk(*a[:12], HT)))
+        hub_walks.gat_bwd_walk(*a[:12], chunk(k))))
 
 
 @pytest.mark.parametrize("logit", [0.3, 3.0])
@@ -904,12 +950,92 @@ def test_softmax_split_walk_matches_jax(heads):
                                    atol=1e-6)
 
 
+def _softmax_bwd_case(seed, heads, degrees=HUB_SPLIT, **kw):
+    """(g, alpha, dalpha) on the hub-split graph: alpha the plain softmax
+    of scores 3 randn [E, H], dalpha randn."""
+    src, dst, n = hub_walks.hub_split_arrays(seed, degrees, **kw)
+    g = build_graph(src, dst, n)
+    rs = np.random.RandomState(seed)
+    s = torch.from_numpy(3 * rs.randn(g.n_edges, heads).astype(np.float32))
+    da = torch.from_numpy(rs.randn(g.n_edges, heads).astype(np.float32))
+    return g, gat_cuda.plain_edge_softmax_fwd(g.indptr, s, n), da
+
+
+@pytest.mark.parametrize("heads", [1, 3, 8, 40])
+def test_softmax_bwd_split_walk_matches_plain(heads):
+    """edge_softmax_bwd with rows of more than T edges split (each chunk's
+    part of t, t summed in chunk order by every chunk, ds per edge) on
+    rows of 0 to 20 T edges: against plain_edge_softmax_bwd (sums in f64)
+    and the unsplit walk at rtol 1e-5 / atol 1e-6; rows of at most T edges
+    are the unsplit walk's bit for bit. ds sums to t (1 - sum alpha),
+    about 0, over every row."""
+    g, alpha, da = _softmax_bwd_case(heads + 50, heads)
+    n = g.n_nodes
+    got = hub_walks.softmax_bwd_walk(g.indptr, alpha, da, n, HT)
+    whole = hub_walks.softmax_bwd_walk(g.indptr, alpha, da, n, 10 ** 9)
+    want = gat_cuda.plain_edge_softmax_bwd(g.indptr, alpha, da, n)
+    for other in (want, whole):
+        torch.testing.assert_close(got, other, rtol=1e-5, atol=1e-6)
+    deg = torch.from_numpy(np.diff(g.indptr[:n + 1].numpy()))
+    edge_short = (deg <= HT)[g.receivers.long()]
+    assert torch.equal(got[edge_short], whole[edge_short])
+    assert not torch.equal(got[~edge_short], whole[~edge_short])
+    split = g.receivers.long() == len(HUB_SPLIT) - 1
+    assert got[split].abs().max() > 0
+    torch.testing.assert_close(got[split].sum(0), torch.zeros(heads),
+                               rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("heads", [None, 1, 8])
+def test_softmax_bwd_split_walk_matches_jax(heads):
+    """The split walk against glnn_tpu's softmax gradient, fed the alpha
+    of glnn_tpu's forward and the same numpy dalpha: jax.vjp of the
+    interpret-mode gat_pallas.edge_softmax (its _smx_bwd_kernel) on rows
+    of up to 2 T + 3 edges (planned), and of refops.edge_softmax (the XLA
+    tier, whose gradient autodiff forms as dalpha / sum - sum(dalpha exp)
+    / sum^2, f32 row sums) on rows of up to 20 T edges, both at the
+    softmax gradient's tolerance (rtol 1e-4 / atol 1e-6, as
+    tests/test_torch_gat.py holds the plain version). The XLA tier's f32
+    sums over the 10,240-edge row put its [E, 8] gradient 2.3e-6 from the
+    f64 sums of plain_edge_softmax_bwd where the walk stays within 4.8e-7
+    of them (an alpha of up to 0.29 on that row): the worst element lies at
+    0.35 of the tolerance."""
+    for degrees, seed in ((HUB_SPLIT, 5), (
+            (0, 1, HT - 1, HT, HT + 1, 2 * HT + 3), 6)):
+        src, dst, n = hub_walks.hub_split_arrays(seed, degrees, n=2048,
+                                                 n_random=2000)
+        g = build_graph(src, dst, n)
+        gj = jax_build_graph(src, dst, n)
+        shape = (g.n_edges,) if heads is None else (g.n_edges, heads)
+        rs = np.random.RandomState(seed)
+        s = (3 * rs.randn(*shape)).astype(np.float32)
+        da = rs.randn(*shape).astype(np.float32)
+        if degrees is HUB_SPLIT:
+            alpha, vjp = jax.vjp(lambda x: jax_refops.edge_softmax(gj, x),
+                                 jnp.asarray(s))
+        else:
+            gp = gj.with_plans()
+            assert gp.smx is not None
+            alpha, vjp = jax.vjp(lambda x: gat_pallas.edge_softmax(gp, x),
+                                 jnp.asarray(s))
+        (want,) = vjp(jnp.asarray(da))
+        got = hub_walks.softmax_bwd_walk(
+            g.indptr, torch.from_numpy(np.array(alpha)).reshape(
+                g.n_edges, -1), torch.from_numpy(da).reshape(g.n_edges, -1),
+            n, HT)
+        np.testing.assert_allclose(got.reshape(shape).numpy(),
+                                   np.asarray(want), rtol=1e-4, atol=1e-6)
+
+
 def test_gat_bwd_and_softmax_take_the_kept_plan(monkeypatch):
-    """The layer's backward hands gat_bwd the plan its forward took, and
-    edge_softmax and the halo softmax hand the softmax their CSR's kept
-    plan: over two layer steps and two softmax calls on the Graph, and two
-    on a halo shard, two plans are built for the Graph (the dst-sorted CSR
-    and its transpose) and one for the shard's combined CSR."""
+    """The layer's backward hands gat_bwd the very plan its forward took
+    (the dst-sorted CSR's kept plan at T = GAT_CHUNK), and edge_softmax and
+    the halo softmax hand the softmax's forward and its backward their
+    CSR's kept plan (T = HUB_CHUNK): over two layer steps and two softmax
+    steps on the Graph, and two softmax steps on a halo shard, three plans
+    are built for the Graph (the dst-sorted CSR at both T, and its
+    transpose for the source reduce) and one for the shard's combined
+    CSR."""
     from glnn_tpu_torch.distributed.halo import (build_halo_graph,
                                                  halo_edge_softmax)
 
@@ -917,11 +1043,16 @@ def test_gat_bwd_and_softmax_take_the_kept_plan(monkeypatch):
     g = build_graph(src, dst, n)
     hg = build_halo_graph(src, dst, n, 1, combined=True)[0]
     taken = []
-    bwd, smx = gat_cuda.gat_bwd, gat_cuda.edge_softmax_fwd
+    fwd, bwd = gat_cuda.gat_fwd, gat_cuda.gat_bwd
+    smx, smx_bwd = gat_cuda.edge_softmax_fwd, gat_cuda.edge_softmax_bwd
+    monkeypatch.setattr(gat_cuda, "gat_fwd", lambda *a, **k: (
+        taken.append(("gat_fwd", k["plan"])), fwd(*a, **k))[1])
     monkeypatch.setattr(gat_cuda, "gat_bwd", lambda *a, **k: (
         taken.append(("gat_bwd", k["plan"])), bwd(*a, **k))[1])
     monkeypatch.setattr(gat_cuda, "edge_softmax_fwd", lambda *a: (
         taken.append(("softmax", a[3])), smx(*a))[1])
+    monkeypatch.setattr(gat_cuda, "edge_softmax_bwd", lambda *a: (
+        taken.append(("softmax_bwd", a[4])), smx_bwd(*a))[1])
     rs = np.random.RandomState(2)
     feat = torch.from_numpy(rs.randn(n, 2, 4).astype(np.float32))
     al, ar = (torch.from_numpy(rs.randn(2, 4).astype(np.float32))
@@ -932,17 +1063,23 @@ def test_gat_bwd_and_softmax_take_the_kept_plan(monkeypatch):
         gat_cuda.gat_attention(g, feat.requires_grad_(True), al, ar).sum()\
             .backward()
         gat_cuda.edge_softmax(g, s.requires_grad_(True)).sum().backward()
-    assert spmm_cuda.builds["hub_plan"] == 2
+    assert spmm_cuda.builds["hub_plan"] == 3
     plan = spmm_cuda.plan_of(g, "indptr", n)
-    assert plan.n_chunks > 0
-    assert taken == [("gat_bwd", plan), ("softmax", plan)] * 2
-    assert all(p is plan for _, p in taken)
+    gat_plan = spmm_cuda.plan_of(g, "indptr", n, gat_cuda.GAT_CHUNK)
+    assert spmm_cuda.builds["hub_plan"] == 3
+    assert plan.n_chunks > 0 and gat_plan.n_chunks > plan.n_chunks
+    assert [name for name, _ in taken] == ["gat_fwd", "gat_bwd", "softmax",
+                                           "softmax_bwd"] * 2
+    assert all(p is (gat_plan if name.startswith("gat") else plan)
+               for name, p in taken)
     taken.clear()
     for _ in range(2):
-        halo_edge_softmax(hg, s[:hg.n_edges], kernel=True)
-    assert spmm_cuda.builds["hub_plan"] == 3
-    assert [p for _, p in taken] == [spmm_cuda.plan_of(
-        hg, "c_indptr", hg.rows)] * 2
+        halo_edge_softmax(hg, s[:hg.n_edges], kernel=True).sum().backward()
+    assert spmm_cuda.builds["hub_plan"] == 4
+    halo_plan = spmm_cuda.plan_of(hg, "c_indptr", hg.rows)
+    assert [name for name, _ in taken] == ["softmax", "softmax_bwd"] * 2
+    assert all(p is halo_plan for _, p in taken)
+    assert spmm_cuda.builds["hub_plan"] == 4
 
 
 # ---- the GAT attention forward ---------------------------------------------

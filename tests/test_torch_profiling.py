@@ -40,9 +40,10 @@ DEMANGLED = {
                "const*, (anonymous namespace)::DropArgs, float, float const*)",
     "edge_softmax_fwd": "(anonymous namespace)::edge_softmax_fwd_kernel(int "
                         "const*, float const*, float*, int, int, int, int)",
-    "edge_softmax_bwd": "(anonymous namespace)::edge_softmax_bwd_kernel(int "
-                        "const*, float const*, float const*, float*, int, "
-                        "int, int)",
+    "edge_softmax_bwd": "void (anonymous namespace)::edge_softmax_bwd_kernel"
+                        "<false>(int const*, float const*, float const*, "
+                        "float*, (anonymous namespace)::BwdHub, int, int, "
+                        "int)",
 }
 TORCH_KERNEL = ("void at::native::vectorized_elementwise_kernel<8, "
                 "at::native::bfloat16_copy_kernel_cuda("
@@ -99,6 +100,13 @@ HUB_PASSES = {
                           "<true>(int const*, float const*, float*, "
                           "(anonymous namespace)::HubArgs, int, int, int, "
                           "int)",
+    "edge_softmax_bwd": "(anonymous namespace)::edge_softmax_bwd_hub_t_kernel("
+                        "(anonymous namespace)::BwdHub, float const*, float "
+                        "const*, int, int)",
+    "edge_softmax_bwd ": "void (anonymous namespace)::edge_softmax_bwd_kernel"
+                         "<true>(int const*, float const*, float const*, "
+                         "float*, (anonymous namespace)::BwdHub, int, int, "
+                         "int)",
 }
 
 

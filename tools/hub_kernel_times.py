@@ -7,8 +7,9 @@ on the synth graph and on the hub graph, for one checkout of the port.
 Times `spmm_csr_bf16`, `spmm_csr_int8` and `spmm_csr_weighted` at F = 40
 (the GCN and APPNP width; the weighted sum with APPNP's {0, 2} keep
 weights, forward walk), `gat_fwd` and `gat_bwd` at both of chip_smoke.py's
-GAT shapes (dropout in seed mode) and `edge_softmax_fwd` on [E, 8] and
-[E, 1] scores, each on chip_smoke.py's synth graph
+GAT shapes (dropout in seed mode) and `edge_softmax_fwd` and
+`edge_softmax_bwd` on [E, 8] and [E, 1] scores, each on chip_smoke.py's
+synth graph
 (synth-n169343-c40-f128-d7) and on its hub graph (the same N and E, rows
 of up to 20,000 edges), with chip_smoke.kernel_times: the eager time of
 calls back to back, and the device time of CUDA-graph replays. --root is
@@ -16,9 +17,11 @@ the checkout whose package and chip_smoke.py are timed (by default this
 one): a parent commit unpacked into a git-ignored directory compares two
 versions on one card in one call (run parent, change, change, parent).
 A wrapper that takes a hub plan (a `plan` parameter) gets the graph's
-kept plan (`spmm_cuda.plan_of`), as its paths give it; an older one is
-called as its paths call it. Each case is timed --reps times and
-reported by its median.
+kept plan (`spmm_cuda.plan_of`), as its paths give it: the GAT kernels
+the GAT layer's (T = `gat_cuda.GAT_CHUNK` where the package has one, else
+`spmm_cuda.HUB_CHUNK`), the others HUB_CHUNK's; an older one is called as
+its paths call it. Each case is timed --reps times and reported by its
+median.
 Prints the card's name and power limit, then one JSON line: {"root",
 "device_ms": {case: ms}, "ms": {case: ms}}.
 """
@@ -77,9 +80,12 @@ def main() -> int:
         w = (torch.rand(e, generator=gen, device=dev)
              >= cs.EDGE_DROP).float() / (1.0 - cs.EDGE_DROP)
         plan = (spmm_cuda.plan_of(gr, "indptr", n),) if kept else ()
-        fwd_plan = plan_kw(gat_cuda.gat_fwd, plan)
-        bwd_plan = plan_kw(gat_cuda.gat_bwd, plan)
+        gat_plan = ((spmm_cuda.plan_of(gr, "indptr", n, getattr(
+            gat_cuda, "GAT_CHUNK", spmm_cuda.HUB_CHUNK)),) if kept else ())
+        fwd_plan = plan_kw(gat_cuda.gat_fwd, gat_plan)
+        bwd_plan = plan_kw(gat_cuda.gat_bwd, gat_plan)
         smx_plan = plan_kw(gat_cuda.edge_softmax_fwd, plan)
+        smx_bwd_plan = plan_kw(gat_cuda.edge_softmax_bwd, plan)
         cases[f"{tag} spmm_csr_bf16 F={f}"] = (
             lambda gr=gr, xb=xb, p=plan: spmm_cuda.csr_sum_bf16(
                 gr.indptr, gr.senders, xb, gr.n_nodes, *p))
@@ -102,6 +108,12 @@ def main() -> int:
             cases[f"{tag} edge_softmax_fwd [E, {h}]"] = (
                 lambda gr=gr, sc=scores, k=smx_plan: gat_cuda.edge_softmax_fwd(
                     gr.indptr, sc, gr.n_nodes, **k))
+            alpha = gat_cuda.edge_softmax_fwd(gr.indptr, scores, n,
+                                              **smx_plan)
+            dalpha = torch.randn((e, h), generator=gen, device=dev)
+            cases[f"{tag} edge_softmax_bwd [E, {h}]"] = (
+                lambda gr=gr, a=alpha, da=dalpha, k=smx_bwd_plan:
+                gat_cuda.edge_softmax_bwd(gr.indptr, a, da, gr.n_nodes, **k))
     times = {name: [] for name in cases}
     for _ in range(opts.reps):
         for name, fn in cases.items():

@@ -19,8 +19,9 @@ spmm_csr.cu with an entry point that instantiates its body for f32 rows
 layout, timed beside the others in the same run; or, with the sources as
 they are, the chunk length T of the hub plan (a launch argument, so no
 rebuild) that splits hub rows across warps in the template body
-(`spmm_hub`), in gat_fwd (`gat_fwd_hub`), in gat_bwd (`gat_bwd_hub`) and
-in edge_softmax_fwd (`softmax_hub`). Every variant is built
+(`spmm_hub`), in gat_fwd (`gat_fwd_hub`), in gat_bwd (`gat_bwd_hub`), in
+edge_softmax_fwd (`softmax_hub`) and in edge_softmax_bwd
+(`softmax_bwd_hub`). Every variant is built
 with the port's nvcc flags
 into a temporary directory, loaded in place of the port's library,
 checked against the plain version (the cut gat_fwd variants are only
@@ -43,15 +44,18 @@ graph at the main paths' widths:
   magnitude) and for two launches bit-equal, eager and device time;
 - `spmm_hub`: the exact, int8 and weighted sums at F = 40 and 128, and
   `gat_fwd_hub`: gat_fwd at both GAT shapes in seed mode, on the synth
-  and the hub graph, with hub plans cut at T = 256, 512 and 1,024 edges,
+  and the hub graph, with hub plans cut at T = 128, 256, 512 and 1,024
+  edges,
   at T = 64 edges per edge group (64 steps of a chunk's warp whatever
   the layout; gat_fwd: 64 per edge slot) and unsplit (one warp per row,
   what the split replaces), each held to the plain version (int8 exactly) and
   for two launches bit-equal, eager and device time;
-- `gat_bwd_hub`: gat_bwd at both GAT shapes in seed mode with T = 256
-  and 512 and unsplit, and `softmax_hub`: edge_softmax_fwd on [E, 1] and
-  [E, 8] scores with T = 128, 256 and 512 and unsplit, on the synth and
-  the hub graph, held and timed alike.
+- `gat_bwd_hub`: gat_bwd at both GAT shapes in seed mode with T = 128,
+  256 and 512 and unsplit (with gat_fwd_hub, the sweep that picks the GAT
+  layer's T, gat_cuda.GAT_CHUNK), `softmax_hub`: edge_softmax_fwd on
+  [E, 1] and [E, 8] scores with T = 128, 256 and 512 and unsplit, and
+  `softmax_bwd_hub`: edge_softmax_bwd on the same scores' alpha with the
+  same T, on the synth and the hub graph, held and timed alike.
 The lane layouts, grids and plans are launch arguments, so they need no
 rebuild. Prints each variant's ptxas registers, stack frame and spill
 stores per instantiation of the swept kernel and its times, and writes
@@ -94,21 +98,23 @@ VARIANTS = {"spmm": [None, 6, 0], "gat_fwd": [None, 0, 6], "gat_bwd": [None],
             "f32": [None, "S=1", "S=3", "S=4", "T=128", "T=256", "T=1024",
                     "H=0", "template"],
             "spmm_hub": [None], "gat_fwd_hub": [None], "gat_bwd_hub": [None],
-            "softmax_hub": [None]}
+            "softmax_hub": [None], "softmax_bwd_hub": [None]}
 KERNEL = {"spmm": "spmm_csr_kernel", "gat_fwd": "gat_fwd_kernel",
           "gat_bwd": "gat_bwd_kernel", "softmax": "edge_softmax_fwd_kernel",
           "gat_fwd_parts": "gat_fwd_kernel", "f32": "spmm_f32_kernel",
           "spmm_hub": "spmm_csr_kernel", "gat_fwd_hub": "gat_fwd_kernel",
           "gat_bwd_hub": "gat_bwd_kernel",
-          "softmax_hub": "edge_softmax_fwd_kernel"}
+          "softmax_hub": "edge_softmax_fwd_kernel",
+          "softmax_bwd_hub": "edge_softmax_bwd_kernel"}
 LIBRARY = {"spmm": "spmm", "gat_fwd": "gat", "gat_bwd": "gat",
            "softmax": "gat", "gat_fwd_parts": "gat", "f32": "spmm_f32",
            "spmm_hub": "spmm", "gat_fwd_hub": "gat", "gat_bwd_hub": "gat",
-           "softmax_hub": "gat"}
+           "softmax_hub": "gat", "softmax_bwd_hub": "gat"}
 # the hub sweeps' chunk lengths: edges, "64G" (64 per edge group or slot)
 # and None, unsplit (a T no row exceeds)
 HUB_CHUNKS = (256, 512, 1024, "64G", None)
-GAT_BWD_CHUNKS = (256, 512, None)
+GAT_FWD_CHUNKS = (128,) + HUB_CHUNKS
+GAT_BWD_CHUNKS = (128, 256, 512, None)
 SOFTMAX_CHUNKS = (128, 256, 512, None)
 F32_WIDTHS = (100, 128)
 F32_COPIES = (1, 2, 4, 8)
@@ -565,8 +571,8 @@ def _time_spmm_hub(graphs) -> dict:
 
 
 def _time_gat_fwd_hub(graphs) -> dict:
-    """gat_fwd (seed mode) at both GAT shapes on each graph under each hub
-    plan: {case: {T: (eager ms, device ms)}}."""
+    """gat_fwd (seed mode) at both GAT shapes on each graph under each
+    GAT_FWD_CHUNKS plan: {case: {T: (eager ms, device ms)}}."""
     out = {}
     for tag, g in graphs.items():
         for h, d in chip_smoke.GAT_SHAPES:
@@ -582,7 +588,7 @@ def _time_gat_fwd_hub(graphs) -> dict:
             out[f"{tag} gat_fwd ({h}, {d})"] = _hub_times(
                 f"{tag} gat_fwd ({h}, {d})", (g.indptr, g.n_nodes),
                 lambda p, a=args: gat_cuda.gat_fwd(*a, plan=p), held,
-                gat_cuda.fwd_geometry(h, d).slots)
+                gat_cuda.fwd_geometry(h, d).slots, GAT_FWD_CHUNKS)
     return out
 
 
@@ -591,7 +597,7 @@ def _time_gat_bwd_hub(graphs) -> dict:
     GAT_BWD_CHUNKS plan: {case: {T: (eager ms, device ms)}}."""
     out = {}
     for tag, g in graphs.items():
-        plan = spmm_cuda.plan_of(g, "indptr", g.n_nodes)
+        plan = spmm_cuda.plan_of(g, "indptr", g.n_nodes, gat_cuda.GAT_CHUNK)
         for h, d in chip_smoke.GAT_SHAPES:
             args, dout, al_b = chip_smoke.gat_inputs(
                 gat_cuda, g, h, d, chip_smoke.ATTN_DROP, 7)
@@ -632,6 +638,33 @@ def _time_softmax_hub(graphs) -> dict:
     return out
 
 
+def _time_softmax_bwd_hub(graphs) -> dict:
+    """edge_softmax_bwd on the alpha of [E, 1] and [E, 8] scores on each
+    graph under each SOFTMAX_CHUNKS plan: {case: {T: (eager ms, device
+    ms)}}."""
+    out = {}
+    for tag, g in graphs.items():
+        gen = torch.Generator(device=g.device).manual_seed(9)
+        n = g.n_nodes
+        plan = spmm_cuda.plan_of(g, "indptr", n)
+        for h in (1, 8):
+            s = 3.0 * torch.randn((g.n_edges, h), generator=gen,
+                                  device=g.device)
+            da = torch.randn((g.n_edges, h), generator=gen, device=g.device)
+            alpha = gat_cuda.edge_softmax_fwd(g.indptr, s, n, plan)
+            want = gat_cuda.plain_edge_softmax_bwd(g.indptr, alpha, da, n)
+
+            def held(got, want=want):
+                chip_smoke._held("ds", got, want, 1e-4, 1e-6)
+            out[f"{tag} edge_softmax_bwd [E, {h}]"] = _hub_times(
+                f"{tag} edge_softmax_bwd [E, {h}]", (g.indptr, n),
+                lambda p, a=alpha, da=da: gat_cuda.edge_softmax_bwd(
+                    g.indptr, a, da, n, p),
+                held, 32 // gat_cuda.softmax_geometry(h, 1, 1).g,
+                SOFTMAX_CHUNKS)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path,
@@ -651,8 +684,8 @@ def main() -> int:
     host, *_ = load_synth_data(chip_smoke.DATASET, 0, 20, 30)
     g = host.to_device(torch.device("cuda:0"))
     graphs = {"synth": g}
-    if {"f32", "spmm_hub", "gat_fwd_hub", "gat_bwd_hub",
-            "softmax_hub"} & set(kernels):
+    if {"f32", "spmm_hub", "gat_fwd_hub", "gat_bwd_hub", "softmax_hub",
+            "softmax_bwd_hub"} & set(kernels):
         graphs["hub"] = chip_smoke.hub_graph(g.n_nodes, g.n_edges,
                                              9).to(g.device)
     f32_cases = _f32_inputs(graphs) if "f32" in kernels else []
@@ -686,6 +719,8 @@ def main() -> int:
                 times = _time_gat_bwd_hub(graphs)
             elif name == "softmax_hub":
                 times = _time_softmax_hub(graphs)
+            elif name == "softmax_bwd_hub":
+                times = _time_softmax_bwd_hub(graphs)
             elif name == "gat_fwd":
                 times = _time_gat_fwd(g)
             elif name == "gat_fwd_parts":
