@@ -16,6 +16,9 @@ SAGE (`glnn_tpu/nn/models.py:38-118`): every layer casts its input to
 bf16 and runs its dense product in bf16 with f32 parameters, the batch norm keeps f32
 statistics and returns bf16, and the logits come out bf16 (the losses cast
 them to f32). GCN, GAT and APPNP ignore it, as in JAX.
+
+Each layer of a forward runs in a span `model.<Class>.layer<l>` (recorded
+only under a profiler, utils/profiling.py); APPNP's are its MLP's layers.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from glnn_tpu_torch.nn.layers import (
     linear,
     make_norm,
 )
+from glnn_tpu_torch.utils.profiling import span
 
 # conf compute_dtype -> the activation dtype (None: f32 throughout)
 COMPUTE_DTYPES = {"float32": None, "f32": None, "bfloat16": torch.bfloat16}
@@ -44,6 +48,11 @@ def compute_dtype(conf: dict) -> torch.dtype | None:
         raise ValueError(f"compute_dtype {name!r} is not one of "
                          f"{sorted(COMPUTE_DTYPES)}")
     return COMPUTE_DTYPES[name]
+
+
+def _layer_spans(model: nn.Module, num_layers: int) -> list:
+    return [span(f"model.{type(model).__name__}.layer{l}")
+            for l in range(num_layers)]
 
 
 def _dims(num_layers, input_dim, hidden_dim, output_dim):
@@ -63,18 +72,20 @@ class MLP(nn.Module):
         self.norms = nn.ModuleList(
             make_norm(norm_type, hidden_dim) for _ in range(num_layers - 1)
         ) if norm_type != "none" else None
+        self.spans = _layer_spans(self, num_layers)
 
     def forward(self, x, gen=None):
         h, h_list = x, []
         last = len(self.layers) - 1
         for l, layer in enumerate(self.layers):
-            h = linear(layer, h, self.dtype)
-            if l != last:
-                h_list.append(h)
-                if self.norms is not None:
-                    h = self.norms[l](h)
-                h = dropout(torch.relu(h), self.dropout_ratio, self.training,
-                            gen)
+            with self.spans[l]:
+                h = linear(layer, h, self.dtype)
+                if l != last:
+                    h_list.append(h)
+                    if self.norms is not None:
+                        h = self.norms[l](h)
+                    h = dropout(torch.relu(h), self.dropout_ratio,
+                                self.training, gen)
         return h_list, h
 
 
@@ -93,6 +104,7 @@ class SAGE(nn.Module):
         self.norms = nn.ModuleList(
             make_norm(norm_type, hidden_dim) for _ in range(num_layers - 1)
         ) if norm_type != "none" else None
+        self.spans = _layer_spans(self, num_layers)
 
     def forward(self, g, x, gen=None):
         from glnn_tpu_torch.sampling.sampler import SampledBlocks
@@ -101,21 +113,22 @@ class SAGE(nn.Module):
         h, h_list = x, []
         last = len(self.convs) - 1
         for l, conv in enumerate(self.convs):
-            if blocks:
-                data = {"valid": g.valid[l], "concat": g.concat}
-                if not g.concat:
-                    data.update(nbr_local=g.nbr_local[l],
-                                self_local=g.self_local[l])
-                mask = g.out_real[l]
-            else:
-                data, mask = g, None
-            h = conv(data, h)
-            if l != last:
-                h_list.append(h)
-                if self.norms is not None:
-                    h = self.norms[l](h, mask)
-                h = dropout(torch.relu(h), self.dropout_ratio, self.training,
-                            gen)
+            with self.spans[l]:
+                if blocks:
+                    data = {"valid": g.valid[l], "concat": g.concat}
+                    if not g.concat:
+                        data.update(nbr_local=g.nbr_local[l],
+                                    self_local=g.self_local[l])
+                    mask = g.out_real[l]
+                else:
+                    data, mask = g, None
+                h = conv(data, h)
+                if l != last:
+                    h_list.append(h)
+                    if self.norms is not None:
+                        h = self.norms[l](h, mask)
+                    h = dropout(torch.relu(h), self.dropout_ratio,
+                                self.training, gen)
         return h_list, h
 
 
@@ -134,17 +147,19 @@ class GCN(nn.Module):
         self.norms = nn.ModuleList(
             make_norm(norm_type, hidden_dim) for _ in range(num_layers - 1)
         ) if norm_type != "none" else None
+        self.spans = _layer_spans(self, num_layers)
 
     def forward(self, g, x, gen=None):
         h, h_list = x, []
         last = len(self.convs) - 1
         for l, conv in enumerate(self.convs):
-            h = conv(g, h)
-            if l != last:
-                h_list.append(h)
-                if self.norms is not None:
-                    h = self.norms[l](h)
-                h = dropout(h, self.dropout_ratio, self.training, gen)
+            with self.spans[l]:
+                h = conv(g, h)
+                if l != last:
+                    h_list.append(h)
+                    if self.norms is not None:
+                        h = self.norms[l](h)
+                    h = dropout(h, self.dropout_ratio, self.training, gen)
         return h_list, h
 
 
@@ -181,17 +196,19 @@ class GAT(nn.Module):
             GATConv(in_dims[l], per_head, num_heads, activation=torch.relu,
                     **kw) for l in range(num_layers - 1))
         self.convs.append(GATConv(in_dims[-1], output_dim, 1, **kw))
+        self.spans = _layer_spans(self, num_layers)
 
     def forward(self, g, x, gen=None):
         h, h_list = x, []
         last = len(self.convs) - 1
         for l, conv in enumerate(self.convs):
-            h = conv(g, h, gen)                        # [N, H, D]
-            if l != last:
-                h = h.reshape(h.shape[0], -1)          # concatenate heads
-                h_list.append(h)
-            else:
-                h = h.mean(dim=1)                      # average heads
+            with self.spans[l]:
+                h = conv(g, h, gen)                    # [N, H, D]
+                if l != last:
+                    h = h.reshape(h.shape[0], -1)      # concatenate heads
+                    h_list.append(h)
+                else:
+                    h = h.mean(dim=1)                  # average heads
         return h_list, h
 
 

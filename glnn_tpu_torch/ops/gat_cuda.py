@@ -85,6 +85,8 @@ on the CPU; for a CUDA tensor it launches the kernel or raises. `counts`
 records kernel launches, and for the two GAT kernels also the launches
 per dropout mode (`gat_fwd_seed`, `gat_fwd_mask`, `gat_bwd_seed`,
 `gat_bwd_mask`); plain calls on CUDA tensors go to `cuda_build.counts`.
+Each wrapper call, plain or launched, runs in a span `kernel.<name>` of
+`counts` (recorded only under a profiler, utils/profiling.py).
 """
 
 from __future__ import annotations
@@ -96,6 +98,7 @@ import torch
 
 from glnn_tpu_torch.ops import cuda_build, spmm_cuda
 from glnn_tpu_torch.ops.cuda_build import note_plain, row_ids
+from glnn_tpu_torch.utils.profiling import span
 
 KERNELS = ("gat_prep", "gat_fwd", "gat_bwd", "edge_softmax_fwd",
            "edge_softmax_bwd")
@@ -517,6 +520,7 @@ def _launch_bwd(indptr, senders, feat_b, el, er_b, keep, inv_keep, slope,
     return der, msg, part.sum(0)
 
 
+@span("kernel.gat_fwd")
 def gat_fwd(indptr, senders, feat_b, el, er_b, keep=None, inv_keep=1.0,
             slope=0.2, edge_base=0, plan=None):
     """Fused attention forward over the CSC (indptr, senders), whose
@@ -535,6 +539,7 @@ def gat_fwd(indptr, senders, feat_b, el, er_b, keep=None, inv_keep=1.0,
                          slope, edge_base)
 
 
+@span("kernel.gat_bwd")
 def gat_bwd(indptr, senders, feat_b, el, er_b, keep, inv_keep, slope, smax,
             denom, dout, al_b, edge_base=0, plan=None):
     """Fused attention backward: the forward's inputs, its max and denom,
@@ -563,6 +568,7 @@ def plain_prep(feat, attn_l, attn_r):
     return feat_b, el, er_b.contiguous(), al_b
 
 
+@span("kernel.gat_prep")
 def prep(feat, attn_l, attn_r):
     """(feat_b, el, er_b, al_b) of feat [N, H, D] and attn_l / attn_r
     [H, D]: the gat_prep kernel on CUDA tensors, its plain version on the
@@ -727,6 +733,7 @@ def _launch_softmax_fwd(indptr, scores, n_rows, plan):
     return alpha
 
 
+@span("kernel.edge_softmax_fwd")
 def edge_softmax_fwd(indptr, scores, n_rows, plan=None):
     """Segment softmax over the CSC rows: scores f32 [E, H] (E =
     indptr[n_rows], dst-sorted) -> alpha f32 [E, H]. `plan` is the CSR's
@@ -765,6 +772,7 @@ def _launch_softmax_bwd(indptr, alpha, dalpha, n_rows, plan):
     return ds
 
 
+@span("kernel.edge_softmax_bwd")
 def edge_softmax_bwd(indptr, alpha, dalpha, n_rows, plan=None):
     """Its VJP: alpha and dalpha f32 [E, H] -> ds f32 [E, H]. `plan` is
     the CSR's hub plan, the forward's (`spmm_cuda.plan_of`; built here when

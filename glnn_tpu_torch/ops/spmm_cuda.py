@@ -71,7 +71,10 @@ Every reduction has a plain PyTorch version (`plain_csr_sum_bf16`,
 the same rounding and quantisation. A wrapper
 takes it only for a tensor on the CPU; for a CUDA tensor it launches the
 kernel or raises. `counts` records kernel launches per instantiation;
-plain-version calls on CUDA tensors go to `cuda_build.counts`.
+plain-version calls on CUDA tensors go to `cuda_build.counts`. Each entry
+point's call runs in a span `kernel.<name>` of `counts`, and each plan
+build in `plan.hub_plan` (recorded only under a profiler,
+utils/profiling.py).
 
 The kernels are built with nvcc for sm_90a into `build/glnn_tpu_torch/` at
 first use and loaded with ctypes (`ops/cuda_build.py`).
@@ -86,6 +89,7 @@ import torch
 
 from glnn_tpu_torch.ops import cuda_build, refops
 from glnn_tpu_torch.ops.cuda_build import note_plain, row_ids
+from glnn_tpu_torch.utils.profiling import span
 
 KERNELS = ("spmm_csr_bf16", "spmm_csr_int8", "spmm_csr_weighted",
            "spmm_csr_f32")
@@ -189,6 +193,7 @@ class HubPlan(NamedTuple):
     n_rows: int
 
 
+@span("plan.hub_plan")
 def hub_plan(indptr: torch.Tensor, n_rows: int,
              chunk: int = HUB_CHUNK) -> HubPlan:
     """The hub plan of the CSR `indptr` of n_rows rows with T = `chunk`, on
@@ -311,6 +316,7 @@ def plain_csr_sum_int8(indptr, indices, q, scale, n_rows):
     return acc.float() * scale[None, :]
 
 
+@span("kernel.spmm_csr_bf16")
 def csr_sum_bf16(indptr, indices, xb, n_rows, plan: HubPlan | None = None):
     """out[v] = sum_{e in indptr[v]:indptr[v+1]} xb[indices[e]] in f32.
     `indices` must lie in [0, xb.shape[0]) (build_graph guarantees it).
@@ -324,6 +330,7 @@ def csr_sum_bf16(indptr, indices, xb, n_rows, plan: HubPlan | None = None):
     return plain_csr_sum_bf16(indptr, indices, xb, n_rows)
 
 
+@span("kernel.spmm_csr_f32")
 def csr_sum_f32(indptr, indices, x, n_rows, plan: HubPlan | None = None):
     """out[v] = sum_{e in indptr[v]:indptr[v+1]} x[indices[e]], f32 rows
     summed in f32; on a CPU tensor its plain version, refops.csr_sum_f32.
@@ -356,6 +363,7 @@ def csr_sum_f32(indptr, indices, x, n_rows, plan: HubPlan | None = None):
     return out
 
 
+@span("kernel.spmm_csr_int8")
 def csr_sum_int8(indptr, indices, q, scale, n_rows,
                  plan: HubPlan | None = None):
     """Dequantised int32 sums of int8 rows: acc[v, f] * scale[f]; `plan`
@@ -399,6 +407,7 @@ def plain_csr_wsum_bf16(indptr, indices, widx, x, w, n_rows):
     return out.index_add_(0, row_ids(indptr, n_rows), msgs)
 
 
+@span("kernel.spmm_csr_weighted")
 def csr_wsum_bf16(indptr, indices, widx, x, w, n_rows,
                   plan: HubPlan | None = None):
     """out[v] = sum_{e in indptr[v]:indptr[v+1]} bf16(x[indices[e]] *

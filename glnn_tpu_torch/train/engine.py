@@ -27,6 +27,11 @@
 * Sharded: called inside a rank of `distributed.mesh.launch` (--n_shards),
   each runner hands over to its counterpart in `distributed/runners.py`,
   which every rank runs on its shard.
+* Spans (recorded only under a profiler, utils/profiling.py): the
+  full-batch teacher epoch `runner.train_epoch` around `runner.forward`,
+  `runner.backward` and `runner.optimizer`; `runner.eval`;
+  `runner.metrics_row`; and `runner.host_read` around every device-to-host
+  read of a runner's loss or metrics (`host_float`).
 """
 
 from __future__ import annotations
@@ -47,7 +52,21 @@ from glnn_tpu_torch.train.losses import (
 )
 from glnn_tpu_torch.train.sage_sampled import make_sage_sampled_epoch_fn
 from glnn_tpu_torch.train.state import restore, snapshot
-from glnn_tpu_torch.utils.profiling import StepTimer
+from glnn_tpu_torch.utils.profiling import StepTimer, span
+
+_TRAIN_EPOCH = span("runner.train_epoch")
+_FORWARD = span("runner.forward")
+_BACKWARD = span("runner.backward")
+_OPTIMIZER = span("runner.optimizer")
+_EVAL = span("runner.eval")
+_METRICS_ROW = span("runner.metrics_row")
+_HOST_READ = span("runner.host_read")
+
+
+def host_float(x: torch.Tensor) -> float:
+    """A device scalar read on the host: the host waits for the device."""
+    with _HOST_READ:
+        return float(x)
 
 
 def make_gnn_train_step(model, optimizer):
@@ -58,10 +77,13 @@ def make_gnn_train_step(model, optimizer):
     def step(g, feats, labels, idx_train, gen):
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        out = log_softmax(model(g, feats, gen)[1])
-        loss = nll_loss(out[idx_train], labels[idx_train])
-        loss.backward()
-        optimizer.step()
+        with _FORWARD:
+            out = log_softmax(model(g, feats, gen)[1])
+            loss = nll_loss(out[idx_train], labels[idx_train])
+        with _BACKWARD:
+            loss.backward()
+        with _OPTIMIZER:
+            optimizer.step()
         return loss.detach()
 
     return step
@@ -72,13 +94,14 @@ def make_eval_fn(model, exact: bool = False):
 
     @torch.no_grad()
     def evaluate(g, feats):
-        model.eval()
-        if exact:
-            h = model(g, feats)[1]
-        else:
-            with ops.inference_mode():
+        with _EVAL:
+            model.eval()
+            if exact:
                 h = model(g, feats)[1]
-        return log_softmax(h)
+            else:
+                with ops.inference_mode():
+                    h = model(g, feats)[1]
+            return log_softmax(h)
 
     return evaluate
 
@@ -106,7 +129,7 @@ def make_mlp_epoch_fn(model, optimizer, batch_size: int, criterion: str,
             (loss * lamb).backward()
             optimizer.step()
             losses.append(loss.detach())
-        return float(torch.stack(losses).mean())
+        return host_float(torch.stack(losses).mean())
 
     return epoch
 
@@ -117,10 +140,11 @@ def make_mlp_eval_fn(model, batch_size: int | None = None):
 
     @torch.no_grad()
     def evaluate(feats):
-        model.eval()
-        step = feats.shape[0] if batch_size is None else batch_size
-        return torch.cat([log_softmax(model(None, feats[i:i + step])[1])
-                          for i in range(0, feats.shape[0], step)])
+        with _EVAL:
+            model.eval()
+            step = feats.shape[0] if batch_size is None else batch_size
+            return torch.cat([log_softmax(model(None, feats[i:i + step])[1])
+                              for i in range(0, feats.shape[0], step)])
 
     return evaluate
 
@@ -158,7 +182,7 @@ class _BestTracker:
 def _subset_metrics(out, labels, idx):
     """(loss, score) of log-probs `out` restricted to idx (host floats)."""
     sub, lab = out[idx], labels[idx]
-    return float(nll_loss(sub, lab)), float(accuracy(sub, lab))
+    return host_float(nll_loss(sub, lab)), host_float(accuracy(sub, lab))
 
 
 def _debug_guard(conf, loss: float, epoch: int, where: str) -> None:
@@ -182,7 +206,8 @@ def _use_sampled_sage(conf, model) -> bool:
 def _metrics_row(evals):
     """[loss_1, ..., loss_k, score_1, ..., score_k] of (out, labels, idx)
     triples."""
-    pairs = [_subset_metrics(*e) for e in evals]
+    with _METRICS_ROW:
+        pairs = [_subset_metrics(*e) for e in evals]
     return [p[0] for p in pairs] + [p[1] for p in pairs]
 
 
@@ -245,8 +270,12 @@ def _teacher_epoch_fn(conf, model, optimizer, logger, g, feats, labels,
             return loss
         return sampled
     step_fn = make_gnn_train_step(model, optimizer)
-    # sync before the timer reads, as the JAX runner does
-    return lambda epoch: float(step_fn(g, feats, labels, idx_train, gen))
+
+    def full_batch(epoch):
+        with _TRAIN_EPOCH:
+            # sync before the timer reads, as the JAX runner does
+            return host_float(step_fn(g, feats, labels, idx_train, gen))
+    return full_batch
 
 
 def _runners():

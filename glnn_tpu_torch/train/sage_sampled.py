@@ -34,6 +34,9 @@ def sage_sampled_step(model, optimizer, blocks, x_in, y, mask,
 
 def make_sage_sampled_epoch_fn(model, optimizer, batch_size: int, fanouts,
                                sampler_tier: str = "floyd"):
+    # engine imports this module, so its helper is taken at call time
+    from glnn_tpu_torch.train.engine import host_float
+
     fanouts = tuple(int(f) for f in fanouts)
 
     def epoch(g, feats, labels, idx_train, gen):
@@ -63,6 +66,6 @@ def make_sage_sampled_epoch_fn(model, optimizer, batch_size: int, fanouts,
             losses.append(sage_sampled_step(model, optimizer, blocks, x_in, y,
                                             mask, gen))
             overflow = overflow or blocks.overflowed
-        return float(torch.stack(losses).mean()), overflow
+        return host_float(torch.stack(losses).mean()), overflow
 
     return epoch

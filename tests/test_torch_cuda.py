@@ -40,6 +40,8 @@ GAT kernels' split tests run at T = spmm_cuda.HUB_CHUNK and at the GAT
 layer's T = gat_cuda.GAT_CHUNK (rows either side of each).
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -1185,3 +1187,105 @@ def test_trace_report_names_each_kernel_once(cuda, tmp_path):
     assert sum(r.count for r in res["rows"]) >= len(raw)
     assert res["device"] == "cuda" and 0.0 <= res["idle_share"] < 1.0
     assert 0.0 < res["busy_ms"] <= res["window_ms"]
+
+
+# ---- the program's spans on the card ----------------------------------------
+
+def _power_law_graph(n, e, seed, device):
+    """In-degrees by Redner's citation law (rank r draws a share (r - 1/2)
+    ** -1/2 of the e edges, sources uniform), with reverse edges and
+    self-loops: rows of some hundreds of edges, past the GAT plan's T."""
+    rs = np.random.RandomState(seed)
+    share = (np.arange(1, n + 1) - 0.5) ** -0.5
+    dst = rs.choice(n, e, p=share / share.sum())
+    src = rs.randint(0, n, e)
+    loops = np.arange(n)
+    return build_graph(np.concatenate([src, dst, loops]),
+                       np.concatenate([dst, src, loops]), n).to(device)
+
+
+def _traced_gat_epoch(device, tmp_path):
+    """A steady full-batch GAT epoch (train step, eval, metrics row) on the
+    power-law graph under the profiler, after a warm one: (span records,
+    the Chrome trace's events, the graph)."""
+    import logging
+
+    from glnn_tpu_torch.nn.models import Model
+    from glnn_tpu_torch.train import engine
+    from glnn_tpu_torch.train.state import make_adam
+    from glnn_tpu_torch.utils import profiling
+
+    g = _power_law_graph(20000, 120000, 3, device)
+    torch.manual_seed(3)
+    conf = {"model_name": "GAT", "num_layers": 2, "hidden_dim": 64,
+            "feat_dim": 32, "label_dim": 5, "dropout_ratio": 0.6,
+            "num_heads": 8, "attn_dropout_ratio": 0.3}
+    model = Model(conf).to(device)
+    opt = make_adam(model.parameters(), 0.01, 0.01)
+    feats = torch.randn(g.n_nodes, 32, device=device)
+    labels = torch.randint(0, 5, (g.n_nodes,), device=device)
+    idx = torch.randperm(g.n_nodes, device=device).view(4, -1)[:3]
+    gen = torch.Generator(device=device).manual_seed(3)
+    train = engine._teacher_epoch_fn(conf, model, opt, logging.getLogger(),
+                                     g, feats, labels, idx[0], gen)
+    evaluate = engine.make_eval_fn(model)
+
+    def epoch(i):
+        train(i)
+        out = evaluate(g, feats)
+        engine._metrics_row((out, labels, ix) for ix in idx)
+
+    epoch(1)
+    profiling.clear_spans()
+    with profiling.trace(tmp_path, device) as t:
+        epoch(2)
+    recs = profiling.span_records()
+    profiling.clear_spans()
+    with open(t.path) as f:
+        events = json.load(f)["traceEvents"]
+    return recs, events, g
+
+
+def test_steady_gat_epoch_spans_build_no_plan_and_cross_threads(cuda,
+                                                                 tmp_path):
+    """No hub plan is built in a steady epoch; the backward's kernel spans
+    run on autograd's device thread under the root of the epoch that
+    waits in `loss.backward()`."""
+    recs, _, g = _traced_gat_epoch(cuda, tmp_path)
+    assert spmm_cuda.plan_of(g, "indptr", g.n_nodes,
+                             gat_cuda.GAT_CHUNK).n_chunks > 0
+    names = {r.name for r in recs}
+    assert "plan.hub_plan" not in names
+    assert {"runner.train_epoch", "runner.backward", "kernel.gat_fwd",
+            "kernel.gat_bwd", "runner.eval", "runner.metrics_row"} <= names
+    epoch, = [r for r in recs if r.name == "runner.train_epoch"]
+    bwd = [r for r in recs if r.name == "kernel.gat_bwd"]
+    assert len(bwd) == 2
+    for r in bwd:
+        assert r.thread != epoch.thread and r.parent == -1
+        assert r.root == epoch.id
+        assert epoch.start_ns <= r.start_ns <= r.end_ns <= epoch.end_ns
+    assert sum(r.name == "runner.host_read" for r in recs) == 7
+
+
+def test_gat_fwd_annotations_cover_its_kernels(cuda, tmp_path):
+    """In the Chrome trace each `kernel.gat_fwd` span's device annotation
+    (`gpu_user_annotation`) covers the gat_fwd kernels it launched, the
+    hub passes included; every gat_fwd kernel lies in one."""
+    from glnn_tpu_torch.utils.trace_report import port_name
+
+    _, events, _ = _traced_gat_epoch(cuda, tmp_path)
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("cat") == "gpu_user_annotation"
+             and e.get("name") == "kernel.gat_fwd"]
+    kernels = [(e["ts"], e["ts"] + e["dur"]) for e in events
+               if e.get("cat") == "kernel" and e.get("ph") == "X"
+               and port_name(e.get("name", "")) == "gat_fwd"]
+    # two layers in the train step and two in the eval, three launches
+    # each on split rows
+    assert len(spans) == 4 and len(kernels) == 12
+    slack = 1.0                                   # us: the trace's rounding
+    for lo, hi in spans:
+        inside = [k for k in kernels
+                  if lo - slack <= k[0] and k[1] <= hi + slack]
+        assert len(inside) == 3
