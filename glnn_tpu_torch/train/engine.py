@@ -9,7 +9,10 @@
   and the student's KL targets) leaves the mark off.
 * `make_mlp_epoch_fn`: shuffled fixed-size minibatches with the tail
   remainder dropped, max(1, n // batch_size) batches.
-* `make_mlp_eval_fn`: chunked eval, no tail dropping.
+* `make_mlp_eval_fn`: chunked eval, no tail dropping. On CUDA each chunk
+  replays a CUDA graph of the eval forward captured for its row bucket
+  (`row_bucket`); on the CPU, or inside another capture, it runs eagerly.
+  `eval_graph_counts()` gives the captures, replays and eager calls.
 * Runners: eval every `eval_interval` epochs, best snapshot on
   score_val >= best (ties refresh it), early stop when count == patience,
   restore the best before the final eval; `state_out`, when given, receives
@@ -30,12 +33,15 @@
 * Spans (recorded only under a profiler, utils/profiling.py): the
   full-batch teacher epoch `runner.train_epoch` around `runner.forward`,
   `runner.backward` and `runner.optimizer`; `runner.eval`;
-  `runner.metrics_row`; and `runner.host_read` around every device-to-host
-  read of a runner's loss or metrics (`host_float`).
+  `runner.metrics_row`; `runner.eval_graph` around each replay of the MLP
+  eval's graph, inside `runner.eval`; and `runner.host_read` around every
+  device-to-host read of a runner's loss or metrics (`host_float`).
 """
 
 from __future__ import annotations
 
+import bisect
+import collections
 import math
 from functools import partial
 
@@ -59,6 +65,7 @@ _FORWARD = span("runner.forward")
 _BACKWARD = span("runner.backward")
 _OPTIMIZER = span("runner.optimizer")
 _EVAL = span("runner.eval")
+_EVAL_GRAPH = span("runner.eval_graph")
 _METRICS_ROW = span("runner.metrics_row")
 _HOST_READ = span("runner.host_read")
 
@@ -134,18 +141,166 @@ def make_mlp_epoch_fn(model, optimizer, batch_size: int, criterion: str,
     return epoch
 
 
+# The MLP eval's CUDA graphs. A chunk of n rows replays the graph of its
+# bucket, the least size >= n on a grid of four steps an octave from 16 rows
+# (ceil(16 * 2**(j/4))), so a bucket pads at most 19% past 16 rows and
+# 10-4,096-row requests need 33 graphs. Chunks are cut at GRAPH_ROWS: the
+# largest bucket's working set (the 3 x 256 student: a 26 MB input, 67 MB
+# per hidden activation; 315 MiB for its capture and replay on an H100)
+# stays small beside the card, while a chunk that large already keeps the
+# device busy far longer than the replay's launch takes.
+GRAPH_ROWS = 1 << 16
+_BUCKETS = tuple(sorted({math.ceil(16 * 2 ** (j / 4)) for j in range(49)}))
+_graph_counts = collections.Counter(captures=0, replays=0, eager=0)
+
+
+def row_bucket(n: int) -> int:
+    """The captured row count that serves a chunk of 1 <= n <= GRAPH_ROWS
+    rows."""
+    return _BUCKETS[bisect.bisect_left(_BUCKETS, n)]
+
+
+def eval_graph_counts() -> dict:
+    """{"captures", "replays", "eager"}: the MLP eval graphs captured and
+    replayed in this process, and the eval calls that ran eagerly."""
+    return dict(_graph_counts)
+
+
+def _module_state(model) -> tuple[tuple, bool]:
+    """(the data pointers of every parameter and buffer of `model`, whether
+    any of its modules is in training mode): one walk of the module tree,
+    cheaper than `parameters()`, `buffers()` and `eval()`."""
+    ptrs, training, stack = [], False, [model]
+    while stack:
+        mod = stack.pop()
+        training = training or mod.training
+        for t in mod._parameters.values():
+            if t is not None:
+                ptrs.append(t.data_ptr())
+        for t in mod._buffers.values():
+            if t is not None:
+                ptrs.append(t.data_ptr())
+        stack += mod._modules.values()
+    return tuple(ptrs), training
+
+
+class _EvalGraphs:
+    """One eval function's graphs: per bucket (graph, static input, static
+    output) in `graphs`, and per chunk size the graph with the views of
+    its rows in `rows`, all in one memory pool, valid while `key` holds.
+    The key is what the captured work depends on and the code can see: the
+    input's dtype, width and device, the model's compute dtype, the
+    addresses of its parameters and buffers (in-place updates keep them, so
+    replays see Adam's steps, new running statistics and
+    `load_state_dict`), and the matmul precision flags. A new key drops
+    every graph.
+
+    The pool is shared because the calls run one at a time on the caller's
+    stream and each copies its rows out of the static output before it
+    returns: no static output is read after another graph's replay."""
+
+    def __init__(self, model):
+        self.model = model
+        self.key = None
+        self.graphs: dict = {}
+        self.rows: dict = {}
+        self.pool = None
+        self.stream = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return log_softmax(self.model(None, x)[1])
+
+    def _capture(self, bucket: int, like: torch.Tensor):
+        """A warm-up run on a side stream, then the capture on it."""
+        dev = like.device
+        static_in = like.new_zeros((bucket,) + like.shape[1:])
+        side = self.stream
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self.forward(static_in)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(dev), torch.cuda.graph(graph, pool=self.pool,
+                                                      stream=side):
+            static_out = self.forward(static_in)
+        _graph_counts["captures"] += 1
+        self.graphs[bucket] = entry = (graph, static_in, static_out)
+        return entry
+
+    def _replay(self, chunk: torch.Tensor) -> torch.Tensor:
+        """The chunk into the first rows of its bucket's static input, the
+        graph replayed: the chunk's rows of the static output (a view)."""
+        rows = chunk.shape[0]
+        entry = self.rows.get(rows)
+        if entry is None:
+            bucket = row_bucket(rows)
+            graph, static_in, static_out = (self.graphs.get(bucket)
+                                            or self._capture(bucket, chunk))
+            self.rows[rows] = entry = (graph, static_in[:rows],
+                                       static_out[:rows])
+        graph, rows_in, rows_out = entry
+        rows_in.copy_(chunk)
+        with _EVAL_GRAPH:
+            graph.replay()
+        _graph_counts["replays"] += 1
+        return rows_out
+
+    def __call__(self, x: torch.Tensor, step: int) -> torch.Tensor:
+        model = self.model
+        pointers, training = _module_state(model)
+        if training:
+            model.eval()
+        flags = torch.backends.cuda.matmul
+        key = (x.dtype, x.shape[1:], x.device,
+               getattr(getattr(model, "module", model), "dtype", None),
+               pointers, flags.allow_tf32,
+               flags.allow_bf16_reduced_precision_reduction,
+               torch.backends.cudnn.allow_tf32)
+        if key != self.key:
+            self.graphs.clear()
+            self.rows.clear()
+            self.key, self.pool = key, torch.cuda.graph_pool_handle()
+            self.stream = torch.cuda.Stream(x.device)
+        n = x.shape[0]
+        if n <= step:
+            return self._replay(x).clone()
+        out = None
+        for i in range(0, n, step):
+            piece = self._replay(x[i:i + step])
+            if out is None:
+                out = piece.new_empty((n,) + piece.shape[1:])
+            out[i:i + piece.shape[0]].copy_(piece)
+        return out
+
+
 def make_mlp_eval_fn(model, batch_size: int | None = None):
     """evaluate(feats) -> all-node log-probs, in chunks of `batch_size` rows
-    (eval mode is row-independent, so chunks equal the full forward)."""
+    (eval mode is row-independent, so chunks equal the full forward).
+
+    On CUDA each chunk (at most GRAPH_ROWS rows) is copied into the first
+    rows of its bucket's static input and that bucket's graph of the
+    forward is replayed (captured on first use); the padding rows are
+    computed and never read. The model is put in eval mode where a module
+    is in training mode. On the CPU, or while a capture is underway, the
+    forward runs eagerly. Calls must not overlap: they share the static
+    buffers. `evaluate.graphs` holds the graphs."""
+
+    graphs = _EvalGraphs(model)
 
     @torch.no_grad()
     def evaluate(feats):
         with _EVAL:
-            model.eval()
-            step = feats.shape[0] if batch_size is None else batch_size
-            return torch.cat([log_softmax(model(None, feats[i:i + step])[1])
-                              for i in range(0, feats.shape[0], step)])
+            n = feats.shape[0]
+            step = n if batch_size is None else batch_size
+            if (feats.device.type != "cuda" or n == 0
+                    or torch.cuda.is_current_stream_capturing()):
+                model.eval()
+                _graph_counts["eager"] += 1
+                return torch.cat([graphs.forward(feats[i:i + step])
+                                  for i in range(0, n, step)])
+            return graphs(feats, min(step, GRAPH_ROWS))
 
+    evaluate.graphs = graphs
     return evaluate
 
 

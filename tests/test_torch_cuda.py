@@ -1289,3 +1289,306 @@ def test_gat_fwd_annotations_cover_its_kernels(cuda, tmp_path):
         inside = [k for k in kernels
                   if lo - slack <= k[0] and k[1] <= hi + slack]
         assert len(inside) == 3
+
+
+# ---- the MLP eval's CUDA graphs ---------------------------------------------
+# `make_mlp_eval_fn` on the card replays one captured graph per row bucket.
+# Its output is held to the eager forward (today's path: the same ops at
+# the chunk's own row count) within EVAL_ULPS ulps of the compute dtype at
+# the largest |log-prob|: the matrix products may take another cuBLAS
+# kernel at the bucket's row count, which sums in another order; f32 gives
+# a few f32 ulps, bf16 rounds each layer's product to bf16, so a last-bit
+# difference can flip one bf16 rounding.
+
+EVAL_ULPS = {"float32": (8, 2.0 ** -23), "bfloat16": (2, 2.0 ** -7)}
+# the serve traffic's request sizes: 256 log-uniform over 10-4,096 rows
+SERVE_SIZES = np.unique(np.rint(np.exp(np.log(10) + np.arange(256) / 255
+                                       * (np.log(4096) - np.log(10))))
+                        .astype(int)).tolist()
+
+
+@pytest.fixture()
+def f32_matmul():
+    """Full f32 matrix products (the configuration's), restored after."""
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = flags
+
+
+def _student(device, dtype="float32", seed=0):
+    """GLNN's products student (3 x 256, batch norm), its affine terms and
+    running statistics drawn as a trained model holds them."""
+    from glnn_tpu_torch.nn.models import Model
+
+    conf = dict(model_name="MLP", num_layers=3, hidden_dim=256, feat_dim=100,
+                label_dim=47, dropout_ratio=0.5, norm_type="batch",
+                compute_dtype=dtype)
+    model = Model(conf, torch.Generator().manual_seed(seed)).to(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    with torch.no_grad():
+        for bn in model.module.norms:
+            bn.running_mean.normal_(0.0, 0.5, generator=gen)
+            bn.running_var.uniform_(0.5, 2.0, generator=gen)
+            bn.weight.uniform_(0.5, 1.5, generator=gen)
+            bn.bias.normal_(0.0, 0.1, generator=gen)
+    return model
+
+
+def _eager(model, x):
+    from glnn_tpu_torch.train.losses import log_softmax
+
+    model.eval()
+    with torch.no_grad():
+        return log_softmax(model(None, x)[1])
+
+
+def _ulp_gap(got, want, dtype="float32"):
+    """(max |got - want| in ulps of `dtype` at max |want|, its bound)."""
+    n, eps = EVAL_ULPS[dtype]
+    top = want.abs().max().item()
+    ulp = eps * 2.0 ** np.floor(np.log2(max(top, 2.0 ** -126)))
+    return (got - want).abs().max().item() / ulp, n
+
+
+def _graphs():
+    from glnn_tpu_torch.train import engine
+
+    return engine.eval_graph_counts()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mlp_eval_graph_equals_eager_at_every_serve_size(cuda, f32_matmul,
+                                                         dtype):
+    """One call at each size the serve traffic draws, smallest first: 33
+    buckets captured, one replay a call, each output within a few ulps of
+    the eager forward and bit-equal run to run."""
+    from glnn_tpu_torch.train import engine
+
+    model = _student(cuda, dtype)
+    evaluate = engine.make_mlp_eval_fn(model)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    before, worst = _graphs(), 0.0
+    for size in SERVE_SIZES:
+        x = torch.randn(size, 100, device=cuda, generator=gen)
+        got = evaluate(x)
+        assert got.shape == (size, 47) and got.dtype == torch.float32
+        gap, bound = _ulp_gap(got, _eager(model, x), dtype)
+        assert gap <= bound, (size, gap)
+        worst = max(worst, gap)
+        assert torch.equal(evaluate(x), got)
+    after = _graphs()
+    assert after["captures"] - before["captures"] == 33
+    assert after["replays"] - before["replays"] == 2 * len(SERVE_SIZES)
+    assert after["eager"] == before["eager"]
+    assert sorted(evaluate.graphs.graphs) == sorted(
+        {engine.row_bucket(s) for s in SERVE_SIZES})
+    print(f"mlp eval graph {dtype}: widest gap {worst:.2f} ulps over "
+          f"{len(SERVE_SIZES)} sizes")
+
+
+def test_mlp_eval_graph_second_pass_captures_nothing(cuda, f32_matmul):
+    """After one pass over the traffic's sizes a second pass, in another
+    order, replays only: zero captures."""
+    from glnn_tpu_torch.train import engine
+
+    model = _student(cuda)
+    evaluate = engine.make_mlp_eval_fn(model)
+    for size in SERVE_SIZES:
+        evaluate(torch.randn(size, 100, device=cuda))
+    before = _graphs()
+    for size in np.random.RandomState(0).permutation(SERVE_SIZES):
+        evaluate(torch.randn(int(size), 100, device=cuda))
+    after = _graphs()
+    assert after["captures"] == before["captures"]
+    assert after["replays"] - before["replays"] == len(SERVE_SIZES)
+
+
+def test_mlp_eval_graph_buckets_replayed_out_of_capture_order(cuda,
+                                                              f32_matmul):
+    from glnn_tpu_torch.train import engine
+
+    model = _student(cuda)
+    evaluate = engine.make_mlp_eval_fn(model)
+    xs = {n: torch.randn(n, 100, device=cuda) for n in (10, 17, 300, 4096)}
+    for n in sorted(xs):                          # captured smallest first
+        evaluate(xs[n])
+    before = _graphs()
+    for n in (4096, 10, 300, 17, 4096, 300, 10):
+        gap, bound = _ulp_gap(evaluate(xs[n]), _eager(model, xs[n]))
+        assert gap <= bound, (n, gap)
+    assert _graphs()["captures"] == before["captures"]
+
+
+def test_mlp_eval_graph_padding_rows_never_reach_real_rows(cuda, f32_matmul):
+    """NaN planted in a static input's padding rows leaves the real rows
+    as they were."""
+    from glnn_tpu_torch.train import engine
+
+    model = _student(cuda)
+    evaluate = engine.make_mlp_eval_fn(model)
+    x = torch.randn(300, 100, device=cuda)
+    clean = evaluate(x)
+    bucket = engine.row_bucket(300)
+    assert bucket > 300
+    _, static_in, _ = evaluate.graphs.graphs[bucket]
+    static_in[300:] = float("nan")
+    got = evaluate(x)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, clean)
+    assert torch.isnan(static_in[300:]).all()
+
+
+def test_mlp_eval_graph_outputs_are_not_aliased(cuda, f32_matmul):
+    """Two calls in one bucket give two tensors of their own: the first
+    keeps its values after the second, and neither is the static output."""
+    from glnn_tpu_torch.train import engine
+
+    model = _student(cuda)
+    evaluate = engine.make_mlp_eval_fn(model)
+    x1, x2 = torch.randn(200, 100, device=cuda), torch.randn(190, 100,
+                                                             device=cuda)
+    a = evaluate(x1)
+    kept = a.clone()
+    b = evaluate(x2)
+    assert torch.equal(a, kept)
+    _, _, static_out = evaluate.graphs.graphs[engine.row_bucket(200)]
+    ptrs = {t.untyped_storage().data_ptr() for t in (a, b, static_out)}
+    assert len(ptrs) == 3
+    gap, bound = _ulp_gap(b, _eager(model, x2))
+    assert gap <= bound
+
+
+def test_mlp_eval_graph_sees_in_place_updates(cuda, f32_matmul):
+    """Parameters and running statistics changed in place (an optimizer
+    step, a training forward, `load_state_dict`) keep their addresses:
+    the replay reads them, with no capture."""
+    from glnn_tpu_torch.train import engine
+
+    model = _student(cuda)
+    evaluate = engine.make_mlp_eval_fn(model)
+    x = torch.randn(500, 100, device=cuda)
+    first = evaluate(x)
+    before = _graphs()
+    with torch.no_grad():
+        model.module.layers[1].weight.mul_(1.5)
+        model.module.norms[0].running_mean.add_(0.25)
+        model.module.norms[1].running_var.mul_(2.0)
+    got = evaluate(x)
+    assert not torch.allclose(got, first)
+    gap, bound = _ulp_gap(got, _eager(model, x))
+    assert gap <= bound
+    model.load_state_dict(_student(cuda, seed=5).state_dict())
+    got = evaluate(x)
+    gap, bound = _ulp_gap(got, _eager(model, x))
+    assert gap <= bound
+    assert _graphs()["captures"] == before["captures"]
+
+
+def test_mlp_eval_graph_recaptures_on_new_parameters_and_tf32(cuda,
+                                                              f32_matmul):
+    """A replaced parameter (a new address) and a flipped TF32 flag each
+    drop the graphs and capture anew."""
+    from glnn_tpu_torch.train import engine
+
+    model = _student(cuda)
+    evaluate = engine.make_mlp_eval_fn(model)
+    x = torch.randn(700, 100, device=cuda)
+    evaluate(x)
+    c0 = _graphs()["captures"]
+    layer = model.module.layers[0]
+    layer.weight = torch.nn.Parameter(layer.weight.detach() * -1.0)
+    gap, bound = _ulp_gap(evaluate(x), _eager(model, x))
+    assert gap <= bound
+    assert _graphs()["captures"] == c0 + 1
+    torch.backends.cuda.matmul.allow_tf32 = True
+    got = evaluate(x)
+    assert _graphs()["captures"] == c0 + 2
+    # TF32 keeps 10 of f32's 23 mantissa bits
+    gap, _ = _ulp_gap(got, _eager(model, x))
+    assert gap * 2.0 ** -13 <= 8
+    torch.backends.cuda.matmul.allow_tf32 = False
+    evaluate(x)
+    assert _graphs()["captures"] == c0 + 3
+    assert len(evaluate.graphs.graphs) == 1
+
+
+@pytest.mark.parametrize("rows,batch", [(37, 8), (4096 * 3 + 5, 4096),
+                                        (65536 + 100, None)])
+def test_mlp_eval_graph_chunks_equal_eager(cuda, f32_matmul, rows, batch):
+    """Chunks of `batch` rows, and pieces of GRAPH_ROWS where the input is
+    larger: one replay a chunk, the rows in order."""
+    from glnn_tpu_torch.train import engine
+
+    model = _student(cuda)
+    evaluate = engine.make_mlp_eval_fn(model, batch)
+    x = torch.randn(rows, 100, device=cuda)
+    before = _graphs()
+    torch.cuda.reset_peak_memory_stats(cuda)
+    base = torch.cuda.memory_allocated(cuda)
+    got = evaluate(x)
+    peak = torch.cuda.max_memory_allocated(cuda) - base
+    step = min(batch or rows, engine.GRAPH_ROWS)
+    assert _graphs()["replays"] - before["replays"] == -(-rows // step)
+    gap, bound = _ulp_gap(got, _eager(model, x))
+    assert gap <= bound
+    print(f"mlp eval graph rows {rows} batch {batch}: {gap:.2f} ulps, "
+          f"peak {peak / 2**20:.1f} MiB above the inputs")
+
+
+def test_mlp_eval_graph_replay_in_the_trace(cuda, f32_matmul, tmp_path):
+    """Under the profiler a replayed eval records `runner.eval_graph`
+    inside `runner.eval`, and the graph's kernels appear in the trace
+    inside the span's device annotation."""
+    from glnn_tpu_torch.train import engine
+    from glnn_tpu_torch.utils import profiling
+
+    model = _student(cuda)
+    evaluate = engine.make_mlp_eval_fn(model)
+    x = torch.randn(1000, 100, device=cuda)
+    evaluate(x)
+    profiling.clear_spans()
+    with profiling.trace(tmp_path, cuda) as t:
+        evaluate(x)
+    totals = profiling.span_totals()
+    recs = profiling.span_records()
+    profiling.clear_spans()
+    assert totals["runner.eval"][0] == 1 and totals["runner.eval_graph"][0] == 1
+    outer, = [r for r in recs if r.name == "runner.eval"]
+    inner, = [r for r in recs if r.name == "runner.eval_graph"]
+    assert inner.parent == outer.id
+    assert not any(r.name.startswith("model.") for r in recs)
+    with open(t.path) as f:
+        events = json.load(f)["traceEvents"]
+    ann = [(e["ts"], e["ts"] + e["dur"]) for e in events
+           if e.get("cat") == "gpu_user_annotation"
+           and e.get("name") == "runner.eval_graph"]
+    kernels = [(e["ts"], e["ts"] + e["dur"]) for e in events
+               if e.get("cat") == "kernel" and e.get("ph") == "X"]
+    assert len(ann) == 1
+    lo, hi = ann[0]
+    inside = [k for k in kernels if lo - 1.0 <= k[0] and k[1] <= hi + 1.0]
+    # three products, the batch norms' and relus' elementwise ops, the
+    # log-softmax
+    assert len(inside) >= 5
+    print(f"mlp eval graph trace: {len(inside)} kernels in the replay's "
+          f"annotation, {len(kernels)} in all")
+
+
+def test_mlp_eval_graph_puts_the_model_in_eval_mode(cuda, f32_matmul):
+    """A model left in training mode is put in eval mode before its
+    replay, as the eager path does: the output is the eval forward's."""
+    from glnn_tpu_torch.train import engine
+
+    model = _student(cuda)
+    evaluate = engine.make_mlp_eval_fn(model)
+    x = torch.randn(64, 100, device=cuda)
+    first = evaluate(x)
+    model.train()
+    model.module.norms[1].train()
+    got = evaluate(x)
+    assert not any(m.training for m in model.modules())
+    assert torch.equal(got, first)

@@ -17,8 +17,10 @@ from glnn_tpu_torch.graph.container import build_graph
 from glnn_tpu_torch.nn import Model, from_jax_variables
 from glnn_tpu_torch.sampling import sample_blocks
 from glnn_tpu_torch.train import losses, make_adam
-from glnn_tpu_torch.train.engine import (_BestTracker, make_mlp_epoch_fn,
-                                         make_mlp_eval_fn)
+from glnn_tpu_torch.train.engine import (GRAPH_ROWS, _BestTracker,
+                                         _module_state, eval_graph_counts,
+                                         make_mlp_epoch_fn, make_mlp_eval_fn,
+                                         row_bucket)
 from glnn_tpu_torch.train.sage_sampled import sage_sampled_step
 
 LR, WD = 0.01, 0.01
@@ -164,6 +166,58 @@ def test_chunked_mlp_eval_equals_full():
     chunked = make_mlp_eval_fn(model, 8)(x)
     torch.testing.assert_close(chunked, full, rtol=1e-6, atol=1e-6)
     assert not model.training
+
+
+def test_row_buckets_cover_every_chunk_size():
+    """Every chunk size up to GRAPH_ROWS has a bucket at least as large,
+    monotone in the size, 16 rows at the least and at most 19% above the
+    size from 16 rows up; the serve traffic's 10-4,096 rows take 33."""
+    sizes = np.arange(1, GRAPH_ROWS + 1)
+    buckets = np.array([row_bucket(int(n)) for n in sizes])
+    assert (buckets >= sizes).all()
+    assert (np.diff(buckets) >= 0).all()
+    assert (buckets[:16] == 16).all()
+    assert (buckets[15:] <= 1.19 * sizes[15:]).all()
+    assert buckets[-1] == GRAPH_ROWS
+    assert len(set(buckets[9:4096].tolist())) == 33
+
+
+def test_mlp_eval_on_cpu_runs_eagerly_and_keeps_no_graphs():
+    """On the CPU the eval is today's eager forward, chunk by chunk, and
+    its function captures nothing."""
+    model = _mlp()
+    x = torch.randn(37, 6)
+    evaluate = make_mlp_eval_fn(model, 8)
+    before = eval_graph_counts()
+    got = evaluate(x)
+    after = eval_graph_counts()
+    assert after["eager"] == before["eager"] + 1
+    assert (after["captures"], after["replays"]) == (before["captures"],
+                                                     before["replays"])
+    graphs = evaluate.graphs
+    assert graphs.graphs == {} and graphs.rows == {} and graphs.key is None
+    assert graphs.pool is None and graphs.stream is None
+    with torch.no_grad():
+        want = torch.cat([losses.log_softmax(model(None, x[i:i + 8])[1])
+                          for i in range(0, 37, 8)])
+    assert torch.equal(got, want)
+
+
+def test_module_state_covers_every_parameter_buffer_and_mode():
+    """The graph key's addresses are those of `parameters()` and
+    `buffers()`, a replaced parameter changes them, and a module in
+    training mode anywhere in the tree is seen."""
+    model = _mlp()
+    want = sorted(t.data_ptr() for t in [*model.parameters(),
+                                         *model.buffers()])
+    model.eval()
+    ptrs, training = _module_state(model)
+    assert sorted(ptrs) == want and not training
+    model.module.norms[0].train()
+    assert _module_state(model)[1]
+    layer = model.module.layers[0]
+    layer.weight = torch.nn.Parameter(layer.weight.detach().clone())
+    assert sorted(_module_state(model)[0]) != want
 
 
 def test_best_tracker_refreshes_on_ties():
