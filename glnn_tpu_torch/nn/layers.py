@@ -18,6 +18,9 @@
   + alpha h0, with per-edge dropout (zero, or 1 / (1 - p)) in training;
   on a halo shard each hop draws the whole graph's [E] mask and keeps the
   shard's slice, so the ranks' masks together are the single-device mask.
+  The hops run in a span `model.APPNP.propagate`, each hop's mask draw and
+  weight in `model.APPNP.edge_drop` (recorded only under a profiler,
+  utils/profiling.py).
 * LayerNorm1d: torch.nn.LayerNorm over the feature axis.
 * dropout: inverted dropout whose mask comes from an explicit generator;
   inside `global_rows(total, lo)` (a sharded forward over rows lo.. of a
@@ -40,6 +43,7 @@ from torch import nn
 from glnn_tpu_torch import ops
 from glnn_tpu_torch.graph.container import Graph
 from glnn_tpu_torch.nn import initializers as gi
+from glnn_tpu_torch.utils.profiling import span
 
 
 _GLOBAL_ROWS = None     # (total, lo) inside `global_rows`
@@ -142,6 +146,10 @@ class GraphConv(nn.Module):
         return h if self.activation is None else self.activation(h)
 
 
+_PROPAGATE = span("model.APPNP.propagate")
+_EDGE_DROP = span("model.APPNP.edge_drop")
+
+
 def appnp_propagate(g: Graph, h: torch.Tensor, k: int, alpha: float,
                     edge_drop: float, training: bool = False,
                     gen: torch.Generator | None = None,
@@ -157,16 +165,19 @@ def appnp_propagate(g: Graph, h: torch.Tensor, k: int, alpha: float,
         total, lo = g.n_edges_global, g.edge_base
     else:
         total, lo = g.n_edges, 0
-    for i in range(k):
-        if use_drop:
-            keep = (masks[i] if masks is not None else
-                    (torch.rand((total,), generator=gen, device=h.device)
-                     >= edge_drop)[lo:lo + g.n_edges])
-            w = keep.to(h.dtype) / (1.0 - edge_drop)
-            prop = ops.gcn_norm_both(g, h, edge_weight=w)
-        else:
-            prop = ops.gcn_norm_both(g, h)
-        h = (1.0 - alpha) * prop + alpha * h0
+    with _PROPAGATE:
+        for i in range(k):
+            if use_drop:
+                with _EDGE_DROP:
+                    keep = (masks[i] if masks is not None else
+                            (torch.rand((total,), generator=gen,
+                                        device=h.device)
+                             >= edge_drop)[lo:lo + g.n_edges])
+                    w = keep.to(h.dtype) / (1.0 - edge_drop)
+                prop = ops.gcn_norm_both(g, h, edge_weight=w)
+            else:
+                prop = ops.gcn_norm_both(g, h)
+            h = (1.0 - alpha) * prop + alpha * h0
     return h
 
 

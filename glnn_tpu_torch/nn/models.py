@@ -18,7 +18,8 @@ statistics and returns bf16, and the logits come out bf16 (the losses cast
 them to f32). GCN, GAT and APPNP ignore it, as in JAX.
 
 Each layer of a forward runs in a span `model.<Class>.layer<l>` (recorded
-only under a profiler, utils/profiling.py); APPNP's are its MLP's layers.
+only under a profiler, utils/profiling.py); APPNP's are its MLP's layers,
+and its hops run in `model.APPNP.propagate` (nn/layers.py).
 """
 
 from __future__ import annotations

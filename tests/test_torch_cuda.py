@@ -1291,6 +1291,108 @@ def test_gat_fwd_annotations_cover_its_kernels(cuda, tmp_path):
         assert len(inside) == 3
 
 
+def _traced_appnp_epoch(device, tmp_path):
+    """A steady full-batch APPNP epoch (train step, int8 eval, metrics row)
+    at ogbn-arxiv's shape (169,343 nodes, 1,166,243 citations by Redner's
+    law: rows past HUB_CHUNK in both walks) under the profiler, after a
+    warm one: (span records, the Chrome trace's events, the graph, the
+    launches and hub plan builds of the traced epoch)."""
+    import logging
+
+    from glnn_tpu_torch.nn.models import Model
+    from glnn_tpu_torch.train import engine
+    from glnn_tpu_torch.train.state import make_adam
+    from glnn_tpu_torch.utils import profiling
+
+    g = _power_law_graph(169343, 1166243, 21, device)
+    torch.manual_seed(21)
+    conf = {"model_name": "APPNP", "num_layers": 2, "hidden_dim": 128,
+            "feat_dim": 128, "label_dim": 40, "dropout_ratio": 0.5}
+    model = Model(conf).to(device)
+    opt = make_adam(model.parameters(), 0.01, 0.01)
+    feats = torch.randn(g.n_nodes, 128, device=device)
+    labels = torch.randint(0, 40, (g.n_nodes,), device=device)
+    idx = torch.randperm(g.n_nodes, device=device)[:3 * 40000].view(3, -1)
+    gen = torch.Generator(device=device).manual_seed(21)
+    train = engine._teacher_epoch_fn(conf, model, opt, logging.getLogger(),
+                                     g, feats, labels, idx[0], gen)
+    evaluate = engine.make_eval_fn(model)
+
+    def epoch(i):
+        train(i)
+        out = evaluate(g, feats)
+        engine._metrics_row((out, labels, ix) for ix in idx)
+
+    epoch(1)
+    torch.cuda.synchronize(device)
+    before = (dict(spmm_cuda.counts), spmm_cuda.builds["hub_plan"])
+    profiling.clear_spans()
+    with profiling.trace(tmp_path, device) as t:
+        epoch(2)
+    recs = profiling.span_records()
+    profiling.clear_spans()
+    launches = {k: v - before[0][k] for k, v in spmm_cuda.counts.items()}
+    with open(t.path) as f:
+        events = json.load(f)["traceEvents"]
+    return (recs, events, g, launches,
+            spmm_cuda.builds["hub_plan"] - before[1])
+
+
+def test_steady_appnp_epoch_builds_no_plan(cuda, tmp_path):
+    """On a skewed graph at ogbn-arxiv's shape a steady APPNP epoch builds
+    no hub plan: its 10 weighted hops (one mask draw each), their 10
+    transposed walks and the eval's 10 int8 hops take the plans kept on
+    the Graph, each two launches (walk and combine)."""
+    recs, _, g, launches, built = _traced_appnp_epoch(cuda, tmp_path)
+    n = g.n_nodes
+    assert spmm_cuda.plan_of(g, "indptr", n).n_chunks > 0
+    assert spmm_cuda.plan_of(g, "t_indptr", n).n_chunks > 0
+    assert built == 0
+    assert "plan.hub_plan" not in {r.name for r in recs}
+    assert launches == {"spmm_csr_bf16": 0, "spmm_csr_int8": 20,
+                        "spmm_csr_weighted": 40, "spmm_csr_f32": 0}
+    assert sum(r.name == "model.APPNP.edge_drop" for r in recs) == 10
+
+
+def test_appnp_propagate_annotations_cover_the_hop_kernels(cuda, tmp_path):
+    """In the Chrome trace the train step's `model.APPNP.propagate` device
+    annotation covers the 10 forward hops' weighted kernels (walk and
+    combine each) and the eval's its 20 int8 kernels; the other 20
+    weighted kernels, the transposed walks, lie under the backward's
+    `kernel.spmm_csr_weighted` annotations, two in each."""
+    from glnn_tpu_torch.utils.trace_report import port_name
+
+    recs, events, _, _, _ = _traced_appnp_epoch(cuda, tmp_path)
+
+    def annotations(name):
+        return [(e["ts"], e["ts"] + e["dur"]) for e in events
+                if e.get("cat") == "gpu_user_annotation"
+                and e.get("name") == name]
+
+    def kernels(port):
+        return [(e["ts"], e["ts"] + e["dur"]) for e in events
+                if e.get("cat") == "kernel" and e.get("ph") == "X"
+                and port_name(e.get("name", "")) == port]
+
+    slack = 1.0                                   # us: the trace's rounding
+
+    def inside(ks, lo, hi):
+        return [k for k in ks if lo - slack <= k[0] and k[1] <= hi + slack]
+
+    prop = sorted(annotations("model.APPNP.propagate"))
+    assert len(prop) == 2
+    assert sum(r.name == "model.APPNP.propagate" for r in recs) == 2
+    weighted, int8 = kernels("spmm_csr_weighted"), kernels("spmm_csr_int8")
+    assert len(weighted) == 40 and len(int8) == 20
+    assert len(inside(weighted, *prop[0])) == 20
+    assert len(inside(int8, *prop[1])) == 20
+    assert len(inside(weighted, *prop[1])) == 0
+    wrapped = annotations("kernel.spmm_csr_weighted")
+    assert len(wrapped) == 20
+    for lo, hi in wrapped:
+        assert len(inside(weighted, lo, hi)) == 2
+
+
 # ---- the MLP eval's CUDA graphs ---------------------------------------------
 # `make_mlp_eval_fn` on the card replays one captured graph per row bucket.
 # Its output is held to the eager forward (today's path: the same ops at
