@@ -78,6 +78,14 @@ Phases, each fatal on failure:
      the tolerances above, two launches bit-equal, every pass launched (two
      per call for the template and edge_softmax_bwd, three for the others)
      and one plan built per CSR and T;
+     APPNP's hop fused into the template body's walks on the hub graph at
+     F = 40 (spmm_cuda.appnp_wsum forward and transposed, appnp_sum_int8):
+     each equal (torch.equal) to gcn_norm_both and the teleport on the
+     kernels (dX by autograd), held to its plain version (the weighted
+     walks at rtol 1e-5 / atol 1e-4 x max|want|, int8 bit for bit), two
+     launches bit-equal, two a call; appnp_hop's dX and dh0 equal the
+     composition's, and ops.appnp_hop takes the fused paths
+     (ops.hop_counts) with no plain version on CUDA;
   3. the op-surface path: the per-op GAT layer at both GAT shapes with a
      keep mask, composed from the public ops on CUDA (u_add_v ->
      leaky_relu -> edge_softmax -> mask -> u_mul_e_sum), counts set to 0
@@ -3608,6 +3616,110 @@ def phase_check_hub_split(spmm_cuda, gat_cuda, hub) -> dict:
     return errs
 
 
+def phase_check_appnp_hops(spmm_cuda, ops, refops, hub) -> None:
+    """APPNP's hop fused into the template body's walks, on the hub graph
+    with its kept plans (rows past HUB_CHUNK in both walks) at F = APPNP_F:
+    the forward weighted walk (`Appnp<0>`) and the transposed one that
+    gives dX (`Appnp<1>`) through spmm_cuda.appnp_wsum, and the int8 eval
+    walk (`Appnp<2>`) through spmm_cuda.appnp_sum_int8, each held with
+    torch.equal to the composition it replaces (gcn_norm_both on the exact
+    kernels, or the int8 tier inside inference_mode, then the teleport; dX
+    by autograd through it) and to its plain version, the weighted walks at
+    the weighted sum's tolerance (the plain sum adds in another order), the
+    int8 walk bit for bit; two launches bit-equal, two launches a call (the
+    walk and the sum of the split rows); then appnp_hop's dX and dh0 against the composition's,
+    and ops.appnp_hop taking the fused path in training and in the eval
+    (ops.hop_counts) with no plain version on CUDA."""
+    from glnn_tpu_torch.ops import cuda_build
+
+    alpha = 0.1
+    gen = torch.Generator(device=hub.device).manual_seed(22)
+    n, e = hub.n_nodes, hub.n_edges
+    x, h0, dout = (torch.randn((n, APPNP_F), generator=gen, device=hub.device)
+                   for _ in range(3))
+    w = (torch.rand(e, generator=gen, device=hub.device)
+         >= EDGE_DROP).float() / (1.0 - EDGE_DROP)
+    src_norm, dst_norm = refops.degree_norms(hub)
+    xg = x.clone().requires_grad_(True)
+    composed = (1.0 - alpha) * ops.gcn_norm_both(hub, xg, w) + alpha * h0
+    dx_composed, = torch.autograd.grad(composed, xg, dout)
+    with torch.no_grad(), ops.inference_mode():
+        int8_composed = ((1.0 - alpha) * ops.gcn_norm_both(hub, x)
+                         + alpha * h0)
+    q, scale = spmm_cuda.quantize_cols(x * src_norm[:, None])
+    cases = {
+        "spmm_csr_weighted forward (Appnp<0>)": (
+            "spmm_csr_weighted",
+            lambda: spmm_cuda.appnp_wsum(hub, x, w, src_norm, dst_norm, h0,
+                                         alpha, False),
+            spmm_cuda.plain_appnp_wsum(hub, x, w, src_norm, dst_norm, h0,
+                                       alpha, False), composed.detach()),
+        "spmm_csr_weighted transposed (Appnp<1>)": (
+            "spmm_csr_weighted",
+            lambda: spmm_cuda.appnp_wsum(hub, dout, w, dst_norm, src_norm,
+                                         None, alpha, True),
+            spmm_cuda.plain_appnp_wsum(hub, dout, w, dst_norm, src_norm,
+                                       None, alpha, True), dx_composed),
+        "spmm_csr_int8 eval (Appnp<2>)": (
+            "spmm_csr_int8",
+            lambda: spmm_cuda.appnp_sum_int8(hub, q, scale, dst_norm, h0,
+                                             alpha),
+            spmm_cuda.plain_appnp_sum_int8(hub, q, scale, dst_norm, h0,
+                                           alpha), int8_composed)}
+    for tag, (name, kernel, plain, want) in cases.items():
+        before = spmm_cuda.counts[name]
+        got, again = kernel(), kernel()
+        launches = spmm_cuda.counts[name] - before
+        torch.cuda.synchronize()
+        if launches != 4:
+            raise AssertionError(f"APPNP hop {tag} on the hub graph: "
+                                 f"{launches} launches for two calls, "
+                                 f"expected 4")
+        for what, other in (("a second launch", again),
+                            ("the composition", want)):
+            if not torch.equal(got, other):
+                diff = float((got - other).abs().max())
+                raise AssertionError(f"APPNP hop {tag} on the hub graph "
+                                     f"differs from {what} (max|diff| "
+                                     f"{diff:.3e})")
+        if name == "spmm_csr_int8":
+            if not torch.equal(got, plain):
+                raise AssertionError(f"APPNP hop {tag} on the hub graph "
+                                     f"differs from its plain version")
+            err = 0.0
+        else:
+            err = _held(f"APPNP hop {tag}", got, plain, 1e-5, 1e-4)
+        log(f"check APPNP hop F={APPNP_F} on the hub graph: {tag} equal to "
+            f"the composition, vs plain max|err| {err:.3e}, two launches "
+            f"bit-equal, {launches} launches")
+    a, b = x.clone().requires_grad_(True), h0.clone().requires_grad_(True)
+    da, db = torch.autograd.grad(spmm_cuda.appnp_hop(hub, a, b, w, alpha),
+                                 (a, b), dout)
+    b = h0.clone().requires_grad_(True)
+    xg = x.clone().requires_grad_(True)
+    dxc, dbc = torch.autograd.grad(
+        (1.0 - alpha) * ops.gcn_norm_both(hub, xg, w) + alpha * b, (xg, b),
+        dout)
+    if not (torch.equal(da, dxc) and torch.equal(db, dbc)):
+        raise AssertionError("APPNP hop on the hub graph: appnp_hop's dX or "
+                             "dh0 differs from the composition's")
+    ops.reset_counts()
+    cuda_build.reset_counts()
+    ops.appnp_hop(hub, x.requires_grad_(True), h0, w, alpha).sum().backward()
+    x.requires_grad_(False)
+    with torch.no_grad(), ops.inference_mode():
+        ops.appnp_hop(hub, x, h0, None, alpha)
+    torch.cuda.synchronize()
+    hops = dict(ops.hop_counts)
+    if hops != {"fused_weighted": 1, "fused_int8": 1, "composed": 0}:
+        raise AssertionError(f"ops.appnp_hop on the hub graph took {hops}")
+    if cuda_build.counts["plain_on_cuda"]:
+        raise AssertionError(f"ops.appnp_hop ran a plain version on CUDA "
+                             f"{cuda_build.counts['plain_on_cuda']} times")
+    log(f"check APPNP hop: appnp_hop's dX and dh0 equal the composition's; "
+        f"ops.appnp_hop paths {hops}, no plain version on CUDA")
+
+
 def phase_times_hub(spmm_cuda, gat_cuda, hub, kernels: list) -> None:
     """Device time (CUDA-graph replays) and eager time on the hub graph of
     each kernel that splits hub rows across warps, with the graph's kept
@@ -3791,6 +3903,7 @@ def main() -> int:
         torch.cuda.empty_cache()
     for name, err in phase_check_hub_split(spmm_cuda, gat_cuda, hub).items():
         hub_errs[name] = max(hub_errs[name], err)
+    phase_check_appnp_hops(spmm_cuda, ops, refops, hub)
     for name, err in hub_errs.items():
         errs[name] = max(errs[name], err)
     # the bf16-input checks are held in bf16 ulps, apart from the f32 ones

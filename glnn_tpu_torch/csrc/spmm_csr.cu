@@ -95,6 +95,29 @@
 //             exist. Its VEC also divides D, so that a lane's columns share
 //             one head.
 //
+// APPNP's hop (nn/layers.py appnp_propagate), h' = c1 * D_in^-1/2 A_w
+// D_out^-1/2 h + c2 * h0 with c1 = 1 - alpha and c2 = alpha in f32, runs
+// inside the walk of its sum as a second template argument of both kernels
+// (the hop, after the policy; NoHop for the plain sums, whose code it leaves
+// as it is). It adds a norm of each gathered row, loaded once per edge
+// beside the index and handed out with it, and an epilogue of each written
+// row (the walk's and the split rows' sum's), so that none of the hop's
+// elementwise ops runs as a kernel of its own. Every step is one f32
+// operation rounded as the torch op it replaces (__fmul_rn / __fadd_rn, so
+// nothing is contracted into an FMA), and the sums run in the walk's order,
+// so a fused hop is bit-equal to the composition of the plain sum and those
+// ops:
+//   forward (weighted):    message bf16((x[u] * s[u]) * w[e]); row
+//                          ((acc * d[v]) * c1) + (c2 * h0[v]);
+//   transposed (weighted): the backward's dX: message bf16(((g[v] * c1) *
+//                          d[v]) * w[e]) over the transposed CSR; row acc *
+//                          s[u];
+//   eval (int8): the rows quantised from h * s as the int8 tier does; row
+//                          (((acc * scale[col]) * d[v]) * c1) + (c2 *
+//                          h0[v]);
+// s = rsqrt(max(out-degree, 1)) and d = rsqrt(max(in-degree, 1)), the
+// norms kept on the Graph (ops/refops.py degree_norms).
+//
 // Interface: plain C, called through ctypes. Every entry point launches on
 // the given stream, never synchronises, allocates nothing (the caller
 // allocates the partials), and returns cudaGetLastError() so that a refused
@@ -196,6 +219,60 @@ struct Weighted {
   __device__ float out(float acc, int) const { return acc; }
 };
 
+// The plain sums: nothing before the policy's term, nothing after its out.
+struct NoHop {
+  static constexpr bool kGather = false;  // no norm of the gathered rows
+  bool fits(int, uintptr_t) const { return true; }
+  template <typename T>
+  __device__ T in(T v, float) const { return v; }
+  __device__ float row(int) const { return 1.f; }
+  __device__ float out(float v, float, int64_t) const { return v; }
+  __device__ float4 out4(float4 v, float, int64_t) const { return v; }
+};
+
+// APPNP's hop, one of three passes (see the note at the top).
+constexpr int kHopForward = 0, kHopTransposed = 1, kHopEval = 2;
+template <int PASS>
+struct Appnp {
+  static constexpr bool kGather = PASS != kHopEval;
+  static constexpr bool kTeleport = PASS != kHopTransposed;
+  const float* gather_norm;  // of the gathered rows: s forward, d transposed
+  const float* row_norm;     // of the written rows: d forward and eval, s transposed
+  const float* h0;           // f32 [n_rows, f], forward and eval
+  float c1, c2;              // float(1 - alpha), float(alpha)
+
+  // h0 is read as the rows are written: float4 for a VEC of 4 or 8
+  bool fits(int vec, uintptr_t h0_addr) const {
+    return !kTeleport || h0_addr % (vec % 4 == 0 ? 16 : 4) == 0;
+  }
+  __device__ float gather(int u) const { return gather_norm[u]; }
+  template <typename T>
+  __device__ T in(T v, float norm) const {
+    if constexpr (PASS == kHopForward) return __fmul_rn(v, norm);
+    else if constexpr (PASS == kHopTransposed) return __fmul_rn(__fmul_rn(v, c1), norm);
+    else return v;
+  }
+  __device__ float row(int r) const { return row_norm[r]; }
+  __device__ float teleport(float v, float norm, float h) const {
+    return __fadd_rn(__fmul_rn(__fmul_rn(v, norm), c1), __fmul_rn(c2, h));
+  }
+  // at: the element's offset in the output (and in h0)
+  __device__ float out(float v, float norm, int64_t at) const {
+    if constexpr (kTeleport) return teleport(v, norm, h0[at]);
+    else return __fmul_rn(v, norm);
+  }
+  __device__ float4 out4(float4 v, float norm, int64_t at) const {
+    if constexpr (kTeleport) {
+      const float4 h = *reinterpret_cast<const float4*>(h0 + at);
+      return make_float4(teleport(v.x, norm, h.x), teleport(v.y, norm, h.y),
+                         teleport(v.z, norm, h.z), teleport(v.w, norm, h.w));
+    } else {
+      return make_float4(__fmul_rn(v.x, norm), __fmul_rn(v.y, norm), __fmul_rn(v.z, norm),
+                         __fmul_rn(v.w, norm));
+    }
+  }
+};
+
 // Lane l is column group l % lanes of edge group l / lanes; lanes past
 // lanes * groups only take part in the shuffles. A warp owns one work item
 // and one chunk of lanes * VEC columns (blockIdx.y; one chunk unless groups
@@ -203,16 +280,17 @@ struct Weighted {
 // (chunks[item], an edge range of a split row, summed into part[item]),
 // then item n_chunks + v is row v (summed into out, unless it has more than
 // chunk_edges edges: its chunks sum it). HUB is false for a plan without
-// chunks: item = row, and no row is left to chunks. Eight resident blocks
+// chunks: item = row, and no row is left to chunks. H is the hop (NoHop,
+// or APPNP's). Eight resident blocks
 // per SM (64
 // warps, at most 32 registers a thread): a row is a short chain of
 // dependent reads, so the SM needs many rows in flight; ptxas meets that
 // budget without spilling.
-template <typename P, int VEC, bool HUB>
+template <typename P, int VEC, bool HUB, typename H>
 __global__ void __launch_bounds__(kWarps * 32, 8)
 spmm_csr_kernel(const int32_t* __restrict__ indptr,
                 const int32_t* __restrict__ indices,
-                const typename P::TIn* __restrict__ x, const P p,
+                const typename P::TIn* __restrict__ x, const P p, const H h,
                 float* __restrict__ out, const int2* __restrict__ chunks,
                 typename P::TAcc* __restrict__ part, int n_rows, int n_chunks,
                 int chunk_edges, int f, int lanes, int groups) {
@@ -247,6 +325,8 @@ spmm_csr_kernel(const int32_t* __restrict__ indptr,
     const int mine = lane < n ? indices[e0 + lane] : 0;
     int my_slot = 0;
     if constexpr (P::kWeighted) my_slot = lane < n ? p.slot(e0 + lane) : 0;
+    float my_norm = 0.f;  // the gathered row's norm, loaded as its index is
+    if constexpr (H::kGather) my_norm = lane < n ? h.gather(mine) : 0.f;
     // one step: each group reads its own edge's row, so G independent reads
     // are in flight (j is warp-uniform)
     for (int j = 0; j < n; j += groups) {
@@ -254,11 +334,13 @@ spmm_csr_kernel(const int32_t* __restrict__ indptr,
       const int src = __shfl_sync(kFull, mine, k & 31);
       int slot = 0;
       if constexpr (P::kWeighted) slot = __shfl_sync(kFull, my_slot, k & 31);
+      float norm = 0.f;
+      if constexpr (H::kGather) norm = __shfl_sync(kFull, my_norm, k & 31);
       if (active && k < n) {
         const float wv = p.weight(slot, head);
         const R v = R(*reinterpret_cast<const V*>(x + static_cast<int64_t>(src) * f + col));
 #pragma unroll
-        for (int c = 0; c < VEC; ++c) acc[c] += p.term(element<TIn>(v, c), wv);
+        for (int c = 0; c < VEC; ++c) acc[c] += p.term(h.in(element<TIn>(v, c), norm), wv);
       }
     }
   }
@@ -280,56 +362,65 @@ spmm_csr_kernel(const int32_t* __restrict__ indptr,
     for (int k = 0; k < VEC; ++k) o[k] = acc[k];
     return;
   }
-  float* o = out + static_cast<int64_t>(item - n_chunks) * f + col;  // zero-degree rows write zeros
+  const int row = item - n_chunks;
+  const int64_t at = static_cast<int64_t>(row) * f + col;
+  float* o = out + at;  // zero-degree rows write zeros (or the hop's row of them)
+  const float norm = h.row(row);
   if constexpr (VEC % 4 == 0) {
 #pragma unroll
     for (int k = 0; k < VEC; k += 4)
-      *reinterpret_cast<float4*>(o + k) =
+      *reinterpret_cast<float4*>(o + k) = h.out4(
           make_float4(p.out(acc[k], col + k), p.out(acc[k + 1], col + k + 1),
-                      p.out(acc[k + 2], col + k + 2), p.out(acc[k + 3], col + k + 3));
+                      p.out(acc[k + 2], col + k + 2), p.out(acc[k + 3], col + k + 3)),
+          norm, at + k);
   } else {
 #pragma unroll
-    for (int k = 0; k < VEC; ++k) o[k] = p.out(acc[k], col + k);
+    for (int k = 0; k < VEC; ++k) o[k] = h.out(p.out(acc[k], col + k), norm, at + k);
   }
 }
 
 // One warp per split row s: out[rows[s]] = the sum of part[first[s]] ...
 // part[first[s + 1] - 1] in chunk order, written as the walk writes a row
-// (the int8 policy scales the exact int32 sum once, here).
-template <typename P>
+// (the int8 policy scales the exact int32 sum once, here; the hop's
+// epilogue follows).
+template <typename P, typename H>
 __global__ void __launch_bounds__(kWarps * 32)
 spmm_csr_combine_kernel(const int32_t* __restrict__ rows, const int32_t* __restrict__ first,
-                        const typename P::TAcc* __restrict__ part, const P p,
+                        const typename P::TAcc* __restrict__ part, const P p, const H h,
                         float* __restrict__ out, int n_split, int f) {
   using TAcc = typename P::TAcc;
   const int lane = threadIdx.x & 31;
   const int s = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (s >= n_split) return;
   const int k0 = first[s], k1 = first[s + 1];
-  float* o = out + static_cast<int64_t>(rows[s]) * f;
+  const int row = rows[s];
+  const int64_t at = static_cast<int64_t>(row) * f;
+  float* o = out + at;
+  const float norm = h.row(row);
   for (int col = lane; col < f; col += 32) {
     TAcc acc = 0;
 #pragma unroll 4
     for (int k = k0; k < k1; ++k) acc += part[static_cast<int64_t>(k) * f + col];
-    o[col] = p.out(acc, col);
+    o[col] = h.out(p.out(acc, col), norm, at + col);
   }
 }
 
-template <typename P, int VEC>
+template <typename P, typename H, int VEC>
 void launch_vec(const int32_t* indptr, const int32_t* indices, const typename P::TIn* x,
-                const P& p, float* out, const int2* chunks, typename P::TAcc* part, int n_rows,
-                int n_chunks, int chunk_edges, int f, int lanes, int groups,
-                cudaStream_t stream) {
+                const P& p, const H& h, float* out, const int2* chunks,
+                typename P::TAcc* part, int n_rows, int n_chunks, int chunk_edges, int f,
+                int lanes, int groups, cudaStream_t stream) {
   const dim3 grid((n_chunks + n_rows + kWarps - 1) / kWarps,
                   (f + lanes * VEC - 1) / (lanes * VEC));
   const dim3 block(kWarps * 32);
   if (n_chunks > 0)
-    spmm_csr_kernel<P, VEC, true><<<grid, block, 0, stream>>>(
-        indptr, indices, x, p, out, chunks, part, n_rows, n_chunks, chunk_edges, f, lanes,
+    spmm_csr_kernel<P, VEC, true, H><<<grid, block, 0, stream>>>(
+        indptr, indices, x, p, h, out, chunks, part, n_rows, n_chunks, chunk_edges, f, lanes,
         groups);
   else
-    spmm_csr_kernel<P, VEC, false><<<grid, block, 0, stream>>>(
-        indptr, indices, x, p, out, chunks, part, n_rows, 0, chunk_edges, f, lanes, groups);
+    spmm_csr_kernel<P, VEC, false, H><<<grid, block, 0, stream>>>(
+        indptr, indices, x, p, h, out, chunks, part, n_rows, 0, chunk_edges, f, lanes,
+        groups);
 }
 
 // Checks the caller's geometry and launches the instantiation for its VEC. A
@@ -337,11 +428,13 @@ void launch_vec(const int32_t* indptr, const int32_t* indices, const typename P:
 // bytes that divides F and suits the policy, x and out are aligned for it,
 // the groups fit in a warp, and several groups share a row only when one
 // chunk covers it; a plan, when it has chunks, comes with its partials and a
-// chunk length of at least one edge.
-template <typename P>
+// chunk length of at least one edge; a hop's h0, when it has one, is
+// aligned as out.
+template <typename P, typename H = NoHop>
 int launch(const int32_t* indptr, const int32_t* indices, const typename P::TIn* x,
            const P& p, float* out, const void* chunks, void* part, int n_rows, int n_chunks,
-           int chunk_edges, int f, int vec, int lanes, int groups, cudaStream_t stream) {
+           int chunk_edges, int f, int vec, int lanes, int groups, cudaStream_t stream,
+           const H& h = H{}, const void* h0 = nullptr) {
   if (n_rows < 0 || n_chunks < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (n_rows + n_chunks == 0 || f <= 0) return static_cast<int>(cudaGetLastError());
   using TIn = typename P::TIn;
@@ -350,7 +443,8 @@ int launch(const int32_t* indptr, const int32_t* indices, const typename P::TIn*
   const uintptr_t x_addr = reinterpret_cast<uintptr_t>(x);
   const uintptr_t out_addr = reinterpret_cast<uintptr_t>(out);
   const bool ok = vec >= 1 && vec <= kMaxVec && (vec & (vec - 1)) == 0 && f % vec == 0 &&
-                  p.fits(vec) && x_addr % (vec * sizeof(TIn)) == 0 &&
+                  p.fits(vec) && h.fits(vec, reinterpret_cast<uintptr_t>(h0)) &&
+                  x_addr % (vec * sizeof(TIn)) == 0 &&
                   (vec % 4 != 0 || out_addr % 16 == 0) && lanes >= 1 && lanes <= 32 &&
                   groups >= 1 && lanes * groups <= 32 && (groups == 1 || lanes * vec >= f) &&
                   chunk_edges >= 1 &&
@@ -361,39 +455,46 @@ int launch(const int32_t* indptr, const int32_t* indices, const typename P::TIn*
   switch (vec) {
     case 8:
       if constexpr (kMaxVec >= 8)
-        launch_vec<P, 8>(indptr, indices, x, p, out, ch, pt, n_rows, n_chunks, chunk_edges, f,
-                         lanes, groups, stream);
+        launch_vec<P, H, 8>(indptr, indices, x, p, h, out, ch, pt, n_rows, n_chunks,
+                             chunk_edges, f, lanes, groups, stream);
       break;
     case 4:
-      launch_vec<P, 4>(indptr, indices, x, p, out, ch, pt, n_rows, n_chunks, chunk_edges, f,
-                       lanes, groups, stream);
+      launch_vec<P, H, 4>(indptr, indices, x, p, h, out, ch, pt, n_rows, n_chunks,
+                           chunk_edges, f, lanes, groups, stream);
       break;
     case 2:
-      launch_vec<P, 2>(indptr, indices, x, p, out, ch, pt, n_rows, n_chunks, chunk_edges, f,
-                       lanes, groups, stream);
+      launch_vec<P, H, 2>(indptr, indices, x, p, h, out, ch, pt, n_rows, n_chunks,
+                           chunk_edges, f, lanes, groups, stream);
       break;
     default:
-      launch_vec<P, 1>(indptr, indices, x, p, out, ch, pt, n_rows, n_chunks, chunk_edges, f,
-                       lanes, groups, stream);
+      launch_vec<P, H, 1>(indptr, indices, x, p, h, out, ch, pt, n_rows, n_chunks,
+                           chunk_edges, f, lanes, groups, stream);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename P>
+template <typename P, typename H = NoHop>
 int combine(const void* rows, const void* first, const void* part, const P& p, void* out,
-            int n_split, int f, void* stream) {
+            int n_split, int f, void* stream, const H& h = H{}) {
   if (n_split < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (n_split == 0 || f <= 0) return static_cast<int>(cudaGetLastError());
-  spmm_csr_combine_kernel<P><<<(n_split + kWarps - 1) / kWarps, kWarps * 32, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
+  spmm_csr_combine_kernel<P, H><<<(n_split + kWarps - 1) / kWarps, kWarps * 32, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(rows), static_cast<const int32_t*>(first),
-      static_cast<const typename P::TAcc*>(part), p, static_cast<float*>(out), n_split, f);
+      static_cast<const typename P::TAcc*>(part), p, h, static_cast<float*>(out), n_split, f);
   return static_cast<int>(cudaGetLastError());
 }
 
 Weighted weighted_policy(const void* widx, const void* w, int f, int heads) {
   return Weighted{static_cast<const int32_t*>(widx), static_cast<const float*>(w), heads,
                   heads > 0 ? f / heads : 0};
+}
+
+template <int PASS>
+Appnp<PASS> appnp_hop(const void* gather_norm, const void* row_norm, const void* h0, float c1,
+                      float c2) {
+  return Appnp<PASS>{static_cast<const float*>(gather_norm), static_cast<const float*>(row_norm),
+                     static_cast<const float*>(h0), c1, c2};
 }
 
 }  // namespace
@@ -440,6 +541,43 @@ int spmm_csr_weighted(const void* indptr, const void* indices, const void* widx,
                 lanes, groups, static_cast<cudaStream_t>(stream));
 }
 
+// APPNP's hops (the note at the top): x, w, widx and the plan as the walk
+// of their policy takes them (weighted: one weight per edge); gather_norm
+// f32 [*] the gathered rows' norm (forward: src_norm; transposed:
+// dst_norm), row_norm f32 [n_rows] the written rows' (forward and eval:
+// dst_norm; transposed: src_norm), h0 f32 [n_rows, f] (null on the
+// transposed walk), c1 = float(1 - alpha), c2 = float(alpha).
+
+int spmm_csr_weighted_hop(const void* indptr, const void* indices, const void* widx,
+                          const void* x, const void* w, const void* gather_norm,
+                          const void* row_norm, const void* h0, void* out, const void* chunks,
+                          void* part, int n_rows, int n_chunks, int chunk_edges, int f,
+                          int transposed, float c1, float c2, int vec, int lanes, int groups,
+                          void* stream) {
+  const auto* ip = static_cast<const int32_t*>(indptr);
+  const auto* ix = static_cast<const int32_t*>(indices);
+  const auto* xf = static_cast<const float*>(x);
+  const Weighted p = weighted_policy(widx, w, f, 1);
+  auto* o = static_cast<float*>(out);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (transposed)
+    return launch(ip, ix, xf, p, o, chunks, part, n_rows, n_chunks, chunk_edges, f, vec, lanes,
+                  groups, st, appnp_hop<kHopTransposed>(gather_norm, row_norm, nullptr, c1, c2));
+  return launch(ip, ix, xf, p, o, chunks, part, n_rows, n_chunks, chunk_edges, f, vec, lanes,
+                groups, st, appnp_hop<kHopForward>(gather_norm, row_norm, h0, c1, c2), h0);
+}
+
+int spmm_csr_int8_hop(const void* indptr, const void* indices, const void* x, const void* scale,
+                      const void* row_norm, const void* h0, void* out, const void* chunks,
+                      void* part, int n_rows, int n_chunks, int chunk_edges, int f, float c1,
+                      float c2, int vec, int lanes, int groups, void* stream) {
+  return launch(static_cast<const int32_t*>(indptr), static_cast<const int32_t*>(indices),
+                static_cast<const int8_t*>(x), Sum<int8_t, int>{static_cast<const float*>(scale)},
+                static_cast<float*>(out), chunks, part, n_rows, n_chunks, chunk_edges, f, vec,
+                lanes, groups, static_cast<cudaStream_t>(stream),
+                appnp_hop<kHopEval>(nullptr, row_norm, h0, c1, c2), h0);
+}
+
 // The sums of the split rows: rows int32 [n_split] (the plan's split rows),
 // first int32 [n_split + 1] (row s's partials are part[first[s]:first[s +
 // 1]]), part as the walk wrote it, out f32 [*, f] as the walk's.
@@ -460,6 +598,25 @@ int spmm_csr_weighted_combine(const void* rows, const void* first, const void* p
                               int n_split, int f, void* stream) {
   return combine(rows, first, part, weighted_policy(nullptr, nullptr, f, 1), out, n_split, f,
                  stream);
+}
+
+// the hops' sums of the split rows: row_norm, h0, c1 and c2 as their walk's
+int spmm_csr_weighted_hop_combine(const void* rows, const void* first, const void* part,
+                                  const void* row_norm, const void* h0, void* out, int n_split,
+                                  int f, int transposed, float c1, float c2, void* stream) {
+  const Weighted p = weighted_policy(nullptr, nullptr, f, 1);
+  if (transposed)
+    return combine(rows, first, part, p, out, n_split, f, stream,
+                   appnp_hop<kHopTransposed>(nullptr, row_norm, nullptr, c1, c2));
+  return combine(rows, first, part, p, out, n_split, f, stream,
+                 appnp_hop<kHopForward>(nullptr, row_norm, h0, c1, c2));
+}
+
+int spmm_csr_int8_hop_combine(const void* rows, const void* first, const void* part,
+                              const void* scale, const void* row_norm, const void* h0, void* out,
+                              int n_split, int f, float c1, float c2, void* stream) {
+  return combine(rows, first, part, Sum<int8_t, int>{static_cast<const float*>(scale)}, out,
+                 n_split, f, stream, appnp_hop<kHopEval>(nullptr, row_norm, h0, c1, c2));
 }
 
 }  // extern "C"

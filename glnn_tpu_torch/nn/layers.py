@@ -18,8 +18,11 @@
   + alpha h0, with per-edge dropout (zero, or 1 / (1 - p)) in training;
   on a halo shard each hop draws the whole graph's [E] mask and keeps the
   shard's slice, so the ranks' masks together are the single-device mask.
-  The hops run in a span `model.APPNP.propagate`, each hop's mask draw and
-  weight in `model.APPNP.edge_drop` (recorded only under a profiler,
+  Each hop is `ops.appnp_hop`: inside the SpMM's walk where it can
+  (norms and teleport fused, the same numbers), else `gcn_norm_both` and
+  the teleport; `ops.hop_counts` counts the hops by path. The hops run in
+  a span `model.APPNP.propagate`, each hop's mask draw and weight in
+  `model.APPNP.edge_drop` (recorded only under a profiler,
   utils/profiling.py).
 * LayerNorm1d: torch.nn.LayerNorm over the feature axis.
 * dropout: inverted dropout whose mask comes from an explicit generator;
@@ -167,6 +170,7 @@ def appnp_propagate(g: Graph, h: torch.Tensor, k: int, alpha: float,
         total, lo = g.n_edges, 0
     with _PROPAGATE:
         for i in range(k):
+            w = None
             if use_drop:
                 with _EDGE_DROP:
                     keep = (masks[i] if masks is not None else
@@ -174,10 +178,7 @@ def appnp_propagate(g: Graph, h: torch.Tensor, k: int, alpha: float,
                                         device=h.device)
                              >= edge_drop)[lo:lo + g.n_edges])
                     w = keep.to(h.dtype) / (1.0 - edge_drop)
-                prop = ops.gcn_norm_both(g, h, edge_weight=w)
-            else:
-                prop = ops.gcn_norm_both(g, h)
-            h = (1.0 - alpha) * prop + alpha * h0
+            h = ops.appnp_hop(g, h, h0, w, alpha)
     return h
 
 

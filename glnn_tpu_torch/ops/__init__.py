@@ -170,6 +170,52 @@ def gcn_norm_both(g, x: torch.Tensor, edge_weight=None) -> torch.Tensor:
     return _ref.gcn_norm_both(g, x, edge_weight, copy_u_sum, u_mul_e_sum)
 
 
+# APPNP's hops by path (`appnp_hop`), apart from the kernels' launch counts
+hop_counts = {"fused_weighted": 0, "fused_int8": 0, "composed": 0}
+
+
+def reset_counts() -> None:
+    """Zero `hop_counts` and the SpMM wrappers' counts
+    (`spmm_cuda.reset_counts`)."""
+    for k in hop_counts:
+        hop_counts[k] = 0
+    spmm_cuda.reset_counts()
+
+
+def _appnp_path(g, h: torch.Tensor, h0: torch.Tensor, weighted: bool) -> str:
+    """The path of one hop: "fused_weighted" with edge-drop weights,
+    "fused_int8" on the int8 tier with no gradient, each on a Graph (not a
+    halo shard) with h and h0 f32 [N, F] under a kernel tier; "composed"
+    for every other: halo shards, the exact tier, bf16 rows and the plain
+    f32 tier (auto on the CPU)."""
+    if (_halo(g) or h.dtype != torch.float32 or h0.dtype != torch.float32
+            or h.dim() != 2 or not _tier_selected(h.device)):
+        return "composed"
+    if weighted:
+        return "fused_weighted"
+    if (_unweighted_tier() == "int8"
+            and not (torch.is_grad_enabled() and h.requires_grad)):
+        return "fused_int8"
+    return "composed"
+
+
+def appnp_hop(g, h: torch.Tensor, h0: torch.Tensor, edge_weight,
+              alpha: float) -> torch.Tensor:
+    """One APPNP hop, (1 - alpha) D^-1/2 A_w D^-1/2 h + alpha h0, with
+    `edge_weight` [E] (edge drop) or None; counted in `hop_counts` by
+    path. Where `_appnp_path` allows it runs inside the SpMM walk
+    (`spmm_cuda.appnp_hop`, `spmm_cuda.appnp_hop_int8`), else as
+    `gcn_norm_both` and the teleport; both give the same numbers."""
+    path = _appnp_path(g, h, h0, edge_weight is not None)
+    hop_counts[path] += 1
+    if path == "fused_weighted":
+        return spmm_cuda.appnp_hop(g, h, h0, edge_weight, alpha)
+    if path == "fused_int8":
+        return spmm_cuda.appnp_hop_int8(g, h, h0, alpha)
+    prop = gcn_norm_both(g, h, edge_weight=edge_weight)
+    return (1.0 - alpha) * prop + alpha * h0
+
+
 def gat_attention(g, feat: torch.Tensor, attn_l: torch.Tensor,
                   attn_r: torch.Tensor, *, slope: float = 0.2,
                   drop_rate: float = 0.0,
@@ -214,6 +260,7 @@ def gat_attention(g, feat: torch.Tensor, attn_l: torch.Tensor,
 
 __all__ = [
     "copy_u_sum", "copy_u_mean", "u_add_v", "edge_softmax", "u_mul_e_sum",
-    "gat_attention", "gcn_norm_both", "set_backend", "set_eval_quant",
-    "inference_mode", "eval_quant_active",
+    "gat_attention", "gcn_norm_both", "appnp_hop", "hop_counts",
+    "reset_counts", "set_backend", "set_eval_quant", "inference_mode",
+    "eval_quant_active",
 ]

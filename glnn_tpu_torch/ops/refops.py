@@ -40,16 +40,26 @@ def u_mul_e_sum(g: Graph, x: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
     return out.index_add_(0, g.receivers, msgs * e)
 
 
+def degree_norms(g: Graph) -> tuple[torch.Tensor, torch.Tensor]:
+    """(src_norm, dst_norm) = rsqrt of g's out- and in-degrees clamped
+    >= 1, computed at the first call and kept in `g.cache` (a Graph or a
+    halo shard; a moved or replaced one computes its own): the degrees
+    never change, so every hop reads the same bits."""
+    if "degree_norms" not in g.cache:
+        g.cache["degree_norms"] = (torch.rsqrt(g.out_degrees.clamp(min=1.0)),
+                                   torch.rsqrt(g.in_degrees.clamp(min=1.0)))
+    return g.cache["degree_norms"]
+
+
 def gcn_norm_both(g: Graph, x: torch.Tensor,
                   edge_weight: torch.Tensor | None = None,
                   sum_fn=copy_u_sum, wsum_fn=u_mul_e_sum) -> torch.Tensor:
     """D^-1/2 A D^-1/2 x (GraphConv norm='both'): out-degree norm on the
     source side, in-degree norm on the destination side, both clamped
-    >= 1; `edge_weight` [E] optionally scales the messages (APPNP's edge
-    drop). `sum_fn` / `wsum_fn` take the plain f32 sums' place (the
-    dispatcher passes its tiered ones)."""
-    src_norm = torch.rsqrt(g.out_degrees.clamp(min=1.0))
-    dst_norm = torch.rsqrt(g.in_degrees.clamp(min=1.0))
+    >= 1 (`degree_norms`); `edge_weight` [E] optionally scales the
+    messages (APPNP's edge drop). `sum_fn` / `wsum_fn` take the plain f32
+    sums' place (the dispatcher passes its tiered ones)."""
+    src_norm, dst_norm = degree_norms(g)
     h = x * src_norm[:, None]
     h = sum_fn(g, h) if edge_weight is None else wsum_fn(g, h, edge_weight)
     return h * dst_norm[:, None]

@@ -41,6 +41,20 @@ through `t_edges`, for dX; and, only when the weights need a gradient, the
 SDDMM dW[e] = <x[src(e)], dH[dst(e)]> (per head: summed over D) in plain
 f32 torch, which JAX also leaves outside its kernel.
 
+APPNP's hop (nn/layers.py appnp_propagate), h' = (1 - alpha) D_in^-1/2
+A_w D_out^-1/2 h + alpha h0, runs inside these walks where its dispatch
+(`ops.appnp_hop`) allows: `appnp_hop` (an autograd Function) for a
+training hop with edge-drop weights, one fused weighted walk forward and
+one fused transposed walk for dX in the backward (dh0 = alpha dH is one
+torch multiply), and `appnp_hop_int8` for an eval hop on the int8 tier
+(the rows h * src_norm quantised as `copy_u_sum_int8` quantises them, then
+one fused int8 walk). The walks take the degree norms kept on the Graph
+(`refops.degree_norms`) and round every step as the composition's torch
+ops do (csrc/spmm_csr.cu has the formulas), so each hop is bit-equal to
+`gcn_norm_both` followed by the teleport. Their launches count under
+`spmm_csr_weighted` and `spmm_csr_int8`, and each walk runs in the span of
+its sum.
+
 The f32 sum behind `feature_prop` (--feature_aug_k), `spmm_csr_f32`:
 H[v] = sum over in-edges e of x[src(e)], f32 rows summed in f32, has a body
 of its own (`csrc/spmm_f32.cu`). It has no TPU kernel: JAX takes an f32 XLA
@@ -98,13 +112,21 @@ counts = {name: 0 for name in KERNELS}
 # kept, however many calls walk it
 builds = {"hub_plan": 0}
 
-_vp, _ci = ctypes.c_void_p, ctypes.c_int
+_vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {"spmm_csr_bf16": [_vp] * 6 + [_ci] * 7 + [_vp],
                "spmm_csr_int8": [_vp] * 7 + [_ci] * 7 + [_vp],
                "spmm_csr_weighted": [_vp] * 8 + [_ci] * 8 + [_vp],
+               "spmm_csr_weighted_hop":
+                   [_vp] * 11 + [_ci] * 5 + [_cf] * 2 + [_ci] * 3 + [_vp],
+               "spmm_csr_int8_hop":
+                   [_vp] * 9 + [_ci] * 4 + [_cf] * 2 + [_ci] * 3 + [_vp],
                "spmm_csr_bf16_combine": [_vp] * 4 + [_ci] * 2 + [_vp],
                "spmm_csr_int8_combine": [_vp] * 5 + [_ci] * 2 + [_vp],
-               "spmm_csr_weighted_combine": [_vp] * 4 + [_ci] * 2 + [_vp]}
+               "spmm_csr_weighted_combine": [_vp] * 4 + [_ci] * 2 + [_vp],
+               "spmm_csr_weighted_hop_combine":
+                   [_vp] * 6 + [_ci] * 3 + [_cf] * 2 + [_vp],
+               "spmm_csr_int8_hop_combine":
+                   [_vp] * 7 + [_ci] * 2 + [_cf] * 2 + [_vp]}
 _F32_SIGNATURES = {"spmm_csr_f32": [_vp] * 6 + [_ci] * 8 + [_vp],
                    "spmm_csr_f32_combine": [_vp] * 4 + [_ci] * 2 + [_vp]}
 # T of the template body (csrc/spmm_csr.cu) and of the segment softmax:
@@ -263,15 +285,19 @@ def _check(indptr, indices, x, n_rows, dtype):
                          f"{n_rows} rows")
 
 
-def _launch(name, indptr, ptrs, x, n_rows, plan, geo, scale=None,
-            heads=None):
-    """The walk of `name` (indptr, the pointers `ptrs`, then out, the plan's
-    chunks and partials) and, where the plan has chunks, the sum of the
-    split rows' partials; each launch counted. `plan` is indptr's hub plan
-    (built here when None: two host synchronisations)."""
+def _launch(name, indptr, ptrs, x, n_rows, plan, geo, extra=(),
+            combine_ptrs=(), combine_extra=(), entry=None):
+    """The walk `entry` (`name` by default; indptr, the pointers `ptrs`,
+    then out, the plan's chunks and partials, the rows, chunks, T and f,
+    `extra`, the geometry) and, where the plan has chunks, `entry`_combine,
+    the sum of the split rows' partials (the plan's rows, first and
+    partials, `combine_ptrs`, out, the split rows and f, `combine_extra`);
+    each launch counted under `name`. `plan` is indptr's hub plan (built
+    here when None: two host synchronisations)."""
     if plan is None:
         plan = hub_plan(indptr, n_rows)
     check_plan(plan, n_rows, x.device)
+    entry = entry or name
     f, c = x.shape[1], plan.n_chunks
     out = torch.empty((n_rows, f), dtype=torch.float32, device=x.device)
     part = None
@@ -279,19 +305,18 @@ def _launch(name, indptr, ptrs, x, n_rows, plan, geo, scale=None,
         part = torch.empty((c, f), device=x.device, dtype=torch.int32
                            if name == "spmm_csr_int8" else torch.float32)
     lib = cuda_build.load("spmm", _SIGNATURES)
-    head = [] if heads is None else [heads]
     cuda_build.launch(
-        name, getattr(lib, name), x.device, indptr.data_ptr(), *ptrs,
+        name, getattr(lib, entry), x.device, indptr.data_ptr(), *ptrs,
         out.data_ptr(),
         plan.chunks.data_ptr() if c else None, part.data_ptr() if c else None,
-        n_rows, c, plan.chunk, f, *head, *geo)
+        n_rows, c, plan.chunk, f, *extra, *geo)
     counts[name] += 1
     if c:
-        sc = [] if scale is None else [scale.data_ptr()]
         cuda_build.launch(
-            name, getattr(lib, f"{name}_combine"), x.device,
+            name, getattr(lib, f"{entry}_combine"), x.device,
             plan.rows.data_ptr(), plan.first.data_ptr(), part.data_ptr(),
-            *sc, out.data_ptr(), plan.rows.numel(), f)
+            *combine_ptrs, out.data_ptr(), plan.rows.numel(), f,
+            *combine_extra)
         counts[name] += 1
     return out
 
@@ -376,7 +401,8 @@ def csr_sum_int8(indptr, indices, q, scale, n_rows,
         return _launch("spmm_csr_int8", indptr,
                        [indices.data_ptr(), q.data_ptr(), scale.data_ptr()],
                        q, n_rows, plan,
-                       geometry(q.shape[1], 1, align=q.data_ptr()), scale)
+                       geometry(q.shape[1], 1, align=q.data_ptr()),
+                       combine_ptrs=[scale.data_ptr()])
     return plain_csr_sum_int8(indptr, indices, q, scale, n_rows)
 
 
@@ -432,7 +458,7 @@ def csr_wsum_bf16(indptr, indices, widx, x, w, n_rows,
                         x.data_ptr(), w.data_ptr()],
                        x, n_rows, plan,
                        geometry(f, 4, f // heads, align=x.data_ptr()),
-                       heads=heads)
+                       extra=[heads])
     return plain_csr_wsum_bf16(indptr, indices, widx, x, w, n_rows)
 
 
@@ -579,3 +605,161 @@ def weighted_csr(g) -> WeightedCSR:
         g.indptr, g.senders, g.receivers, g.t_indptr, g.t_receivers,
         g.t_edges, g.n_nodes, g.n_nodes, plan_of(g, "indptr", g.n_nodes),
         plan_of(g, "t_indptr", g.n_nodes))
+
+
+# ---- APPNP's hop inside the walks ------------------------------------------
+
+
+def _row_aligned(t: torch.Tensor) -> torch.Tensor:
+    """t contiguous, copied where its base is not 16-byte aligned (the
+    hop's walks read h0 as they write rows, 16 bytes a lane)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _check_hop(g, h, h0, *norms):
+    if h0 is not None and (h0.dtype != torch.float32
+                           or h0.shape != (g.n_nodes, h.shape[1])
+                           or h0.device != h.device):
+        raise TypeError(f"h0 must be f32 [{g.n_nodes}, {h.shape[1]}] on "
+                        f"{h.device}")
+    for norm in norms:
+        if (norm.dtype != torch.float32 or norm.shape != (g.n_nodes,)
+                or norm.device != h.device):
+            raise TypeError(f"the degree norms must be f32 [{g.n_nodes}] "
+                            f"on {h.device}")
+
+
+def _teleport(out, dst_norm, h0, alpha):
+    """The composition's epilogue: (out * d) * (1 - alpha) + alpha * h0."""
+    return (out * dst_norm[:, None]) * (1.0 - alpha) + alpha * h0
+
+
+def plain_appnp_wsum(g, x, w, gather_norm, row_norm, h0, alpha, transposed):
+    """Plain version of the fused weighted hop walks, the composition they
+    replace, op for op: forward ((A_w (x * s)) * d) * (1 - alpha) + alpha
+    * h0, with A_w the weighted sum (`plain_csr_wsum_bf16`); transposed
+    (A_w^T ((x * (1 - alpha)) * d)) * s."""
+    if transposed:
+        xs = (x * (1.0 - alpha)) * gather_norm[:, None]
+        out = plain_csr_wsum_bf16(g.t_indptr, g.t_receivers, g.t_edges, xs,
+                                  w, g.n_nodes)
+        return out * row_norm[:, None]
+    out = plain_csr_wsum_bf16(g.indptr, g.senders, None,
+                              x * gather_norm[:, None], w, g.n_nodes)
+    return _teleport(out, row_norm, h0, alpha)
+
+
+@span("kernel.spmm_csr_weighted")
+def appnp_wsum(g, x, w, gather_norm, row_norm, h0, alpha: float,
+               transposed: bool):
+    """One walk of APPNP's training hop over the Graph g with edge weights
+    w f32 [E] (dst-sorted order): the forward over the CSC (gather_norm
+    the source norm, row_norm the destination norm, h0 the teleport's
+    rows), or, `transposed`, the backward's dX over the transposed CSR
+    (gather_norm the destination norm, row_norm the source norm, h0
+    None). x f32 [N, F]; the plans kept on g."""
+    n = g.n_nodes
+    if transposed:
+        indptr, indices, widx = g.t_indptr, g.t_receivers, g.t_edges
+    else:
+        indptr, indices, widx = g.indptr, g.senders, None
+    _check(indptr, indices, x, n, torch.float32)
+    _check_hop(g, x, h0, gather_norm, row_norm)
+    if w.dtype != torch.float32 or w.shape != (g.n_edges,):
+        raise TypeError(f"w must be f32 [{g.n_edges}]")
+    if not x.is_cuda:
+        return plain_appnp_wsum(g, x, w, gather_norm, row_norm, h0, alpha,
+                                transposed)
+    x, w = x.contiguous(), w.contiguous()
+    h0 = None if h0 is None else _row_aligned(h0)
+    f = x.shape[1]
+    hop = [int(transposed), 1.0 - alpha, alpha]
+    h0_ptr = None if h0 is None else h0.data_ptr()
+    return _launch(
+        "spmm_csr_weighted", indptr,
+        [indices.data_ptr(), None if widx is None else widx.data_ptr(),
+         x.data_ptr(), w.data_ptr(), gather_norm.data_ptr(),
+         row_norm.data_ptr(), h0_ptr],
+        x, n, plan_of(g, "t_indptr" if transposed else "indptr", n),
+        geometry(f, 4, f, align=x.data_ptr()), extra=hop,
+        combine_ptrs=[row_norm.data_ptr(), h0_ptr], combine_extra=hop,
+        entry="spmm_csr_weighted_hop")
+
+
+class _AppnpHop(torch.autograd.Function):
+    """h' = (1 - alpha) D_in^-1/2 A_w D_out^-1/2 h + alpha h0 on the fused
+    weighted walk; dh = the fused transposed walk of dh', dh0 = alpha dh'.
+    w (edge-drop weights) takes no gradient, so it is all that is
+    saved. h0 comes first: where h is h0 (the first hop), autograd then
+    adds dh0 to h0's gradient before dh, as it does through the
+    composition's teleport, so the whole gradient keeps its bits."""
+
+    @staticmethod
+    def forward(ctx, h0, h, w, g, alpha):
+        ctx.g, ctx.alpha = g, alpha
+        ctx.save_for_backward(w)
+        src_norm, dst_norm = refops.degree_norms(g)
+        return appnp_wsum(g, h, w, src_norm, dst_norm, h0, alpha, False)
+
+    @staticmethod
+    def backward(ctx, dout):
+        w, = ctx.saved_tensors
+        g, alpha = ctx.g, ctx.alpha
+        src_norm, dst_norm = refops.degree_norms(g)
+        dh0 = dh = None
+        if ctx.needs_input_grad[0]:
+            dh0 = dout * alpha
+        if ctx.needs_input_grad[1]:
+            dh = appnp_wsum(g, dout.contiguous(), w, dst_norm, src_norm, None,
+                            alpha, True)
+        return dh0, dh, None, None, None
+
+
+def appnp_hop(g, h: torch.Tensor, h0: torch.Tensor, w: torch.Tensor,
+              alpha: float) -> torch.Tensor:
+    """APPNP's training hop with edge-drop weights w f32 [E] on the fused
+    weighted walks: h, h0 f32 [N, F] on a Graph g; differentiable in h and
+    h0."""
+    return _AppnpHop.apply(h0, h, w, g, alpha)
+
+
+def plain_appnp_sum_int8(g, q, scale, row_norm, h0, alpha):
+    """Plain version of the fused int8 hop walk: ((the int8 sum) * d) *
+    (1 - alpha) + alpha * h0."""
+    return _teleport(plain_csr_sum_int8(g.indptr, g.senders, q, scale,
+                                        g.n_nodes), row_norm, h0, alpha)
+
+
+@span("kernel.spmm_csr_int8")
+def appnp_sum_int8(g, q, scale, row_norm, h0, alpha: float):
+    """The fused int8 walk of APPNP's eval hop: q int8 [N, F] and its f32
+    scale [F] (`quantize_cols` of h * src_norm), row_norm the destination
+    norm, h0 f32 [N, F]."""
+    n = g.n_nodes
+    _check(g.indptr, g.senders, q, n, torch.int8)
+    _check_hop(g, q, h0, row_norm)
+    if scale.dtype != torch.float32 or scale.shape != (q.shape[1],):
+        raise TypeError("scale must be f32 [F]")
+    if not q.is_cuda:
+        return plain_appnp_sum_int8(g, q, scale, row_norm, h0, alpha)
+    q, scale, h0 = q.contiguous(), scale.contiguous(), _row_aligned(h0)
+    hop = [1.0 - alpha, alpha]
+    return _launch(
+        "spmm_csr_int8", g.indptr,
+        [g.senders.data_ptr(), q.data_ptr(), scale.data_ptr(),
+         row_norm.data_ptr(), h0.data_ptr()],
+        q, n, plan_of(g, "indptr", n),
+        geometry(q.shape[1], 1, align=q.data_ptr()), extra=hop,
+        combine_ptrs=[scale.data_ptr(), row_norm.data_ptr(), h0.data_ptr()],
+        combine_extra=hop, entry="spmm_csr_int8_hop")
+
+
+def appnp_hop_int8(g, h: torch.Tensor, h0: torch.Tensor,
+                   alpha: float) -> torch.Tensor:
+    """APPNP's eval hop on the int8 tier, no gradient: h * src_norm
+    quantised per column as `copy_u_sum_int8` quantises it, then the
+    fused int8 walk."""
+    src_norm, dst_norm = refops.degree_norms(g)
+    q, s = quantize_cols(h * src_norm[:, None])
+    return appnp_sum_int8(g, q, s, dst_norm, h0, alpha)

@@ -41,8 +41,9 @@ HOST_CATS = ("cpu_op",)
 
 _NS = r"(?:\(anonymous namespace\)::)?"
 # a demangled kernel name -> the port's kernel. Three SpMM kernels are one
-# template, spmm_csr_kernel<P, VEC> (csrc/spmm_csr.cu), told apart by its
-# policy P. Where a CSR has hub rows split across warps, a kernel is
+# template, spmm_csr_kernel<P, VEC, HUB, H> (csrc/spmm_csr.cu), told apart
+# by its policy P (APPNP's fused hops, H = Appnp<pass>, count under their
+# policy's kernel). Where a CSR has hub rows split across warps, a kernel is
 # several: the walk and the second pass that sums split rows' partials
 # (spmm_csr_combine_kernel<P>, spmm_f32_combine_kernel), and for gat_fwd
 # also the chunks' maxima before it (gat_fwd_max_kernel) and the sums

@@ -40,6 +40,8 @@ GAT kernels' split tests run at T = spmm_cuda.HUB_CHUNK and at the GAT
 layer's T = gat_cuda.GAT_CHUNK (rows either side of each).
 """
 
+import collections
+import functools
 import json
 
 import numpy as np
@@ -1296,7 +1298,8 @@ def _traced_appnp_epoch(device, tmp_path):
     at ogbn-arxiv's shape (169,343 nodes, 1,166,243 citations by Redner's
     law: rows past HUB_CHUNK in both walks) under the profiler, after a
     warm one: (span records, the Chrome trace's events, the graph, the
-    launches and hub plan builds of the traced epoch)."""
+    launches, hub plan builds and APPNP hops by path of the traced
+    epoch)."""
     import logging
 
     from glnn_tpu_torch.nn.models import Model
@@ -1325,25 +1328,28 @@ def _traced_appnp_epoch(device, tmp_path):
 
     epoch(1)
     torch.cuda.synchronize(device)
-    before = (dict(spmm_cuda.counts), spmm_cuda.builds["hub_plan"])
+    before = (dict(spmm_cuda.counts), spmm_cuda.builds["hub_plan"],
+              dict(ops.hop_counts))
     profiling.clear_spans()
     with profiling.trace(tmp_path, device) as t:
         epoch(2)
     recs = profiling.span_records()
     profiling.clear_spans()
     launches = {k: v - before[0][k] for k, v in spmm_cuda.counts.items()}
+    hops = {k: v - before[2][k] for k, v in ops.hop_counts.items()}
     with open(t.path) as f:
         events = json.load(f)["traceEvents"]
     return (recs, events, g, launches,
-            spmm_cuda.builds["hub_plan"] - before[1])
+            spmm_cuda.builds["hub_plan"] - before[1], hops)
 
 
 def test_steady_appnp_epoch_builds_no_plan(cuda, tmp_path):
     """On a skewed graph at ogbn-arxiv's shape a steady APPNP epoch builds
     no hub plan: its 10 weighted hops (one mask draw each), their 10
     transposed walks and the eval's 10 int8 hops take the plans kept on
-    the Graph, each two launches (walk and combine)."""
-    recs, _, g, launches, built = _traced_appnp_epoch(cuda, tmp_path)
+    the Graph, each two launches (walk and combine), all on the fused
+    hop path."""
+    recs, _, g, launches, built, hops = _traced_appnp_epoch(cuda, tmp_path)
     n = g.n_nodes
     assert spmm_cuda.plan_of(g, "indptr", n).n_chunks > 0
     assert spmm_cuda.plan_of(g, "t_indptr", n).n_chunks > 0
@@ -1351,18 +1357,86 @@ def test_steady_appnp_epoch_builds_no_plan(cuda, tmp_path):
     assert "plan.hub_plan" not in {r.name for r in recs}
     assert launches == {"spmm_csr_bf16": 0, "spmm_csr_int8": 20,
                         "spmm_csr_weighted": 40, "spmm_csr_f32": 0}
+    assert hops == {"fused_weighted": 10, "fused_int8": 10, "composed": 0}
     assert sum(r.name == "model.APPNP.edge_drop" for r in recs) == 10
 
 
+def test_steady_appnp_epoch_launches_at_most_330_kernels(cuda, tmp_path):
+    """With each hop's norms and teleport inside its walk, a steady APPNP
+    epoch (train step, int8 eval, metrics row) launches at most 330
+    kernels in all (510 when every hop was composed of torch ops)."""
+    _, events, *_ = _traced_appnp_epoch(cuda, tmp_path)
+    kernels = [e for e in events
+               if e.get("cat") == "kernel" and e.get("ph") == "X"]
+    assert 60 <= len(kernels) <= 330, len(kernels)
+
+
+def test_fused_hop_kernels_keep_the_benchmark_names(cuda, tmp_path):
+    """The benchmark's trace (`gnnbench.trace.port_name`) maps every
+    launch of the template body, the fused hops' included, to its
+    policy's name: 40 weighted (20 of them transposed) and 20 int8."""
+    from gnnbench.trace import port_name
+
+    _, events, *_ = _traced_appnp_epoch(cuda, tmp_path)
+    names = [e["name"] for e in events
+             if e.get("cat") == "kernel" and e.get("ph") == "X"
+             and "spmm_csr_" in e.get("name", "")]
+    fused = [n for n in names if "Appnp<" in n]
+    assert len(names) == len(fused) == 60
+    ported = collections.Counter(port_name(n) for n in names)
+    assert ported == {"spmm_csr_weighted": 40, "spmm_csr_int8": 20}
+
+
+def test_device_annotation_follows_only_direct_launches(cuda, tmp_path):
+    """The profiler gives a span a device annotation (`gpu_user_annotation`)
+    over the kernels launched while it is the innermost span open, and
+    only those: a span whose every kernel is launched inside a nested span
+    gets none, a span with one direct launch gets one."""
+    from glnn_tpu_torch.utils import profiling
+
+    x = torch.ones(1 << 16, device=cuda)
+    outer, direct = profiling.span("test.outer"), profiling.span("test.direct")
+    inner = profiling.span("test.inner")
+    torch.cuda.synchronize(cuda)
+    profiling.clear_spans()
+    with profiling.trace(tmp_path, cuda) as t:
+        with outer:
+            with inner:
+                x.mul(2.0)
+        with direct:
+            x.add(1.0)
+            with inner:
+                x.mul(2.0)
+    recs = profiling.span_records()
+    profiling.clear_spans()
+    with open(t.path) as f:
+        events = json.load(f)["traceEvents"]
+    annotated = collections.Counter(
+        e["name"] for e in events if e.get("cat") == "gpu_user_annotation"
+        and e.get("name", "").startswith("test."))
+    assert collections.Counter(r.name for r in recs) == {
+        "test.outer": 1, "test.direct": 1, "test.inner": 2}
+    assert annotated == {"test.inner": 2, "test.direct": 1}
+
+
 def test_appnp_propagate_annotations_cover_the_hop_kernels(cuda, tmp_path):
-    """In the Chrome trace the train step's `model.APPNP.propagate` device
-    annotation covers the 10 forward hops' weighted kernels (walk and
-    combine each) and the eval's its 20 int8 kernels; the other 20
-    weighted kernels, the transposed walks, lie under the backward's
-    `kernel.spmm_csr_weighted` annotations, two in each."""
+    """In the Chrome trace every hop's kernels lie under the device
+    annotation of their wrapper's span: the train step's 10 forward walks
+    (`Appnp<0>`) and the backward's 10 transposed walks (`Appnp<1>`) under
+    20 `kernel.spmm_csr_weighted` annotations, the eval's 10 int8 walks
+    (`Appnp<2>`) under 10 `kernel.spmm_csr_int8` annotations, walk and
+    combine of one pass in each, every forward one before every
+    transposed one. `model.APPNP.propagate` has one device annotation, the
+    eval's: it spans the kernels the eval's hops launch outside their
+    wrapper's span (each hop's h * src_norm and quantisation), from the
+    first hop's to the last hop's, so it covers the walks of hops 1-9
+    (18 int8 kernels) and no weighted kernel. The train step's launches
+    every kernel inside a nested span (the mask draws in
+    `model.APPNP.edge_drop`, the hops in `kernel.spmm_csr_weighted`), so
+    it has none (test_device_annotation_follows_only_direct_launches)."""
     from glnn_tpu_torch.utils.trace_report import port_name
 
-    recs, events, _, _, _ = _traced_appnp_epoch(cuda, tmp_path)
+    recs, events, *_ = _traced_appnp_epoch(cuda, tmp_path)
 
     def annotations(name):
         return [(e["ts"], e["ts"] + e["dur"]) for e in events
@@ -1370,7 +1444,7 @@ def test_appnp_propagate_annotations_cover_the_hop_kernels(cuda, tmp_path):
                 and e.get("name") == name]
 
     def kernels(port):
-        return [(e["ts"], e["ts"] + e["dur"]) for e in events
+        return [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
                 if e.get("cat") == "kernel" and e.get("ph") == "X"
                 and port_name(e.get("name", "")) == port]
 
@@ -1379,18 +1453,142 @@ def test_appnp_propagate_annotations_cover_the_hop_kernels(cuda, tmp_path):
     def inside(ks, lo, hi):
         return [k for k in ks if lo - slack <= k[0] and k[1] <= hi + slack]
 
-    prop = sorted(annotations("model.APPNP.propagate"))
-    assert len(prop) == 2
     assert sum(r.name == "model.APPNP.propagate" for r in recs) == 2
     weighted, int8 = kernels("spmm_csr_weighted"), kernels("spmm_csr_int8")
     assert len(weighted) == 40 and len(int8) == 20
-    assert len(inside(weighted, *prop[0])) == 20
-    assert len(inside(int8, *prop[1])) == 20
-    assert len(inside(weighted, *prop[1])) == 0
-    wrapped = annotations("kernel.spmm_csr_weighted")
-    assert len(wrapped) == 20
-    for lo, hi in wrapped:
-        assert len(inside(weighted, lo, hi)) == 2
+    prop = annotations("model.APPNP.propagate")
+    assert len(prop) == 1
+    assert len(inside(weighted, *prop[0])) == 0
+    assert len(inside(int8, *prop[0])) == 18
+    assert max(k[1] for k in weighted) <= prop[0][0] + slack
+    passes = collections.Counter(k[2].split("Appnp<")[1][0]
+                                 for k in weighted + int8)
+    assert passes == {"0": 20, "1": 20, "2": 20}
+    forward = [k for k in weighted if "Appnp<0>" in k[2]]
+    transposed = [k for k in weighted if "Appnp<1>" in k[2]]
+    assert max(k[1] for k in forward) <= min(k[0] for k in transposed)
+    for name, ks, calls in (("kernel.spmm_csr_weighted", weighted, 20),
+                            ("kernel.spmm_csr_int8", int8, 10)):
+        wrapped = annotations(name)
+        assert len(wrapped) == calls
+        for lo, hi in wrapped:
+            pair = inside(ks, lo, hi)
+            assert len(pair) == 2
+            assert pair[0][2].split("Appnp<")[1][0] == \
+                pair[1][2].split("Appnp<")[1][0]
+
+
+# ---- APPNP's hop fused into the walks ----------------------------------------
+# Each fused hop rounds every step as the composed kernels and torch ops do,
+# and its walk sums in the composed walk's order, so it is bit-equal to them
+# per hop, forward and backward; over the whole K = 10 propagate autograd
+# adds h0's terms in the composition's order, so the gradient is too.
+
+APPNP_ALPHA = 0.1
+
+
+@functools.lru_cache(maxsize=1)
+def _arxiv_graph(device):
+    """ogbn-arxiv's shape with Redner-law rows (past HUB_CHUNK in both
+    walks), as the APPNP epoch tests take it."""
+    return _power_law_graph(169343, 1166243, 21, device)
+
+
+def _hop_inputs(g, f, seed):
+    gen = torch.Generator(device=g.device).manual_seed(seed)
+    h, h0, co = (torch.randn(g.n_nodes, f, generator=gen, device=g.device)
+                 for _ in range(3))
+    w = (torch.rand(g.n_edges, generator=gen, device=g.device)
+         >= 0.5).float() / 0.5
+    return h, h0, co, w
+
+
+@pytest.mark.parametrize("f", [40, 7, 128])
+def test_fused_hops_equal_the_composed_kernels(cuda, f):
+    """At ogbn-arxiv's shape: the fused weighted hop's forward, dX and dh0
+    and the fused int8 eval hop equal gcn_norm_both's kernels and the
+    teleport's torch ops bit for bit (F = 40 the cell's width, F = 7 the
+    scalar epilogue, F = 128 a one-group layout)."""
+    g = _arxiv_graph(cuda)
+    n = g.n_nodes
+    assert spmm_cuda.plan_of(g, "indptr", n).n_chunks > 0
+    assert spmm_cuda.plan_of(g, "t_indptr", n).n_chunks > 0
+    h, h0, co, w = _hop_inputs(g, f, f)
+
+    def run(hop):
+        a, b = h.clone().requires_grad_(True), h0.clone().requires_grad_(True)
+        out = hop(a, b)
+        (out * co).sum().backward()
+        return out.detach(), a.grad, b.grad
+
+    spmm_cuda.reset_counts()
+    cuda_build.reset_counts()
+    fused = run(lambda a, b: spmm_cuda.appnp_hop(g, a, b, w, APPNP_ALPHA))
+    assert spmm_cuda.counts["spmm_csr_weighted"] == 4
+    composed = run(lambda a, b: (1.0 - APPNP_ALPHA)
+                   * ops.gcn_norm_both(g, a, w) + APPNP_ALPHA * b)
+    for got, want in zip(fused, composed):
+        assert torch.equal(got, want)
+    with torch.no_grad():
+        fused = spmm_cuda.appnp_hop_int8(g, h, h0, APPNP_ALPHA)
+        with ops.inference_mode():
+            composed = ((1.0 - APPNP_ALPHA) * ops.gcn_norm_both(g, h)
+                        + APPNP_ALPHA * h0)
+    assert torch.equal(fused, composed)
+    assert spmm_cuda.counts["spmm_csr_int8"] == 4
+    assert cuda_build.counts == {"plain_on_cuda": 0}
+
+
+def test_fused_hop_on_a_misaligned_h0(cuda):
+    """An h0 whose base is not 16-byte aligned is copied before the walk
+    reads it as float4 rows; the hop keeps its numbers."""
+    g = _arxiv_graph(cuda)
+    h, h0, _, w = _hop_inputs(g, 40, 3)
+    wide = torch.zeros(g.n_nodes * 40 + 1, device=cuda)
+    off = wide[1:].view(g.n_nodes, 40)
+    off.copy_(h0)
+    assert off.data_ptr() % 16 != 0
+    with torch.no_grad():
+        assert torch.equal(spmm_cuda.appnp_hop(g, h, off, w, APPNP_ALPHA),
+                           spmm_cuda.appnp_hop(g, h, h0, w, APPNP_ALPHA))
+        assert torch.equal(spmm_cuda.appnp_hop_int8(g, h, off, APPNP_ALPHA),
+                           spmm_cuda.appnp_hop_int8(g, h, h0, APPNP_ALPHA))
+
+
+@pytest.mark.parametrize("training", [True, False])
+def test_fused_propagate_matches_the_composed_one(cuda, monkeypatch,
+                                                  training):
+    """The whole K = 10 propagate at ogbn-arxiv's shape on the fused hops
+    against every hop composed: the logits and the gradient bit for bit;
+    every hop on its path."""
+    from glnn_tpu_torch.nn import appnp_propagate
+
+    g = _arxiv_graph(cuda)
+    h, _, co, _ = _hop_inputs(g, 40, 11)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    masks = [torch.rand(g.n_edges, generator=gen, device=cuda) >= 0.5
+             for _ in range(10)]
+
+    def run():
+        ops.reset_counts()
+        x = h.clone().requires_grad_(training)
+        if not training:
+            with torch.no_grad(), ops.inference_mode():
+                return appnp_propagate(g, x, 10, APPNP_ALPHA, 0.5), None, \
+                    dict(ops.hop_counts)
+        out = appnp_propagate(g, x, 10, APPNP_ALPHA, 0.5, training=True,
+                              masks=masks)
+        grad, = torch.autograd.grad((out * co).sum(), x)
+        return out.detach(), grad, dict(ops.hop_counts)
+
+    out, grad, hops = run()
+    assert hops["fused_weighted" if training else "fused_int8"] == 10
+    monkeypatch.setattr(ops, "_appnp_path", lambda *a: "composed")
+    out_c, grad_c, hops_c = run()
+    assert hops_c["composed"] == 10
+    assert torch.equal(out, out_c)
+    if training:
+        assert torch.equal(grad, grad_c)
 
 
 # ---- the MLP eval's CUDA graphs ---------------------------------------------

@@ -350,6 +350,195 @@ def test_gnn_train_step_matches_jax(name):
                                    rtol=1e-5, atol=1e-6)
 
 
+# ---- APPNP's fused hop against the composition it replaces ----------------
+# Under a kernel tier on the CPU both paths run the kernels' plain versions,
+# which round each step as the kernels do, so a hop is bit-equal to
+# gcn_norm_both followed by the teleport; the fused hop hands autograd h0's
+# gradient before h's, as the teleport does, so the whole propagate's
+# gradient adds h0's eleven terms in the composition's order, bit for bit.
+
+ALPHA = 0.1
+
+
+def _skewed(seed=11, n=1500):
+    """A directed graph with rows past HUB_CHUNK in both walks (node 0's
+    1,300 in-edges, node 1's 900 out-edges), in- and out-degrees that
+    differ, and nodes 2..9 with no in-edges; and its RandomState."""
+    rs = np.random.RandomState(seed)
+    src = np.concatenate([rs.randint(0, n, 6000), rs.randint(0, n, 1300),
+                          np.ones(900, np.int64)])
+    dst = np.concatenate([rs.randint(10, n, 6000), np.zeros(1300, np.int64),
+                          rs.randint(10, n, 900)])
+    g = build_graph(src, dst, n)
+    assert spmm_cuda.plan_of(g, "indptr", n).n_chunks > 0
+    assert spmm_cuda.plan_of(g, "t_indptr", n).n_chunks > 0
+    return g, rs
+
+
+def _rows(rs, g, f=40, k=1):
+    return [torch.from_numpy(rs.randn(g.n_nodes, f).astype(np.float32))
+            for _ in range(k)]
+
+
+@pytest.fixture()
+def kernel_tier(monkeypatch):
+    monkeypatch.setattr(ops, "_tier_selected", lambda device: True)
+
+
+def test_degree_norms_are_kept_and_equal_the_recomputed():
+    g, _ = _skewed()
+    src_norm, dst_norm = refops.degree_norms(g)
+    assert torch.equal(src_norm, torch.rsqrt(g.out_degrees.clamp(min=1.0)))
+    assert torch.equal(dst_norm, torch.rsqrt(g.in_degrees.clamp(min=1.0)))
+    assert not torch.equal(src_norm, dst_norm)
+    again = refops.degree_norms(g)
+    assert again[0] is src_norm and again[1] is dst_norm
+    assert g.to("cpu").cache == {}                 # a moved graph's own
+    x = _rows(np.random.RandomState(3), g)[0]
+    assert torch.equal(
+        refops.gcn_norm_both(g, x),
+        refops.copy_u_sum(g, x * torch.rsqrt(g.out_degrees.clamp(min=1.0))
+                          [:, None])
+        * torch.rsqrt(g.in_degrees.clamp(min=1.0))[:, None])
+
+
+@pytest.mark.parametrize("alpha", [ALPHA, 0.3])
+def test_fused_weighted_hop_equals_the_composition(kernel_tier, alpha):
+    """Forward, dX and dh0 of `spmm_cuda.appnp_hop` against gcn_norm_both
+    with the edge-drop weights, then the teleport, bit for bit."""
+    g, rs = _skewed()
+    h, h0, co = _rows(rs, g, k=3)
+    w = torch.from_numpy((rs.rand(g.n_edges) >= 0.5).astype(np.float32) * 2)
+
+    def run(hop):
+        a, b = h.clone().requires_grad_(True), h0.clone().requires_grad_(True)
+        out = hop(a, b)
+        (out * co).sum().backward()
+        return out.detach(), a.grad, b.grad
+
+    fused = run(lambda a, b: spmm_cuda.appnp_hop(g, a, b, w, alpha))
+    composed = run(lambda a, b: (1.0 - alpha) * ops.gcn_norm_both(g, a, w)
+                   + alpha * b)
+    for got, want in zip(fused, composed):
+        assert torch.equal(got, want)
+    assert not torch.equal(fused[1], composed[2])
+
+
+def test_fused_int8_hop_equals_the_composition(kernel_tier):
+    g, rs = _skewed()
+    h, h0 = _rows(rs, g, k=2)
+    with torch.no_grad():
+        with ops.inference_mode():
+            composed = (1.0 - ALPHA) * ops.gcn_norm_both(g, h) + ALPHA * h0
+        fused = spmm_cuda.appnp_hop_int8(g, h, h0, ALPHA)
+        exact = (1.0 - ALPHA) * ops.gcn_norm_both(g, h) + ALPHA * h0
+    assert torch.equal(fused, composed)
+    assert not torch.equal(fused, exact)         # the int8 tier was taken
+
+
+def _propagate(g, h, masks, training):
+    """appnp_propagate's output, the gradient of <output, 1 + h> in h
+    (training), and its hops by path."""
+    ops.reset_counts()
+    h = h.clone().requires_grad_(training)
+    if training:
+        out = appnp_propagate(g, h, 10, ALPHA, 0.5, training=True,
+                              masks=masks)
+        grad, = torch.autograd.grad((out * (1.0 + h.detach())).sum(), h)
+    else:
+        with torch.no_grad(), ops.inference_mode():
+            out = appnp_propagate(g, h, 10, ALPHA, 0.5)
+        grad = None
+    return out.detach(), grad, dict(ops.hop_counts)
+
+
+@pytest.mark.parametrize("training", [True, False])
+def test_appnp_propagate_gives_the_same_logits_on_both_paths(
+        kernel_tier, monkeypatch, training):
+    g, rs = _skewed()
+    h, = _rows(rs, g)
+    masks = [torch.from_numpy(rs.rand(g.n_edges) >= 0.5) for _ in range(10)]
+    out, grad, hops = _propagate(g, h, masks, training)
+    path = "fused_weighted" if training else "fused_int8"
+    assert hops == dict({"fused_weighted": 0, "fused_int8": 0,
+                         "composed": 0}, **{path: 10})
+    monkeypatch.setattr(ops, "_appnp_path", lambda *a: "composed")
+    out_c, grad_c, hops_c = _propagate(g, h, masks, training)
+    assert hops_c["composed"] == 10
+    assert torch.equal(out, out_c)
+    if training:
+        assert torch.equal(grad, grad_c)
+
+
+def _halo_shard():
+    from glnn_tpu_torch.distributed.halo import build_halo_graph
+
+    rs = np.random.RandomState(5)
+    shard, = build_halo_graph(rs.randint(0, 60, 400), rs.randint(0, 60, 400),
+                              60, 1, combined=True)
+    return shard
+
+
+# case -> (setup on the monkeypatch, graph, h's dtype, training, edge drop,
+# eval under inference_mode, the path every hop takes; bf16 h: the first
+# hop's f32 norms promote the rows to f32, and h0 stays bf16)
+HOP_PATHS = {
+    "weighted": ("kernel", "graph", torch.float32, True, 0.5, False,
+                 "fused_weighted"),
+    "int8_eval": ("kernel", "graph", torch.float32, False, 0.5, True,
+                  "fused_int8"),
+    "exact_eval": ("exact", "graph", torch.float32, False, 0.5, True,
+                   "composed"),
+    "no_edge_drop": ("kernel", "graph", torch.float32, True, 0.0, False,
+                     "composed"),
+    "int8_with_grad": ("int8", "graph", torch.float32, True, 0.0, False,
+                       "composed"),
+    "bf16": ("kernel", "graph", torch.bfloat16, True, 0.5, False,
+             "composed"),
+    "plain_tier": (None, "graph", torch.float32, True, 0.5, False,
+                   "composed"),
+    "halo_shard": ("kernel", "halo", torch.float32, True, 0.5, False,
+                   "composed"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(HOP_PATHS))
+def test_hop_counts_follow_the_dispatch(monkeypatch, case):
+    """Every hop takes the path `ops.appnp_hop` chooses, and
+    `ops.hop_counts` counts it; a halo shard's composed hop is stubbed (its
+    sums exchange rows between ranks)."""
+    setup, graph, dtype, training, drop, in_eval, path = HOP_PATHS[case]
+    if setup is not None:
+        monkeypatch.setattr(ops, "_tier_selected", lambda device: True)
+    if setup == "exact":
+        monkeypatch.setattr(ops, "_EVAL_QUANT", False)
+    if setup == "int8":
+        ops.set_backend("pallas_int8")
+    if graph == "halo":
+        g = _halo_shard()
+        monkeypatch.setattr(ops, "gcn_norm_both",
+                            lambda g, x, edge_weight=None: x * 0.5)
+    else:
+        g, _ = _skewed(n=600)
+    h = torch.randn(g.n_nodes, 8, generator=torch.Generator().manual_seed(1),
+                    dtype=dtype).requires_grad_(training)
+    ops.reset_counts()
+    gen = torch.Generator().manual_seed(2)
+    if in_eval:
+        with torch.no_grad(), ops.inference_mode():
+            out = appnp_propagate(g, h, 10, ALPHA, drop, gen=gen)
+    else:
+        out = appnp_propagate(g, h, 10, ALPHA, drop, training=training,
+                              gen=gen)
+        out.float().sum().backward()
+    assert out.shape == h.shape
+    want = {"fused_weighted": 0, "fused_int8": 0, "composed": 0}
+    want[path] = 10
+    assert ops.hop_counts == want
+    ops.reset_counts()
+    assert ops.hop_counts == {k: 0 for k in want}
+
+
 # ---- the CLIs -------------------------------------------------------------
 
 DATASET = "synth-n512-c5-f32-d8-noise3.0"

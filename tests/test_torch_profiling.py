@@ -26,13 +26,21 @@ from glnn_tpu_torch.utils.trace_report import ITER_SPAN, port_name, report
 
 # the kernels' demangled names as the H100's trace gives them
 _SPMM = ("void (anonymous namespace)::spmm_csr_kernel<(anonymous namespace)::"
-         "{p}, {v}, false>(int const*, int const*, (anonymous namespace)::"
-         "{p}::TIn const*, (anonymous namespace)::{p}, float*, int2 const*, "
+         "{p}, {v}, false, (anonymous namespace)::{h}>(int const*, int "
+         "const*, (anonymous namespace)::{p}::TIn const*, (anonymous "
+         "namespace)::{p}, (anonymous namespace)::{h}, float*, int2 const*, "
          "(anonymous namespace)::{p}::TAcc*, int, int, int, int, int, int)")
+_SPMM_COMBINE = ("void (anonymous namespace)::spmm_csr_combine_kernel<"
+                 "(anonymous namespace)::{p}, (anonymous namespace)::{h}>("
+                 "int const*, int const*, (anonymous namespace)::{p}::TAcc "
+                 "const*, (anonymous namespace)::{p}, (anonymous namespace)::"
+                 "{h}, float*, int, int)")
 DEMANGLED = {
-    "spmm_csr_bf16": _SPMM.format(p="Sum<__nv_bfloat16, float>", v=8),
-    "spmm_csr_int8": _SPMM.format(p="Sum<signed char, int>", v=8),
-    "spmm_csr_weighted": _SPMM.format(p="Weighted", v=4),
+    "spmm_csr_bf16": _SPMM.format(p="Sum<__nv_bfloat16, float>", v=8,
+                                  h="NoHop"),
+    "spmm_csr_int8": _SPMM.format(p="Sum<signed char, int>", v=8,
+                                  h="NoHop"),
+    "spmm_csr_weighted": _SPMM.format(p="Weighted", v=4, h="NoHop"),
     "spmm_csr_f32": "void (anonymous namespace)::spmm_f32_kernel<4>(int "
                     "const*, int const*, float const*, int2 const*, float*, "
                     "float*, int, int, int, int, int, int)",
@@ -63,6 +71,22 @@ TORCH_KERNEL = ("void at::native::vectorized_elementwise_kernel<8, "
 @pytest.mark.parametrize("port", sorted(DEMANGLED))
 def test_port_name_of_each_kernel(port):
     assert port_name(DEMANGLED[port]) == port
+
+
+# APPNP's fused hops (forward, transposed, int8 eval: Appnp<0>, <1>, <2>),
+# walk and combine, count under their policy's kernel
+FUSED_HOPS = [(form.format(p=p, v=v, h=f"Appnp<{i}>").replace(">>", "> >"),
+               port)
+              for form in (_SPMM, _SPMM_COMBINE)
+              for p, v, i, port in (("Weighted", 4, 0, "spmm_csr_weighted"),
+                                    ("Weighted", 4, 1, "spmm_csr_weighted"),
+                                    ("Sum<signed char, int>", 8, 2,
+                                     "spmm_csr_int8"))]
+
+
+@pytest.mark.parametrize("name,port", FUSED_HOPS)
+def test_port_name_of_each_fused_hop_kernel(name, port):
+    assert port_name(name) == port
 
 
 # the f32 sum's second pass, counted as a launch of spmm_csr_f32 as well
