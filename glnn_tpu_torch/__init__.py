@@ -6,10 +6,12 @@ Layering mirrors glnn_tpu (bottom-up):
   ops/       message passing: plain torch tier and the CUDA SpMM kernel
   nn/        layers and models (MLP, SAGE), JAX weight import
   sampling/  fanout neighbour sampling (Floyd tier, concat blocks)
-  train/     sampled-SAGE and MLP epochs, eval, transductive runners
+  train/     sampled-SAGE and MLP epochs, evals, the four runners
   utils/     seeding, config, splits, logging
   distributed/ --n_shards: partitioners, the process group and its
-             collectives, the halo-sharded graph, data-parallel sampling
+             collectives, the halo-sharded graph (which brings its own op
+             forms), data-parallel sampling, and the rank's placement
+             that the runners take; nothing below imports it
   cli/       train_teacher / train_student entry points
 It imports neither jax nor glnn_tpu.
 """

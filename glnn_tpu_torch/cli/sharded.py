@@ -4,10 +4,11 @@ nodes for locality (GNN teachers), builds each shard's halo index sets on
 the host once, and launches one rank per shard (`distributed.mesh.launch`)
 with only its shard: its feature rows, its HaloGraph, and the replicated
 structure graph of a sampled SAGE teacher. Every rank runs the engine's
-runner on its shard; rank 0 writes `log` (with every rank's backend and
-device, and the kernel launches summed over the ranks), `out.npz` (in the
-original node order) and the saved results, and returns its scores to the
-parent, which prints the score line.
+runner on its shard under a `RankPlacement` (distributed/runners.py);
+rank 0 writes `log` (with every rank's backend and device, and the kernel
+launches summed over the ranks), `out.npz` (in the original node order)
+and the saved results, and returns its scores to the parent, which
+prints the score line.
 
 Paths: an MLP teacher and the MLP student train data-parallel; a sampled
 SAGE teacher trains data-parallel on the structure graph and evaluates on
@@ -44,6 +45,7 @@ from glnn_tpu_torch.distributed.partition import (
     inverse_permutation,
     label_propagation_labels,
 )
+from glnn_tpu_torch.distributed.runners import RankPlacement
 from glnn_tpu_torch.graph.host import reorder_nodes
 from glnn_tpu_torch.nn.models import APPNP, GAT
 from glnn_tpu_torch.utils import graph_split
@@ -179,25 +181,21 @@ def teacher_rank(mesh, payload):
     model, optimizer, logger = _rank_setup(mesh, payload)
     dev = mesh.device
     conf = payload["conf"]
-    g = payload["g"].to(dev) if payload["g"] is not None else None
-    struct = (payload["g_struct"].to(dev) if payload["g_struct"] is not None
-              else None)
+    g, obs_g, struct = (payload[k].to(dev) if payload[k] is not None
+                        else None for k in ("g", "obs_g", "g_struct"))
+    place = RankPlacement(struct, payload["obs_feats"])
     loss_and_score = []
     state_out = {} if payload["save_results"] else None
     if payload["setting"] == "tran":
-        out, _, score_test = run_transductive(
+        out, _, *scores = run_transductive(
             conf, model, g, payload["feats"], payload["labels"],
             payload["indices"], optimizer, logger, loss_and_score, dev,
-            state_out, g_struct=struct)
-        scores = [score_test]
+            state_out, place)
     else:
-        obs_g = (payload["obs_g"].to(dev) if payload["obs_g"] is not None
-                 else None)
-        out, _, tt, ti = run_inductive(
+        out, _, *scores = run_inductive(
             conf, model, g, obs_g, payload["feats"], payload["labels"],
             payload["indices"], optimizer, logger, loss_and_score, dev,
-            state_out, g_struct=struct, obs_feats=payload["obs_feats"])
-        scores = [tt, ti]
+            state_out, place)
     return _finish(mesh, logger, payload, out, scores, loss_and_score,
                    state_out, payload["unmap"])
 
@@ -281,7 +279,8 @@ def student_rank(mesh, payload):
     out, _, *scores = run(payload["conf"], model, payload["feats"],
                           payload["labels"], payload["out_t"],
                           payload["indices"], optimizer, logger,
-                          loss_and_score, mesh.device, state_out)
+                          loss_and_score, mesh.device, state_out,
+                          RankPlacement())
     return _finish(mesh, logger, payload, out, scores, loss_and_score,
                    state_out)
 

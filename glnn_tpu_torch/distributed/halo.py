@@ -63,6 +63,11 @@ gradient home and adds it at the send rows.
   source reduce over the combined transpose (`c_t_edges`, rows + n_recv
   rows), the receive rows' part of dfeat sent home; dattn_l and dattn_r
   are this shard's, summed over the ranks by `mesh.all_reduce_grads`.
+
+A HaloGraph carries these as methods named after the ops (`copy_u_sum`,
+`u_add_v`, `edge_softmax`, `u_mul_e_sum`, `gat_attention`), which the op
+surface calls for a shard after it has picked the tier, so that the ops
+and the models import nothing of this package.
 """
 
 from __future__ import annotations
@@ -132,7 +137,23 @@ class HaloGraph:
     cache: dict = dataclasses.field(default_factory=dict, init=False,
                                     repr=False, compare=False)
 
-    is_halo = True
+    # the shard's op forms: the op surface (ops/__init__.py) hands a shard
+    # to these, `kernel` its tier choice
+    def copy_u_sum(self, x, kernel):
+        return halo_copy_u_sum(self, x, kernel)
+
+    def u_add_v(self, a_u, a_v):
+        return halo_u_add_v(self, a_u, a_v)
+
+    def edge_softmax(self, scores, kernel):
+        return halo_edge_softmax(self, scores, kernel)
+
+    def u_mul_e_sum(self, x, e, kernel):
+        return halo_u_mul_e_sum(self, x, e, kernel)
+
+    def gat_attention(self, feat, attn_l, attn_r, slope, seed, inv_keep):
+        return halo_gat_attention(self, feat, attn_l, attn_r, slope, seed,
+                                  inv_keep)
 
     @property
     def n_pad(self) -> int:

@@ -34,6 +34,7 @@ import torch
 from glnn_tpu_torch.distributed import mesh as _mesh
 from glnn_tpu_torch.nn.layers import BatchNorm1d
 from glnn_tpu_torch.sampling.sampler import sample_blocks
+from glnn_tpu_torch.train.engine import host_float
 from glnn_tpu_torch.train.losses import log_softmax
 
 
@@ -110,6 +111,6 @@ def make_dp_sampled_sage_epoch_fn(model, optimizer, batch_size: int, fanouts,
             optimizer.step()
             losses.append(total / den)
             overflow = overflow or bool(blocks.overflowed)
-        return float(torch.stack(losses).mean()), (overflow, False)
+        return host_float(torch.stack(losses).mean()), (overflow, False)
 
     return epoch

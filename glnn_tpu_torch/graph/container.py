@@ -62,6 +62,15 @@ class Graph:
     cache: dict = dataclasses.field(default_factory=dict, init=False,
                                     repr=False, compare=False)
 
+    # the whole graph: its edges are the global edges from the first, so
+    # the per-edge random draws (APPNP's edge drop, GAT's Philox bits) read
+    # these as a halo shard's slice of the global order does
+    edge_base = 0
+
+    @property
+    def n_edges_global(self) -> int:
+        return self.n_edges
+
     @property
     def device(self) -> torch.device:
         return self.senders.device

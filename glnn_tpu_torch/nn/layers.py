@@ -16,8 +16,10 @@
   input, attention dropout on alpha; no bias, no residual.
 * appnp_propagate: k hops of h <- (1 - alpha) D^-1/2 A_drop D^-1/2 h
   + alpha h0, with per-edge dropout (zero, or 1 / (1 - p)) in training;
-  on a halo shard each hop draws the whole graph's [E] mask and keeps the
-  shard's slice, so the ranks' masks together are the single-device mask.
+  each hop draws the whole graph's mask (`n_edges_global` edges) and keeps
+  the graph's edges from `edge_base`: all of them on a Graph, the shard's
+  slice on a halo shard, so the ranks' masks together are the
+  single-device mask.
   Each hop is `ops.appnp_hop`: inside the SpMM's walk where it can
   (norms and teleport fused, the same numbers), else `gcn_norm_both` and
   the teleport; `ops.hop_counts` counts the hops by path. The hops run in
@@ -26,11 +28,14 @@
   utils/profiling.py).
 * LayerNorm1d: torch.nn.LayerNorm over the feature axis.
 * dropout: inverted dropout whose mask comes from an explicit generator;
-  inside `global_rows(total, lo)` (a sharded forward over rows lo.. of a
-  batch of `total` rows) it draws the whole batch's mask and keeps this
-  rank's rows, so every rank draws alike and the ranks' masks together
-  are the single-device mask.
+  inside `global_rows(total, lo)` (a rank's forward over rows lo.. of a
+  batch of `total` rows, which the rank's epochs open) it draws the whole
+  batch's mask and keeps this rank's rows, so every rank draws alike and
+  the ranks' masks together are the single-device mask.
 * linear: an nn.Linear in a compute dtype, as flax's Dense(dtype=...).
+
+The layers import nothing of the sharded package: a halo shard brings its
+own op forms to the op surface (ops/__init__.py).
 """
 
 from __future__ import annotations
@@ -164,10 +169,7 @@ def appnp_propagate(g: Graph, h: torch.Tensor, k: int, alpha: float,
     given (bool [E] per hop, the graph's or the shard's edges)."""
     h0 = h
     use_drop = training and edge_drop > 0.0
-    if getattr(g, "is_halo", False):
-        total, lo = g.n_edges_global, g.edge_base
-    else:
-        total, lo = g.n_edges, 0
+    total, lo = g.n_edges_global, g.edge_base
     with _PROPAGATE:
         for i in range(k):
             w = None

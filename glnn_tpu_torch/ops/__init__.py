@@ -17,20 +17,23 @@ On a CPU tensor the kernel tiers run their plain versions; on a CUDA
 tensor they launch the kernel or raise, also for shapes outside a
 kernel's contract.
 
-On a HaloGraph (one shard of a halo-sharded graph, distributed/halo.py)
-every op runs its halo form: `copy_u_sum` `halo_copy_u_sum`, `u_add_v`
-`halo_u_add_v`, `edge_softmax` `halo_edge_softmax`, `u_mul_e_sum`
-`halo_u_mul_e_sum` (so also `gcn_norm_both` with edge weights) and
-`gat_attention` `halo_gat_attention`: the kernels wherever the kernel tier
-applies, the exact ones also inside `inference_mode()` (JAX's halo path
-never takes int8), else the f32 plain ops. Per-edge tensors on a shard are
-in its combined CSR's order (the global dst-sorted order, sliced).
+A graph other than a `Graph` is one shard of a halo-sharded graph
+(`HaloGraph`, distributed/halo.py), and it brings its own op forms: each
+op here picks the tier and hands the shard its method of the same name
+(`copy_u_sum`, `u_add_v`, `edge_softmax`, `u_mul_e_sum`, so also
+`gcn_norm_both` and `appnp_hop`, and `gat_attention`), with `kernel` true
+wherever the kernel tier applies, the exact kernels also inside
+`inference_mode()` (JAX's halo path never takes int8), else the f32
+plain ops. Per-edge tensors on a shard are in its combined CSR's order
+(the global dst-sorted order, sliced). This package imports nothing of
+the sharded one.
 """
 
 from __future__ import annotations
 
 import torch
 
+from glnn_tpu_torch.graph.container import Graph
 from glnn_tpu_torch.ops import cuda_build, gat_cuda, spmm_cuda
 from glnn_tpu_torch.ops import refops as _ref
 
@@ -96,16 +99,9 @@ def _unweighted_tier() -> str:
     return "bf16"
 
 
-def _halo(g) -> bool:
-    """Is g a HaloGraph (one shard of a halo-sharded graph)?"""
-    return getattr(g, "is_halo", False)
-
-
 def copy_u_sum(g, x: torch.Tensor) -> torch.Tensor:
-    if _halo(g):
-        from glnn_tpu_torch.distributed.halo import halo_copy_u_sum
-
-        return halo_copy_u_sum(g, x, kernel=_tier_selected(x.device))
+    if not isinstance(g, Graph):
+        return g.copy_u_sum(x, kernel=_tier_selected(x.device))
     if x.dim() == 2 and _tier_selected(x.device):
         if _unweighted_tier() == "int8":
             return spmm_cuda.copy_u_sum_int8(g, x)
@@ -120,10 +116,8 @@ def copy_u_mean(g, x: torch.Tensor) -> torch.Tensor:
 
 def u_add_v(g, a_u: torch.Tensor, a_v: torch.Tensor) -> torch.Tensor:
     """Per-edge a_u[src] + a_v[dst]; plain torch on every tier, as in JAX."""
-    if _halo(g):
-        from glnn_tpu_torch.distributed.halo import halo_u_add_v
-
-        return halo_u_add_v(g, a_u, a_v)
+    if not isinstance(g, Graph):
+        return g.u_add_v(a_u, a_v)
     return _ref.u_add_v(g, a_u, a_v)
 
 
@@ -133,10 +127,8 @@ def edge_softmax(g, scores: torch.Tensor) -> torch.Tensor:
     if not kernel and _kernel_only(scores):
         raise ValueError(f"the edge_softmax kernel takes scores [E] or "
                          f"[E, H], got {tuple(scores.shape)}")
-    if _halo(g):
-        from glnn_tpu_torch.distributed.halo import halo_edge_softmax
-
-        return halo_edge_softmax(g, scores, kernel=kernel)
+    if not isinstance(g, Graph):
+        return g.edge_softmax(scores, kernel=kernel)
     if kernel:
         return gat_cuda.edge_softmax(g, scores)
     cuda_build.note_plain(scores)
@@ -154,10 +146,8 @@ def u_mul_e_sum(g, x: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"the weighted SpMM kernel takes x [N, F] with e "
                          f"[E], or x [N, H, D] with e [E, H]; got "
                          f"{tuple(x.shape)} and {tuple(e.shape)}")
-    if _halo(g):
-        from glnn_tpu_torch.distributed.halo import halo_u_mul_e_sum
-
-        return halo_u_mul_e_sum(g, x, e, kernel=kernel)
+    if not isinstance(g, Graph):
+        return g.u_mul_e_sum(x, e, kernel=kernel)
     if kernel:
         return spmm_cuda.u_mul_e_sum(g, x, e)
     cuda_build.note_plain(x)
@@ -184,12 +174,13 @@ def reset_counts() -> None:
 
 def _appnp_path(g, h: torch.Tensor, h0: torch.Tensor, weighted: bool) -> str:
     """The path of one hop: "fused_weighted" with edge-drop weights,
-    "fused_int8" on the int8 tier with no gradient, each on a Graph (not a
-    halo shard) with h and h0 f32 [N, F] under a kernel tier; "composed"
-    for every other: halo shards, the exact tier, bf16 rows and the plain
-    f32 tier (auto on the CPU)."""
-    if (_halo(g) or h.dtype != torch.float32 or h0.dtype != torch.float32
-            or h.dim() != 2 or not _tier_selected(h.device)):
+    "fused_int8" on the int8 tier with no gradient, each on a Graph with h
+    and h0 f32 [N, F] under a kernel tier; "composed" for every other: a
+    halo shard, the exact tier, bf16 rows and the plain f32 tier (auto on
+    the CPU)."""
+    if (not isinstance(g, Graph) or h.dtype != torch.float32
+            or h0.dtype != torch.float32 or h.dim() != 2
+            or not _tier_selected(h.device)):
         return "composed"
     if weighted:
         return "fused_weighted"
@@ -230,32 +221,28 @@ def gat_attention(g, feat: torch.Tensor, attn_l: torch.Tensor,
     draws the same seed from its generator, seeded alike). Under a kernel
     tier this is the fused attention (bf16 features, f32 softmax and sums),
     whose kernels generate the bits themselves; otherwise the f32
-    composition of the plain ops."""
-    from glnn_tpu_torch.distributed import halo as _h
-
-    halo = _halo(g)
+    composition of the dispatched plain ops."""
     seed = None
     inv_keep = 1.0 / (1.0 - drop_rate)
     if drop_rate > 0.0:
         seed = torch.randint(2 ** 63 - 1, (1,), dtype=torch.int64,
                              generator=gen, device=feat.device)
     if feat.dim() == 3 and _tier_selected(feat.device):
-        fused = _h.halo_gat_attention if halo else gat_cuda.gat_attention
-        return fused(g, feat, attn_l, attn_r, slope, seed, inv_keep)
-    cuda_build.note_plain(feat)
+        if not isinstance(g, Graph):
+            return g.gat_attention(feat, attn_l, attn_r, slope, seed,
+                                   inv_keep)
+        return gat_cuda.gat_attention(g, feat, attn_l, attn_r, slope, seed,
+                                      inv_keep)
     el = (feat * attn_l[None]).sum(-1)                 # [N, H]
     er = (feat * attn_r[None]).sum(-1)
     e = u_add_v(g, el, er)                             # [E, H]
     e = torch.where(e >= 0, e, slope * e)
-    alpha = (_h.halo_edge_softmax(g, e, kernel=False) if halo
-             else _ref.edge_softmax(g, e))
+    alpha = edge_softmax(g, e)
     if seed is not None:
         keep = gat_cuda.philox_keep(seed, g.n_edges, feat.shape[1],
-                                    1.0 / inv_keep, getattr(g, "edge_base", 0))
+                                    1.0 / inv_keep, g.edge_base)
         alpha = alpha * keep.to(alpha.dtype) / (1.0 - drop_rate)
-    if halo:
-        return _h.halo_u_mul_e_sum(g, feat, alpha, kernel=False)
-    return _ref.u_mul_e_sum(g, feat, alpha)
+    return u_mul_e_sum(g, feat, alpha)
 
 
 __all__ = [

@@ -27,9 +27,11 @@
   taken by `idx_obs`. The returned all-node log-probs merge the two:
   `out = out_all; out[idx_obs] = obs_out`. Rows of `loss_and_score` have 9
   fields (7 transductive).
-* Sharded: called inside a rank of `distributed.mesh.launch` (--n_shards),
-  each runner hands over to its counterpart in `distributed/runners.py`,
-  which every rank runs on its shard.
+* Placement: the runners are written once. What a rank of a sharded run
+  does otherwise (its row blocks and halo shards, its generators, batch
+  norm over the ranks, the data-parallel and halo epochs and evals) comes
+  from the placement it passes (`place`); `LocalPlacement` is the one
+  process's. This module imports nothing of the sharded package.
 * Spans (recorded only under a profiler, utils/profiling.py): the
   full-batch teacher epoch `runner.train_epoch` around `runner.forward`,
   `runner.backward` and `runner.optimizer`; `runner.eval`;
@@ -43,13 +45,11 @@ from __future__ import annotations
 import bisect
 import collections
 import math
-from functools import partial
 
 import numpy as np
 import torch
 
 from glnn_tpu_torch import ops
-from glnn_tpu_torch.distributed import mesh as _mesh
 from glnn_tpu_torch.train.losses import (
     accuracy,
     kl_div_batchmean_log_target,
@@ -433,120 +433,164 @@ def _teacher_epoch_fn(conf, model, optimizer, logger, g, feats, labels,
     return full_batch
 
 
-def _runners():
-    """The sharded runners, inside a rank; None outside every rank."""
-    if _mesh.current() is None:
-        return None
-    from glnn_tpu_torch.distributed import runners
+class LocalPlacement:
+    """Where a runner's work goes in one process: every row, and the whole
+    graph, on the runner's device. A rank of a sharded run passes the
+    runners its own placement with the same methods
+    (`distributed.runners.RankPlacement`): row blocks and halo shards, the
+    ranks' generators, batch norm taken over the ranks, and the
+    data-parallel and halo epochs and evals."""
 
-    return runners
+    def generators(self, conf, device):
+        """(shared, own): the run's one seeded generator, twice."""
+        gen = torch.Generator(device=device).manual_seed(int(conf["seed"]))
+        return gen, gen
+
+    def observed_rows(self, x, idx_obs):
+        """A GNN teacher's observed feature rows: x's rows idx_obs."""
+        return x[idx_obs]
+
+    def teacher_epoch(self, conf, model, optimizer, logger, g, x, labels,
+                      idx_train, gens):
+        return _teacher_epoch_fn(conf, model, optimizer, logger, g, x, labels,
+                                 idx_train, gens[0])
+
+    def distill_epoch(self, conf, model, optimizer, x, t, labels, ids_l,
+                      ids_t, gens):
+        """The two passes over the rows ids_l (hard labels) and ids_t (the
+        teacher's log-probs t)."""
+        return _distill_epoch_fn(conf, model, optimizer, x[ids_l],
+                                 labels[ids_l], x[ids_t], t[ids_t], gens[0])
+
+    def evaluators(self, conf, model, n):
+        """(eval, final eval), each evaluate(g, x) -> all-node log-probs
+        [n]. The final log-probs become out.npz, the student's KL targets:
+        a GNN's final eval is always the exact tier."""
+        if model.is_mlp:
+            mlp_eval = make_mlp_eval_fn(
+                model, conf.get("eval_batch_size", conf["batch_size"]))
+
+            def evaluate(g, x):
+                return mlp_eval(x)
+            return evaluate, evaluate
+        return make_eval_fn(model), make_eval_fn(model, exact=True)
 
 
-def run_transductive(conf, model, g, feats, labels, indices, optimizer,
-                     logger, loss_and_score, device, state_out=None,
-                     g_struct=None):
-    """Teacher training, transductive: an MLP, a sampled-SAGE or a
-    full-batch GNN (GCN, GAT, APPNP, full SAGE) teacher on `device`. Returns
-    (out, score_val, score_test) with `out` the all-node log-probs (numpy)
-    from the best checkpoint. Inside a rank: g is the rank's HaloGraph,
-    feats its row block, and g_struct the structure Graph of a sampled
-    SAGE teacher."""
-    sharded = _runners()
-    if sharded:
-        return sharded.run_transductive(
-            conf, model, g, feats, labels, indices, optimizer, logger,
-            loss_and_score, device, state_out, g_struct)
-    feats, labels = _tensors(device, np.asarray(feats, np.float32), labels)
-    idx_train, idx_val, idx_test = _tensors(device, *indices)
-    gen = torch.Generator(device=device).manual_seed(int(conf["seed"]))
+LOCAL = LocalPlacement()
 
-    train_epoch = _teacher_epoch_fn(conf, model, optimizer, logger, g, feats,
-                                    labels, idx_train, gen)
-    if model.is_mlp:
-        eval_fn = make_mlp_eval_fn(
-            model, conf.get("eval_batch_size", conf["batch_size"]))
-        final_fn = eval_fn
-    else:
-        eval_fn = partial(make_eval_fn(model), g)
-        # the final log-probs become out.npz, the student's KL targets:
-        # always the exact tier
-        final_fn = partial(make_eval_fn(model, exact=True), g)
+
+def _tran_tail(conf, model, logger, loss_and_score, state_out, train_epoch,
+               evaluate, labels, idxs, names, where):
+    """A transductive run from its epoch on: `_fit` with evals scoring the
+    rows idxs = (fitted, val, test) under `names`, then the final eval.
+    evaluate(exact) -> all-node log-probs. Returns (out, score_val,
+    score_test), `out` the best checkpoint's log-probs (numpy)."""
 
     def eval_row():
-        out = eval_fn(feats)
-        return _metrics_row((out, labels, idx)
-                            for idx in (idx_train, idx_val, idx_test))
+        out = evaluate(False)
+        return _metrics_row((out, labels, idx) for idx in idxs)
 
     best = _fit(conf, model, logger, loss_and_score, train_epoch, eval_row,
-                ("s_train", "s_val", "s_test"), "teacher tran runner",
-                state_out)
-    out = final_fn(feats)
-    _, score_val = _subset_metrics(out, labels, idx_val)
-    _, score_test = _subset_metrics(out, labels, idx_test)
+                names, where, state_out)
+    out = evaluate(True)
+    _, score_val = _subset_metrics(out, labels, idxs[1])
+    _, score_test = _subset_metrics(out, labels, idxs[2])
     _log_final(logger, best, score_val=score_val, score_test=score_test)
     return out.cpu().numpy(), score_val, score_test
 
 
-def run_inductive(conf, model, g, obs_g, feats, labels, indices, optimizer,
-                  logger, loss_and_score, device, state_out=None,
-                  g_struct=None, obs_feats=None):
-    """Teacher training, inductive: trains on the observed subgraph `obs_g`
-    (node i is global node idx_obs[i]) and evaluates on it and on the full
-    `g`. `indices` = (obs_idx_train, obs_idx_val, obs_idx_test, idx_obs,
-    idx_test_ind), as `graph_split` gives them. Returns (out, score_val,
-    score_test_tran, score_test_ind) with `out` the merged all-node
-    log-probs (numpy). Inside a rank: g and obs_g are the rank's HaloGraphs,
-    feats and obs_feats its row blocks of the full and observed features,
-    g_struct the observed structure Graph of a sampled SAGE teacher."""
-    sharded = _runners()
-    if sharded:
-        return sharded.run_inductive(
-            conf, model, g, obs_g, feats, labels, indices, optimizer, logger,
-            loss_and_score, device, state_out, g_struct, obs_feats)
-    feats, labels = _tensors(device, np.asarray(feats, np.float32), labels)
-    (obs_idx_train, obs_idx_val, obs_idx_test, idx_obs,
-     idx_test_ind) = _tensors(device, *indices)
-    obs_feats, obs_labels = feats[idx_obs], labels[idx_obs]
-    gen = torch.Generator(device=device).manual_seed(int(conf["seed"]))
-
-    train_epoch = _teacher_epoch_fn(conf, model, optimizer, logger, obs_g,
-                                    obs_feats, obs_labels, obs_idx_train, gen)
-    if model.is_mlp:
-        mlp_eval = make_mlp_eval_fn(
-            model, conf.get("eval_batch_size", conf["batch_size"]))
-
-        def evaluate(exact=False):
-            """(obs_out, out_all): one pass over all features."""
-            out_all = mlp_eval(feats)
-            return out_all[idx_obs], out_all
-    else:
-        # the final log-probs become out.npz: the exact tier on both graphs
-        eval_fns = (make_eval_fn(model), make_eval_fn(model, exact=True))
-
-        def evaluate(exact=False):
-            """(obs_out, out_all): an obs graph and a full graph pass."""
-            fn = eval_fns[exact]
-            return fn(obs_g, obs_feats), fn(g, feats)
+def _ind_tail(conf, model, logger, loss_and_score, state_out, train_epoch,
+              evaluate, labels, idx_obs, idxs, names, where):
+    """An inductive run from its epoch on: idxs = (fitted, val, test) as
+    obs-local positions, then idx_test_ind (global ids); evaluate(exact)
+    -> (obs_out, out_all). Returns (out, score_val, score_test_tran,
+    score_test_ind), `out` the merged log-probs (numpy)."""
+    obs_labels = labels[idx_obs]
 
     def eval_row():
-        obs_out, out_all = evaluate()
-        return _metrics_row(
-            [(obs_out, obs_labels, idx)
-             for idx in (obs_idx_train, obs_idx_val, obs_idx_test)]
-            + [(out_all, labels, idx_test_ind)])
+        obs_out, out_all = evaluate(False)
+        return _metrics_row([(obs_out, obs_labels, idx) for idx in idxs[:3]]
+                            + [(out_all, labels, idxs[3])])
 
     best = _fit(conf, model, logger, loss_and_score, train_epoch, eval_row,
-                ("s_train", "s_val", "s_tt", "s_ti"), "teacher ind runner",
-                state_out)
-    obs_out, out_all = evaluate(exact=True)
-    _, score_val = _subset_metrics(obs_out, obs_labels, obs_idx_val)
-    _, score_test_tran = _subset_metrics(obs_out, obs_labels, obs_idx_test)
-    _, score_test_ind = _subset_metrics(out_all, labels, idx_test_ind)
+                names, where, state_out)
+    obs_out, out_all = evaluate(True)
+    _, score_val = _subset_metrics(obs_out, obs_labels, idxs[1])
+    _, score_test_tran = _subset_metrics(obs_out, obs_labels, idxs[2])
+    _, score_test_ind = _subset_metrics(out_all, labels, idxs[3])
     _log_final(logger, best, score_val=score_val,
                score_test_tran=score_test_tran, score_test_ind=score_test_ind)
     out = out_all.clone()
     out[idx_obs] = obs_out
     return out.cpu().numpy(), score_val, score_test_tran, score_test_ind
+
+
+def _one_pass(evaluators, x, idx_obs):
+    """An MLP's evaluate(exact) -> (obs_out, out_all): one pass over all
+    the features, its obs rows taken by idx_obs."""
+
+    def evaluate(exact):
+        out_all = evaluators[exact](None, x)
+        return out_all[idx_obs], out_all
+    return evaluate
+
+
+def run_transductive(conf, model, g, feats, labels, indices, optimizer,
+                     logger, loss_and_score, device, state_out=None,
+                     place=LOCAL):
+    """Teacher training, transductive: an MLP, a sampled-SAGE or a
+    full-batch GNN (GCN, GAT, APPNP, full SAGE) teacher on `device`. Returns
+    (out, score_val, score_test) with `out` the all-node log-probs (numpy)
+    from the best checkpoint. Under a rank's placement g is the rank's halo
+    shard and feats its row block."""
+    x, labels = _tensors(device, np.asarray(feats, np.float32), labels)
+    idx_train, idx_val, idx_test = _tensors(device, *indices)
+    train_epoch = place.teacher_epoch(conf, model, optimizer, logger, g, x,
+                                      labels, idx_train,
+                                      place.generators(conf, device))
+    evaluators = place.evaluators(conf, model, labels.shape[0])
+    return _tran_tail(conf, model, logger, loss_and_score, state_out,
+                      train_epoch, lambda exact: evaluators[exact](g, x),
+                      labels, (idx_train, idx_val, idx_test),
+                      ("s_train", "s_val", "s_test"), "teacher tran runner")
+
+
+def run_inductive(conf, model, g, obs_g, feats, labels, indices, optimizer,
+                  logger, loss_and_score, device, state_out=None,
+                  place=LOCAL):
+    """Teacher training, inductive: trains on the observed subgraph `obs_g`
+    (node i is global node idx_obs[i]) and evaluates on it and on the full
+    `g`; an MLP trains on the observed train rows of all the features.
+    `indices` = (obs_idx_train, obs_idx_val, obs_idx_test, idx_obs,
+    idx_test_ind), as `graph_split` gives them. Returns (out, score_val,
+    score_test_tran, score_test_ind) with `out` the merged all-node
+    log-probs (numpy). Under a rank's placement g and obs_g are the rank's
+    halo shards and feats its row block."""
+    x, labels = _tensors(device, np.asarray(feats, np.float32), labels)
+    (obs_idx_train, obs_idx_val, obs_idx_test, idx_obs,
+     idx_test_ind) = _tensors(device, *indices)
+    gens = place.generators(conf, device)
+    evaluators = place.evaluators(conf, model, labels.shape[0])
+    if model.is_mlp:
+        train_epoch = place.teacher_epoch(conf, model, optimizer, logger,
+                                          None, x, labels,
+                                          idx_obs[obs_idx_train], gens)
+        evaluate = _one_pass(evaluators, x, idx_obs)
+    else:
+        obs_x = place.observed_rows(x, idx_obs)
+        train_epoch = place.teacher_epoch(conf, model, optimizer, logger,
+                                          obs_g, obs_x, labels[idx_obs],
+                                          obs_idx_train, gens)
+
+        def evaluate(exact):
+            """(obs_out, out_all): an obs graph and a full graph pass."""
+            fn = evaluators[exact]
+            return fn(obs_g, obs_x), fn(g, x)
+    return _ind_tail(conf, model, logger, loss_and_score, state_out,
+                     train_epoch, evaluate, labels, idx_obs,
+                     (obs_idx_train, obs_idx_val, obs_idx_test, idx_test_ind),
+                     ("s_train", "s_val", "s_tt", "s_ti"),
+                     "teacher ind runner")
 
 
 def _distill_epoch_fn(conf, model, optimizer, feats_l, labels_l, feats_t,
@@ -564,85 +608,47 @@ def _distill_epoch_fn(conf, model, optimizer, feats_l, labels_l, feats_t,
 
 def distill_run_transductive(conf, model, feats, labels, out_t_all,
                              distill_indices, optimizer, logger,
-                             loss_and_score, device, state_out=None):
+                             loss_and_score, device, state_out=None,
+                             place=LOCAL):
     """GLNN distillation, transductive: per epoch a hard-label pass on idx_l
     scaled by lamb, then a teacher log-prob pass on idx_t scaled by
-    1 - lamb. Returns (out, score_val, score_test). Inside a rank, feats and
-    out_t_all are the rank's row blocks."""
-    sharded = _runners()
-    if sharded:
-        return sharded.distill_run_transductive(
-            conf, model, feats, labels, out_t_all, distill_indices, optimizer,
-            logger, loss_and_score, device, state_out)
-    feats, labels, out_t_all = _tensors(
-        device, np.asarray(feats, np.float32), labels,
-        np.asarray(out_t_all, np.float32))
+    1 - lamb. Returns (out, score_val, score_test); the logged loss_l is
+    the eval-mode NLL on the hard-label set. Under a rank's placement
+    feats and out_t_all are the rank's row blocks."""
+    x, labels, t = _tensors(device, np.asarray(feats, np.float32), labels,
+                            np.asarray(out_t_all, np.float32))
     idx_l, idx_t, idx_val, idx_test = _tensors(device, *distill_indices)
-    gen = torch.Generator(device=device).manual_seed(int(conf["seed"]))
-    train_epoch = _distill_epoch_fn(conf, model, optimizer, feats[idx_l],
-                                    labels[idx_l], feats[idx_t],
-                                    out_t_all[idx_t], gen)
-    eval_fn = make_mlp_eval_fn(model, conf.get("eval_batch_size",
-                                               conf["batch_size"]))
-
-    def eval_row():
-        out = eval_fn(feats)
-        # the logged loss_l is the eval-mode NLL on the hard-label set
-        return _metrics_row((out, labels, idx)
-                            for idx in (idx_l, idx_val, idx_test))
-
-    best = _fit(conf, model, logger, loss_and_score, train_epoch, eval_row,
-                ("s_l", "s_val", "s_test"), "distill runner", state_out)
-    out = eval_fn(feats)
-    _, score_val = _subset_metrics(out, labels, idx_val)
-    _, score_test = _subset_metrics(out, labels, idx_test)
-    _log_final(logger, best, score_val=score_val, score_test=score_test)
-    return out.cpu().numpy(), score_val, score_test
+    train_epoch = place.distill_epoch(conf, model, optimizer, x, t, labels,
+                                      idx_l, idx_t,
+                                      place.generators(conf, device))
+    evaluators = place.evaluators(conf, model, labels.shape[0])
+    return _tran_tail(conf, model, logger, loss_and_score, state_out,
+                      train_epoch, lambda exact: evaluators[exact](None, x),
+                      labels, (idx_l, idx_val, idx_test),
+                      ("s_l", "s_val", "s_test"), "distill runner")
 
 
 def distill_run_inductive(conf, model, feats, labels, out_t_all,
                           distill_indices, optimizer, logger,
-                          loss_and_score, device, state_out=None):
+                          loss_and_score, device, state_out=None,
+                          place=LOCAL):
     """GLNN distillation, inductive: the soft-label set is the observed
     train + val + test only. `distill_indices` = (obs_idx_l, obs_idx_t,
-    obs_idx_val, obs_idx_test, idx_obs, idx_test_ind). One eval on all
-    features; the obs rows are taken by idx_obs. Returns (out, score_val,
-    score_test_tran, score_test_ind). Inside a rank, feats and out_t_all
-    are the rank's row blocks."""
-    sharded = _runners()
-    if sharded:
-        return sharded.distill_run_inductive(
-            conf, model, feats, labels, out_t_all, distill_indices, optimizer,
-            logger, loss_and_score, device, state_out)
-    feats, labels, out_t_all = _tensors(
-        device, np.asarray(feats, np.float32), labels,
-        np.asarray(out_t_all, np.float32))
+    obs_idx_val, obs_idx_test, idx_obs, idx_test_ind); the passes train on
+    the observed rows' global ids. One eval on all features; the obs rows
+    are taken by idx_obs. Returns (out, score_val, score_test_tran,
+    score_test_ind). Under a rank's placement feats and out_t_all are the
+    rank's row blocks."""
+    x, labels, t = _tensors(device, np.asarray(feats, np.float32), labels,
+                            np.asarray(out_t_all, np.float32))
     (obs_idx_l, obs_idx_t, obs_idx_val, obs_idx_test, idx_obs,
      idx_test_ind) = _tensors(device, *distill_indices)
-    obs_feats, obs_labels = feats[idx_obs], labels[idx_obs]
-    obs_out_t = out_t_all[idx_obs]
-    gen = torch.Generator(device=device).manual_seed(int(conf["seed"]))
-    train_epoch = _distill_epoch_fn(
-        conf, model, optimizer, obs_feats[obs_idx_l], obs_labels[obs_idx_l],
-        obs_feats[obs_idx_t], obs_out_t[obs_idx_t], gen)
-    eval_fn = make_mlp_eval_fn(model, conf.get("eval_batch_size",
-                                               conf["batch_size"]))
-
-    def eval_row():
-        out_all = eval_fn(feats)
-        obs_out = out_all[idx_obs]
-        return _metrics_row(
-            [(obs_out, obs_labels, idx)
-             for idx in (obs_idx_l, obs_idx_val, obs_idx_test)]
-            + [(out_all, labels, idx_test_ind)])
-
-    best = _fit(conf, model, logger, loss_and_score, train_epoch, eval_row,
-                ("s_l", "s_val", "s_tt", "s_ti"), "distill runner", state_out)
-    out = eval_fn(feats)
-    obs_out = out[idx_obs]
-    _, score_val = _subset_metrics(obs_out, obs_labels, obs_idx_val)
-    _, score_test_tran = _subset_metrics(obs_out, obs_labels, obs_idx_test)
-    _, score_test_ind = _subset_metrics(out, labels, idx_test_ind)
-    _log_final(logger, best, score_val=score_val,
-               score_test_tran=score_test_tran, score_test_ind=score_test_ind)
-    return out.cpu().numpy(), score_val, score_test_tran, score_test_ind
+    train_epoch = place.distill_epoch(conf, model, optimizer, x, t, labels,
+                                      idx_obs[obs_idx_l], idx_obs[obs_idx_t],
+                                      place.generators(conf, device))
+    evaluate = _one_pass(place.evaluators(conf, model, labels.shape[0]), x,
+                         idx_obs)
+    return _ind_tail(conf, model, logger, loss_and_score, state_out,
+                     train_epoch, evaluate, labels, idx_obs,
+                     (obs_idx_l, obs_idx_val, obs_idx_test, idx_test_ind),
+                     ("s_l", "s_val", "s_tt", "s_ti"), "distill runner")

@@ -148,10 +148,34 @@ def test_port_name_of_the_hub_passes(port):
     assert port_name(HUB_PASSES[port]) == port.strip()
 
 
-@pytest.mark.parametrize("name", [TORCH_KERNEL, "Memcpy HtoD (Pageable -> "
-                                  "Device)", "aten::index_add_"])
+KEPT = [TORCH_KERNEL, "Memcpy HtoD (Pageable -> Device)", "aten::index_add_"]
+
+
+@pytest.mark.parametrize("name", KEPT)
 def test_port_name_keeps_other_names(name):
     assert port_name(name) == name
+
+
+# gnnbench/trace.py keeps a copy of the kernel-name map (the benchmark is
+# added to, never edited): each name above comes out as the same kernel
+# of both maps, and a kept name as none of them
+ALL_NAMES = ([(DEMANGLED[p], p) for p in sorted(DEMANGLED)] + FUSED_HOPS
+             + [(F32_COMBINE, "spmm_csr_f32")]
+             + [(HUB_PASSES[p], p.strip()) for p in sorted(HUB_PASSES)]
+             + [(name, None) for name in KEPT])
+
+
+@pytest.mark.parametrize("name,port", ALL_NAMES,
+                         ids=[port or "kept" for _, port in ALL_NAMES])
+def test_port_name_agrees_with_the_benchmark_s_copy(name, port):
+    from gnnbench import trace as bench_trace
+
+    kernels = {k for _, k in trace_report.PORT_KERNELS}
+    assert kernels == {k for _, k in bench_trace.PORT_KERNELS}
+    if port is None:
+        assert bench_trace.port_name(name) not in kernels
+    else:
+        assert bench_trace.port_name(name) == port_name(name) == port
 
 
 def test_cpu_trace_of_copy_u_sum(tmp_path):
