@@ -3629,7 +3629,10 @@ def phase_check_appnp_hops(spmm_cuda, ops, refops, hub) -> None:
     int8 walk bit for bit; two launches bit-equal, two launches a call (the
     walk and the sum of the split rows); then appnp_hop's dX and dh0 against the composition's,
     and ops.appnp_hop taking the fused path in training and in the eval
-    (ops.hop_counts) with no plain version on CUDA."""
+    (ops.hop_counts) with no plain version on CUDA. Last, the device time
+    of both weighted walks (kernel_times) at the cell's edge drop, which
+    zeroes half the weights and so half the gathers, and at dense weights,
+    beside the bytes bound (input and output read and written once)."""
     from glnn_tpu_torch.ops import cuda_build
 
     alpha = 0.1
@@ -3718,6 +3721,23 @@ def phase_check_appnp_hops(spmm_cuda, ops, refops, hub) -> None:
                              f"{cuda_build.counts['plain_on_cuda']} times")
     log(f"check APPNP hop: appnp_hop's dX and dh0 equal the composition's; "
         f"ops.appnp_hop paths {hops}, no plain version on CUDA")
+    dense = torch.full_like(w, 1.0 / (1.0 - EDGE_DROP))
+    nf = n * APPNP_F * 4
+    # bytes as gnnbench/models/APPNP.py counts them (h0 and norms left out)
+    bound = {False: (n + 1) * 4 + 2 * e * 4 + 2 * nf,
+             True: (n + 1) * 4 + 3 * e * 4 + 2 * nf}
+    for transposed in (False, True):
+        walk = "transposed (Appnp<1>)" if transposed else "forward (Appnp<0>)"
+        ms = {}
+        for tag, wt in (("edge drop", w), ("dense", dense)):
+            args = ((dout, wt, dst_norm, src_norm, None) if transposed
+                    else (x, wt, src_norm, dst_norm, h0))
+            ms[tag] = kernel_times(lambda: spmm_cuda.appnp_wsum(
+                hub, *args, alpha, transposed))[1]
+        log(f"time APPNP hop F={APPNP_F} on the hub graph: spmm_csr_weighted "
+            f"{walk} device {ms['edge drop']:.4f} ms at edge drop "
+            f"{EDGE_DROP}, {ms['dense']:.4f} ms dense, bytes bound "
+            f"{bound[transposed] / HBM_BYTES_PER_S * 1e3:.4f} ms")
 
 
 def phase_times_hub(spmm_cuda, gat_cuda, hub, kernels: list) -> None:

@@ -30,14 +30,14 @@
 //     flight at once, and few instructions per step: no division in the
 //     loop, no loop over column chunks, and an int8 element is sign-extended
 //     by two shifts, the second fused into its add (issuing two steps' reads
-//     before summing either gained nothing at these widths and spilled the
-//     weighted policy);
+//     before summing either gained nothing for the unweighted sums; the
+//     weighted walk does, below);
 //   - each group keeps its own partial sum, and the groups' partials merge
 //     with __shfl_down_sync at the row's end, so a row takes one pass over its
 //     edges at every width up to 32 * VEC; wider rows (G = 1) are split into
 //     chunks of 32 * VEC columns, one warp each (the grid's y);
 //   - the warp loads 32 indices with one coalesced read and hands them out
-//     with __shfl_sync.
+//     with __shfl_sync (the weighted walk through shared memory, below).
 // Hub rows are split across warps, the counterpart of the tiled TPU kernel
 // (spmm_pallas.py:_kernel), which bounds each grid step at one tile of edges
 // whatever a row's degree and accumulates a hub row's tiles into one output
@@ -95,12 +95,38 @@
 //             exist. Its VEC also divides D, so that a lane's columns share
 //             one head.
 //
+// The weighted walk gathers only the edges it keeps. APPNP's training hops
+// drop half the edges (a weight of exactly 0), and a dropped edge adds
+// bf16(x * 0) = +-0 to a sum that starts at +0, which leaves it as it is.
+// So with one weight per edge, each lane reads its edge's weight with its
+// index (through t_edges on the transposed walk), the warp takes a ballot
+// of the lanes whose weight is not 0, and each kept lane writes its source
+// and weight into shared memory at its rank among the kept lanes; the
+// groups then step over the m kept edges only, kept edge r by group r % G,
+// two steps at a time (both rows' reads issued before either is summed:
+// with no index, slot or norm held in registers across the steps this
+// fits the 32 registers without spilling). A window with no weight of 0
+// walks every edge in the order it always did, so dense weights give the
+// same bits; with edges dropped the kept terms are summed in another order
+// across the groups. A non-finite row on a dropped edge's source no longer
+// reaches the sum (inf * 0 made a NaN there). With several heads every
+// edge is gathered, its weights read in the step. Timed on the APPNP
+// cell's graph at F = 40 (tools/time_weighted_walks.py, an H100 80GB HBM3
+// at 700 W, device ms forward / transposed): 0.198 / 0.215 before, 0.135 /
+// 0.141 with half the weights 0, 0.183 / 0.197 with none; one step at a
+// time 0.148 / 0.155; the compaction by __fns and shuffles instead of
+// shared memory 0.162 / 0.178 (norms read in the window, where shared
+// memory gave 0.153 / 0.161). The walk adds each work item's gathered
+// edges to `gathered[item]` where the caller passes that buffer (only
+// while a profiler runs), one plain add by lane 0 of the item's warp.
+//
 // APPNP's hop (nn/layers.py appnp_propagate), h' = c1 * D_in^-1/2 A_w
 // D_out^-1/2 h + c2 * h0 with c1 = 1 - alpha and c2 = alpha in f32, runs
 // inside the walk of its sum as a second template argument of both kernels
 // (the hop, after the policy; NoHop for the plain sums, whose code it leaves
-// as it is). It adds a norm of each gathered row, loaded once per edge
-// beside the index and handed out with it, and an epilogue of each written
+// as it is). It adds a norm of each gathered row, read in the step beside
+// the row (kept edges only; one address for the group's lanes), and an
+// epilogue of each written
 // row (the walk's and the split rows' sum's), so that none of the hop's
 // elementwise ops runs as a kernel of its own. Every step is one f32
 // operation rounded as the torch op it replaces (__fmul_rn / __fadd_rn, so
@@ -208,6 +234,7 @@ struct Weighted {
   const float* w;       // f32 [E, heads]
   int heads;
   int d;                // f / heads, the width of one head
+  int32_t* gathered;    // per work item, the edges it gathered, added to; or null
 
   bool fits(int vec) const { return d % vec == 0; }  // a lane's columns share a head
   __device__ int head(int col) const { return col / d; }
@@ -320,27 +347,79 @@ spmm_csr_kernel(const int32_t* __restrict__ indptr,
 #pragma unroll
   for (int k = 0; k < VEC; ++k) acc[k] = 0;
 
-  for (int e0 = begin; e0 < end; e0 += 32) {
-    const int n = min(32, end - e0);
-    const int mine = lane < n ? indices[e0 + lane] : 0;
-    int my_slot = 0;
-    if constexpr (P::kWeighted) my_slot = lane < n ? p.slot(e0 + lane) : 0;
-    float my_norm = 0.f;  // the gathered row's norm, loaded as its index is
-    if constexpr (H::kGather) my_norm = lane < n ? h.gather(mine) : 0.f;
-    // one step: each group reads its own edge's row, so G independent reads
-    // are in flight (j is warp-uniform)
-    for (int j = 0; j < n; j += groups) {
-      const int k = j + grp;  // this group's edge in the chunk
-      const int src = __shfl_sync(kFull, mine, k & 31);
-      int slot = 0;
-      if constexpr (P::kWeighted) slot = __shfl_sync(kFull, my_slot, k & 31);
-      float norm = 0.f;
-      if constexpr (H::kGather) norm = __shfl_sync(kFull, my_norm, k & 31);
-      if (active && k < n) {
-        const float wv = p.weight(slot, head);
-        const R v = R(*reinterpret_cast<const V*>(x + static_cast<int64_t>(src) * f + col));
+  if constexpr (P::kWeighted) {
+    // The window's kept edges, compacted (see the note at the top): one
+    // weight per edge is read with its index, and only the edges whose
+    // weight is not 0 are gathered; with several heads every edge is.
+    const bool one = p.heads == 1;
+    int kept = 0;
+    // per warp, each kept edge's source and weight (or slot) at its rank
+    __shared__ int s_src[kWarps][32];
+    __shared__ int s_word[kWarps][32];
+    const int wp = threadIdx.x >> 5;
+    for (int e0 = begin; e0 < end; e0 += 32) {
+      const int n = min(32, end - e0);
+      const bool live = lane < n;
+      const int mine = live ? indices[e0 + lane] : 0;
+      const int slot = live ? p.slot(e0 + lane) : 0;
+      // one head: the weight's bits; several: the slot, read in the step
+      const int word = one ? (live ? __float_as_int(p.weight(slot, 0)) : 0) : slot;
+      const unsigned keep = __ballot_sync(kFull, live && (!one || __int_as_float(word) != 0.f));
+      const int m = __popc(keep);
+      kept += m;
+      if ((keep >> lane) & 1u) {
+        const int r = __popc(keep & ((1u << lane) - 1u));
+        s_src[wp][r] = mine;
+        s_word[wp][r] = word;
+      }
+      __syncwarp();
+      // two steps at a time: each group reads the rows (and norms) of its
+      // kept edges r0 and r1 = r0 + G, then adds them in that order, so 2 G
+      // independent row reads are in flight (j is warp-uniform)
+      for (int j = 0; j < m; j += 2 * groups) {
+        const int r0 = j + grp, r1 = r0 + groups;
+        const bool a0 = active && r0 < m, a1 = active && r1 < m;
+        R v0{}, v1{};
+        float w0 = 0.f, w1 = 0.f, n0 = 0.f, n1 = 0.f;
+        if (a0) {
+          const int src = s_src[wp][r0], wd = s_word[wp][r0];
+          w0 = one ? __int_as_float(wd) : p.weight(wd, head);
+          if constexpr (H::kGather) n0 = h.gather(src);
+          v0 = R(*reinterpret_cast<const V*>(x + static_cast<int64_t>(src) * f + col));
+        }
+        if (a1) {
+          const int src = s_src[wp][r1], wd = s_word[wp][r1];
+          w1 = one ? __int_as_float(wd) : p.weight(wd, head);
+          if constexpr (H::kGather) n1 = h.gather(src);
+          v1 = R(*reinterpret_cast<const V*>(x + static_cast<int64_t>(src) * f + col));
+        }
+        if (a0) {
 #pragma unroll
-        for (int c = 0; c < VEC; ++c) acc[c] += p.term(h.in(element<TIn>(v, c), norm), wv);
+          for (int c = 0; c < VEC; ++c) acc[c] += p.term(h.in(element<TIn>(v0, c), n0), w0);
+        }
+        if (a1) {
+#pragma unroll
+          for (int c = 0; c < VEC; ++c) acc[c] += p.term(h.in(element<TIn>(v1, c), n1), w1);
+        }
+      }
+      __syncwarp();  // every lane has read the window before the next one is written
+    }
+    if (p.gathered != nullptr && lane == 0 && blockIdx.y == 0) p.gathered[item] += kept;
+  } else {
+    static_assert(!H::kGather, "only the weighted walks gather a norm");
+    for (int e0 = begin; e0 < end; e0 += 32) {
+      const int n = min(32, end - e0);
+      const int mine = lane < n ? indices[e0 + lane] : 0;
+      // one step: each group reads its own edge's row, so G independent
+      // reads are in flight (j is warp-uniform)
+      for (int j = 0; j < n; j += groups) {
+        const int k = j + grp;  // this group's edge in the chunk
+        const int src = __shfl_sync(kFull, mine, k & 31);
+        if (active && k < n) {
+          const R v = R(*reinterpret_cast<const V*>(x + static_cast<int64_t>(src) * f + col));
+#pragma unroll
+          for (int c = 0; c < VEC; ++c) acc[c] += p.term(h.in(element<TIn>(v, c), 0.f), 1.f);
+        }
       }
     }
   }
@@ -485,9 +564,10 @@ int combine(const void* rows, const void* first, const void* part, const P& p, v
   return static_cast<int>(cudaGetLastError());
 }
 
-Weighted weighted_policy(const void* widx, const void* w, int f, int heads) {
+Weighted weighted_policy(const void* widx, const void* w, int f, int heads,
+                         void* gathered = nullptr) {
   return Weighted{static_cast<const int32_t*>(widx), static_cast<const float*>(w), heads,
-                  heads > 0 ? f / heads : 0};
+                  heads > 0 ? f / heads : 0, static_cast<int32_t*>(gathered)};
 }
 
 template <int PASS>
@@ -528,15 +608,16 @@ int spmm_csr_int8(const void* indptr, const void* indices, const void* x, const 
 }
 
 // weighted: x f32 [*, f], w f32 [E, heads] (heads divides f), widx int32
-// (weight index of each CSR slot) or null for the slot itself, out f32
-// [n_rows, f]
+// (weight index of each CSR slot) or null for the slot itself, gathered
+// int32 [n_chunks + n_rows] (each work item's gathered edges are added to
+// it) or null, out f32 [n_rows, f]
 int spmm_csr_weighted(const void* indptr, const void* indices, const void* widx, const void* x,
-                      const void* w, void* out, const void* chunks, void* part, int n_rows,
-                      int n_chunks, int chunk_edges, int f, int heads, int vec, int lanes,
-                      int groups, void* stream) {
+                      const void* w, void* gathered, void* out, const void* chunks, void* part,
+                      int n_rows, int n_chunks, int chunk_edges, int f, int heads, int vec,
+                      int lanes, int groups, void* stream) {
   if (heads <= 0 || f % heads != 0) return static_cast<int>(cudaErrorInvalidValue);
   return launch(static_cast<const int32_t*>(indptr), static_cast<const int32_t*>(indices),
-                static_cast<const float*>(x), weighted_policy(widx, w, f, heads),
+                static_cast<const float*>(x), weighted_policy(widx, w, f, heads, gathered),
                 static_cast<float*>(out), chunks, part, n_rows, n_chunks, chunk_edges, f, vec,
                 lanes, groups, static_cast<cudaStream_t>(stream));
 }
@@ -546,18 +627,19 @@ int spmm_csr_weighted(const void* indptr, const void* indices, const void* widx,
 // f32 [*] the gathered rows' norm (forward: src_norm; transposed:
 // dst_norm), row_norm f32 [n_rows] the written rows' (forward and eval:
 // dst_norm; transposed: src_norm), h0 f32 [n_rows, f] (null on the
-// transposed walk), c1 = float(1 - alpha), c2 = float(alpha).
+// transposed walk), gathered as the weighted walk takes it, c1 = float(1 -
+// alpha), c2 = float(alpha).
 
 int spmm_csr_weighted_hop(const void* indptr, const void* indices, const void* widx,
                           const void* x, const void* w, const void* gather_norm,
-                          const void* row_norm, const void* h0, void* out, const void* chunks,
-                          void* part, int n_rows, int n_chunks, int chunk_edges, int f,
-                          int transposed, float c1, float c2, int vec, int lanes, int groups,
-                          void* stream) {
+                          const void* row_norm, const void* h0, void* gathered, void* out,
+                          const void* chunks, void* part, int n_rows, int n_chunks,
+                          int chunk_edges, int f, int transposed, float c1, float c2, int vec,
+                          int lanes, int groups, void* stream) {
   const auto* ip = static_cast<const int32_t*>(indptr);
   const auto* ix = static_cast<const int32_t*>(indices);
   const auto* xf = static_cast<const float*>(x);
-  const Weighted p = weighted_policy(widx, w, f, 1);
+  const Weighted p = weighted_policy(widx, w, f, 1, gathered);
   auto* o = static_cast<float*>(out);
   const auto st = static_cast<cudaStream_t>(stream);
   if (transposed)

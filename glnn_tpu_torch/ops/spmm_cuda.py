@@ -39,7 +39,13 @@ product once to bf16, as JAX rounds the weighted message. Its backward
 (:329-353) is the same kernel over the transposed CSR, reading the weights
 through `t_edges`, for dX; and, only when the weights need a gradient, the
 SDDMM dW[e] = <x[src(e)], dH[dst(e)]> (per head: summed over D) in plain
-f32 torch, which JAX also leaves outside its kernel.
+f32 torch, which JAX also leaves outside its kernel. With one weight per
+edge the walk gathers only the edges whose weight is not 0 (APPNP's edge
+drop zeroes half of them): each 32-edge window is compacted to its kept
+edges before any row is read, so dense weights walk as before and a
+dropped edge's row is never read (csrc/spmm_csr.cu has the note). While a
+profiler runs, each walk adds its gathered edges per work item to a
+counter on the device; `gather_counts` reads the totals.
 
 APPNP's hop (nn/layers.py appnp_propagate), h' = (1 - alpha) D_in^-1/2
 A_w D_out^-1/2 h + alpha h0, runs inside these walks where its dispatch
@@ -103,7 +109,7 @@ import torch
 
 from glnn_tpu_torch.ops import cuda_build, refops
 from glnn_tpu_torch.ops.cuda_build import note_plain, row_ids
-from glnn_tpu_torch.utils.profiling import span
+from glnn_tpu_torch.utils.profiling import recording, span
 
 KERNELS = ("spmm_csr_bf16", "spmm_csr_int8", "spmm_csr_weighted",
            "spmm_csr_f32")
@@ -115,9 +121,9 @@ builds = {"hub_plan": 0}
 _vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {"spmm_csr_bf16": [_vp] * 6 + [_ci] * 7 + [_vp],
                "spmm_csr_int8": [_vp] * 7 + [_ci] * 7 + [_vp],
-               "spmm_csr_weighted": [_vp] * 8 + [_ci] * 8 + [_vp],
+               "spmm_csr_weighted": [_vp] * 9 + [_ci] * 8 + [_vp],
                "spmm_csr_weighted_hop":
-                   [_vp] * 11 + [_ci] * 5 + [_cf] * 2 + [_ci] * 3 + [_vp],
+                   [_vp] * 12 + [_ci] * 5 + [_cf] * 2 + [_ci] * 3 + [_vp],
                "spmm_csr_int8_hop":
                    [_vp] * 9 + [_ci] * 4 + [_cf] * 2 + [_ci] * 3 + [_vp],
                "spmm_csr_bf16_combine": [_vp] * 4 + [_ci] * 2 + [_vp],
@@ -144,10 +150,44 @@ F32_CHUNK = 512
 F32_COPIES = 4
 
 
+# the weighted walks' gathers, counted only while a profiler runs (as the
+# spans record): the edges of the CSRs walked, and per device an int32 count
+# per work item of the edges gathered, which every counted walk adds to
+_walked = [0]
+_gathered: dict = {}
+
+
 def reset_counts() -> None:
     for k in counts:
         counts[k] = 0
     builds["hub_plan"] = 0
+    _walked[0] = 0
+    _gathered.clear()
+
+
+def gather_counts() -> dict:
+    """{"walked": the edges of the CSRs the weighted walks walked,
+    "gathered": the edges they gathered (the kept ones: a weight of 0 is
+    skipped)} since `reset_counts`, counted only while a profiler runs.
+    The per-item counts are summed on the device here: one host
+    synchronisation per device, when read."""
+    return {"walked": _walked[0],
+            "gathered": sum(int(b.sum()) for b in _gathered.values())}
+
+
+def _gather_counter(device, items: int, walked: int):
+    """The device's per-item count of gathered edges, at least `items`
+    long, with `walked` edges counted; None while no profiler runs."""
+    if not recording():
+        return None
+    buf = _gathered.get(device)
+    if buf is None or buf.numel() < items:
+        grown = torch.zeros(items, dtype=torch.int32, device=device)
+        if buf is not None:
+            grown[:buf.numel()] = buf
+        _gathered[device] = buf = grown
+    _walked[0] += walked
+    return buf
 
 
 def geometry(f: int, itemsize: int, head_width: int | None = None,
@@ -286,19 +326,24 @@ def _check(indptr, indices, x, n_rows, dtype):
 
 
 def _launch(name, indptr, ptrs, x, n_rows, plan, geo, extra=(),
-            combine_ptrs=(), combine_extra=(), entry=None):
+            combine_ptrs=(), combine_extra=(), entry=None, walked=None):
     """The walk `entry` (`name` by default; indptr, the pointers `ptrs`,
     then out, the plan's chunks and partials, the rows, chunks, T and f,
     `extra`, the geometry) and, where the plan has chunks, `entry`_combine,
     the sum of the split rows' partials (the plan's rows, first and
     partials, `combine_ptrs`, out, the split rows and f, `combine_extra`);
     each launch counted under `name`. `plan` is indptr's hub plan (built
-    here when None: two host synchronisations)."""
+    here when None: two host synchronisations). A weighted walk of
+    `walked` edges takes its gather counter (`_gather_counter`, or null)
+    as its last pointer before out."""
     if plan is None:
         plan = hub_plan(indptr, n_rows)
     check_plan(plan, n_rows, x.device)
     entry = entry or name
     f, c = x.shape[1], plan.n_chunks
+    if walked is not None:
+        counter = _gather_counter(x.device, c + n_rows, walked)
+        ptrs = [*ptrs, None if counter is None else counter.data_ptr()]
     out = torch.empty((n_rows, f), dtype=torch.float32, device=x.device)
     part = None
     if c:   # the chunks' partials: int32 sums for the int8 policy
@@ -458,7 +503,7 @@ def csr_wsum_bf16(indptr, indices, widx, x, w, n_rows,
                         x.data_ptr(), w.data_ptr()],
                        x, n_rows, plan,
                        geometry(f, 4, f // heads, align=x.data_ptr()),
-                       extra=[heads])
+                       extra=[heads], walked=indices.numel())
     return plain_csr_wsum_bf16(indptr, indices, widx, x, w, n_rows)
 
 
@@ -684,7 +729,7 @@ def appnp_wsum(g, x, w, gather_norm, row_norm, h0, alpha: float,
         x, n, plan_of(g, "t_indptr" if transposed else "indptr", n),
         geometry(f, 4, f, align=x.data_ptr()), extra=hop,
         combine_ptrs=[row_norm.data_ptr(), h0_ptr], combine_extra=hop,
-        entry="spmm_csr_weighted_hop")
+        entry="spmm_csr_weighted_hop", walked=g.n_edges)
 
 
 class _AppnpHop(torch.autograd.Function):

@@ -94,6 +94,12 @@ _profiler_enabled = torch._C._autograd._profiler_enabled
 SPAN_CAP = 1 << 20
 
 
+def recording() -> bool:
+    """True while a profiler runs: spans record, and the kernel wrappers
+    count what only a traced run reads (`spmm_cuda.gather_counts`)."""
+    return _profiler_enabled()
+
+
 @dataclasses.dataclass(slots=True, eq=False)
 class SpanRecord:
     """One span: `parent` is the id of the span open around it on the same

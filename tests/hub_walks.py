@@ -7,9 +7,12 @@ the CPU tests (tests/test_torch_kernel_design.py) and the card's
   edges are taken a 32-edge window at a time, edge k of a window by edge
   group k % groups, each group summing its edges in order; the groups fold
   onto group 0; a split row's chunk partials are summed in chunk order
-  from zero; the int8 policy sums exactly and scales once at the end. Its
-  f32 adds are the kernel's, in the kernel's order, so on the card the
-  kernel must equal it bit for bit.
+  from zero; the int8 policy sums exactly and scales once at the end. The
+  weighted policy with one weight per edge first drops, within each
+  window, the edges whose weight is 0 and numbers the kept ones in order:
+  kept edge r goes to group r % groups. Its f32 adds are the kernel's, in
+  the kernel's order, so on the card the kernel must equal it bit for
+  bit.
 * `gat_fwd_walk` follows gat_fwd in f32 torch: per item and pass of heads,
   lane j scores the 32-edge window's edge j; a row's max over its edges, a
   chunk's over its row's chunk maxima; each term exp(s - max) once; p and
@@ -99,31 +102,47 @@ def bf16_round(a: np.ndarray) -> np.ndarray:
         torch.bfloat16).float().numpy()
 
 
-def _item_sum(terms: np.ndarray, groups: int) -> np.ndarray:
+def window_ranks(keep: np.ndarray) -> np.ndarray:
+    """Each edge's rank among the kept edges of its 32-edge window (the
+    edges of an item in order; `keep` bool [n])."""
+    kept = keep.astype(np.int64)
+    before = np.cumsum(kept) - kept                 # kept edges before it
+    start = np.arange(keep.shape[0]) // 32 * 32     # its window's first edge
+    return before - np.concatenate([[0], np.cumsum(kept)])[start]
+
+
+def _item_sum(terms: np.ndarray, groups: int, keep=None) -> np.ndarray:
     """One warp's walk of an item whose per-edge terms are `terms` [n, F]:
-    edge k of each 32-edge window goes to group k % groups, each group sums
-    its edges in order (add.accumulate is sequential), the groups fold."""
+    the edges where `keep` (bool [n], all where None) numbered in order
+    within each 32-edge window, kept edge r going to group r % groups, each
+    group sums its edges in order (add.accumulate is sequential), the
+    groups fold."""
     zero = np.zeros(terms.shape[1:], terms.dtype)
     if terms.shape[0] == 0:
         return zero
-    grp = (np.arange(terms.shape[0]) % 32) % groups
+    if keep is None:
+        keep = np.ones(terms.shape[0], bool)
+    grp = window_ranks(keep) % groups
     parts = []
     for q in range(groups):
-        mine = terms[grp == q]
+        mine = terms[keep & (grp == q)]
         parts.append(np.add.accumulate(mine, axis=0)[-1] if len(mine)
                      else zero)
     return fold(parts)
 
 
 def template_walk(indptr, indices, x, n_rows, geo, chunk, policy="bf16",
-                  scale=None, w=None, widx=None, heads=1):
+                  scale=None, w=None, widx=None, heads=1, compact=True):
     """csrc/spmm_csr.cu's walk in numpy: out f32 [n_rows, F].
 
     policy "bf16": x holds bf16 values as f32, summed in f32; "int8": x
     int8 values, summed exactly, then acc * scale in f32; "weighted": x
     f32 [*, F], w f32 [E, heads], terms bf16(x[src] * w[widx(e), head])
     summed in f32 (widx(e) = widx[e], or e where widx is None; column c
-    takes head c // (F // heads)). geo = (vec, lanes, groups) as
+    takes head c // (F // heads)); with heads 1 and `compact` the edges of
+    weight 0 are dropped from each window before the groups take theirs
+    (the kernel's walk; `compact` False walks every edge, the order the
+    kernel took before it compacted). geo = (vec, lanes, groups) as
     spmm_cuda.geometry gives it; chunk = the plan's T."""
     _, _, groups = geo
     f = x.shape[1]
@@ -136,21 +155,24 @@ def template_walk(indptr, indices, x, n_rows, geo, chunk, policy="bf16",
         w = np.asarray(w, np.float32).reshape(-1, heads)
         head_of = np.arange(f) // (f // heads)
 
-    def terms(a, b):
+    def walk(a, b):
+        """One item's sum over edges a:b."""
         rows = x[indices[a:b]]
         if policy != "weighted":
-            return rows
+            return _item_sum(rows, groups)
         slots = np.arange(a, b) if widx is None else np.asarray(widx)[a:b]
-        return bf16_round(rows * w[slots][:, head_of])
+        keep = w[slots, 0] != 0 if heads == 1 and compact else None
+        return _item_sum(bf16_round(rows * w[slots][:, head_of]), groups,
+                         keep)
 
     out = np.zeros((n_rows, f), np.float32)
     for row, ranges in items(indptr, n_rows, chunk):
         if len(ranges) == 1:
-            acc = _item_sum(terms(*ranges[0]), groups)
+            acc = walk(*ranges[0])
         else:  # each chunk a warp's, then summed in chunk order from zero
             acc = np.zeros(f, np.int64 if policy == "int8" else np.float32)
             for a, b in ranges:
-                acc = acc + _item_sum(terms(a, b), groups)
+                acc = acc + walk(a, b)
         out[row] = (acc.astype(np.float32) * np.asarray(scale, np.float32)
                     if policy == "int8" else acc)
     return out

@@ -31,7 +31,9 @@ atomics: its order of summation is fixed by the graph and the layout).
 The template body (bf16, int8, weighted) and gat_fwd split rows of more
 than T = spmm_cuda.HUB_CHUNK edges as well: on rows of T - 1, T, T + 1
 and 20 T edges (hub_walks.HUB_SPLIT) the template kernels equal their
-numpy walk (tests/hub_walks.py) bit for bit, and gat_fwd its torch walk
+numpy walk (tests/hub_walks.py) bit for bit (the weighted walk with half
+its weights 0 too: it gathers only the kept edges of each 32-edge
+window), and gat_fwd its torch walk
 to 1e-5 (the walk's exponentials and products are the CPU's). gat_bwd and
 edge_softmax_fwd split the same rows (three launches each on such a CSR),
 and edge_softmax_bwd (two launches), each held to its walk at 1e-5 and to
@@ -272,11 +274,13 @@ def _split_graph(seed, device, n_random=6000, chunk=HT):
     return build_graph(src, dst, n).to(device)
 
 
-def _template_case(g, policy, f, heads, walk):
+def _template_case(g, policy, f, heads, walk, compact=True):
     """(kernel call, plain call, mirror, magnitude) of one policy on one
     walk of g: the kernel with the walk's kept plan, the plain version,
-    hub_walks.template_walk on the same inputs, and the plain version on
-    |x| and |w| (each sum's magnitude)."""
+    hub_walks.template_walk on the same inputs (`compact` as it takes it),
+    and the plain version on |x| and |w| (each sum's magnitude). The
+    policy "weighted-drop" is the weighted sum with about half the weights
+    0, as APPNP's edge drop leaves them."""
     gen = torch.Generator(device=g.device).manual_seed(f * 7 + heads)
     n = g.n_nodes
     indptr, indices, widx, name = (
@@ -313,6 +317,9 @@ def _template_case(g, policy, f, heads, walk):
         return call, plain, mirror, None
     w = torch.rand((g.n_edges, heads), generator=gen, device=g.device) * 2
     w = w[:, 0] if heads == 1 else w
+    if policy == "weighted-drop":
+        w = torch.where(torch.rand(w.shape, generator=gen, device=g.device)
+                        < 0.5, torch.zeros_like(w), w)
 
     def call():
         return spmm_cuda.csr_wsum_bf16(indptr, indices, widx, x, w, n, plan)
@@ -323,7 +330,8 @@ def _template_case(g, policy, f, heads, walk):
         ip, ix, x.cpu().numpy(), n,
         spmm_cuda.geometry(f, 4, f // heads, align=x.data_ptr()), HT,
         "weighted", w=w.cpu().numpy(),
-        widx=None if widx is None else widx.cpu().numpy(), heads=heads)
+        widx=None if widx is None else widx.cpu().numpy(), heads=heads,
+        compact=compact)
     return call, plain, mirror, plain(x.abs())
 
 
@@ -331,16 +339,18 @@ def _template_case(g, policy, f, heads, walk):
 @pytest.mark.parametrize("policy,f,heads", [
     ("bf16", 40, 1), ("bf16", 128, 1), ("bf16", 7, 1), ("bf16", 300, 1),
     ("int8", 40, 1), ("int8", 128, 1), ("int8", 300, 1),
-    ("weighted", 40, 1), ("weighted", 128, 8), ("weighted", 15, 3)])
+    ("weighted", 40, 1), ("weighted", 128, 8), ("weighted", 15, 3),
+    ("weighted-drop", 40, 1), ("weighted-drop", 7, 1)])
 def test_template_split_kernels_equal_their_walk(cuda, policy, f, heads,
                                                  walk):
     """The template body with rows of more than T edges split (both
     launches counted): bit for bit equal to hub_walks.template_walk (the
-    same f32 adds in the same order), to a second launch, and to the plain
+    same f32 adds in the same order; with half the weights 0, the
+    compacted windows' order), to a second launch, and to the plain
     version within 1e-5 of each sum's magnitude (int8: exactly)."""
     g = _split_graph(f + heads, cuda)
     call, plain, mirror, mag = _template_case(g, policy, f, heads, walk)
-    name = f"spmm_csr_{policy}"
+    name = f"spmm_csr_{policy.split('-')[0]}"
     spmm_cuda.reset_counts()
     got = call()
     again = call()
@@ -353,6 +363,52 @@ def test_template_split_kernels_equal_their_walk(cuda, policy, f, heads,
     else:
         assert bool(((got - want).abs() <= 1e-5 * mag).all())
     assert got[len(hub_walks.HUB_SPLIT) - 1].abs().max() > 0
+
+
+@pytest.mark.parametrize("walk", ["forward", "transposed"])
+def test_dense_weights_keep_the_walk_order(cuda, walk):
+    """With no weight of 0 the weighted walk gathers every edge in the
+    order it took before it compacted windows: bit for bit equal to the
+    mirror walking every edge, at F = 40 on split rows."""
+    g = _split_graph(41, cuda)
+    call, _, mirror, _ = _template_case(g, "weighted", 40, 1, walk,
+                                        compact=False)
+    assert torch.equal(call().cpu(), torch.from_numpy(mirror))
+
+
+def test_gather_counts_count_the_kept_edges(cuda, monkeypatch):
+    """While a profiler runs every weighted walk adds the edges it walked
+    and the edges it gathered: with one weight per edge the nonzero ones
+    (APPNP's hops, both walks, and the plain weighted sum), with several
+    heads every edge. With no profiler nothing is counted; reset_counts
+    zeroes both. (A running profiler is stood in for by `recording`: a
+    short profiler session as a process's first one lost the kernels of
+    later traces on the card. The traced APPNP epoch reads the counter
+    under a real one, test_steady_appnp_epoch_builds_no_plan.)"""
+    g = _split_graph(43, cuda)
+    n, e = g.n_nodes, g.n_edges
+    x, h0 = torch.randn(n, 40, device=cuda), torch.randn(n, 40, device=cuda)
+    w = (torch.rand(e, device=cuda) >= 0.5).float() * 2
+    w8 = torch.rand(e, 8, device=cuda) * (w[:, None] > 0)
+    s, d = refops.degree_norms(g)
+    kept = int((w != 0).sum())
+
+    def walks():
+        spmm_cuda.appnp_wsum(g, x, w, s, d, h0, APPNP_ALPHA, False)
+        spmm_cuda.appnp_wsum(g, x, w, d, s, None, APPNP_ALPHA, True)
+        spmm_cuda.u_mul_e_sum(g, x, w)
+        spmm_cuda.u_mul_e_sum(g, x.view(n, 8, 5), w8)
+
+    spmm_cuda.reset_counts()
+    walks()
+    assert spmm_cuda.gather_counts() == {"walked": 0, "gathered": 0}
+    monkeypatch.setattr(spmm_cuda, "recording", lambda: True)
+    walks()
+    assert 0 < kept < e
+    assert spmm_cuda.gather_counts() == {"walked": 4 * e,
+                                         "gathered": 3 * kept + e}
+    spmm_cuda.reset_counts()
+    assert spmm_cuda.gather_counts() == {"walked": 0, "gathered": 0}
 
 
 @pytest.mark.parametrize("chunk", [HT, GT])
@@ -1298,8 +1354,8 @@ def _traced_appnp_epoch(device, tmp_path):
     at ogbn-arxiv's shape (169,343 nodes, 1,166,243 citations by Redner's
     law: rows past HUB_CHUNK in both walks) under the profiler, after a
     warm one: (span records, the Chrome trace's events, the graph, the
-    launches, hub plan builds and APPNP hops by path of the traced
-    epoch)."""
+    launches, hub plan builds, APPNP hops by path and the weighted walks'
+    gather counts of the traced epoch)."""
     import logging
 
     from glnn_tpu_torch.nn.models import Model
@@ -1329,7 +1385,7 @@ def _traced_appnp_epoch(device, tmp_path):
     epoch(1)
     torch.cuda.synchronize(device)
     before = (dict(spmm_cuda.counts), spmm_cuda.builds["hub_plan"],
-              dict(ops.hop_counts))
+              dict(ops.hop_counts), spmm_cuda.gather_counts())
     profiling.clear_spans()
     with profiling.trace(tmp_path, device) as t:
         epoch(2)
@@ -1337,10 +1393,12 @@ def _traced_appnp_epoch(device, tmp_path):
     profiling.clear_spans()
     launches = {k: v - before[0][k] for k, v in spmm_cuda.counts.items()}
     hops = {k: v - before[2][k] for k, v in ops.hop_counts.items()}
+    gathers = {k: v - before[3][k]
+               for k, v in spmm_cuda.gather_counts().items()}
     with open(t.path) as f:
         events = json.load(f)["traceEvents"]
     return (recs, events, g, launches,
-            spmm_cuda.builds["hub_plan"] - before[1], hops)
+            spmm_cuda.builds["hub_plan"] - before[1], hops, gathers)
 
 
 def test_steady_appnp_epoch_builds_no_plan(cuda, tmp_path):
@@ -1348,8 +1406,10 @@ def test_steady_appnp_epoch_builds_no_plan(cuda, tmp_path):
     no hub plan: its 10 weighted hops (one mask draw each), their 10
     transposed walks and the eval's 10 int8 hops take the plans kept on
     the Graph, each two launches (walk and combine), all on the fused
-    hop path."""
-    recs, _, g, launches, built, hops = _traced_appnp_epoch(cuda, tmp_path)
+    hop path; the 20 weighted walks gather the edges their edge drop
+    keeps, about half."""
+    recs, _, g, launches, built, hops, gathers = _traced_appnp_epoch(
+        cuda, tmp_path)
     n = g.n_nodes
     assert spmm_cuda.plan_of(g, "indptr", n).n_chunks > 0
     assert spmm_cuda.plan_of(g, "t_indptr", n).n_chunks > 0
@@ -1359,6 +1419,8 @@ def test_steady_appnp_epoch_builds_no_plan(cuda, tmp_path):
                         "spmm_csr_weighted": 40, "spmm_csr_f32": 0}
     assert hops == {"fused_weighted": 10, "fused_int8": 10, "composed": 0}
     assert sum(r.name == "model.APPNP.edge_drop" for r in recs) == 10
+    assert gathers["walked"] == 20 * g.n_edges
+    assert 0.49 < gathers["gathered"] / gathers["walked"] < 0.51
 
 
 def test_steady_appnp_epoch_launches_at_most_330_kernels(cuda, tmp_path):
@@ -1508,7 +1570,9 @@ def test_fused_hops_equal_the_composed_kernels(cuda, f):
     """At ogbn-arxiv's shape: the fused weighted hop's forward, dX and dh0
     and the fused int8 eval hop equal gcn_norm_both's kernels and the
     teleport's torch ops bit for bit (F = 40 the cell's width, F = 7 the
-    scalar epilogue, F = 128 a one-group layout)."""
+    scalar epilogue, F = 128 a one-group layout). The edge-drop weights
+    zero about half the edges, so the fused walks and the composition's
+    weighted sums both gather the compacted windows, in one order."""
     g = _arxiv_graph(cuda)
     n = g.n_nodes
     assert spmm_cuda.plan_of(g, "indptr", n).n_chunks > 0
